@@ -38,8 +38,7 @@ class EncoderConfig:
     remat: bool = False
     use_pallas_attention: bool = True
     gelu_approximate: bool = False
-    # "logit_erf" / "fast_erf" / "erf" all run as exact erf GELU here
-    # (ops/gelu.py); "tanh" is the tanh approximation.
+    # "logit_erf" (default) / "fast_erf" / "erf" / "tanh" (ops/gelu.py)
     gelu_impl: str = "logit_erf"
     sequence_parallel: bool = False
     attention_dropout_mode: str = "probs"

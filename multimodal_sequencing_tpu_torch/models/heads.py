@@ -1,10 +1,12 @@
 """Heat-map ordering head (counterpart of `models/heads.py`:
-`gather_step_cls` and `HeatmapHead`).
+`gather_step_cls` and `HeatmapHead` with its losses).
 
 `HeatmapHead` scores parent->child precedence over step CLS
 representations with a low-rank bilinear form plus a pairwise MLP term,
 squashed by a sigmoid (v1/v2) or tanh (v3). The pair MLP's GELU is the tanh
-approximation, as Flax `nn.gelu`'s default is in the JAX package.
+approximation, as Flax `nn.gelu`'s default is in the JAX package. Its
+layers compute in the dtype of the step representations, as the JAX head's
+`dtype=step_reprs.dtype`.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .config import MultimodalConfig
+from .encoder import Dense
 
 
 def gather_step_cls(sequence_output: torch.Tensor, input_ids: torch.Tensor,
@@ -43,11 +46,11 @@ class HeatmapHead(nn.Module):
     def __init__(self, cfg: MultimodalConfig):
         super().__init__()
         self.version = cfg.hierarchical_version
-        hs = cfg.encoder.hidden_size
-        self.parent_proj = nn.Linear(hs, hs)
-        self.child_proj = nn.Linear(hs, hs)
-        self.pair_mlp = nn.Linear(2 * hs, hs // 2)
-        self.pair_out = nn.Linear(hs // 2, 1)
+        hs, dt = cfg.encoder.hidden_size, cfg.encoder.compute_dtype
+        self.parent_proj = Dense(hs, hs, dt)
+        self.child_proj = Dense(hs, hs, dt)
+        self.pair_mlp = Dense(2 * hs, hs // 2, dt)
+        self.pair_out = Dense(hs // 2, 1, dt)
 
     def forward(self, step_reprs: torch.Tensor,
                 present: torch.Tensor) -> torch.Tensor:
@@ -66,3 +69,32 @@ class HeatmapHead(nn.Module):
         pair_valid = present[:, :, None] & present[:, None, :]
         out = torch.tanh(logits) if self.version == "v3" else torch.sigmoid(logits)
         return torch.where(pair_valid, out, torch.zeros_like(out))
+
+    @staticmethod
+    def loss(heatmap: torch.Tensor, target: torch.Tensor,
+             present: torch.Tensor) -> torch.Tensor:
+        """BCE against render_heatmap_targets (soft values allowed), masked
+        to valid step pairs."""
+        eps = 1e-6
+        p = torch.clamp(heatmap.abs(), eps, 1 - eps)
+        bce = -(target * torch.log(p) + (1 - target) * torch.log(1 - p))
+        pair_valid = present[:, :, None] & present[:, None, :]
+        bce = torch.where(pair_valid, bce, torch.zeros_like(bce))
+        return bce.sum() / torch.clamp(pair_valid.sum(), min=1)
+
+    @staticmethod
+    def pairwise_ranking_loss(heatmap: torch.Tensor, order_labels: torch.Tensor,
+                              present: torch.Tensor,
+                              margin: float = 0.1) -> torch.Tensor:
+        """heatmap_pairwise_ranking aux: for the true order, enforce
+        hm[pi_t, pi_{t+1}] > hm[pi_{t+1}, pi_t] + margin. The label is the
+        chain sequence: node order_labels[t] precedes order_labels[t+1]."""
+        b = order_labels.shape[0]
+        src, dst = order_labels[:, :-1], order_labels[:, 1:]
+        bidx = torch.arange(b, device=heatmap.device)[:, None]
+        pos = heatmap[bidx, src, dst]
+        neg = heatmap[bidx, dst, src]
+        valid = (torch.gather(present, 1, src) & torch.gather(present, 1, dst))
+        loss = torch.clamp(margin - (pos - neg), min=0.0)
+        loss = torch.where(valid, loss, torch.zeros_like(loss))
+        return loss.sum() / torch.clamp(valid.sum(), min=1)

@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` is compiled at first use with `nvcc` for `sm_90a`
 into a shared library with a plain C interface, loaded with `ctypes`. The
 library goes into the package's git-ignored `_build/` directory, named by
-a hash of its source, so an edited source is rebuilt and an unchanged one
-is reused. Several sources build in parallel, one `nvcc` each.
+a hash of its source and of every header in `csrc/`, so an edited source
+or header is rebuilt and an unchanged one is reused. Several sources build
+in parallel, one `nvcc` each.
 """
 
 from __future__ import annotations
@@ -18,11 +19,15 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-KERNELS = ("flash_fwd",)
+KERNELS = ("flash_fwd", "flash_bwd", "keep_bits_dump", "gelu", "layer_norm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the dtype argument of every kernel's C interface
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -39,7 +44,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # the sources include them
+        h.update(header.name.encode() + header.read_bytes())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

@@ -7,6 +7,11 @@
 // row whose keys are all masked comes out uniform over the S real keys), the
 // context O in the input dtype and the per-row logsumexp
 // lse = m + log(max(l, 1e-30)) in f32, which the backward kernels read.
+// With dropout (thresh > 0) the HF "probs" dropout is fused in as in the
+// TPU kernel: the normaliser l sums the undropped p, the context sums the
+// p that `keep_bits.cuh` keeps, and O is rescaled by 1 / (1 - p_drop). The
+// bits are per element, so these 64 x 64 tiles regenerate exactly the bits
+// of the TPU kernel's whole-row block and of the backward kernels.
 //
 // Design, for this card rather than the TPU's sequential grid:
 //  * One block per (64-row q-tile, batch*head); the K/V loop that was the
@@ -38,6 +43,9 @@
 #include <stdint.h>
 #include <math.h>
 
+#include "keep_bits.cuh"
+#include "mma_bf16.cuh"
+
 namespace {
 
 constexpr int BLOCK_M = 64;   // q rows per block
@@ -57,25 +65,10 @@ struct Params {
   long long o_sb, o_sh, o_ss;
   int H, S;
   float scale;
+  uint32_t seed;     // dropout seed (int32 bits)
+  uint32_t thresh;   // keep threshold on the 31-bit hash; 0 = no dropout
+  float inv_keep;    // 1 / (1 - p_drop), 1 without dropout
 };
-
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 // Score of one key column after the mask: 1 = keep, 0 = masked real key,
 // -1 = beyond S (excluded).
@@ -108,6 +101,7 @@ flash_fwd_bf16_kernel(const Params p) {
   const __nv_bfloat16* V = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
   __nv_bfloat16* O = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
   const int* M = p.mask + (long long)b * S;
+  const uint32_t seed_bh = seed_for_bh(p.seed, bh);
 
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
   for (int c = tid; c < BLOCK_M * CH; c += blockDim.x) {
@@ -199,6 +193,15 @@ flash_fwd_bf16_kernel(const Params p) {
         s[nt][e] = pe;
         rs[e >> 1] += pe;
       }
+    if (p.thresh) {  // drop after the undropped p joined the normaliser
+#pragma unroll
+      for (int nt = 0; nt < NTILES; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!keep_bit(seed_bh, q0 + r0 + 8 * (e >> 1), k0 + nt * 8 + 2 * t + (e & 1),
+                        S, p.thresh))
+            s[nt][e] = 0.f;
+    }
 #pragma unroll
     for (int i = 0; i < 2; ++i) l_row[i] = l_row[i] * alpha[i] + rs[i];
 #pragma unroll
@@ -209,10 +212,7 @@ flash_fwd_bf16_kernel(const Params p) {
 #pragma unroll
     for (int kk = 0; kk < BLOCK_N / 16; ++kk) {
       uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
       for (int dt = 0; dt < DTILES; ++dt) {
         const __nv_bfloat16* vr = &sVt[dt * 8 + g][kk * 16 + 2 * t];
@@ -231,7 +231,7 @@ flash_fwd_bf16_kernel(const Params p) {
     const int row = q0 + r0 + 8 * i;
     if (row >= S) continue;
     const float l_safe = fmaxf(l_row[i], 1e-30f);
-    const float inv = 1.f / l_safe;
+    const float inv = p.inv_keep / l_safe;
 #pragma unroll
     for (int dt = 0; dt < DTILES; ++dt) {
       *reinterpret_cast<uint32_t*>(O + row * p.o_ss + dt * 8 + 2 * t) =
@@ -258,6 +258,7 @@ flash_fwd_f32_kernel(const Params p) {
   const float* V = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
   float* O = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
   const int* M = p.mask + (long long)b * S;
+  const uint32_t seed_bh = seed_for_bh(p.seed, bh);
 
   float q[D], acc[D], sc[BLOCK_N];
 #pragma unroll
@@ -300,8 +301,9 @@ flash_fwd_f32_kernel(const Params p) {
     for (int d = 0; d < D; ++d) acc[d] *= alpha;
 #pragma unroll
     for (int j = 0; j < BLOCK_N; ++j) {
-      const float pj = expf(sc[j] - m_row);
+      float pj = expf(sc[j] - m_row);
       l_row += pj;
+      if (p.thresh && !keep_bit(seed_bh, row, k0 + j, S, p.thresh)) pj = 0.f;
 #pragma unroll
       for (int d = 0; d < D; ++d) acc[d] = fmaf(pj, sV[j][d], acc[d]);
     }
@@ -309,7 +311,7 @@ flash_fwd_f32_kernel(const Params p) {
 
   if (row < S) {
     const float l_safe = fmaxf(l_row, 1e-30f);
-    const float inv = 1.f / l_safe;
+    const float inv = p.inv_keep / l_safe;
 #pragma unroll
     for (int d = 0; d < D; ++d) O[row * p.o_ss + d] = acc[d] * inv;
     p.lse[(long long)bh * S + row] = m_row + logf(l_safe);
@@ -328,12 +330,13 @@ void launch(int dtype, const Params& p, dim3 grid, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = bfloat16. strides: 12 element strides, (batch,
 // head, row) for q, k, v and o in that order; the head dim is contiguous.
-// Returns 0, a CUDA error code from the launch, or -1 for arguments the
-// kernel does not take.
+// seed, thresh, inv_keep: the dropout (thresh = 0: none). Returns 0, a CUDA
+// error code from the launch, or -1 for arguments the kernel does not take.
 extern "C" int flash_fwd(int dtype, int head_dim, const void* q, const void* k,
                          const void* v, const int* mask, void* o, float* lse,
                          int batch, int heads, int seq_len,
-                         const long long* strides, float scale, void* stream) {
+                         const long long* strides, float scale, uint32_t seed,
+                         uint32_t thresh, float inv_keep, void* stream) {
   if ((dtype != 0 && dtype != 1) || batch <= 0 || heads <= 0 || seq_len <= 0 ||
       (long long)batch * heads > 65535)
     return -1;
@@ -344,6 +347,7 @@ extern "C" int flash_fwd(int dtype, int head_dim, const void* q, const void* k,
   p.v_sb = strides[6]; p.v_sh = strides[7]; p.v_ss = strides[8];
   p.o_sb = strides[9]; p.o_sh = strides[10]; p.o_ss = strides[11];
   p.H = heads; p.S = seq_len; p.scale = scale;
+  p.seed = seed; p.thresh = thresh; p.inv_keep = inv_keep;
   const dim3 grid((seq_len + BLOCK_M - 1) / BLOCK_M, batch * heads);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {

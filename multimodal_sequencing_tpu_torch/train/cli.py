@@ -1,18 +1,22 @@
-"""Eval entry point (counterpart of `train/cli.py`: the eval parser,
-`build_config` and `main_eval`, for `--sort_method heat_map`).
+"""CLI flag surface and entry points (counterpart of `train/cli.py`).
 
-  python -m multimodal_sequencing_tpu_torch.trainers.eval \\
+  python -m multimodal_sequencing_tpu_torch.trainers.train \\
       --model_name_or_path simple --model_size large \\
-      --replace_token_type_embeddings --task_name wikihow_sort \\
-      --sort_method heat_map --hierarchical_version v1 \\
-      --data_dir <dir> --max_seq_length 320 --per_seq_max_length 60 \\
-      --per_gpu_eval_batch_size 8 --output_dir <dir> [--device cuda]
+      --replace_token_type_embeddings --do_train --task_name wikihow_hl_v1 \\
+      --hierarchical_version v1 --data_dir <dir> --max_seq_length 320 \\
+      --per_seq_max_length 60 --per_gpu_train_batch_size 8 \\
+      --output_dir <dir> [--do_eval] [--device cuda]
+  python -m multimodal_sequencing_tpu_torch.trainers.eval \\
+      ... --task_name wikihow_sort --sort_method heat_map \\
+      --model_name_or_path_1 <dir>/checkpoint-N [--device cuda]
 
-The flags keep the JAX package's names and defaults. `--device` (default
-`cuda`) picks the device; without a card the run fails unless `--device cpu`
-is given. With no checkpoint the model is a fresh init seeded from
-`--seed`; `--model_name_or_path_1 <dir>` loads the port's own checkpoint
-format, `config.json` + `model.pt` (`save_model`).
+`build_parser` has every option of the JAX package's parser, with the same
+names, types, defaults and choices, plus `--device` (default `cuda`; without
+a card the run fails unless `--device cpu` is given). Options of paths the
+port does not run yet raise `NotImplementedError` when set. Checkpoints are
+the port's own format (`train/checkpoint.py`); a fresh eval model is seeded
+from 0, as the JAX eval's `PRNGKey(0)`, and a fresh train model from
+`--seed`.
 """
 
 from __future__ import annotations
@@ -26,35 +30,68 @@ from typing import Optional
 import torch
 
 from .. import resolve_device
+from .checkpoint import CONFIG_NAME, WEIGHTS_NAME, save_model  # noqa: F401
 from .evaluation import SORT_METHODS
 
 logger = logging.getLogger(__name__)
 
-CONFIG_NAME = "config.json"
-WEIGHTS_NAME = "model.pt"
 
-
-def build_parser() -> argparse.ArgumentParser:
+def build_parser(kind: str = "train") -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     add = p.add_argument
 
     # --- model / data --------------------------------------------------------
     add("--model_name_or_path", type=str, default="simple")
     add("--model_name_or_path_1", type=str, default=None)
+    add("--model_name_or_path_2", type=str, default=None)
+    add("--model_name_or_path_3", type=str, default=None)
+    add("--config_name", type=str, default="")
     add("--tokenizer_name", type=str, default="")
     add("--model_size", type=str, default="large",
         choices=["tiny", "base", "large"])
     add("--data_dir", type=str, default=None)
+    add("--data_dirs", type=str, nargs="+", default=None)
     add("--data_name", type=str, default="wikihow")
+    add("--data_names", type=str, nargs="+", default=None)
     add("--task_name", type=str, default=None)
     add("--task_type", type=str, default=None)
+    add("--train_split", type=str, default="train")
     add("--eval_splits", type=str, nargs="+", default=["test"])
     add("--data_splits", type=str, nargs="+", default=None)
+    add("--order_criteria", type=str, default="tight",
+        choices=["tight", "loose"])
     add("--max_story_length", type=int, default=5)
     add("--min_story_length", type=int, default=5)
     add("--max_seq_length", type=int, default=300)
     add("--per_seq_max_length", type=int, default=60)
+    add("--caption_transformations", type=str, nargs="+", default=None)
+    add("--paired_with_image", type=str, default="true")
     add("--replace_token_type_embeddings", action="store_true")
+
+    # --- multimodal ----------------------------------------------------------
+    add("--multimodal", action="store_true")
+    add("--multimodal_model_type", type=str, default="clip",
+        choices=["naive", "visualbert", "vilbert", "vlbert", "uniter",
+                 "clip"])
+    add("--vision_model", type=str, default="resnet50")
+    add("--clip_model_name", type=str, default="RN50",
+        choices=["RN50", "ViT-B/32"])
+    add("--clip_visual_model_weights", type=str, default=None)
+    add("--vision_model_checkpoint", type=str, default=None)
+    add("--vision_feature_dim", type=int, default=None)
+    add("--freeze_vision_model", action="store_true")
+    add("--multimodal_text_part", action="store_true")
+    add("--multimodal_img_part", action="store_true")
+    add("--multimodal_fusion_method", type=str, default="sum",
+        choices=["sum", "mul", "text_only", "img_only"])
+    add("--multimodal_loss", action="store_true")
+    add("--include_num_img_regional_features", type=int, default=None)
+    add("--include_full_img_features", action="store_true")
+    add("--vision_image_size", type=int, default=None)
+    add("--clip_ref_fold_quirk", action="store_true")
+    add("--device_image_preprocess", action="store_true", default=True)
+    add("--host_image_preprocess", dest="device_image_preprocess",
+        action="store_false")
 
     # --- heads / decoding ----------------------------------------------------
     add("--hierarchical_version", type=str, default="v0",
@@ -63,25 +100,143 @@ def build_parser() -> argparse.ArgumentParser:
         choices=["super_naive", "naive", "naive_v2", "naive_v2_sum",
                  "naive_sum", "naive_v3", "mst", "topological"])
     add("--heatmap_decode_beam_size", type=int, default=2)
+    add("--device_decode", action="store_true")
+    add("--hl_include_objectives", type=str, nargs="+", default=None)
+    add("--wrapper_model_type", type=str, default=None)
+    add("--wrapper_model_with_heatmap", action="store_true")
+    add("--additional_wrapper_level_objectives", type=str, nargs="+",
+        default=None)
+    add("--beam_size", type=int, default=16)
+    add("--pairwise_loss_lam", type=float, default=0.6)
+
+    # --- pretraining ---------------------------------------------------------
+    add("--multimodal_pretrain_objectives", type=str, nargs="+",
+        default=None)
+    add("--mlm_probability", type=float, default=0.15)
+    add("--mlm_ignore_index", type=int, default=-100)
 
     # --- loop ----------------------------------------------------------------
+    add("--do_train", action="store_true")
+    add("--do_eval", action="store_true")
+    add("--evaluate_during_training", action="store_true")
+    add("--per_gpu_train_batch_size", type=int, default=8)
     add("--per_gpu_eval_batch_size", type=int, default=8)
+    add("--gradient_accumulation_steps", type=int, default=1)
+    add("--learning_rate", type=float, default=5e-6)
+    add("--weight_decay", type=float, default=0.0)
+    add("--adam_epsilon", type=float, default=1e-8)
+    add("--max_grad_norm", type=float, default=1.0)
+    add("--num_train_epochs", type=float, default=3.0)
+    add("--max_steps", type=int, default=-1)
     add("--max_eval_steps", type=int, default=None)
+    add("--warmup_steps", type=int, default=0)
+    add("--logging_steps", type=int, default=50)
+    add("--save_steps", type=int, default=500)
+    add("--iters_to_eval", type=str, nargs="+", action="extend",
+        default=None)
+    add("--eval_all_checkpoints", action="store_true")
     add("--seed", type=int, default=42)
+    add("--fp16", action="store_true",
+        help="accepted for reference compatibility; the compute dtype is "
+             "EncoderConfig.dtype (bfloat16)")
+    add("--fp16_opt_level", type=str, default="O1")
+    add("--local_rank", type=int, default=-1)
+    add("--no_cuda", action="store_true")
+    add("--overwrite_output_dir", action="store_true")
+    add("--overwrite_cache", action="store_true")
+    add("--use_cached", action="store_true")
+    add("--do_not_load_optimizer", action="store_true")
     add("--output_dir", type=str, default="outputs/run")
     add("--output_root", type=str, default=None)
+    add("--debug", action="store_true")
     add("--metrics", type=str, nargs="+", default=None)
     add("--multiref_metrics", type=str, default="max")
-    add("--gelu_approximate", action="store_true")
+    add("--eval_save_all_results", action="store_true")
+
+    # --- eval-only -----------------------------------------------------------
+    add("--gelu_approximate", action="store_true",
+        help="tanh-approximate GELU (the same as --gelu_impl tanh)")
     add("--gelu_impl", type=str, default="logit_erf",
         choices=["erf", "fast_erf", "logit_erf", "tanh"],
-        help="the erf forms all run as exact erf GELU in the port")
+        help="erf-GELU form (ops/gelu.py): logit_erf (default), fast_erf, "
+             "erf, or the tanh approximation")
+    add("--attention_dropout_mode", type=str, default="probs",
+        choices=["probs", "folded"],
+        help="probs = HF dropout on the attention probabilities, fused into "
+             "the flash kernels; folded = no probability dropout")
+    add("--model_parallel_size", type=int, default=1)
+    add("--pipeline_parallel_size", type=int, default=1)
+    add("--pipeline_microbatches", type=int, default=2)
+    add("--profile_dir", type=str, default=None)
+    add("--num_cpu_devices", type=int, default=0)
+    add("--sequence_parallel", action="store_true")
+    add("--fsdp", action="store_true")
+    add("--prng_impl", type=str, default="rbg",
+        choices=["threefry2x32", "rbg", "unsafe_rbg"],
+        help="read by the JAX package only")
     add("--sort_method", type=str, default="topological",
         choices=SORT_METHODS)
+    add("--abd_pred_method", type=str, default="binary")
     add("--eval_on_every_iter", type=int, default=None)
+
+    # --- the port's own ------------------------------------------------------
     add("--device", type=str, default="cuda",
         help="device to run on: cuda (default) or cpu")
     return p
+
+
+# Options of paths the port does not run yet: setting one away from its
+# default raises. Flags that change nothing on the ported path (as in the
+# JAX package) are accepted.
+_NOT_YET = {
+    "model_name_or_path_2": "the head_and_* sort methods",
+    "model_name_or_path_3": "the head_and_* sort methods",
+    "config_name": "encoders from local HF configs",
+    "data_dirs": "multi-dataset pretraining",
+    "data_names": "multi-dataset pretraining",
+    "caption_transformations": "caption transformations",
+    "multimodal": "the multimodal encoders",
+    "multimodal_text_part": "the multimodal encoders",
+    "multimodal_img_part": "the multimodal encoders",
+    "multimodal_loss": "the multimodal encoders",
+    "include_num_img_regional_features": "the multimodal encoders",
+    "include_full_img_features": "the multimodal encoders",
+    "clip_visual_model_weights": "the multimodal encoders",
+    "vision_model_checkpoint": "the multimodal encoders",
+    "freeze_vision_model": "the multimodal encoders",
+    "device_decode": "on-device decoding (ops/order_decode)",
+    "wrapper_model_type": "BERSON",
+    "wrapper_model_with_heatmap": "BERSON",
+    "additional_wrapper_level_objectives": "BERSON",
+    "multimodal_pretrain_objectives": "pretraining",
+    "model_parallel_size": "the parallelism layer",
+    "pipeline_parallel_size": "the parallelism layer",
+    "sequence_parallel": "the parallelism layer",
+    "fsdp": "the parallelism layer",
+    "num_cpu_devices": "the parallelism layer",
+    "profile_dir": "tracing (utils/profiling)",
+    "use_cached": "the example cache",
+    "overwrite_cache": "the example cache",
+    "no_cuda": "--no_cuda (use --device cpu)",
+}
+_EVAL_NOT_YET = {"eval_all_checkpoints": "checkpoint sweeps in the eval CLI",
+                 "iters_to_eval": "checkpoint sweeps in the eval CLI"}
+
+
+def parse_args(kind: str, argv=None):
+    parser = build_parser(kind)
+    args = parser.parse_args(argv)
+    not_yet = dict(_NOT_YET, **(_EVAL_NOT_YET if kind == "eval" else {}))
+    for dest, what in not_yet.items():
+        if getattr(args, dest) != parser.get_default(dest):
+            raise NotImplementedError(
+                f"--{dest}: {what} come(s) with a later slice of the port")
+    if args.hl_include_objectives and set(args.hl_include_objectives) != {
+            "heatmap_pairwise_ranking"}:
+        raise NotImplementedError(
+            "--hl_include_objectives: the port trains heatmap_pairwise_ranking "
+            "so far; the head/binary/itm/mlm heads come with a later slice")
+    return args
 
 
 def resolve_output_dir(args) -> str:
@@ -108,6 +263,7 @@ def build_config(args):
     if args.gelu_approximate:
         enc.gelu_approximate = True
     enc.gelu_impl = args.gelu_impl
+    enc.attention_dropout_mode = args.attention_dropout_mode
     cfg = MultimodalConfig(
         encoder=enc,
         max_story_length=args.max_story_length,
@@ -117,18 +273,20 @@ def build_config(args):
         cls_id=tokenizer.cls_token_id,
         pad_id=tokenizer.pad_token_id,
         mask_id=getattr(tokenizer, "mask_token_id", None) or 4,
+        mlm_ignore_index=args.mlm_ignore_index,
         hierarchical_version=args.hierarchical_version,
+        hl_include_objectives=args.hl_include_objectives or [],
         heatmap_decode_method=args.heatmap_decode_method,
         heatmap_decode_beam_size=args.heatmap_decode_beam_size,
     )
     return cfg, tokenizer
 
 
-def _data_name(args) -> str:
-    """The data name of `--task_name {data}_{task}`; the sort evaluation
-    reads the sort examples whatever the task type."""
+def _parse_task(args):
+    """task_name '{data}_{tasktype}' -> (data_name, task_type)."""
     task_name = args.task_name or f"{args.data_name}_{args.task_type}"
-    return task_name.partition("_")[0]
+    data_name, _, task_type = task_name.partition("_")
+    return data_name, task_type
 
 
 def _split_version(split: str):
@@ -140,6 +298,8 @@ def _split_version(split: str):
 
 
 def load_examples(args, data_name, split):
+    """Whole-story examples of a split (the sort, hl_v1 and pure_class
+    tasks read the same processor)."""
     from ..data.registry import get_processor
     base_split, version = _split_version(split)
     proc = get_processor(
@@ -153,6 +313,104 @@ def load_examples(args, data_name, split):
     return proc.get_test_examples()
 
 
+def _sort_loader(args, tokenizer, data_name, split):
+    from ..data.datasets import SortDataset, data_loader
+    ds = SortDataset(load_examples(args, data_name, split), tokenizer,
+                     max_length=args.max_seq_length,
+                     per_seq_max_length=args.per_seq_max_length,
+                     max_story_length=args.max_story_length, seed=args.seed)
+    return data_loader(ds, args.per_gpu_eval_batch_size)
+
+
+def _evaluator(args, cfg, tokenizer, device):
+    from ..data.packing import StoryPacker
+    from .evaluation import SortEvaluator
+    packer = StoryPacker(tokenizer, args.max_seq_length,
+                         args.per_seq_max_length)
+    return SortEvaluator(cfg, packer, device,
+                         micro_batch=args.per_gpu_eval_batch_size * 4)
+
+
+# ----- train ----------------------------------------------------------------
+
+
+def main_train(argv=None):
+    """Fine-tune the heat-map sequencer; with `--do_eval` evaluate the
+    checkpoints afterwards. Returns the loop's `TrainResult` (its
+    `eval_results` maps checkpoint name -> metrics)."""
+    args = parse_args("train", argv)
+    logging.basicConfig(level=logging.INFO)
+    device = resolve_device(args.device)
+    args.output_dir = resolve_output_dir(args)
+    os.makedirs(args.output_dir, exist_ok=True)
+    cfg, tokenizer = build_config(args)
+    data_name, task_type = _parse_task(args)
+    if task_type == "hl_v1" and cfg.hierarchical_version == "v0":
+        args.hierarchical_version = cfg.hierarchical_version = "v1"
+    if task_type not in ("hl_v1", "pure_class") or \
+            cfg.hierarchical_version not in ("v1", "v2", "v3"):
+        raise NotImplementedError(
+            f"task {task_type!r} with --hierarchical_version "
+            f"{cfg.hierarchical_version}: the port trains the heat-map heads "
+            f"(v1/v2/v3) on hl_v1/pure_class stories so far")
+    from ..data.datasets import PureClassDataset
+    from ..models.sequencer import SequencingModel
+    from .checkpoint import find_checkpoints, restore_checkpoint
+    from .loop import run_finetune
+
+    dataset = PureClassDataset(
+        load_examples(args, data_name, args.train_split), tokenizer,
+        max_length=args.max_seq_length,
+        per_seq_max_length=args.per_seq_max_length,
+        max_story_length=args.max_story_length, scramble=True,
+        seed=args.seed)
+    model = SequencingModel(cfg)
+    eval_fn = None
+    if args.evaluate_during_training or args.do_eval:
+        eval_fn = _make_dev_eval_fn(args, cfg, tokenizer, data_name, device)
+    result = run_finetune(cfg, model, dataset, args, device,
+                          eval_fn=eval_fn if args.evaluate_during_training
+                          else None)
+    logger.info("training done at step %d; checkpoints in %s",
+                result.global_step, args.output_dir)
+    if args.do_eval and eval_fn is not None:
+        ckpts = find_checkpoints(
+            args.output_dir,
+            None if args.eval_all_checkpoints else args.iters_to_eval)
+        for ck in ckpts:
+            restore_checkpoint(ck, result.model)
+            res = eval_fn(result.model)
+            result.eval_results[os.path.basename(ck)] = res
+            logger.info("eval %s: %s", os.path.basename(ck), res)
+    return result
+
+
+def _make_dev_eval_fn(args, cfg, tokenizer, data_name, device):
+    """Decode metrics on the first eval split during and after training;
+    the loop keys the best checkpoint on partial + exact match."""
+    split = args.eval_splits[0]
+    try:
+        load_examples(args, data_name, split)
+    except (FileNotFoundError, ValueError) as e:
+        logger.warning("no dev split for eval-during-training: %s", e)
+        return None
+    evaluator = _evaluator(args, cfg, tokenizer, device)
+
+    def eval_fn(model):
+        return evaluator.evaluate(
+            _sort_loader(args, tokenizer, data_name, split), "heat_map",
+            {"heatmap": model}, max_batches=args.max_eval_steps,
+            args_ns=args,
+            output_dir=(args.output_dir if args.eval_save_all_results
+                        else None),
+            data_split=split)
+
+    return eval_fn
+
+
+# ----- eval -----------------------------------------------------------------
+
+
 def main_eval(argv=None):
     """Parse the flags, evaluate every split; returns {split: metrics}."""
     return run_eval(argv)[0]
@@ -161,55 +419,39 @@ def main_eval(argv=None):
 def run_eval(argv=None):
     """The body of `main_eval`; also returns the `SortEvaluator`, whose
     counts and per-batch times a caller may read."""
-    args = build_parser().parse_args(argv)
+    args = parse_args("eval", argv)
     logging.basicConfig(level=logging.INFO)
     device = resolve_device(args.device)
     args.output_dir = resolve_output_dir(args)
     cfg, tokenizer = build_config(args)
-    data_name = _data_name(args)
+    data_name, _ = _parse_task(args)
     if args.sort_method != "heat_map":
         raise NotImplementedError(
             f"--sort_method {args.sort_method}: the port evaluates heat_map "
             f"so far; the other methods come with later slices")
-    from ..data.packing import StoryPacker
-    from .evaluation import SortEvaluator
-
-    packer = StoryPacker(tokenizer, args.max_seq_length,
-                         args.per_seq_max_length)
-    evaluator = SortEvaluator(cfg, packer, device,
-                              micro_batch=args.per_gpu_eval_batch_size * 4)
+    evaluator = _evaluator(args, cfg, tokenizer, device)
     path = args.model_name_or_path_1 or args.model_name_or_path
-    models = {"heatmap": load_model_for_eval(cfg, args, path, device)}
-    results = _eval_splits(args, tokenizer, data_name, evaluator, models)
-    return results, evaluator
-
-
-def _eval_splits(args, tokenizer, data_name, evaluator, models):
-    from ..data.datasets import SortDataset, data_loader
+    models = {"heatmap": load_model_for_eval(cfg, path, device)}
     results = {}
     for split in args.data_splits or args.eval_splits:
-        examples = load_examples(args, data_name, split)
-        ds = SortDataset(examples, tokenizer, max_length=args.max_seq_length,
-                         per_seq_max_length=args.per_seq_max_length,
-                         max_story_length=args.max_story_length,
-                         seed=args.seed)
-        loader = data_loader(ds, args.per_gpu_eval_batch_size)
         res = evaluator.evaluate(
-            loader, args.sort_method, models,
-            metrics=args.metrics, output_dir=args.output_dir,
-            data_split=split, max_batches=args.max_eval_steps, args_ns=args,
+            _sort_loader(args, tokenizer, data_name, split),
+            args.sort_method, models, metrics=args.metrics,
+            output_dir=args.output_dir, data_split=split,
+            max_batches=args.max_eval_steps, args_ns=args,
             every_n=args.eval_on_every_iter)
         results[split] = res
         logger.info("split %s: %s", split, res)
-    return results
+    return results, evaluator
 
 
-def load_model_for_eval(cfg, args, path: Optional[str], device):
-    """The heat-map model on `device` in the config's compute dtype: the
-    checkpoint at `path` when it is a directory, else a fresh init seeded
-    from `--seed`."""
+def load_model_for_eval(cfg, path: Optional[str], device):
+    """The heat-map model on `device`, ready for inference: the checkpoint at
+    `path` when it is a directory (its saved encoder config and head
+    version), else a fresh init seeded from 0."""
     from ..models.config import MultimodalConfig
-    from ..models.sequencer import HEATMAP_VERSIONS, SequencingModel, init_weights
+    from ..models.sequencer import (HEATMAP_VERSIONS, SequencingModel,
+                                    cast_for_inference, init_weights)
 
     role_cfg = copy.deepcopy(cfg)
     if role_cfg.hierarchical_version not in HEATMAP_VERSIONS:
@@ -220,20 +462,9 @@ def load_model_for_eval(cfg, args, path: Optional[str], device):
         role_cfg.encoder = saved.encoder
         role_cfg.hierarchical_version = saved.hierarchical_version
         model = SequencingModel(role_cfg)
-        state = torch.load(os.path.join(path, WEIGHTS_NAME),
-                           map_location="cpu", weights_only=True)
-        model.load_state_dict(state)
+        model.load_state_dict(torch.load(os.path.join(path, WEIGHTS_NAME),
+                                         map_location="cpu",
+                                         weights_only=True))
     else:
-        model = init_weights(SequencingModel(role_cfg), args.seed,
-                             role_cfg.encoder.initializer_range)
-    model = model.to(device=device, dtype=role_cfg.encoder.compute_dtype)
-    return model.eval()
-
-
-def save_model(model, cfg, path: str) -> None:
-    """Write the port's checkpoint format: `config.json` + `model.pt`."""
-    os.makedirs(path, exist_ok=True)
-    with open(os.path.join(path, CONFIG_NAME), "w") as f:
-        f.write(cfg.to_json())
-    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
-               os.path.join(path, WEIGHTS_NAME))
+        model = init_weights(SequencingModel(role_cfg), 0)
+    return cast_for_inference(model.to(device)).eval()

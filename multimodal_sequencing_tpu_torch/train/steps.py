@@ -1,0 +1,86 @@
+"""Loss and train step (counterpart of `train/steps.py`, heat-map heads).
+
+`train_step` is one eager step: forward in train mode, the task loss,
+backward, the gradient norm, and the optimizer update (`train/state.py`).
+Its dropout streams derive from (seed + 1, step), as the JAX step folds the
+step into `PRNGKey(seed + 1)`.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from ..models.encoder import DropoutRng
+from ..models.heads import HeatmapHead
+from ..models.sequencer import render_heatmap_targets
+
+# host-only entries of a collated batch
+_HOST_KEYS = ("guid", "texts")
+
+
+def masked_mean(values: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Mean over batch entries marked valid (the padding of the final
+    partial batch contributes no gradient)."""
+    v = valid.to(values.dtype)
+    return (values * v).sum() / torch.clamp(v.sum(), min=1)
+
+
+def compute_loss(cfg, outputs: dict, batch: dict):
+    """Task loss by hierarchical_version. Returns (loss, metrics)."""
+    v = cfg.hierarchical_version
+    if v not in ("v1", "v2", "v3"):
+        raise NotImplementedError(
+            f"hierarchical_version {v!r}: the port trains the heat-map heads "
+            f"so far")
+    order_labels = batch["labels"].long()
+    target = render_heatmap_targets(order_labels, cfg.max_story_length)
+    present = outputs["present"]
+    valid = batch.get("valid")
+    if valid is not None:
+        present = present & valid[:, None]
+    loss = HeatmapHead.loss(outputs["heatmap"], target, present)
+    if "heatmap_pairwise_ranking" in (cfg.hl_include_objectives or []):
+        loss = loss + HeatmapHead.pairwise_ranking_loss(
+            outputs["heatmap"], order_labels, present)
+    return loss, {"loss": loss}
+
+
+def device_batch(batch: dict, device) -> Dict[str, torch.Tensor]:
+    """The array entries of a collated numpy batch as tensors on `device`
+    (ids and labels as int64, `valid` as bool)."""
+    out = {}
+    for k, val in batch.items():
+        if k in _HOST_KEYS or not isinstance(val, np.ndarray):
+            continue
+        t = torch.from_numpy(val)
+        out[k] = t.to(device, torch.bool if k == "valid" else torch.long)
+    return out
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares of every entry, accumulated in f64 and
+    returned in f32 (an f32 sum over the 51M-entry embedding gradient on
+    the CPU drifts by ~1e-4 relative)."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
+        tensors, dtype=torch.float64))).float()
+
+
+def train_step(model, optimizer, batch: dict, step: int, seed: int
+               ) -> Dict[str, torch.Tensor]:
+    """One train step on `batch` (a collated numpy batch); returns the loss
+    and the gradient's global norm as tensors on the model's device (no
+    host sync). `step` is the micro-step count the dropout derives from."""
+    device = next(model.parameters()).device
+    db = device_batch(batch, device)
+    model.train()
+    outputs = model(db["input_ids"], db.get("attention_mask"),
+                    db.get("token_type_ids"), deterministic=False,
+                    rng=DropoutRng(seed + 1, step, device))
+    loss, _ = compute_loss(model.cfg, outputs, db)
+    optimizer.zero_grad()
+    loss.backward()
+    grad_norm = optimizer.step(optimizer.grads())
+    return {"loss": loss.detach(), "grad_norm": grad_norm}

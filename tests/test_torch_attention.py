@@ -94,12 +94,6 @@ def test_cpu_tensors_take_the_plain_version():
                        tatt.attention_reference(q, k, v, mask))
 
 
-def test_dropout_is_the_training_slice():
-    q, k, v, mask = (torch.from_numpy(x) for x in _inputs(1, 1, 8, 16))
-    with pytest.raises(NotImplementedError):
-        tatt.flash_attention(q, k, v, mask, dropout_p=0.1)
-
-
 @pytest.mark.parametrize("case", ["head_dim", "dtype", "stride", "shape",
                                   "mask"])
 def test_kernel_argument_checks(case):

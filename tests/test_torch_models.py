@@ -1,6 +1,7 @@
 """The port's models against the JAX package's on the same weights: the
 tiny `TextEncoder` and the whole tiny `SequencingModel` (v1/v2/v3), with
-weights moved by `params_from_jax`, plus configs, GELU and LayerNorm."""
+weights moved by `params_from_jax`, plus configs, GELU, LayerNorm and the
+fresh init."""
 
 import dataclasses
 import json
@@ -24,6 +25,7 @@ from multimodal_sequencing_tpu_torch.models.encoder import TextEncoder
 from multimodal_sequencing_tpu_torch.models.heads import gather_step_cls
 from multimodal_sequencing_tpu_torch.models.sequencer import (
     SequencingModel, init_weights)
+from multimodal_sequencing_tpu_torch.models.encoder import LayerNorm
 from multimodal_sequencing_tpu_torch.ops.gelu import gelu
 
 torch.set_num_threads(1)
@@ -157,36 +159,50 @@ def _bf16_order(x: np.ndarray) -> np.ndarray:
     return np.where(bits & 0x8000, -(bits & 0x7FFF), bits)
 
 
+def _j_gelu_and_grad(x, impl):
+    want = j_gelu(x, impl)
+    grad = jax.grad(lambda v: jnp.sum(j_gelu(v, impl).astype(jnp.float32)))(x)
+    return np.asarray(want), np.asarray(grad)
+
+
+def _port_gelu_and_grad(x, impl):
+    t = x.clone().requires_grad_()
+    y = gelu(t, impl)
+    y.float().sum().backward()
+    return y.detach(), t.grad
+
+
 @pytest.mark.parametrize("impl", ["logit_erf", "fast_erf"])
 def test_gelu_erf_forms_within_one_bf16_ulp(impl):
-    # The port runs the JAX package's erf forms as exact erf. In bf16 the
-    # two agree to one ulp, except in the negative tail (x < -4): torch
-    # forms 0.5*x*(1 + erf(x/sqrt 2)) in f32, so its absolute error there
-    # is about |x| * 2^-25 (values below ~1e-7 become -0), while the JAX
-    # forms keep relative accuracy (ROADMAP queue C records both gaps).
-    x = np.linspace(-12, 12, 20001, dtype=np.float32)
-    want = np.asarray(j_gelu(jnp.asarray(x, jnp.bfloat16), impl))
-    got = gelu(torch.from_numpy(x).bfloat16(), impl)
-    ulp = np.abs(_bf16_order(want)
-                 - _bf16_order(got.view(torch.int16).numpy()))
-    tail = np.abs(want.astype(np.float32) - got.float().numpy()) <= 1e-6
-    assert np.all((ulp <= 1) | tail)
+    # The port computes the JAX package's erf forms with the same formulas,
+    # custom backwards and denormal flush. In bf16, forward and gradient
+    # agree to one ulp; only values below 1e-30, where XLA also flushes the
+    # f32 intermediates to zero, may differ (by less than 1e-30).
+    x = np.linspace(-20, 20, 40001, dtype=np.float32)
+    want, want_g = _j_gelu_and_grad(jnp.asarray(x, jnp.bfloat16), impl)
+    got, got_g = _port_gelu_and_grad(torch.from_numpy(x).bfloat16(), impl)
+    for w, g in ((want, got), (want_g, got_g)):
+        ulp = np.abs(_bf16_order(w) - _bf16_order(g.view(torch.int16).numpy()))
+        tiny = np.abs(w.astype(np.float32) - g.float().numpy()) < 1e-30
+        assert np.all((ulp <= 1) | tiny)
 
 
 def test_gelu_logit_erf_f32_gap():
-    # in f32 the JAX default, logit_erf, is an approximation fitted to bf16
-    # resolution; the port's exact erf differs from it by up to this bound
-    # on [-12, 12] (ROADMAP queue C)
-    x = np.linspace(-12, 12, 200001, dtype=np.float32)
-    want = np.asarray(j_gelu(jnp.asarray(x), "logit_erf"))
-    got = gelu(torch.from_numpy(x), "logit_erf").numpy()
-    np.testing.assert_allclose(got, want, atol=5e-4, rtol=0)
+    # The JAX default, logit_erf, in f32 on [-20, 20]: the forward agrees
+    # within 1e-6; the gradient within 2e-6, since XLA's exp and its fused
+    # multiply-adds round sigma and u' an ulp away from the port's, and
+    # x sigma (1 - sigma) u' scales that by up to ~10 near |x| ~ 3.
+    x = np.linspace(-20, 20, 200001, dtype=np.float32)
+    want, want_g = _j_gelu_and_grad(jnp.asarray(x), "logit_erf")
+    got, got_g = _port_gelu_and_grad(torch.from_numpy(x), "logit_erf")
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
+    np.testing.assert_allclose(got_g.numpy(), want_g, atol=2e-6, rtol=0)
 
 
 def test_out_of_vocab_ids_raise_in_the_port():
-    # the JAX encoder's embedding gather fills an id >= vocab_size with NaN
-    # (the heat map then fails the decoder's range check); the port's
-    # nn.Embedding raises at once (ROADMAP queue C)
+    # a deliberate difference (ROADMAP): the JAX encoder's embedding gather
+    # fills an id >= vocab_size with NaN (the heat map then fails the
+    # decoder's range check); the port's embedding raises at once
     jc, tc = _cfgs()
     ids, mask, types = _batch(steps=(5,))
     variables, _ = _jax_model(jc, 0, ids, mask, types)
@@ -198,22 +214,51 @@ def test_out_of_vocab_ids_raise_in_the_port():
         _run(_port_model(tc, variables), ids, mask, types)
 
 
-@pytest.mark.parametrize("mean,atol", [(0.0, 1e-5), (3.0, 1e-3),
-                                       (30.0, 1e-1)])
-def test_layer_norm_gap_to_flax(mean, atol):
-    # Flax computes var = E[x^2] - E[x]^2 (use_fast_variance), torch a
-    # two-pass variance. Rows of std 0.1 around `mean`: at mean 0 the two
-    # agree to f32 rounding; the fast form loses digits as mean/std grows
-    # (ROADMAP queue C records these bounds)
+@pytest.mark.parametrize("mean", [0.0, 3.0, 30.0])
+def test_layer_norm_gap_to_flax(mean):
+    # The port's LayerNorm computes Flax's form: f32 E[x^2] - E[x]^2
+    # clamped at 0, output in the compute dtype. Rows of std 0.1 around
+    # `mean`. Both sum E[x^2] in f32 in their own order, and the fast form
+    # turns a few ulps of that sum into a variance error of
+    # ulps * 2^-24 * E[x^2] / var; 16 ulps bound it here. At mean 0 (the
+    # encoder's residual sums) f32 agrees to 1e-6 and bf16 exactly; at
+    # means 3 and 30, rows whose sums no order can change tell the fast
+    # form from the two-pass one.
     from flax import linen as nn
     rng = np.random.RandomState(0)
     x = (rng.randn(64, 1024) * 0.1 + mean).astype(np.float32)
     ln = nn.LayerNorm(epsilon=1e-5)
     params = ln.init(jax.random.PRNGKey(0), jnp.asarray(x))
-    want = np.asarray(ln.apply(params, jnp.asarray(x)))
-    got = torch.nn.LayerNorm(1024, eps=1e-5)(
-        torch.from_numpy(x)).detach().numpy()
+    want = np.asarray(jax.jit(ln.apply)(params, jnp.asarray(x)))
+    got = LayerNorm(1024, 1e-5)(torch.from_numpy(x)).detach().numpy()
+    ratio = float(np.mean(x.astype(np.float64) ** 2) / np.var(x))
+    atol = 1e-6 + 16 * 2.0 ** -24 * ratio * np.abs(want).max()
     np.testing.assert_allclose(got, want, atol=atol, rtol=0)
+    if mean != 0.0:
+        # Rows whose sums are exact in f32 in any order: values on a grid of
+        # 2^(floor(log2 mean) - 6), so |x| < 128 grid units, x^2 < 2^14 and
+        # 1024 of them < 2^24. Then mean and E[x^2] are the same on both
+        # sides, the fast form differs from the true variance only by the
+        # rounding of mean^2, and the port must agree with Flax to 2 f32
+        # ulps of |y| <= 8, while the two-pass form (torch's layer_norm)
+        # misses by far more.
+        unit = 2.0 ** (np.floor(np.log2(mean)) - 6)
+        x = (np.round(x / unit) * unit).astype(np.float32)
+        want = np.asarray(jax.jit(ln.apply)(params, jnp.asarray(x)))
+        got = LayerNorm(1024, 1e-5)(torch.from_numpy(x)).detach().numpy()
+        two_pass = torch.nn.functional.layer_norm(
+            torch.from_numpy(x), (1024,), eps=1e-5).numpy()
+        tol = 1e-6
+        assert np.abs(got - want).max() <= tol
+        assert np.abs(two_pass - want).max() > 20 * tol
+    else:
+        assert np.abs(got - want).max() <= 1e-6
+        want_bf16 = jax.jit(nn.LayerNorm(epsilon=1e-5, dtype=jnp.bfloat16)
+                            .apply)(params, jnp.asarray(x, jnp.bfloat16))
+        got_bf16 = LayerNorm(1024, 1e-5, torch.bfloat16)(
+            torch.from_numpy(x).bfloat16())
+        np.testing.assert_array_equal(got_bf16.detach().float().numpy(),
+                                      np.asarray(want_bf16, np.float32))
 
 
 @pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
@@ -268,3 +313,66 @@ def test_init_weights_is_seeded():
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["encoder.layer_0.attention.query.weight"],
                            c["encoder.layer_0.attention.query.weight"])
+
+
+def test_init_weights_follows_flax_defaults():
+    # each leaf's std against the JAX package's model.init (Flax defaults:
+    # lecun_normal Dense kernels, 1/sqrt(features) Embed tables, zero
+    # biases, unit LayerNorm scales); the bits differ, so the stds are held
+    # within sampling tolerance: 4 standard errors of a std estimate,
+    # 4 / sqrt(2 n), plus the truncation's share
+    jc, tc = _cfgs(type_vocab_size=N_STEPS)
+    ids, mask, types = _batch()
+    variables, _ = _jax_model(jc, 0, ids, mask, types)
+    want = params_from_jax(variables, tc)
+    got = init_weights(SequencingModel(tc), 0).state_dict()
+    assert set(got) == set(want)
+    for key, w in want.items():
+        g = got[key]
+        if w.unique().numel() == 1:
+            assert torch.equal(g, w), key  # zero biases, unit scales
+            continue
+        n = w.numel()
+        tol = 4 / np.sqrt(2 * n) + 0.02
+        assert abs(g.std().item() / w.std().item() - 1) < tol, key
+        assert abs(g.mean().item()) < 4 * w.std().item() / np.sqrt(n), key
+
+
+def _cuda_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+
+
+@pytest.mark.cuda
+def test_gelu_kernels_match_plain_on_card():
+    _cuda_or_skip()
+    from multimodal_sequencing_tpu_torch.ops import gelu as tgelu
+    x = torch.randn(333, 129, device="cuda") * 6
+    g = torch.randn(333, 129, device="cuda")
+    # f32: the same formula rounded in other places (see chip_smoke.py)
+    torch.testing.assert_close(tgelu.gelu_logit_erf_fwd(x),
+                               tgelu.gelu_logit_erf_reference(x),
+                               atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(tgelu.gelu_logit_erf_bwd(x, g),
+                               tgelu.gelu_logit_erf_bwd_reference(x, g),
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_layer_norm_kernels_match_plain_on_card():
+    _cuda_or_skip()
+    from multimodal_sequencing_tpu_torch.ops import layer_norm as tln
+    x = torch.randn(37, 1024, device="cuda", requires_grad=True)
+    w = torch.randn(1024, device="cuda", requires_grad=True)
+    b = torch.randn(1024, device="cuda", requires_grad=True)
+    dy = torch.randn(37, 1024, device="cuda")
+    before = tln.layer_norm_fwd.launches
+    y = tln.layer_norm(x, w, b, 1e-5, torch.float32)
+    got = torch.autograd.grad(y, (x, w, b), dy)
+    assert tln.layer_norm_fwd.launches == before + 1
+    y_ref = tln.layer_norm_reference(x, w, b, 1e-5, torch.float32)
+    want = torch.autograd.grad(y_ref, (x, w, b), dy)
+    # f32, sums in another order
+    torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=1e-4)
+    for a, e in zip(got, want):
+        torch.testing.assert_close(a, e, atol=1e-4, rtol=1e-4)

@@ -1,0 +1,307 @@
+"""The port's training slice against the JAX package's: heat-map targets and
+losses, the train step (5 steps of the tiny sequencer at dropout 0 from
+weights moved by `params_from_jax`, with clipping, with accumulation 2), the
+training data and its loader order, checkpoints and resume, the train CLI on
+the CPU whose checkpoint the eval CLI loads, and the train parser."""
+
+import argparse
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from multimodal_sequencing_tpu.data import datasets as jds
+from multimodal_sequencing_tpu.data import tokenization as jtok
+from multimodal_sequencing_tpu.data.registry import get_processor as j_get_processor
+from multimodal_sequencing_tpu.models import config as jcfg
+from multimodal_sequencing_tpu.models.heads import HeatmapHead as JHeatmapHead
+from multimodal_sequencing_tpu.models.sequencer import (
+    SequencingModel as JSequencingModel,
+    render_heatmap_targets as j_render_targets)
+from multimodal_sequencing_tpu.train import cli as jcli
+from multimodal_sequencing_tpu.train.state import (
+    make_optimizer as j_make_optimizer, make_train_state)
+from multimodal_sequencing_tpu.train.steps import (
+    compute_loss as j_compute_loss, device_batch as j_device_batch,
+    make_train_step)
+from multimodal_sequencing_tpu_torch.data import datasets as tds
+from multimodal_sequencing_tpu_torch.data import tokenization as ttok
+from multimodal_sequencing_tpu_torch.data.registry import get_processor as t_get_processor
+from multimodal_sequencing_tpu_torch.models import config as tcfg
+from multimodal_sequencing_tpu_torch.models.convert import params_from_jax
+from multimodal_sequencing_tpu_torch.models.heads import HeatmapHead
+from multimodal_sequencing_tpu_torch.models.sequencer import (
+    SequencingModel, render_heatmap_targets)
+from multimodal_sequencing_tpu_torch.train import cli as tcli
+from multimodal_sequencing_tpu_torch.train.checkpoint import (
+    find_checkpoints, parse_step_from_name, restore_checkpoint,
+    save_checkpoint)
+from multimodal_sequencing_tpu_torch.train.state import AdamW
+from multimodal_sequencing_tpu_torch.train.steps import compute_loss, train_step
+
+torch.set_num_threads(1)
+
+MAX_LEN, PER_SEQ, BATCH = 96, 12, 2
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_render_heatmap_targets_match_jax(seed):
+    rng = np.random.RandomState(seed)
+    labels = np.stack([rng.permutation(5) for _ in range(6)]).astype(np.int32)
+    want = np.asarray(j_render_targets(jnp.asarray(labels), 5))
+    got = render_heatmap_targets(torch.from_numpy(labels).long(), 5)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("version", ["v1", "v3"])
+@pytest.mark.parametrize("ranking", [False, True])
+def test_compute_loss_and_its_gradient_match_jax(version, ranking):
+    rng = np.random.RandomState(7)
+    b, n = 4, 5
+    hm = rng.rand(b, n, n).astype(np.float32)
+    if version == "v3":
+        hm = hm * 2 - 1
+    hm[0, 0, 1] = 1.0  # clipped at 1 - 1e-6
+    labels = np.stack([rng.permutation(n) for _ in range(b)]).astype(np.int32)
+    present = np.ones((b, n), bool)
+    present[1, 3:] = False
+    valid = np.array([True, True, True, False])
+    objs = ["heatmap_pairwise_ranking"] if ranking else []
+    jc = jcfg.MultimodalConfig(hierarchical_version=version,
+                               hl_include_objectives=objs)
+    tc = tcfg.MultimodalConfig(hierarchical_version=version,
+                               hl_include_objectives=objs)
+
+    def jloss(h):
+        return j_compute_loss(jc, {"heatmap": h, "present": jnp.asarray(present)},
+                              {"labels": jnp.asarray(labels),
+                               "valid": jnp.asarray(valid)})[0]
+
+    want, want_g = jax.value_and_grad(jloss)(jnp.asarray(hm))
+    th = torch.from_numpy(hm).requires_grad_()
+    got, _ = compute_loss(tc, {"heatmap": th, "present": torch.from_numpy(present)},
+                          {"labels": torch.from_numpy(labels).long(),
+                           "valid": torch.from_numpy(valid)})
+    got.backward()
+    # f32 on both sides
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-6)
+    np.testing.assert_allclose(th.grad.numpy(), np.asarray(want_g), atol=1e-6)
+    assert isinstance(HeatmapHead.loss, type(JHeatmapHead.loss))
+
+
+def _datasets(wikihow_dir, seed=0):
+    kw = dict(data_dir=wikihow_dir, min_story_length=5, max_story_length=5)
+    common = dict(max_length=MAX_LEN, per_seq_max_length=PER_SEQ,
+                  max_story_length=5, seed=seed)
+    jex = j_get_processor("wikihow_hl_v1", paired_with_image=False,
+                          **kw).get_train_examples()
+    tex = t_get_processor("wikihow_sort", **kw).get_train_examples()
+    return (jds.PureClassDataset(jex, jtok.load_tokenizer("simple"),
+                                 decode=True, min_story_length=5, **common),
+            tds.PureClassDataset(tex, ttok.load_tokenizer("simple"),
+                                 **common))
+
+
+@pytest.mark.parametrize("shuffle,epoch,drop_last,pad_final", [
+    (False, 0, False, True), (True, 0, False, True), (True, 3, True, True),
+    (True, 1, False, False)])
+def test_train_data_and_loader_order_match_jax(wikihow_dir, shuffle, epoch,
+                                               drop_last, pad_final):
+    jset, tset = _datasets(wikihow_dir, seed=5)
+    kw = dict(shuffle=shuffle, seed=5, epoch=epoch, drop_last=drop_last,
+              pad_final=pad_final)
+    jb = list(jds.data_loader(jset, 4, **kw))
+    tb = list(tds.data_loader(tset, 4, **kw))
+    assert len(jb) == len(tb) > 0
+    for a, b in zip(tb, jb):
+        assert set(a) == set(b)
+        for key in ("input_ids", "attention_mask", "token_type_ids", "labels",
+                    "valid"):
+            np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+        assert a["guid"] == b["guid"]
+
+
+def _tiny_cfgs():
+    # dropout 0 on both sides (JAX's dropout bits cannot be reproduced);
+    # the default logit_erf GELU; the simple tokenizer's 50265 ids
+    enc = dict(vocab_size=50265, type_vocab_size=5, hidden_dropout_prob=0.0,
+               attention_probs_dropout_prob=0.0)
+    kw = dict(hierarchical_version="v1", max_story_length=5,
+              max_seq_length=MAX_LEN, per_seq_max_length=PER_SEQ)
+    return (jcfg.MultimodalConfig(encoder=jcfg.EncoderConfig.tiny(**enc), **kw),
+            tcfg.MultimodalConfig(encoder=tcfg.EncoderConfig.tiny(**enc), **kw))
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_train_steps_follow_jax(wikihow_dir, accum):
+    # 5 steps of the tiny sequencer from the same weights on the same
+    # batches: the loss and gradient-norm trajectories of the JAX
+    # make_train_step. f32 throughout; sums in another order and the GELU's
+    # ulp-level differences grow over 5 Adam steps to ~1e-5 relative.
+    jc, tc = _tiny_cfgs()
+    jset, _ = _datasets(wikihow_dir)
+    batches = [b for epoch in range(3) for b in jds.data_loader(
+        jset, BATCH, shuffle=True, seed=0, epoch=epoch)][:5]
+    kw = dict(learning_rate=2e-3, warmup_steps=1, total_steps=5,
+              weight_decay=0.01, adam_epsilon=1e-8, max_grad_norm=1.0,
+              grad_accum_steps=accum)
+    state = make_train_state(JSequencingModel(jc), jax.random.PRNGKey(0),
+                             j_device_batch(batches[0]),
+                             tx=j_make_optimizer(**kw))
+    model = SequencingModel(tc)
+    model.load_state_dict(params_from_jax(
+        jax.tree.map(np.asarray, state.params), tc))
+    opt = AdamW(model, **kw)
+    step_fn = make_train_step(jc, donate=False)
+    rng = jax.random.PRNGKey(1)
+    want, got = [], []
+    for i, batch in enumerate(batches):
+        state, metrics = step_fn(state, j_device_batch(batch), rng)
+        want.append((float(metrics["loss"]), float(metrics["grad_norm"])))
+        out = train_step(model, opt, batch, i, 0)
+        got.append((out["loss"].item(), out["grad_norm"].item()))
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=0)
+    assert max(g for _, g in want) > kw["max_grad_norm"]  # clipping acted
+    assert len({round(x, 4) for x, _ in want}) > 2  # the weights moved
+    # the weights after 5 steps; the attention key biases get a gradient
+    # that is zero but for rounding (softmax is invariant to a shift of a
+    # row's scores), which Adam turns into steps of up to lr on either side
+    final = params_from_jax(jax.tree.map(np.asarray, state.params), tc)
+    for key, val in model.state_dict().items():
+        atol = 2 * 5 * kw["learning_rate"] if key.endswith("key.bias") else 2e-5
+        np.testing.assert_allclose(val.numpy(), final[key].numpy(),
+                                   atol=atol, rtol=0, err_msg=key)
+
+
+def _train_argv(wikihow_dir, out, *extra):
+    return ["--model_name_or_path", "simple", "--model_size", "tiny",
+            "--replace_token_type_embeddings", "--do_train",
+            "--task_name", "wikihow_hl_v1", "--hierarchical_version", "v1",
+            "--data_dir", wikihow_dir, "--max_seq_length", str(MAX_LEN),
+            "--per_seq_max_length", str(PER_SEQ),
+            "--per_gpu_train_batch_size", str(BATCH),
+            "--per_gpu_eval_batch_size", "2", "--learning_rate", "1e-3",
+            "--warmup_steps", "1", "--logging_steps", "1", "--seed", "0",
+            "--output_dir", str(out), "--device", "cpu", *extra]
+
+
+def test_train_cli_on_cpu_and_its_checkpoint_evaluates(wikihow_dir, tmp_path):
+    out = tmp_path / "run"
+    res = tcli.main_train(_train_argv(
+        wikihow_dir, out, "--max_steps", "4", "--save_steps", "2",
+        "--evaluate_during_training", "--do_eval", "--eval_splits", "dev"))
+    assert res.global_step == 4
+    assert [h["step"] for h in res.history] == [1, 2, 3, 4]
+    assert all(np.isfinite(h["loss"]) for h in res.history)
+    names = sorted(os.path.basename(p) for p in find_checkpoints(str(out)))
+    assert names == ["checkpoint-2", "checkpoint-4", "checkpoint-best"]
+    for name in names:
+        assert sorted(os.listdir(out / name)) == [
+            "config.json", "model.pt", "optimizer.pt", "training_args.json"]
+    assert json.loads((out / "checkpoint-4" / "training_args.json").read_text()
+                      )["max_steps"] == 4
+    scalars = [json.loads(line) for line in
+               (out / "logs" / "scalars.jsonl").read_text().splitlines()]
+    assert {s["tag"] for s in scalars} >= {"train/loss", "train/grad_norm",
+                                           "eval/partial_match"}
+    # the eval CLI loads the checkpoint and gives what --do_eval gave
+    ev = tcli.main_eval([
+        "--model_name_or_path", "simple", "--model_size", "tiny",
+        "--task_name", "wikihow_sort", "--sort_method", "heat_map",
+        "--model_name_or_path_1", str(out / "checkpoint-4"),
+        "--data_dir", wikihow_dir, "--eval_splits", "dev",
+        "--max_seq_length", str(MAX_LEN), "--per_seq_max_length",
+        str(PER_SEQ), "--per_gpu_eval_batch_size", "2", "--seed", "0",
+        "--output_dir", str(tmp_path / "eval"), "--device", "cpu"])
+    assert ev["dev"] == res.eval_results["checkpoint-4"]
+
+
+@pytest.mark.parametrize("load_optimizer", [True, False])
+def test_resume_from_the_latest_checkpoint(wikihow_dir, tmp_path,
+                                           load_optimizer):
+    out = tmp_path / "run"
+    tcli.main_train(_train_argv(wikihow_dir, out, "--max_steps", "2",
+                                "--save_steps", "2", "--overwrite_output_dir"))
+    extra = [] if load_optimizer else ["--do_not_load_optimizer"]
+    res = tcli.main_train(_train_argv(wikihow_dir, out, "--max_steps", "4",
+                                      "--save_steps", "0", *extra))
+    # with the optimizer: steps 3 and 4 from the saved step and counts;
+    # without: weights only, the step count starts again at 0
+    steps = [3, 4] if load_optimizer else [1, 2, 3, 4]
+    assert [h["step"] for h in res.history] == steps
+    assert res.optimizer.count == 4
+    assert parse_step_from_name(str(out / "checkpoint-4")) == 4
+
+
+def test_checkpoint_round_trip(tmp_path):
+    _, tc = _tiny_cfgs()
+    model = SequencingModel(tc)
+    opt = AdamW(model, learning_rate=1e-2, warmup_steps=1, total_steps=9,
+                grad_accum_steps=2)
+    gen = torch.Generator().manual_seed(0)
+    for _ in range(3):
+        opt.step([torch.randn(p.shape, generator=gen) for p in opt.params])
+    path = save_checkpoint(str(tmp_path), 3, model, opt, tc, {"seed": 0})
+    model2 = SequencingModel(tc)
+    opt2 = AdamW(model2, learning_rate=1e-2, warmup_steps=1, total_steps=9,
+                 grad_accum_steps=2)
+    assert restore_checkpoint(path, model2, opt2) == 3
+    for (k, a), b in zip(model.state_dict().items(),
+                         model2.state_dict().values()):
+        assert torch.equal(a, b), k
+    assert (opt2.count, opt2.mini_step) == (opt.count, opt.mini_step)
+    for a, b in zip(opt.mu + opt.nu + opt.acc, opt2.mu + opt2.nu + opt2.acc):
+        assert torch.equal(a, b)
+    assert tcfg.MultimodalConfig.from_json((
+        tmp_path / "checkpoint-3" / "config.json").read_text()).to_json() == \
+        tc.to_json()
+    dirs = [tmp_path / f"checkpoint-{t}" for t in ("10", "best", "9")]
+    for d in dirs:
+        d.mkdir()
+    assert [os.path.basename(p) for p in find_checkpoints(str(tmp_path))] == [
+        "checkpoint-best", "checkpoint-3", "checkpoint-9", "checkpoint-10"]
+    assert [os.path.basename(p) for p in find_checkpoints(
+        str(tmp_path), ["best", "9"])] == ["checkpoint-best", "checkpoint-9"]
+
+
+def _options(parser):
+    out = {}
+    for action in parser._actions:
+        if not action.option_strings or action.dest == "help":
+            continue
+        out[tuple(action.option_strings)] = (
+            action.dest, action.default, action.choices, action.nargs,
+            action.type, action.const, type(action).__name__)
+    return out
+
+
+@pytest.mark.parametrize("kind", ["train", "eval"])
+def test_parser_options_match_jax(kind):
+    want = _options(jcli.build_parser(kind))
+    got = _options(tcli.build_parser(kind))
+    assert got.pop(("--device",))[1] == "cuda"
+    assert got == want
+
+
+@pytest.mark.parametrize("flag", [["--multimodal"], ["--fsdp"],
+                                  ["--device_decode"],
+                                  ["--wrapper_model_type", "berson"],
+                                  ["--hl_include_objectives", "head"],
+                                  ["--model_parallel_size", "2"]])
+def test_options_of_later_slices_raise(wikihow_dir, tmp_path, flag):
+    with pytest.raises(NotImplementedError):
+        tcli.main_train(_train_argv(wikihow_dir, tmp_path, "--max_steps", "1",
+                                    *flag))
+
+
+def test_train_needs_a_heatmap_task(wikihow_dir, tmp_path):
+    argv = _train_argv(wikihow_dir, tmp_path, "--max_steps", "1")
+    argv[argv.index("wikihow_hl_v1")] = "wikihow_pairwise"
+    argv[argv.index("v1")] = "v0"
+    with pytest.raises(NotImplementedError):
+        tcli.main_train(argv)
+    assert isinstance(tcli.build_parser(), argparse.ArgumentParser)
