@@ -58,14 +58,20 @@ N_STORIES = 40   # eval: 5 batches of 8
 TRAIN_STEPS = 8  # train: steps of 8 stories
 BITS_KERNEL = "multimodal_sequencing_tpu_torch/ops/csrc/keep_bits_dump.cu"
 GELU_KERNEL = "multimodal_sequencing_tpu_torch/ops/csrc/gelu.cu"
+BWD_KERNEL = "multimodal_sequencing_tpu_torch/ops/csrc/flash_bwd.cu"
 LN_KERNEL = "multimodal_sequencing_tpu_torch/ops/csrc/layer_norm.cu"
 KERNELS = {
     "flash_fwd": ("multimodal_sequencing_tpu_torch/ops/csrc/flash_fwd.cu",
                   "multimodal_sequencing_tpu/ops/attention.py:126"),
-    "flash_bwd_dq": ("multimodal_sequencing_tpu_torch/ops/csrc/flash_bwd.cu",
-                     "multimodal_sequencing_tpu/ops/attention.py:234"),
-    "flash_bwd_dkv": ("multimodal_sequencing_tpu_torch/ops/csrc/flash_bwd.cu",
-                      "multimodal_sequencing_tpu/ops/attention.py:283"),
+    # the whole bf16 backward (pre-pass, main kernel, post-pass)
+    "flash_bwd": (BWD_KERNEL, "multimodal_sequencing_tpu/ops/attention.py:343"),
+    # the two TPU kernels, both computed by one pass of the main kernel
+    "flash_bwd_dq": (BWD_KERNEL, "multimodal_sequencing_tpu/ops/attention.py:234"),
+    "flash_bwd_dkv": (BWD_KERNEL, "multimodal_sequencing_tpu/ops/attention.py:283"),
+    # not TPU kernels: delta = rowsum(dO * O), which the JAX package leaves
+    # to XLA, and dq's cast from the f32 accumulator
+    "flash_bwd_prep": (BWD_KERNEL, "multimodal_sequencing_tpu/ops/attention.py:377"),
+    "flash_bwd_post": (BWD_KERNEL, "multimodal_sequencing_tpu/ops/attention.py:234"),
     "keep_bits_dump": (BITS_KERNEL,
                        "multimodal_sequencing_tpu/ops/attention.py:502"),
     "keep_bits_dump@verify": (BITS_KERNEL,
@@ -83,9 +89,18 @@ KERNELS = {
 }
 # the kernels each main path must launch
 PATH_KERNELS = {"eval": ("flash_fwd", "gelu_logit_erf_fwd", "layer_norm_fwd"),
-                "train": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                          "gelu_logit_erf_fwd", "gelu_logit_erf_bwd",
-                          "layer_norm_fwd", "layer_norm_bwd")}
+                "train": ("flash_fwd", "flash_bwd_prep", "flash_bwd_main",
+                          "flash_bwd_post", "gelu_logit_erf_fwd",
+                          "gelu_logit_erf_bwd", "layer_norm_fwd",
+                          "layer_norm_bwd")}
+# the launch counter behind each row of the `kernels` line, where it is
+# not the row's own name
+COUNTER = {"flash_bwd": "flash_bwd_main", "flash_bwd_dq": "flash_bwd_main",
+           "flash_bwd_dkv": "flash_bwd_main",
+           "keep_bits_dump@verify": "keep_bits_dump"}
+# the f32 backward kernels: the check path, never launched by the bf16
+# train path
+F32_BWD = ("flash_bwd_dq_f32", "flash_bwd_dkv_f32")
 # launches of each path kernel per forward (LayerNorm: 2 per layer + the
 # embeddings')
 PER_FORWARD = {"layer_norm_fwd": 49, "layer_norm_bwd": 49}
@@ -230,6 +245,19 @@ def phase_kernel_check(seed: int, errs: dict):
                 # a fully masked batch row gets zero gradient
                 row["masked_row_grad_zero"] = all(
                     bool((g[-1] == 0).all()) for g in got)
+                if name == "bfloat16":
+                    row.update(_bwd_bf16_checks(att, q, k, v, mask, o, lse, do,
+                                                p, seed + 17, got))
+                    failed += [] if row["dk_dv_bit_equal_on_rerun"] else [
+                        ("bwd_determinism", shape, p)]
+                    failed += [] if row["ok_prep"] and row["ok_post"] else [
+                        ("bwd_prep_post", shape, p)]
+                    if shape == TRAIN_SHAPE and p > 0:
+                        errs["flash_bwd"] = max(row["max_abs_err_dq"],
+                                                row["max_abs_err_dk"],
+                                                row["max_abs_err_dv"])
+                        errs["flash_bwd_prep"] = row["max_abs_err_delta"]
+                        errs["flash_bwd_post"] = row["max_abs_err_post"]
                 emit(row)
                 if not row["masked_row_grad_zero"]:
                     failed.append(("masked_row", shape, name, p))
@@ -241,6 +269,39 @@ def phase_kernel_check(seed: int, errs: dict):
     if failed:
         raise AssertionError(f"kernels disagree with the plain versions: "
                              f"{failed}")
+
+
+# The bf16 backward's pre-pass against `attention_delta`: f32 sums of the
+# same products in another order, |err| <= 1e-5 * (1 + |delta|); lse2 is
+# the same f32 product in both (relative 1e-6 allows for the rounding of
+# log2(e) to f32 in one of them). The post-pass: the same f32 product and
+# bf16 rounding in both, so bit-equal.
+PREP_TOLERANCE = 1e-5
+
+
+def _bwd_bf16_checks(att, q, k, v, mask, o, lse, do, p, seed, got):
+    """The bf16 backward's pre-pass and post-pass against their plain
+    versions, and a rerun on equal inputs: dk and dv must be bit-equal (a
+    fixed order of sums); dq may differ at f32 rounding before its bf16
+    cast (the order of the reduce-adds into its accumulator varies), so its
+    largest difference is reported."""
+    import torch
+    delta, lse2, acc = att.flash_bwd_prep(o, do, lse)
+    want_delta, want_lse2, _ = att.attention_bwd_prep_reference(o, do, lse)
+    err_delta = (delta - want_delta).abs()
+    ok_prep = (bool((err_delta <= PREP_TOLERANCE * (1 + want_delta.abs())).all())
+               and bool(torch.isclose(lse2, want_lse2, rtol=1e-6, atol=0).all())
+               and not bool(acc.any()))
+    acc.normal_()
+    dq = att.flash_bwd_post(acc, q)
+    want_dq = att.attention_bwd_post_reference(acc, q)
+    again = att.flash_attention_bwd(q, k, v, mask, o, lse, do, p, seed)
+    return {"max_abs_err_delta": err_delta.max().item(), "ok_prep": ok_prep,
+            "max_abs_err_post": _max_err(dq, want_dq),
+            "ok_post": torch.equal(dq, want_dq),
+            "dk_dv_bit_equal_on_rerun": (torch.equal(again[1], got[1])
+                                         and torch.equal(again[2], got[2])),
+            "dq_rerun_max_abs_diff": _max_err(again[0], got[0])}
 
 
 def _layer_norm_check(seed: int, errs: dict):
@@ -374,7 +435,6 @@ def phase_timing(seed: int):
     o, lse = att.flash_attention(q, k, v, mask, DROPOUT_P, sd)
     gen = torch.Generator(device="cpu").manual_seed(seed + 2)
     do = torch.randn(TRAIN_SHAPE, generator=gen).to("cuda", torch.bfloat16)
-    delta = att.attention_delta(o, do)
     plain_bwd_ms = kernel_ms(lambda: att.attention_bwd_reference(
         q, k, v, mask, o, lse, do, DROPOUT_P, sd), iters=10)
     qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
@@ -389,16 +449,41 @@ def phase_timing(seed: int):
         "library_ms": kernel_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=bool_mask, dropout_p=DROPOUT_P)),
         **bound(4 * bhsd * 2 + bhs * 4 + b * s * 4, 4 * b * h * s * s * d)}
-    rows["flash_bwd_dq"] = {
-        "ms": kernel_ms(lambda: att.flash_attention_bwd_dq(
-            q, k, v, mask, lse, delta, do, DROPOUT_P, sd)),
-        "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms,
-        **bound(5 * bhsd * 2 + 2 * bhs * 4 + b * s * 4, 6 * b * h * s * s * d)}
-    rows["flash_bwd_dkv"] = {
-        "ms": kernel_ms(lambda: att.flash_attention_bwd_dkv(
-            q, k, v, mask, lse, delta, do, DROPOUT_P, sd)),
-        "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms,
-        **bound(6 * bhsd * 2 + 2 * bhs * 4 + b * s * 4, 8 * b * h * s * s * d)}
+    # the bf16 backward: the whole (pre-pass, main, post-pass) against its
+    # bound and SDPA's backward; the main kernel, which yields dq's partials
+    # and dk, dv in one pass, stands for both TPU kernels it replaces
+    s_pad = -(-s // 64) * 64
+    acc_bytes = b * h * s_pad * d * 4
+    prep, lse2_b, acc = att.flash_bwd_prep(o, do, lse)
+    bwd_ms = kernel_ms(lambda: att.flash_attention_bwd(
+        q, k, v, mask, o, lse, do, DROPOUT_P, sd))
+    main_ms = kernel_ms(lambda: att.flash_bwd_main(
+        q, k, v, mask, lse2_b, prep, acc, do, DROPOUT_P, sd))
+    rows["flash_bwd"] = {
+        "ms": bwd_ms, "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms,
+        "library_ratio": bwd_ms / lib_bwd_ms,
+        **bound(8 * bhsd * 2 + bhs * 4 + b * s * 4, 5 * 2 * b * h * s * s * d)}
+    # The bounds count what each function needs, not the design's f32 dq
+    # accumulator (`acc_bytes`: zeroed by the pre-pass, reduce-added into by
+    # the main kernel, read by the post-pass), which the rows list apart.
+    main_row = {
+        "ms": main_ms, "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms,
+        "acc_bytes": acc_bytes,
+        # reads q, k, v, dO, lse, delta and the mask; writes dq, dk and dv
+        **bound(7 * bhsd * 2 + 2 * bhs * 4 + b * s * 4,
+                5 * 2 * b * h * s * s * d)}
+    rows["flash_bwd_dq"] = dict(main_row)
+    rows["flash_bwd_dkv"] = dict(main_row)
+    rows["flash_bwd_prep"] = {
+        "ms": kernel_ms(lambda: att.flash_bwd_prep(o, do, lse)),
+        "plain_ms": kernel_ms(lambda: att.attention_bwd_prep_reference(o, do, lse)),
+        "library_ms": None, "acc_bytes": acc_bytes,
+        # reads O, dO and lse; writes delta and lse2
+        **bound(2 * bhsd * 2 + 3 * bhs * 4, 0)}
+    rows["flash_bwd_post"] = {
+        "ms": kernel_ms(lambda: att.flash_bwd_post(acc, q)),
+        "plain_ms": kernel_ms(lambda: att.attention_bwd_post_reference(acc, q)),
+        "library_ms": None, **bound(bhsd * 4 + bhsd * 2, 0)}
 
     def dump_pair(bs, hs, ss):
         att.dump_keep_bits("fwd", sd, bs, hs, ss, DROPOUT_P)
@@ -493,8 +578,11 @@ def _wrappers():
     from multimodal_sequencing_tpu_torch.ops import gelu as gl
     from multimodal_sequencing_tpu_torch.ops import layer_norm as ln
     return {"flash_fwd": att.flash_attention,
-            "flash_bwd_dq": att.flash_attention_bwd_dq,
-            "flash_bwd_dkv": att.flash_attention_bwd_dkv,
+            "flash_bwd_prep": att.flash_bwd_prep,
+            "flash_bwd_main": att.flash_bwd_main,
+            "flash_bwd_post": att.flash_bwd_post,
+            "flash_bwd_dq_f32": att.flash_attention_bwd_dq,
+            "flash_bwd_dkv_f32": att.flash_attention_bwd_dkv,
             "keep_bits_dump": att.dump_keep_bits,
             "gelu_logit_erf_fwd": gl.gelu_logit_erf_fwd,
             "gelu_logit_erf_bwd": gl.gelu_logit_erf_bwd,
@@ -606,6 +694,7 @@ def phase_train_path(seed: int, work: str):
           and len(set(losses)) > 1
           and all(counts[k] == TRAIN_STEPS * PER_FORWARD.get(k, NUM_LAYERS)
                   for k in PATH_KERNELS["train"])
+          and all(counts[k] == 0 for k in F32_BWD)
           and os.path.isfile(os.path.join(ckpt, "model.pt")))
     if not ok:
         raise AssertionError(f"train path check failed: {summary}")
@@ -621,8 +710,7 @@ def phase_train_path(seed: int, work: str):
 
 
 KERNEL_CLASSES = (("flash_fwd", ("flash_fwd",)),
-                  ("flash_bwd_dq", ("flash_bwd_dq",)),
-                  ("flash_bwd_dkv", ("flash_bwd_dkv",)),
+                  ("flash_bwd", ("flash_bwd_",)),
                   ("gelu_logit_erf", ("gelu_fwd", "gelu_bwd")),
                   ("layer_norm", ("layer_norm_fwd", "layer_norm_bwd")),
                   ("matmul", ("gemm", "sm90_", "cutlass", "xmma", "cublas",
@@ -741,8 +829,10 @@ def phase_train_breakdown(seed: int):
                    for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CPU),
                   reverse=True)
+    by_class = _by_class(prof, step_ms)
     emit({"phase": "train_breakdown", "shape_bs": [b, s], "step_ms": step_ms,
-          **_by_class(prof, step_ms),
+          "attention_bwd_device_ms": by_class["device_ms_by_class"]["flash_bwd"],
+          **by_class,
           "host_ms_profiled_step": sum(h[0] for h in host),
           "top_host_ops": host[:12]})
 
@@ -910,14 +1000,14 @@ def main(argv=None) -> int:
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = []
     for name, (source, replaces) in KERNELS.items():
+        counter = COUNTER.get(name, name)
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "max_abs_err": errs.get(name),
-               "launches": launches.get("train", {}).get(
-                   name.split("@")[0], 0)}
+               "launches": launches.get("train", {}).get(counter, 0)}
         row.update({k: timing.get(name, {}).get(k) for k in
                     ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
         out = {k: row.get(k) for k in order}
-        out["launches_by_path"] = {p: c.get(name.split("@")[0], 0)
+        out["launches_by_path"] = {p: c.get(counter, 0)
                                    for p, c in launches.items()}
         rows.append(out)
     emit({"kernels": rows})

@@ -13,8 +13,14 @@ plain versions (counterpart of `ops/attention.py`).
     and dk/dv kernels compute it (not autograd of the forward): a key the
     mask drops gets p = 0, so a fully masked row gets zero gradient although
     the forward makes it uniform.
-  * `flash_attention` (`csrc/flash_fwd.cu`), `flash_attention_bwd_dq` and
-    `flash_attention_bwd_dkv` (`csrc/flash_bwd.cu`), `dump_keep_bits`
+  * `attention_delta`, `attention_bwd_prep_reference`,
+    `attention_bwd_post_reference` — plain versions of the bf16 backward's
+    pre-pass (delta = rowsum(dO * O), lse * log2(e), a zeroed dq
+    accumulator) and post-pass (dq = scale * accumulator).
+  * `flash_attention` (`csrc/flash_fwd.cu`); `flash_bwd_prep`,
+    `flash_bwd_main`, `flash_bwd_post` (the bf16 backward's three launches)
+    and `flash_attention_bwd_dq`, `flash_attention_bwd_dkv` (the f32
+    kernels) in `csrc/flash_bwd.cu`; `dump_keep_bits`
     (`csrc/keep_bits_dump.cu`) — wrappers that launch the kernels for CUDA
     tensors (or raise) and take the plain versions for CPU tensors. Each
     counts its kernel launches in `.launches`.
@@ -134,6 +140,52 @@ def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return (do.float() * o.float()).sum(-1).reshape(b * h, s)
 
 
+LOG2E = 1.4426950408889634
+
+
+def _padded_len(s: int) -> int:
+    """S rounded up to the bf16 backward's 64-row tiles."""
+    return -(-s // 64) * 64
+
+
+def attention_bwd_prep_reference(o: torch.Tensor, do: torch.Tensor,
+                                 lse: torch.Tensor):
+    """Plain version of the bf16 backward's pre-pass: (delta, lse2, acc).
+    delta (B*H, S_pad) = rowsum(dO * O) in f32, 0 past S; lse2 (B*H, S_pad)
+    = lse * log2(e), +inf past S; acc (B*H, S_pad, D) f32 zeros, the dq
+    accumulator. S_pad is S rounded up to a multiple of 64."""
+    b, h, s, d = o.shape
+    pad = _padded_len(s) - s
+    delta = torch.nn.functional.pad(attention_delta(o, do), (0, pad))
+    lse2 = torch.nn.functional.pad(lse.float() * LOG2E, (0, pad),
+                                   value=math.inf)
+    acc = torch.zeros((b * h, s + pad, d), dtype=torch.float32,
+                      device=o.device)
+    return delta, lse2, acc
+
+
+def _acc_chunk_order(s: int, d: int, device) -> torch.Tensor:
+    """(S, D/4): where chunk c of dq row r sits in the accumulator's row.
+    The main kernel stores its 16-byte chunks (4 f32) swizzled, c ^ (r & m)
+    with m = min(8, D/4) - 1, so that its shared-memory stores of the
+    partials are free of bank conflicts."""
+    m = min(8, d // 4) - 1
+    rows = torch.arange(s, device=device)[:, None]
+    return torch.arange(d // 4, device=device)[None, :] ^ (rows & m)
+
+
+def attention_bwd_post_reference(acc: torch.Tensor, like: torch.Tensor
+                                 ) -> torch.Tensor:
+    """Plain version of the bf16 backward's post-pass: dq = scale * acc,
+    (B, H, S, D) in `like`'s dtype, read through the accumulator's chunk
+    order (`_acc_chunk_order`)."""
+    b, h, s, d = like.shape
+    chunks = acc[:, :s].reshape(b * h, s, d // 4, 4)
+    order = _acc_chunk_order(s, d, acc.device)[None, :, :, None]
+    dq = torch.gather(chunks, 2, order.expand(b * h, s, d // 4, 4))
+    return (dq.reshape(b, h, s, d) * (1.0 / math.sqrt(d))).to(like.dtype)
+
+
 def attention_bwd_reference(q, k, v, mask, o, lse, do, dropout_p: float = 0.0,
                             seed: int = 0):
     """Plain version of the backward kernels: (dq, dk, dv), each (B, H, S, D)
@@ -170,14 +222,24 @@ _SIGNATURES = {
     # seed, thresh, inv_keep, stream
     ("flash_fwd", "flash_fwd"): [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                  _STRIDES, _F, _U, _U, _F, _P],
-    # dtype, head_dim, q, k, v, do, mask, lse, delta, dq, B, H, S, strides,
-    # scale, seed, thresh, inv_keep, stream
-    ("flash_bwd", "flash_bwd_dq"): [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                                    _I, _I, _I, _STRIDES, _F, _U, _U, _F, _P],
+    # head_dim, q, k, v, do, mask, lse, delta, dq, B, H, S, strides, scale,
+    # seed, thresh, inv_keep, stream (f32)
+    ("flash_bwd", "flash_bwd_dq"): [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                    _I, _I, _STRIDES, _F, _U, _U, _F, _P],
     # ..., dk, dv, ...
-    ("flash_bwd", "flash_bwd_dkv"): [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                                     _P, _I, _I, _I, _STRIDES, _F, _U, _U, _F,
-                                     _P],
+    ("flash_bwd", "flash_bwd_dkv"): [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _I, _I, _I, _STRIDES, _F, _U, _U, _F, _P],
+    # head_dim, o, do, lse, delta, lse2, acc, B, H, S, S_pad, strides, stream
+    ("flash_bwd", "flash_bwd_prep"): [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                      _I, _STRIDES, _P],
+    # head_dim, q, k, v, do, mask, lse2, delta, acc, dk, dv, B, H, S, S_pad,
+    # strides, scale, seed, thresh, inv_keep, stream
+    ("flash_bwd", "flash_bwd_main"): [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                      _P, _I, _I, _I, _I, _STRIDES, _F, _U,
+                                      _U, _F, _P],
+    # head_dim, acc, dq, B, H, S, S_pad, strides, scale, stream
+    ("flash_bwd", "flash_bwd_post"): [_I, _P, _P, _I, _I, _I, _I, _STRIDES,
+                                      _F, _P],
     # order, out, B*H, S, seed, thresh, stream
     ("keep_bits_dump", "keep_bits_dump"): [_I, _P, _I, _I, _U, _U, _P],
 }
@@ -256,6 +318,8 @@ def _strides(*tensors):
 
 _CPU_BWD = ("the backward kernels take CUDA tensors; CPU tensors go through "
             "flash_attention_bwd's plain version")
+_F32_ONLY = ("the dq and dk/dv kernels take float32; bfloat16 goes through "
+             "flash_attention_bwd's pre-pass, main kernel and post-pass")
 
 
 def _bshd(like: torch.Tensor) -> torch.Tensor:
@@ -300,21 +364,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention.launches = 0
 
 
+def _check_bwd(q, k, v, o, do, mask):
+    """Raises on what the backward kernels do not take: the forward's
+    checks on q, k, v, O and dO. Their rows are read as 16-byte vectors and,
+    in bf16, through TMA tensor maps, which take exactly these layouts."""
+    _check_qkv("flash_bwd", (q, k, v, o, do), mask)
+
+
 def flash_attention_bwd_dq(q, k, v, mask, lse, delta, do,
                            dropout_p: float = 0.0, seed: int = 0
                            ) -> torch.Tensor:
-    """dq of the flash backward (`_flash_bwd_dq_kernel`), (B, H, S, D) laid
-    out (B, S, H, D). lse, delta: (B*H, S) f32. CUDA tensors only; the CPU
-    takes `attention_bwd_reference` through `flash_attention_bwd`."""
+    """dq of the f32 flash backward (`_flash_bwd_dq_kernel`), (B, H, S, D)
+    laid out (B, S, H, D). lse, delta: (B*H, S) f32. float32 CUDA tensors
+    only: bf16 goes through `flash_attention_bwd`'s three launches, and the
+    CPU takes `attention_bwd_reference` through `flash_attention_bwd`."""
     if not _on_cuda("flash_attention_bwd_dq", q):
         raise ValueError(_CPU_BWD)
     _check_qkv("flash_bwd_dq", (q, k, v, do), mask)
+    if q.dtype != torch.float32:
+        raise TypeError(_F32_ONLY)
     b, h, s, d = q.shape
     seed_u, thresh, inv_keep = _dropout_args(dropout_p, seed)
     mask = _mask_i32(mask, b, s, q.device)
     dq = _bshd(q)
     rc = _fn("flash_bwd", "flash_bwd_dq")(
-        DTYPE_CODE[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), mask.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), b, h, s, _strides(q, k, v, do, dq),
         1.0 / math.sqrt(d), seed_u, thresh, inv_keep,
@@ -331,17 +405,19 @@ flash_attention_bwd_dq.launches = 0
 def flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do,
                             dropout_p: float = 0.0, seed: int = 0
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv) of the flash backward (`_flash_bwd_dkv_kernel`), each
-    (B, H, S, D) laid out (B, S, H, D). CUDA tensors only."""
+    """(dk, dv) of the f32 flash backward (`_flash_bwd_dkv_kernel`), each
+    (B, H, S, D) laid out (B, S, H, D). float32 CUDA tensors only."""
     if not _on_cuda("flash_attention_bwd_dkv", q):
         raise ValueError(_CPU_BWD)
     _check_qkv("flash_bwd_dkv", (q, k, v, do), mask)
+    if q.dtype != torch.float32:
+        raise TypeError(_F32_ONLY)
     b, h, s, d = q.shape
     seed_u, thresh, inv_keep = _dropout_args(dropout_p, seed)
     mask = _mask_i32(mask, b, s, q.device)
     dk, dv = _bshd(k), _bshd(v)
     rc = _fn("flash_bwd", "flash_bwd_dkv")(
-        DTYPE_CODE[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), mask.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), b, h, s,
         _strides(q, k, v, do, dk, dv), 1.0 / math.sqrt(d), seed_u, thresh,
@@ -355,22 +431,139 @@ def flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do,
 flash_attention_bwd_dkv.launches = 0
 
 
+def _check_f32_rows(name, like, **rows):
+    """Raises unless each of `rows` (name=(tensor, shape)) is a contiguous
+    float32 tensor of that shape on `like`'s device: the kernels read lse,
+    lse2, delta and the dq accumulator as dense f32 rows."""
+    for arg, (x, shape) in rows.items():
+        if (tuple(x.shape) != shape or x.dtype != torch.float32
+                or not x.is_contiguous() or x.device != like.device):
+            raise ValueError(f"{name}: {arg} must be a contiguous float32 "
+                             f"{shape} tensor on {like.device}, got "
+                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+def _check_bf16(name, x):
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{name} takes bfloat16, got {x.dtype}")
+
+
+def flash_bwd_prep(o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor):
+    """The bf16 backward's pre-pass (`flash_bwd_prep_kernel`): (delta, lse2,
+    acc) as `attention_bwd_prep_reference` gives them, in one launch that
+    reads bf16 O and dO once. bfloat16 CUDA tensors only."""
+    if not _on_cuda("flash_bwd_prep", o):
+        raise ValueError(_CPU_BWD)
+    _check_qkv("flash_bwd_prep", (o, do), None)
+    _check_bf16("flash_bwd_prep", o)
+    b, h, s, d = o.shape
+    _check_f32_rows("flash_bwd_prep", o, lse=(lse, (b * h, s)))
+    s_pad = _padded_len(s)
+    delta = torch.empty((b * h, s_pad), dtype=torch.float32, device=o.device)
+    lse2 = torch.empty_like(delta)
+    acc = torch.empty((b * h, s_pad, d), dtype=torch.float32, device=o.device)
+    rc = _fn("flash_bwd", "flash_bwd_prep")(
+        d, o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), lse2.data_ptr(), acc.data_ptr(), b, h, s, s_pad,
+        _strides(o, do), torch.cuda.current_stream(o.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd_prep launch failed (code {rc})")
+    flash_bwd_prep.launches += 1
+    return delta, lse2, acc
+
+
+flash_bwd_prep.launches = 0
+
+
+def flash_bwd_main(q, k, v, mask, lse2, delta, acc, do,
+                   dropout_p: float = 0.0, seed: int = 0
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 backward's main kernel (`flash_bwd_main_kernel`, TPU
+    `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel` in one pass): (dk,
+    dv), each (B, H, S, D) laid out (B, S, H, D), and dq / scale added into
+    `acc`. lse2, delta, acc: from `flash_bwd_prep`. bfloat16 CUDA tensors
+    only; the CPU takes `attention_bwd_reference` through
+    `flash_attention_bwd`."""
+    if not _on_cuda("flash_bwd_main", q):
+        raise ValueError(_CPU_BWD)
+    _check_qkv("flash_bwd_main", (q, k, v, do), mask)
+    _check_bf16("flash_bwd_main", q)
+    b, h, s, d = q.shape
+    s_pad = _padded_len(s)
+    _check_f32_rows("flash_bwd_main", q, lse2=(lse2, (b * h, s_pad)),
+                    delta=(delta, (b * h, s_pad)),
+                    acc=(acc, (b * h, s_pad, d)))
+    seed_u, thresh, inv_keep = _dropout_args(dropout_p, seed)
+    mask = _mask_i32(mask, b, s, q.device)
+    dk, dv = _bshd(k), _bshd(v)
+    rc = _fn("flash_bwd", "flash_bwd_main")(
+        d, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        mask.data_ptr(), lse2.data_ptr(), delta.data_ptr(), acc.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, h, s, s_pad,
+        _strides(q, k, v, do, dk, dv), 1.0 / math.sqrt(d), seed_u, thresh,
+        inv_keep, torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd_main launch failed (code {rc})")
+    flash_bwd_main.launches += 1
+    return dk, dv
+
+
+flash_bwd_main.launches = 0
+
+
+def flash_bwd_post(acc: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The bf16 backward's post-pass (`flash_bwd_post_kernel`): dq = scale *
+    acc in bf16, (B, H, S, D) laid out (B, S, H, D) like the bfloat16 q
+    `like`; acc from `flash_bwd_prep`. CUDA tensors only."""
+    if not _on_cuda("flash_bwd_post", acc):
+        raise ValueError(_CPU_BWD)
+    _check_bf16("flash_bwd_post", like)
+    if like.dim() != 4 or like.shape[-1] not in _HEAD_DIMS:
+        raise ValueError(f"flash_bwd_post: like must be (B, H, S, D) with D "
+                         f"in {_HEAD_DIMS}, got {tuple(like.shape)}")
+    b, h, s, d = like.shape
+    _check_f32_rows("flash_bwd_post", like,
+                    acc=(acc, (b * h, _padded_len(s), d)))
+    dq = _bshd(like)
+    rc = _fn("flash_bwd", "flash_bwd_post")(
+        d, acc.data_ptr(), dq.data_ptr(), b, h, s, _padded_len(s),
+        _strides(dq), 1.0 / math.sqrt(d),
+        torch.cuda.current_stream(acc.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd_post launch failed (code {rc})")
+    flash_bwd_post.launches += 1
+    return dq
+
+
+flash_bwd_post.launches = 0
+
+
 def flash_attention_bwd(q, k, v, mask, o, lse, do, dropout_p: float = 0.0,
                         seed: int = 0):
     """Flash backward (`flash_attention_bwd`): (dq, dk, dv) from the saved
-    forward output `o` and lse. For CUDA tensors delta = rowsum(dO * O) is
-    one PyTorch reduction, then the dq and the dk/dv kernels run; CPU
-    tensors take `attention_bwd_reference`."""
+    forward output `o` and lse. bf16 CUDA tensors: the pre-pass, the main
+    kernel and the post-pass; f32 CUDA tensors: delta as one PyTorch
+    reduction, then the f32 dq and dk/dv kernels; CPU tensors:
+    `attention_bwd_reference`. dO is copied to a contiguous tensor only
+    when its head dim or its strides are not what the kernels read; any
+    other layout the kernels cannot take raises."""
     if not _on_cuda("flash_attention_bwd", q):
         return attention_bwd_reference(q, k, v, mask, o, lse, do, dropout_p,
                                        seed)
     if do.stride(-1) != 1 or any(st % 8 for st in do.stride()[:3]):
         do = do.contiguous()
-    delta = attention_delta(o, do)
-    dq = flash_attention_bwd_dq(q, k, v, mask, lse, delta, do, dropout_p, seed)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do, dropout_p,
-                                     seed)
-    return dq, dk, dv
+    _check_bwd(q, k, v, o, do, mask)
+    if q.dtype == torch.float32:
+        delta = attention_delta(o, do)
+        dq = flash_attention_bwd_dq(q, k, v, mask, lse, delta, do, dropout_p,
+                                    seed)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do,
+                                         dropout_p, seed)
+        return dq, dk, dv
+    delta, lse2, acc = flash_bwd_prep(o, do, lse)
+    dk, dv = flash_bwd_main(q, k, v, mask, lse2, delta, acc, do, dropout_p,
+                            seed)
+    return flash_bwd_post(acc, q), dk, dv
 
 
 _DUMP_ORDERS = {"fwd": 0, "dkv": 1}
@@ -407,8 +600,9 @@ dump_keep_bits.launches = 0
 
 class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention (`_flash_attention_ad`): the forward
-    saves q, k, v, mask, seed, O and lse; the backward launches the dq and
-    dk/dv kernels, which regenerate the forward's keep bits from the seed."""
+    saves q, k, v, mask, seed, O and lse; the backward is
+    `flash_attention_bwd`, whose kernels regenerate the forward's keep bits
+    from the seed."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, seed: int, dropout_p: float):

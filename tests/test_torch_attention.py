@@ -129,3 +129,158 @@ def test_hopper_kernel_matches_plain_on_card(dtype):
     atol, rtol = (1e-4, 0.0) if dtype == "float32" else (2e-2, 1e-2)
     torch.testing.assert_close(o.float(), want_o.float(), atol=atol, rtol=rtol)
     torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
+
+
+# ----- the backward -------------------------------------------------------
+
+
+def _bwd_case(s, seed=0, p=0.0):
+    """q, k, v, a (B, S) mask with a padded tail and a fully masked row, dO,
+    and the port's plain forward O and lse (f32 numpy)."""
+    q, k, v, mask = _inputs(2, 2, s, 16, seed=seed, mask_kind="tail_and_empty")
+    g = np.random.RandomState(seed + 1).randn(*q.shape).astype(np.float32)
+    o, lse = tatt.attention_reference_lse(
+        *(torch.from_numpy(x) for x in (q, k, v)), torch.from_numpy(mask), p,
+        777)
+    return q, k, v, mask, g, o.numpy(), lse.numpy()
+
+
+@pytest.mark.parametrize("case", ["head_dim", "dtype", "stride", "shape",
+                                  "mask", "o_shape", "do_dtype", "align"])
+def test_bwd_argument_checks(case):
+    x = torch.zeros(2, 2, 40, 16)
+    q = k = v = o = do = x
+    mask = torch.ones(2, 40, dtype=torch.int32)
+    if case == "head_dim":
+        q = k = v = o = do = torch.zeros(2, 2, 40, 48)
+    elif case == "dtype":
+        q = k = v = o = do = x.half()
+    elif case == "stride":  # a row stride the tensor maps cannot take
+        k = torch.zeros(2, 2, 40, 17)[..., :16]
+    elif case == "shape":
+        v = torch.zeros(2, 2, 41, 16)
+    elif case == "mask":
+        mask = torch.ones(2, 41, dtype=torch.int32)
+    elif case == "o_shape":
+        o = torch.zeros(2, 2, 40, 32)
+    elif case == "do_dtype":
+        do = x.bfloat16()
+    else:  # data not 16-byte aligned
+        q = torch.zeros(2 * 2 * 40 * 16 + 1)[1:].view(2, 2, 40, 16)
+    with pytest.raises((ValueError, TypeError)):
+        tatt._check_bwd(q, k, v, o, do, mask)
+
+
+@pytest.mark.parametrize("case", ["ok", "shape", "dtype", "strided",
+                                  "device"])
+def test_bwd_buffer_checks(case):
+    # lse2, delta and the dq accumulator as flash_bwd_prep makes them
+    like = torch.zeros(2, 2, 40, 16)
+    lse2, delta = torch.zeros(4, 64), torch.zeros(4, 64)
+    acc = torch.zeros(4, 64, 16)
+    if case == "shape":
+        acc = torch.zeros(4, 40, 16)
+    elif case == "dtype":
+        delta = delta.bfloat16()
+    elif case == "strided":  # bulk reduce-adds would land on wrong rows
+        acc = torch.zeros(4, 64, 32)[..., :16]
+    elif case == "device":
+        lse2 = torch.zeros(4, 64, device="meta")
+    rows = dict(lse2=(lse2, (4, 64)), delta=(delta, (4, 64)),
+                acc=(acc, (4, 64, 16)))
+    if case == "ok":
+        tatt._check_f32_rows("flash_bwd_main", like, **rows)
+        tatt._check_bf16("flash_bwd_post", like.bfloat16())
+        return
+    with pytest.raises(ValueError):
+        tatt._check_f32_rows("flash_bwd_main", like, **rows)
+    with pytest.raises(TypeError):  # the post-pass writes bf16 into `like`'s
+        tatt._check_bf16("flash_bwd_post", like)  # layout
+
+
+def test_bwd_argument_checks_pass_the_head_split_layout():
+    # the encoder's head-split views of (B, S, H*D) projections
+    x = torch.zeros(2, 40, 2 * 16).view(2, 40, 2, 16).transpose(1, 2)
+    tatt._check_bwd(x, x, x, x, x, torch.ones(2, 40, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("s", [40, 130])
+def test_attention_delta_matches_jax_formula(s):
+    _, _, _, _, g, o, _ = _bwd_case(s, seed=s)
+    bh = o.shape[0] * o.shape[1]
+    # `flash_attention_bwd`'s delta in the JAX package
+    want = jnp.sum(jnp.asarray(g).reshape(bh, s, 16).astype(jnp.float32)
+                   * jnp.asarray(o).reshape(bh, s, 16).astype(jnp.float32), -1)
+    got = tatt.attention_delta(torch.from_numpy(o), torch.from_numpy(g))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6,
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("s", [40, 64, 130])
+def test_bwd_prep_pads_to_whole_tiles(s):
+    _, _, _, _, g, o, lse = _bwd_case(s, seed=s)
+    o_t, g_t, lse_t = (torch.from_numpy(x) for x in (o, g, lse))
+    delta, lse2, acc = tatt.attention_bwd_prep_reference(o_t, g_t, lse_t)
+    s_pad = -(-s // 64) * 64
+    assert delta.shape == lse2.shape == (4, s_pad)
+    assert acc.shape == (4, s_pad, 16) and not acc.any()
+    assert torch.equal(delta[:, :s], tatt.attention_delta(o_t, g_t))
+    assert not delta[:, s:].any() and torch.isinf(lse2[:, s:]).all()
+    np.testing.assert_allclose(lse2[:, :s].numpy(), lse * np.log2(np.e),
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_bwd_post_undoes_the_accumulator_chunk_swizzle(d):
+    # the main kernel stores chunk c of row r at chunk c ^ (r & m)
+    b, h, s = 1, 2, 70
+    dq = torch.randn(b, h, s, d)
+    m = min(8, d // 4) - 1
+    acc = torch.zeros(b * h, 128, d // 4, 4)
+    for r in range(s):
+        for c in range(d // 4):
+            acc[:, r, c ^ (r & m)] = dq[0, :, r, 4 * c:4 * c + 4]
+    got = tatt.attention_bwd_post_reference(acc.view(b * h, 128, d), dq)
+    torch.testing.assert_close(got, dq / np.sqrt(d), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("s", [40, 130])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_bwd_on_cpu_matches_pallas_backward_interpret(s, p):
+    q, k, v, mask, g, o, lse = _bwd_case(s, seed=s, p=p)
+    seed = 777
+    want = jatt.flash_attention_bwd(
+        *(jnp.asarray(x) for x in (q, k, v, mask, o)),
+        jnp.asarray(lse.reshape(4, 1, s)), jnp.asarray(g), interpret=True,
+        dropout_p=p, seed=jnp.int32(seed), bits_hw=False)
+    got = tatt.flash_attention_bwd(
+        *(torch.from_numpy(x) for x in (q, k, v, mask, o, lse, g)), p, seed)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=ATOL,
+                                   rtol=0, err_msg=name)
+    for grad in got:  # the fully masked batch row
+        assert torch.all(grad[0] == 0)
+
+
+@pytest.mark.cuda
+def test_hopper_bwd_launches_and_deterministic_dk_dv_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q, k, v, mask = (torch.from_numpy(x).cuda()
+                     for x in _inputs(2, 4, 566, 64, mask_kind="tail_and_empty"))
+    q, k, v = (x.bfloat16() for x in (q, k, v))
+    o, lse = tatt.flash_attention(q, k, v, mask, 0.1, 5)
+    do = torch.randn_like(q)
+    fns = (tatt.flash_bwd_prep, tatt.flash_bwd_main, tatt.flash_bwd_post,
+           tatt.flash_attention_bwd_dq, tatt.flash_attention_bwd_dkv)
+    before = [f.launches for f in fns]
+    first = tatt.flash_attention_bwd(q, k, v, mask, o, lse, do, 0.1, 5)
+    again = tatt.flash_attention_bwd(q, k, v, mask, o, lse, do, 0.1, 5)
+    assert [f.launches - n for f, n in zip(fns, before)] == [2, 2, 2, 0, 0]
+    assert torch.equal(first[1], again[1]) and torch.equal(first[2], again[2])
+    # dq's partials are reduce-added in a varying order: f32 rounding only
+    torch.testing.assert_close(first[0], again[0], atol=2e-2, rtol=1e-2)
+    want = tatt.attention_bwd_reference(q, k, v, mask, o, lse, do, 0.1, 5)
+    for a, w in zip(first, want):
+        lim = 2e-2 * w.float().abs().max() + 2e-2 * w.float().abs()
+        assert ((a.float() - w.float()).abs() <= lim).all()

@@ -99,9 +99,10 @@ def test_flash_attention_function_on_cpu():
     q, k, v, mask, g = _inputs(1, 2, 40, 16, seed=3)
     tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
     m = torch.from_numpy(mask)
-    before = (tatt.flash_attention.launches,
-              tatt.flash_attention_bwd_dq.launches,
-              tatt.flash_attention_bwd_dkv.launches)
+    counted = (tatt.flash_attention, tatt.flash_bwd_prep, tatt.flash_bwd_main,
+               tatt.flash_bwd_post, tatt.flash_attention_bwd_dq,
+               tatt.flash_attention_bwd_dkv)
+    before = [f.launches for f in counted]
     o = tatt.FlashAttention.apply(tq, tk, tv, m, 99, 0.1)
     o.backward(torch.from_numpy(g))
     with torch.no_grad():
@@ -112,9 +113,7 @@ def test_flash_attention_function_on_cpu():
     for a, b in zip((tq.grad, tk.grad, tv.grad), want):
         assert torch.equal(a, b)
     # CPU tensors take the plain versions: no kernel launch is counted
-    assert before == (tatt.flash_attention.launches,
-                      tatt.flash_attention_bwd_dq.launches,
-                      tatt.flash_attention_bwd_dkv.launches)
+    assert before == [f.launches for f in counted]
 
 
 def test_dropout_needs_a_seed_and_a_valid_rate():
@@ -125,6 +124,12 @@ def test_dropout_needs_a_seed_and_a_valid_rate():
         tatt.flash_attention(q, k, v, mask, dropout_p=1.0)
     with pytest.raises(ValueError):  # the backward kernels take CUDA tensors
         tatt.flash_attention_bwd_dq(q, k, v, mask, None, None, q)
+    with pytest.raises(ValueError):
+        tatt.flash_bwd_main(q, k, v, mask, None, None, None, q, 0.1, 3)
+    with pytest.raises(ValueError):
+        tatt.flash_bwd_prep(q, q, None)
+    with pytest.raises(ValueError):
+        tatt.flash_bwd_post(torch.zeros(1, 64, 16), q)
 
 
 @pytest.mark.parametrize("order", ["fwd", "dkv"])
@@ -182,6 +187,9 @@ def test_hopper_dropout_kernels_match_plain_on_card(dtype):
         scale = 1e-5 if dtype == "float32" else 2e-2
         assert ((a.float() - b.float()).abs()
                 <= scale * b.float().abs().max() + scale * b.float().abs()).all()
+    # dk and dv are summed in a fixed order: a rerun is bit-equal
+    again = tatt.flash_attention_bwd(q, k, v, mask, o, lse, g, 0.1, 42)
+    assert torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])
     for order in ("fwd", "dkv"):
         assert torch.equal(tatt.dump_keep_bits(order, 42, 2, 4, 566, 0.1),
                            tatt.keep_bits(42, 2, 4, 566, 0.1, "cuda"))
