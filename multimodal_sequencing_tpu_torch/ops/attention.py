@@ -280,7 +280,8 @@ def _check_qkv(name, tensors, mask):
     if b * h > 65535:
         raise ValueError(f"{name} takes at most 65535 batch*heads, got {b * h}")
     for x in tensors:
-        # rows are read as 16-byte vectors
+        # rows are read as 16-byte vectors and, in bf16, through TMA tensor
+        # maps: a 16-byte aligned base and strides of whole 16 bytes
         if (x.stride(-1) != 1 or any(st % 8 for st in x.stride()[:3])
                 or x.data_ptr() % 16):
             raise ValueError(f"{name} needs a contiguous head dim, row strides "
@@ -294,6 +295,9 @@ def _check_qkv(name, tensors, mask):
 
 
 def _check(q, k, v, mask):
+    """Raises on what the forward kernels do not take; the bf16 kernel reads
+    q, k, v and writes o through TMA tensor maps, which take exactly the
+    layouts `_check_qkv` admits."""
     _check_qkv("flash_fwd", (q, k, v), mask)
 
 
@@ -337,11 +341,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Flash attention forward: (o (B, H, S, D), lse (B*H, S) f32).
 
     q, k, v: (B, H, S, D), any S, head dim 16, 32 or 64, float32 or
-    bfloat16; the head dim must be contiguous (a head-split view of a
-    (B, S, H*D) projection is taken as is). mask: (B, S) key keep-mask.
-    dropout_p > 0 drops the probabilities by the keep bits of `seed`
-    (int32). The returned o is laid out (B, S, H, D) in memory.
-    `flash_attention.launches` counts kernel launches."""
+    bfloat16; the head dim must be contiguous, the data 16-byte aligned
+    and the other strides multiples of 8 elements (a head-split view of a
+    (B, S, H*D) projection is taken as is; anything else raises). mask:
+    (B, S) key keep-mask. dropout_p > 0 drops the probabilities by the keep
+    bits of `seed` (int32). The returned o is laid out (B, S, H, D) in
+    memory. bf16 CUDA tensors go through the TMA/wgmma kernel, f32 CUDA
+    tensors through the f32 kernel, CPU tensors through
+    `attention_reference_lse`. `flash_attention.launches` counts kernel
+    launches."""
     seed_u, thresh, inv_keep = _dropout_args(dropout_p, seed)
     if not _on_cuda("flash_attention", q):
         return attention_reference_lse(q, k, v, mask, dropout_p, seed)

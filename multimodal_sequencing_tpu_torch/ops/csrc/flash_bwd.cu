@@ -61,15 +61,14 @@
 // design hashes each element once (the earlier dq and dk/dv kernels hashed
 // it twice). Its times are in PERF.md.
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 #include <math.h>
 
 #include "keep_bits.cuh"
-#include "mma_bf16.cuh"
 #include "sm90.cuh"
+#include "tensor_map.cuh"  // head_map, kmajor_at, mnmajor_at
 
 namespace {
 
@@ -337,10 +336,8 @@ struct MainParams {
 template <int D>
 __host__ __device__ constexpr int dq_swizzle() { return (D / 4 < 8 ? D / 4 : 8) - 1; }
 
-// Q, K, V and dO tiles: row-major, 64 rows of D*2 bytes whose 16-byte
-// chunks TMA swizzles (its SWIZZLE_{D*2}B mode, which wgmma reads as its
-// layout of the same name), each on a 1 KB boundary. dS^T: the slab layout
-// of sm90.cuh.
+// Q, K, V and dO tiles: tensor_map.cuh's swizzled 64-row tiles, each on a
+// 1 KB boundary. dS^T: the slab layout of sm90.cuh.
 template <int D>
 struct MainSmem {
   __nv_bfloat16 k[BLOCK * D];
@@ -355,52 +352,17 @@ struct MainSmem {
   uint64_t kv;
 };
 
-// Rows [row0, row0 + 64) of one head of a (B, S, H, D)-indexed tensor map:
-// one TMA box, row-major, D*2 bytes a row, its 16-byte chunks swizzled by
-// the map (SWIZZLE_{D*2}B).
+// Rows [row0, row0 + 64) of one head of a (B, S, H, D)-indexed tensor map
+// (tensor_map.cuh's tile).
 template <int D>
 __device__ __forceinline__ void load_tile(const CUtensorMap* map,
                                           __nv_bfloat16* dst, int row0, int h,
                                           int b, uint64_t* bar) {
   tma_load_4d(dst, map, bar, 0, row0, h, b);
 }
-// descriptor layout of a D*2-byte swizzle
-template <int D>
-__device__ __forceinline__ constexpr uint32_t tile_layout() {
-  return D == 64 ? 1 : D == 32 ? 2 : 3;
-}
-// Operand descriptors of a swizzled tile. K-major (the head dim is K):
-// 8-row groups D*16 bytes apart; K steps of 16 move 32 bytes along the row.
-// MN-major (the rows are K): K steps of 16 rows.
-template <int D>
-__device__ __forceinline__ uint64_t kmajor_at(const __nv_bfloat16* t, int row0,
-                                              int ks) {
-  return wgmma_desc(t + row0 * D + ks * 16, 16, D * 16, tile_layout<D>());
-}
-template <int D>
-__device__ __forceinline__ uint64_t mnmajor_at(const __nv_bfloat16* t, int kk) {
-  return wgmma_desc(t + kk * 16 * D, BLOCK * D * 2, D * 16, tile_layout<D>());
-}
 // dS^T in the slab layout, MN-major (q runs along a slab)
 __device__ __forceinline__ uint64_t ds_desc(const __nv_bfloat16* t, int kk) {
   return wgmma_desc(t + kk * 16 * 8, 128, BLOCK * 16);
-}
-
-// 2^x by the hardware's approximation (a few ulps; results below 2^-126
-// flush to 0). p only feeds bf16 products and dS, where such a p is lost
-// anyway, and the exact exp2f's range handling lengthens the per-element
-// work that bounds this kernel.
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float* x) {
-  a[0] = pack_bf16(x[0], x[1]);
-  a[1] = pack_bf16(x[2], x[3]);
-  a[2] = pack_bf16(x[4], x[5]);
-  a[3] = pack_bf16(x[6], x[7]);
 }
 
 template <int D>
@@ -656,56 +618,6 @@ void set_strides(long long& sb, long long& sh, long long& ss,
   sb = s[0]; sh = s[1]; ss = s[2];
 }
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                  void*, const cuuint64_t*, const cuuint64_t*,
-                                  const cuuint32_t*, const cuuint32_t*,
-                                  CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime, so the
-// library needs no link against libcuda.
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(ptr);
-  }
-  return fn;
-}
-
-// Tensor map of a bf16 (B, H, S, D)-indexed tensor with element strides
-// (sb, sh, ss) and a contiguous head dim, in boxes of 64 rows of one head,
-// swizzled for wgmma; rows past S read as zeros.
-bool head_map(CUtensorMap* map, const void* base, int batch, int heads,
-              int seq_len, int head_dim, const long long* strides) {
-  EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)head_dim, (cuuint64_t)seq_len,
-                              (cuuint64_t)heads, (cuuint64_t)batch};
-  const cuuint64_t bytes[3] = {(cuuint64_t)strides[2] * 2,
-                               (cuuint64_t)strides[1] * 2,
-                               (cuuint64_t)strides[0] * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)head_dim, BLOCK, 1, 1};
-  const CUtensorMapSwizzle swizzle =  // a row of D bf16 is one swizzle span
-      head_dim == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-      : head_dim == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-            dims, bytes, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 bool bf16_shape_ok(int head_dim, int batch, int heads, int seq_len,
                    int s_pad) {
   return (head_dim == 16 || head_dim == 32 || head_dim == 64) && batch > 0 &&
@@ -724,8 +636,7 @@ template <int D>
 int launch_main(const CUtensorMap (&maps)[4], const MainParams& p, int bh,
                 cudaStream_t st) {
   const int smem = static_cast<int>(sizeof(MainSmem<D>)) + 1024;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_main_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = allow_smem<flash_bwd_main_kernel<D>>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.S + BLOCK - 1) / BLOCK, bh);
   flash_bwd_main_kernel<D><<<grid, 128, smem, st>>>(maps[0], maps[1], maps[2],

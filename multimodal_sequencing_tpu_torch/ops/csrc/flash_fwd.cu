@@ -6,37 +6,52 @@
 // keep-mask applied by `where` (masked real keys score NEG_INF = -1e9, so a
 // row whose keys are all masked comes out uniform over the S real keys), the
 // context O in the input dtype and the per-row logsumexp
-// lse = m + log(max(l, 1e-30)) in f32, which the backward kernels read.
+// lse = m + log(max(l, 1e-30)) in f32, natural log, which the backward reads.
 // With dropout (thresh > 0) the HF "probs" dropout is fused in as in the
 // TPU kernel: the normaliser l sums the undropped p, the context sums the
 // p that `keep_bits.cuh` keeps, and O is rescaled by 1 / (1 - p_drop). The
-// bits are per element, so these 64 x 64 tiles regenerate exactly the bits
-// of the TPU kernel's whole-row block and of the backward kernels.
+// bits are per element, so these tiles regenerate exactly the bits of the
+// TPU kernel's whole-row block and of the backward kernels.
 //
-// Design, for this card rather than the TPU's sequential grid:
-//  * One block per (64-row q-tile, batch*head); the K/V loop that was the
-//    TPU's inner grid dimension is a loop inside the block over 64-key tiles
-//    staged in shared memory. Any S works: key columns j >= S are excluded
-//    (-inf, weight 0), distinct from masked real keys (-1e9), so padding
-//    never joins a fully masked row's uniform average; q rows >= S are
-//    computed on zeros and not stored. No S rule of the TPU (block sizes,
-//    128-multiples) applies.
-//  * bf16 (the product): 4 warps, each owning 16 q rows, run both products
-//    on the tensor cores with mma.sync m16n8k16 (bf16 in, f32 accumulate).
-//    The score accumulator fragments are re-packed in registers as the A
-//    operand of P.V, so P never touches shared memory. V is stored
-//    transposed in shared memory so each B fragment is one 32-bit load;
-//    row padding of 8 elements makes those loads bank-conflict free.
-//  * f32 (exact checks): one thread per q row, scalar FMA, K/V tiles read
-//    as shared-memory broadcasts.
+// bf16 (the product), `flash_fwd_bf16_kernel`: one warpgroup (128 threads)
+// a block, for one 64-row q tile of one batch*head.
+//  * Loads: the Q tile once by TMA; K and V tiles by TMA into
+//    a ring of two stages under mbarriers, so key tile j+1 is in flight
+//    while tile j computes. Each tile is one TMA box of a 4-d tensor map over
+//    the head-split (B, S, H, D) view (`tensor_map.cuh`), swizzled as wgmma
+//    reads it; rows past S arrive as zeros. The block packs its batch row's
+//    key mask into bits in shared memory once (2 words a key tile), since a
+//    mask row of S int32 is not 16-byte aligned for TMA at S = 566.
+//  * Products on `wgmma`: S = Q K^T with both operands K-major as stored
+//    (SS); O += P V with the S accumulator re-packed in registers as bf16 P
+//    (the RS A operand) and V read MN-major through wgmma's transpose, as
+//    stored: no transposed copy of V.
+//  * Softmax: online max and sum in registers, in log2 units with
+//    scale * log2(e) folded into one multiply, and the hardware ex2.approx.
+//    A masked real key scores MASKED2 (finite, far below any real score:
+//    exp2 of its gap to a real row max is 0, and a row of masked keys has
+//    max MASKED2 and weights exp2(0) = 1, whose lse is written as -1e9 +
+//    log l); a key past S scores -inf (weight 0). A tile whose 64 keys are
+//    all real and kept skips the selects.
+//  * Epilogue: O scaled by 1/l in bf16 into the Q buffer in the map's
+//    swizzle, then one TMA store into the (B, S, H, D) layout (rows past S
+//    are not written); lse by the threads that own it.
+//  A block of two warpgroups that share the K/V ring (FA3's shape) was
+//  slower at both measured shapes (PERF.md), so a block takes one q tile.
+//
+// f32 (exact checks), `flash_fwd_f32_kernel`: one thread per q row, scalar
+// FMA, K/V tiles read as shared-memory broadcasts.
 //
 // Bound on this card: at the eval shape (B*H = 512, S = 320, D = 64, bf16)
 // the function moves 4*B*H*S*D*2 B (q, k, v read once, o written once) plus
-// the f32 lse, ~84.6 MB, and does 4*B*H*S^2*D ~ 13.4 GFLOP. Its intensity,
-// S/2 = 160 FLOP/B, is below the H100's ~295 bf16 FLOP/B ridge, so it is
-// bound by memory: ~25 us at the published 3.35 TB/s. This first version
-// re-reads K/V once per q-tile from L2 and does not overlap loads with the
-// products (no cp.async/TMA, no wgmma); its measured time is in PERF.md.
+// the f32 lse and the mask, ~84.6 MB, and does 4*B*H*S^2*D ~ 13.4 GFLOP. Its
+// intensity, S/2 = 160 FLOP/B, is below the H100's ~295 bf16 FLOP/B ridge,
+// so bytes bound it: ~25 us at the published 3.35 TB/s. At the train shape
+// (B*H = 128, dropout 0.1) the bound is ~6.3 us, but the keep-bit hash, ~13
+// integer operations per element of B*H*S^2 = 13.1 M, is ~10 us of integer
+// work at 132 SMs x 64 operations per clock x ~1.98 GHz: a floor above the
+// byte bound until the hash overlaps the products. Measured times are in
+// PERF.md.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -44,13 +59,18 @@
 #include <math.h>
 
 #include "keep_bits.cuh"
-#include "mma_bf16.cuh"
+#include "sm90.cuh"
+#include "tensor_map.cuh"  // head_map, kmajor_at, mnmajor_at, tile_offset
 
 namespace {
 
-constexpr int BLOCK_M = 64;   // q rows per block
-constexpr int BLOCK_N = 64;   // keys per shared-memory tile
+constexpr int BLOCK_M = 64;   // q rows per tile (f32: per block)
+constexpr int BLOCK_N = 64;   // keys per tile
+constexpr int STAGES = 2;     // K/V tiles in flight in the bf16 kernel
 constexpr float MASKED = -1e9f;
+constexpr float MASKED2 = -1e30f;  // a masked real key, in the log2 units
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;
@@ -76,170 +96,194 @@ __device__ __forceinline__ float masked_score(float s, int keep) {
   return keep > 0 ? s : (keep == 0 ? MASKED : -INFINITY);
 }
 
+// ----- bf16 ------------------------------------------------------------------------
+
+struct Bf16Params {
+  const int* mask;   // (B, S)
+  float* lse;        // (B*H, S)
+  int H, S, n_kt;
+  float scale_log2;  // scale * log2(e)
+  uint32_t seed, thresh;
+  float inv_keep;
+};
+
 template <int D>
-__global__ void __launch_bounds__(128)
-flash_fwd_bf16_kernel(const Params p) {
-  constexpr int KSTEPS = D / 16;        // k-steps over the head dim (Q.K^T)
-  constexpr int DTILES = D / 8;         // n-tiles over the head dim (P.V)
-  constexpr int NTILES = BLOCK_N / 8;   // n-tiles over the keys (Q.K^T)
-  constexpr int CH = D / 8;             // 16-byte chunks per row
-  constexpr int LDK = D + 8;
-  constexpr int LDV = BLOCK_N + 8;
-  __shared__ __align__(16) __nv_bfloat16 sQ[BLOCK_M][LDK];
-  __shared__ __align__(16) __nv_bfloat16 sK[BLOCK_N][LDK];
-  __shared__ __align__(16) __nv_bfloat16 sVt[D][LDV];
-  __shared__ int sKeep[BLOCK_N];
+struct Bf16Smem {
+  __nv_bfloat16 q[BLOCK_M * D];  // the Q tile, then the O tile
+  __nv_bfloat16 k[STAGES][BLOCK_N * D];
+  __nv_bfloat16 v[STAGES][BLOCK_N * D];
+  uint64_t full[STAGES];
+  uint64_t qbar;
+  // followed by the key mask bits: word 2 kt + c / 32, bit c % 32, is key
+  // kt * 64 + c (1 = real and kept)
+};
 
-  const int bh = blockIdx.y;
-  const int b = bh / p.H, h = bh % p.H;
-  const int q0 = blockIdx.x * BLOCK_M;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int S = p.S;
-  const __nv_bfloat16* Q = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* K = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* V = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  __nv_bfloat16* O = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
+template <int D>
+__global__ void __launch_bounds__(128, 4)
+flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
+                      const __grid_constant__ CUtensorMap map_k,
+                      const __grid_constant__ CUtensorMap map_v,
+                      const __grid_constant__ CUtensorMap map_o,
+                      const Bf16Params p) {
+  constexpr int TILE_BYTES = BLOCK_N * D * 2;
+  constexpr int DH = D / 2;  // O accumulator floats a thread
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // swizzled tiles start on 1 KB boundaries
+  Bf16Smem<D>& sm = *reinterpret_cast<Bf16Smem<D>*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint32_t* keep_words = reinterpret_cast<uint32_t*>(&sm + 1);
+
+  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H, S = p.S;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * BLOCK_M;  // the block's first q row
+  const int n_kt = p.n_kt;
+
+  auto issue_kv = [&](int i) {
+    const int st = i % STAGES;
+    mbar_expect_tx(&sm.full[st], 2 * TILE_BYTES);
+    tma_load_4d(sm.k[st], &map_k, &sm.full[st], 0, i * BLOCK_N, h, b);
+    tma_load_4d(sm.v[st], &map_v, &sm.full[st], 0, i * BLOCK_N, h, b);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) mbar_init(&sm.full[s], 1);
+    mbar_init(&sm.qbar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(&sm.qbar, TILE_BYTES);
+    tma_load_4d(sm.q, &map_q, &sm.qbar, 0, q0, h, b);
+    for (int i = 0; i < STAGES && i < n_kt; ++i) issue_kv(i);
+  }
+  // the batch row's key mask as bits, 32 keys a warp at a time
   const int* M = p.mask + (long long)b * S;
-  const uint32_t seed_bh = seed_for_bh(p.seed, bh);
-
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int c = tid; c < BLOCK_M * CH; c += blockDim.x) {
-    const int r = c / CH, col = (c % CH) * 8;
-    uint4 val = zero;
-    if (q0 + r < S) val = *reinterpret_cast<const uint4*>(Q + (q0 + r) * p.q_ss + col);
-    *reinterpret_cast<uint4*>(&sQ[r][col]) = val;
+  for (int base = (tid >> 5) * 32; base < n_kt * BLOCK_N; base += 128) {
+    const int key = base + lane;
+    const uint32_t bits = __ballot_sync(0xffffffffu, key < S && M[key] != 0);
+    if (lane == 0) keep_words[base >> 5] = bits;
   }
   __syncthreads();
 
-  const int r0 = warp * 16 + g;
-  uint32_t qa[KSTEPS][4];
+  const uint32_t seed_bh = seed_for_bh(p.seed, bh);
+  // this thread's accumulator rows: q rows r0 and r0 + 8
+  const int row_in_tile = warp * 16 + g, r0 = q0 + row_in_tile;
+  float o[DH];
 #pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks) {
-    qa[ks][0] = ld32(&sQ[r0][ks * 16 + 2 * t]);
-    qa[ks][1] = ld32(&sQ[r0 + 8][ks * 16 + 2 * t]);
-    qa[ks][2] = ld32(&sQ[r0][ks * 16 + 8 + 2 * t]);
-    qa[ks][3] = ld32(&sQ[r0 + 8][ks * 16 + 8 + 2 * t]);
-  }
+  for (int i = 0; i < DH; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  mbar_wait(&sm.qbar, 0);
 
-  float acc[DTILES][4];
+  for (int it = 0; it < n_kt; ++it) {
+    const int st = it % STAGES, k0 = it * BLOCK_N;
+    mbar_wait(&sm.full[st], (it / STAGES) & 1);
+    float s[BLOCK_N / 2];  // S = Q K^T, 64 q rows x 64 keys
 #pragma unroll
-  for (int dt = 0; dt < DTILES; ++dt)
+    for (int i = 0; i < BLOCK_N / 2; ++i) s[i] = 0.f;
+    wgmma_fence();
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-  // this thread's two rows: r0 (elements 0,1) and r0 + 8 (elements 2,3)
-  float m_row[2] = {-INFINITY, -INFINITY};
-  float l_row[2] = {0.f, 0.f};
+    for (int ks = 0; ks < D / 16; ++ks)
+      Wgmma<BLOCK_N>::template ss<0, 0>(s, kmajor_at<D>(sm.q, 0, ks),
+                                        kmajor_at<D>(sm.k[st], 0, ks), ks > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
 
-  const int n_kt = (S + BLOCK_N - 1) / BLOCK_N;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BLOCK_N;
-    __syncthreads();  // the previous tile's readers are done
-    for (int c = tid; c < BLOCK_N * CH; c += blockDim.x) {
-      const int r = c / CH, col = (c % CH) * 8;
-      uint4 kv = zero, vv = zero;
-      if (k0 + r < S) {
-        kv = *reinterpret_cast<const uint4*>(K + (k0 + r) * p.k_ss + col);
-        vv = *reinterpret_cast<const uint4*>(V + (k0 + r) * p.v_ss + col);
-      }
-      *reinterpret_cast<uint4*>(&sK[r][col]) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
+    // scores in log2 units, masked; the row max over the tile and before
+    const uint32_t w0 = keep_words[2 * it], w1 = keep_words[2 * it + 1];
+    const bool plain = (w0 & w1) == 0xffffffffu;  // every key real and kept
+    float mx[2] = {m[0], m[1]};
 #pragma unroll
-      for (int i = 0; i < 8; ++i) sVt[col + i][r] = ve[i];
-    }
-    for (int j = tid; j < BLOCK_N; j += blockDim.x) {
-      const int key = k0 + j;
-      sKeep[j] = key < S ? (M[key] != 0 ? 1 : 0) : -1;
-    }
-    __syncthreads();
-
-    float s[NTILES][4];
-#pragma unroll
-    for (int nt = 0; nt < NTILES; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < KSTEPS; ++ks) {
-        const __nv_bfloat16* kr = &sK[nt * 8 + g][ks * 16 + 2 * t];
-        mma_16816(s[nt], qa[ks], ld32(kr), ld32(kr + 8));
-      }
-    }
-
-    // Tile kt holds key k0 < S, so each row max below is finite.
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < NTILES; ++nt)
+    for (int j = 0; j < BLOCK_N / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float val = masked_score(s[nt][e] * p.scale, sKeep[nt * 8 + 2 * t + (e & 1)]);
-        s[nt][e] = val;
-        mx[e >> 1] = fmaxf(mx[e >> 1], val);
+        const int c = 8 * j + 2 * t + (e & 1);
+        float x = s[4 * j + e] * p.scale_log2;
+        if (!plain) {
+          const uint32_t word = j < 4 ? w0 : w1;
+          x = (word >> (c & 31)) & 1u ? x : (k0 + c < S ? MASKED2 : -INFINITY);
+        }
+        s[4 * j + e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
     float alpha[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
+      // tile it holds key k0 < S, so the new max is finite
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m_row[i], mx[i]);
-      alpha[i] = expf(m_row[i] - m_new);
-      m_row[i] = m_new;
+      alpha[i] = fast_exp2(m[i] - mx[i]);  // 0 on the first tile
+      m[i] = mx[i];
     }
     float rs[2] = {0.f, 0.f};
 #pragma unroll
-    for (int nt = 0; nt < NTILES; ++nt)
+    for (int j = 0; j < BLOCK_N / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float pe = expf(s[nt][e] - m_row[e >> 1]);
-        s[nt][e] = pe;
-        rs[e >> 1] += pe;
+        const float pv = fast_exp2(s[4 * j + e] - m[e >> 1]);
+        rs[e >> 1] += pv;
+        s[4 * j + e] = pv;
       }
     if (p.thresh) {  // drop after the undropped p joined the normaliser
 #pragma unroll
-      for (int nt = 0; nt < NTILES; ++nt)
+      for (int j = 0; j < BLOCK_N / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          if (!keep_bit(seed_bh, q0 + r0 + 8 * (e >> 1), k0 + nt * 8 + 2 * t + (e & 1),
+          if (!keep_bit(seed_bh, r0 + 8 * (e >> 1), k0 + 8 * j + 2 * t + (e & 1),
                         S, p.thresh))
-            s[nt][e] = 0.f;
+            s[4 * j + e] = 0.f;
     }
 #pragma unroll
-    for (int i = 0; i < 2; ++i) l_row[i] = l_row[i] * alpha[i] + rs[i];
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
 #pragma unroll
-    for (int dt = 0; dt < DTILES; ++dt)
+    for (int i = 0; i < DH; ++i) o[i] *= alpha[(i >> 1) & 1];
+    uint32_t pa[BLOCK_N / 16][4];  // P as the A operand, 16 keys a step
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[dt][e] *= alpha[e >> 1];
+    for (int kk = 0; kk < BLOCK_N / 16; ++kk) pack_a(pa[kk], s + 8 * kk);
 
+    fence_regs(o);
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BLOCK_N / 16; ++kk) {
-      uint32_t pa[4];
-      acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int dt = 0; dt < DTILES; ++dt) {
-        const __nv_bfloat16* vr = &sVt[dt * 8 + g][kk * 16 + 2 * t];
-        mma_16816(acc[dt], pa, ld32(vr), ld32(vr + 8));
-      }
-    }
+    for (int kk = 0; kk < BLOCK_N / 16; ++kk)
+      Wgmma<D>::template rs<1>(o, pa[kk], mnmajor_at<D>(sm.v[st], kk), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+    __syncthreads();  // stage st is free again
+    if (tid == 0 && it + STAGES < n_kt) issue_kv(it + STAGES);
   }
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    l_row[i] += __shfl_xor_sync(0xffffffffu, l_row[i], 1);
-    l_row[i] += __shfl_xor_sync(0xffffffffu, l_row[i], 2);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
   }
+  // O into the Q buffer (the products are done), swizzled as the O map
+  // stores it
+  unsigned char* out = reinterpret_cast<unsigned char*>(sm.q);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int row = q0 + r0 + 8 * i;
-    if (row >= S) continue;
-    const float l_safe = fmaxf(l_row[i], 1e-30f);
+    const float l_safe = fmaxf(l[i], 1e-30f);
     const float inv = p.inv_keep / l_safe;
+    const int r = row_in_tile + 8 * i;
 #pragma unroll
-    for (int dt = 0; dt < DTILES; ++dt) {
-      *reinterpret_cast<uint32_t*>(O + row * p.o_ss + dt * 8 + 2 * t) =
-          pack_bf16(acc[dt][2 * i] * inv, acc[dt][2 * i + 1] * inv);
-    }
-    if (t == 0) p.lse[(long long)bh * S + row] = m_row[i] + logf(l_safe);
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(out + tile_offset<D>(r, 16 * j + 4 * t)) =
+          pack_bf16(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
+    if (t == 0 && q0 + r < S)
+      p.lse[(long long)bh * S + q0 + r] =
+          (m[i] == MASKED2 ? MASKED : m[i] * LN2) + logf(l_safe);
+  }
+  fence_proxy_async();
+  __syncthreads();
+  if (tid == 0) {
+    tma_store_4d(&map_o, sm.q, 0, q0, h, b);
+    bulk_commit();
+    bulk_wait_read();  // the stores have read shared memory
   }
 }
+
+// ----- f32 (exact checks) ------------------------------------------------------------
 
 template <int D>
 __global__ void __launch_bounds__(BLOCK_M)
@@ -318,28 +362,59 @@ flash_fwd_f32_kernel(const Params p) {
   }
 }
 
+// ----- host ------------------------------------------------------------------------
+
 template <int D>
-void launch(int dtype, const Params& p, dim3 grid, cudaStream_t stream) {
-  if (dtype == 1)
-    flash_fwd_bf16_kernel<D><<<grid, 128, 0, stream>>>(p);
-  else
-    flash_fwd_f32_kernel<D><<<grid, BLOCK_M, 0, stream>>>(p);
+int launch_bf16(const CUtensorMap (&maps)[4], const Bf16Params& p, int bh,
+                cudaStream_t st) {
+  const int smem = static_cast<int>(sizeof(Bf16Smem<D>)) + 1024 + 2 * p.n_kt * 4;
+  if (smem > 227 * 1024) return -1;
+  cudaError_t err = allow_smem<flash_fwd_bf16_kernel<D>>(smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((p.S + BLOCK_M - 1) / BLOCK_M, bh);
+  flash_fwd_bf16_kernel<D><<<grid, 128, smem, st>>>(maps[0], maps[1], maps[2],
+                                                    maps[3], p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. strides: 12 element strides, (batch,
-// head, row) for q, k, v and o in that order; the head dim is contiguous.
-// seed, thresh, inv_keep: the dropout (thresh = 0: none). Returns 0, a CUDA
-// error code from the launch, or -1 for arguments the kernel does not take.
+// head, row) for q, k, v and o in that order; the head dim is contiguous,
+// and for bf16 every base is 16-byte aligned with strides that are multiples
+// of 8 elements (what the tensor maps take). seed, thresh, inv_keep: the
+// dropout (thresh = 0: none). Returns 0, a CUDA error code from the launch,
+// -1 for arguments the kernel does not take, or -2 when a tensor map cannot
+// be made.
 extern "C" int flash_fwd(int dtype, int head_dim, const void* q, const void* k,
                          const void* v, const int* mask, void* o, float* lse,
                          int batch, int heads, int seq_len,
                          const long long* strides, float scale, uint32_t seed,
                          uint32_t thresh, float inv_keep, void* stream) {
   if ((dtype != 0 && dtype != 1) || batch <= 0 || heads <= 0 || seq_len <= 0 ||
-      (long long)batch * heads > 65535)
+      (long long)batch * heads > 65535 ||
+      (head_dim != 16 && head_dim != 32 && head_dim != 64))
     return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int bh = batch * heads;
+  if (dtype == 1) {
+    CUtensorMap maps[4];
+    const void* srcs[4] = {q, k, v, o};
+    for (int i = 0; i < 4; ++i)
+      if (!head_map(&maps[i], srcs[i], batch, heads, seq_len, head_dim,
+                    strides + 3 * i))
+        return -2;
+    Bf16Params p = {};
+    p.mask = mask; p.lse = lse;
+    p.H = heads; p.S = seq_len; p.n_kt = (seq_len + BLOCK_N - 1) / BLOCK_N;
+    p.scale_log2 = scale * LOG2E;
+    p.seed = seed; p.thresh = thresh; p.inv_keep = inv_keep;
+    switch (head_dim) {
+      case 16: return launch_bf16<16>(maps, p, bh, st);
+      case 32: return launch_bf16<32>(maps, p, bh, st);
+      default: return launch_bf16<64>(maps, p, bh, st);
+    }
+  }
   Params p;
   p.q = q; p.k = k; p.v = v; p.mask = mask; p.o = o; p.lse = lse;
   p.q_sb = strides[0]; p.q_sh = strides[1]; p.q_ss = strides[2];
@@ -348,13 +423,11 @@ extern "C" int flash_fwd(int dtype, int head_dim, const void* q, const void* k,
   p.o_sb = strides[9]; p.o_sh = strides[10]; p.o_ss = strides[11];
   p.H = heads; p.S = seq_len; p.scale = scale;
   p.seed = seed; p.thresh = thresh; p.inv_keep = inv_keep;
-  const dim3 grid((seq_len + BLOCK_M - 1) / BLOCK_M, batch * heads);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((seq_len + BLOCK_M - 1) / BLOCK_M, bh);
   switch (head_dim) {
-    case 16: launch<16>(dtype, p, grid, st); break;
-    case 32: launch<32>(dtype, p, grid, st); break;
-    case 64: launch<64>(dtype, p, grid, st); break;
-    default: return -1;
+    case 16: flash_fwd_f32_kernel<16><<<grid, BLOCK_M, 0, st>>>(p); break;
+    case 32: flash_fwd_f32_kernel<32><<<grid, BLOCK_M, 0, st>>>(p); break;
+    default: flash_fwd_f32_kernel<64><<<grid, BLOCK_M, 0, st>>>(p); break;
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,6 @@
-// Hopper (sm_90a) building blocks for the flash-attention backward: TMA
-// tile loads under mbarriers, and warpgroup products (`wgmma`) on bf16
-// tiles in shared memory or registers with f32 accumulators.
+// Hopper (sm_90a) building blocks for the flash-attention kernels: TMA
+// tile loads and stores under mbarriers, and warpgroup products (`wgmma`)
+// on bf16 tiles in shared memory or registers with f32 accumulators.
 //
 // The slab layout, for a tile written by threads rather than TMA: a
 // 64-row x C bf16 tile held as C/8 column slabs, each 64 rows x 8 elements
@@ -9,7 +9,33 @@
 // matrix") is 128 contiguous bytes, which is wgmma's no-swizzle layout both
 // along the rows (K-major operand) and across them (MN-major).
 #pragma once
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <mutex>
+
+// ----- host -------------------------------------------------------------------
+
+// Lets `Kernel` take `smem` bytes of dynamic shared memory on the current
+// device. The attribute is only ever raised, and only when a launch needs
+// more than was set before, so a launch of a size seen before costs no call
+// into the driver.
+template <auto Kernel>
+inline cudaError_t allow_smem(int smem) {
+  constexpr int DEVICES = 64;
+  static std::mutex mu;
+  static int set[DEVICES] = {};  // the size set so far, per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= DEVICES) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(mu);
+  if (smem <= set[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) set[dev] = smem;
+  return err;
+}
 
 // ----- mbarrier ---------------------------------------------------------------
 
@@ -60,6 +86,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
       :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Shared memory into box (c0, c1, c2, c3) of a 4-d tensor map, as one bulk
+// group; elements outside the tensor are not written.
+__device__ __forceinline__ void tma_store_4d(const void* map, const void* src,
+                                             int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -220,3 +258,28 @@ template <> struct Wgmma<64> {
 };
 
 #undef WG_D8
+
+// Two floats as a bf16 pair (lo in the low half), round to nearest even.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Accumulator floats x[0..7] (two 8-column groups) re-packed as the RS A
+// operand of 16 columns (see Wgmma above).
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float* x) {
+  a[0] = pack_bf16(x[0], x[1]);
+  a[1] = pack_bf16(x[2], x[3]);
+  a[2] = pack_bf16(x[4], x[5]);
+  a[3] = pack_bf16(x[6], x[7]);
+}
+
+// 2^x by the hardware's approximation (a few ulps; results below 2^-126
+// flush to 0). The flash kernels' probabilities only feed bf16 products,
+// where such a value is lost anyway, and the exact exp2f's range handling
+// lengthens the per-element work that bounds them.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}

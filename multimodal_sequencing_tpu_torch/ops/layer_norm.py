@@ -11,12 +11,13 @@ weight) + bias with f32 weight and bias, y in the compute dtype.
   * `layer_norm` — the differentiable entry: for CUDA tensors the forward
     and backward kernels (or raise), for CPU tensors the plain version.
     `layer_norm_fwd.launches` and `layer_norm_bwd.launches` count kernel
-    launches.
+    launches; the backward is one launch that yields dx, dw and db.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -24,7 +25,6 @@ from . import _build
 from ._build import DTYPE_CODE
 
 MAX_FEATURES = 1024
-_BWD_ROWS = 16  # rows per backward block (csrc/layer_norm.cu)
 
 
 def layer_norm_reference(x: torch.Tensor, weight: torch.Tensor,
@@ -38,14 +38,56 @@ def layer_norm_reference(x: torch.Tensor, weight: torch.Tensor,
     return ((xf - mean) * mul + bias).to(dtype)
 
 
-def _fn(name: str, nargs: int):
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    # dtype, x, w, b, y, rows, N, eps, stream
+    "layer_norm_fwd": [_I, _P, _P, _P, _P, _I, _I, _F, _P],
+    # dtype, x, dy, w, dx, part, dw and db, tickets, rows, N, blocks, eps,
+    # stream
+    "layer_norm_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+}
+
+
+def _fn(name: str):
     fn = getattr(_build.load("layer_norm"), name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * nargs
-                       + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                          ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+        fn.argtypes = _SIGNATURES[name]
+        fn.restype = _I
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def bwd_grid(rows: int, dtype: torch.dtype, sms: int) -> int:
+    """Blocks of the backward kernel (csrc/layer_norm.cu) for `rows` rows on
+    a card of `sms` SMs: one block an SM (16 warps in bf16, 8 in f32; the
+    cooperative launch needs them all resident), but no more blocks than
+    give each warp a row; each block takes an equal contiguous share of the
+    rows."""
+    warps = 16 if dtype == torch.bfloat16 else 8
+    return min(sms, -(-rows // warps))
+
+
+def bwd_partial_bytes(rows: int, n: int, dtype: torch.dtype, sms: int) -> int:
+    """Bytes of the backward's f32 partials of dw and db, one (2, N) row a
+    block (scratch beyond what the function reads and writes)."""
+    return bwd_grid(rows, dtype, sms) * 2 * n * 4
+
+
+# (device index, stream) -> the backward's two int32 barrier counters:
+# zeroed once, left zero by every launch on that stream
+_TICKETS = {}
+
+
+def _tickets(device: torch.device, stream: int) -> torch.Tensor:
+    key = (device.index, stream)
+    t = _TICKETS.get(key)
+    if t is None:
+        t = _TICKETS[key] = torch.zeros(2, dtype=torch.int32, device=device)
+    return t
 
 
 def _check(x, weight, bias, dtype):
@@ -68,7 +110,7 @@ def layer_norm_fwd(x, weight, bias, eps: float) -> torch.Tensor:
     xc = x.contiguous()
     y = torch.empty_like(xc)
     n = x.shape[-1]
-    rc = _fn("layer_norm_fwd", 4)(
+    rc = _fn("layer_norm_fwd")(
         DTYPE_CODE[x.dtype], xc.data_ptr(), weight.contiguous().data_ptr(),
         bias.contiguous().data_ptr(), y.data_ptr(), xc.numel() // n, n, eps,
         torch.cuda.current_stream(x.device).cuda_stream)
@@ -79,24 +121,26 @@ def layer_norm_fwd(x, weight, bias, eps: float) -> torch.Tensor:
 
 
 def layer_norm_bwd(x, dy, weight, eps: float):
-    """Backward kernel: (dx in x's dtype, dweight, dbias in f32). CUDA
-    tensors only."""
+    """Backward kernel: (dx in x's dtype, dweight, dbias in f32), all three
+    from one launch; dweight and dbias are summed in a fixed order, so a
+    rerun gives the same bits. CUDA tensors only."""
     xc, dyc = x.contiguous(), dy.to(x.dtype).contiguous()
     n = x.shape[-1]
     rows = xc.numel() // n
-    blocks = (rows + _BWD_ROWS - 1) // _BWD_ROWS
+    blocks = bwd_grid(rows, x.dtype, _sm_count(x.device.index))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     dx = torch.empty_like(xc)
-    dw_part = torch.empty((blocks, n), dtype=torch.float32, device=x.device)
-    db_part = torch.empty_like(dw_part)
-    rc = _fn("layer_norm_bwd", 6)(
+    part = torch.empty(blocks * 2 * n, dtype=torch.float32, device=x.device)
+    dwb = torch.empty(2 * n, dtype=torch.float32, device=x.device)
+    rc = _fn("layer_norm_bwd")(
         DTYPE_CODE[x.dtype], xc.data_ptr(), dyc.data_ptr(),
-        weight.contiguous().data_ptr(), dx.data_ptr(), dw_part.data_ptr(),
-        db_part.data_ptr(), rows, n, eps,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        weight.contiguous().data_ptr(), dx.data_ptr(), part.data_ptr(),
+        dwb.data_ptr(), _tickets(x.device, stream).data_ptr(),
+        rows, n, blocks, eps, stream)
     if rc != 0:
         raise RuntimeError(f"layer_norm_bwd launch failed (code {rc})")
     layer_norm_bwd.launches += 1
-    return dx, dw_part.sum(0), db_part.sum(0)
+    return dx, dwb[:n], dwb[n:]
 
 
 layer_norm_fwd.launches = 0

@@ -95,8 +95,10 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 @pytest.mark.parametrize("case", ["head_dim", "dtype", "stride", "shape",
-                                  "mask"])
+                                  "mask", "align"])
 def test_kernel_argument_checks(case):
+    # the bf16 forward reads q, k, v through TMA tensor maps: a contiguous
+    # head dim, strides of whole 16 bytes and a 16-byte aligned base
     x = torch.zeros(2, 2, 40, 16)
     q = k = v = x
     mask = torch.ones(2, 40, dtype=torch.int32)
@@ -108,10 +110,20 @@ def test_kernel_argument_checks(case):
         q = torch.zeros(2, 2, 40, 17)[..., :16]
     elif case == "shape":
         k = torch.zeros(2, 2, 41, 16)
-    else:
+    elif case == "mask":
         mask = torch.ones(2, 41, dtype=torch.int32)
+    else:  # data not 16-byte aligned
+        v = torch.zeros(2 * 2 * 40 * 16 + 1)[1:].view(2, 2, 40, 16)
     with pytest.raises((ValueError, TypeError)):
         tatt._check(q, k, v, mask)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_argument_checks_pass_the_head_split_layout(dtype):
+    # the encoder's head-split views of (B, S, H*D) projections: row stride
+    # H*D, head stride D, taken as they are
+    x = torch.zeros(2, 40, 4 * 16, dtype=dtype).view(2, 40, 4, 16).transpose(1, 2)
+    tatt._check(x, x, x, torch.ones(2, 40, dtype=torch.int32))
 
 
 @pytest.mark.cuda
@@ -122,13 +134,18 @@ def test_hopper_kernel_matches_plain_on_card(dtype):
     q, k, v, mask = (torch.from_numpy(x).cuda()
                      for x in _inputs(2, 4, 566, 64, mask_kind="tail_and_empty"))
     q, k, v = (x.to(getattr(torch, dtype)) for x in (q, k, v))
-    before = tatt.flash_attention.launches
-    o, lse = tatt.flash_attention(q, k, v, mask)
-    assert tatt.flash_attention.launches == before + 1
-    want_o, want_lse = tatt.attention_reference_lse(q, k, v, mask)
     atol, rtol = (1e-4, 0.0) if dtype == "float32" else (2e-2, 1e-2)
-    torch.testing.assert_close(o.float(), want_o.float(), atol=atol, rtol=rtol)
-    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
+    for p in (0.0, 0.1):
+        before = tatt.flash_attention.launches
+        o, lse = tatt.flash_attention(q, k, v, mask, p, 5)
+        assert tatt.flash_attention.launches == before + 1
+        want_o, want_lse = tatt.attention_reference_lse(q, k, v, mask, p, 5)
+        torch.testing.assert_close(o.float(), want_o.float(), atol=atol,
+                                   rtol=rtol)
+        torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
+    # each row's sums run in a fixed order: a rerun gives the same bits
+    o2, lse2 = tatt.flash_attention(q, k, v, mask, 0.1, 5)
+    assert torch.equal(o2, o) and torch.equal(lse2, lse)
 
 
 # ----- the backward -------------------------------------------------------

@@ -197,6 +197,12 @@ def test_port_imports_without_jax():
     assert len(_port_modules()) >= 20
 
 
+def test_host_cost_tool_needs_a_card(monkeypatch):
+    from multimodal_sequencing_tpu_torch.tools import host_cost
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert host_cost.main(["--root", str(REPO)]) == 1
+
+
 def test_no_port_file_names_jax():
     pattern = re.compile(r"multimodal_sequencing_tpu\.|\bjax\b|"
                          r"^\s*(import|from)\s+(flax|optax)\b", re.M)

@@ -26,6 +26,7 @@ from multimodal_sequencing_tpu_torch.models.heads import gather_step_cls
 from multimodal_sequencing_tpu_torch.models.sequencer import (
     SequencingModel, init_weights)
 from multimodal_sequencing_tpu_torch.models.encoder import LayerNorm
+from multimodal_sequencing_tpu_torch.ops import layer_norm as tln
 from multimodal_sequencing_tpu_torch.ops.gelu import gelu
 
 torch.set_num_threads(1)
@@ -261,6 +262,60 @@ def test_layer_norm_gap_to_flax(mean):
                                       np.asarray(want_bf16, np.float32))
 
 
+@pytest.mark.parametrize("mean", [0.0, 3.0])
+def test_layer_norm_backward_matches_flax_grad(mean):
+    # The plain backward (autograd of `layer_norm_reference`: dx, dw, db),
+    # which the card's one-launch kernel is held to, against jax.grad of
+    # Flax's LayerNorm on the same numpy rows, scale, bias and output
+    # gradient. Both are f32 with sums in their own order: |err| <= 2e-6
+    # of the largest entry plus, for dx and dw, the fast variance's
+    # rounding (16 ulps of E[x^2] over var, as in
+    # test_layer_norm_gap_to_flax) of their largest entry.
+    from flax import linen as nn
+    rng = np.random.RandomState(1)
+    x = (rng.randn(64, 1024) * 0.5 + mean).astype(np.float32)
+    dy = rng.randn(64, 1024).astype(np.float32)
+    w = (1 + 0.1 * rng.randn(1024)).astype(np.float32)
+    b = (0.1 * rng.randn(1024)).astype(np.float32)
+    ln = nn.LayerNorm(epsilon=1e-5)
+
+    def loss(x, w, b):
+        y = ln.apply({"params": {"scale": w, "bias": b}}, x)
+        return jnp.sum(y * jnp.asarray(dy))
+
+    want = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(
+        *(jnp.asarray(a) for a in (x, w, b)))
+    xt, wt, bt = (torch.from_numpy(a).requires_grad_() for a in (x, w, b))
+    y = tln.layer_norm_reference(xt, wt, bt, 1e-5, torch.float32)
+    got = torch.autograd.grad(y, (xt, wt, bt), torch.from_numpy(dy))
+    ratio = float(np.mean(x.astype(np.float64) ** 2) / np.var(x))
+    for name, g, w_ in zip(("dx", "dw", "db"), got, want):
+        w_ = np.asarray(w_)
+        var_err = 0.0 if name == "db" else 16 * 2.0 ** -24 * ratio
+        atol = (2e-6 + var_err) * np.abs(w_).max()
+        np.testing.assert_allclose(g.numpy(), w_, atol=atol, rtol=0,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("rows,dtype,sms", [
+    (2560, torch.bfloat16, 132), (10240, torch.bfloat16, 132),
+    (2560, torch.float32, 132), (7, torch.float32, 132),
+    (1, torch.bfloat16, 8), (100, torch.bfloat16, 132)])
+def test_layer_norm_bwd_grid(rows, dtype, sms):
+    # the backward kernel's grid: one block an SM (16 warps in bf16, 8 in
+    # f32), so that a cooperative launch holds them all, but no more blocks
+    # than give every warp a row; each block an equal contiguous share
+    # (floor or ceil of rows / blocks)
+    blocks = tln.bwd_grid(rows, dtype, sms)
+    warps = 16 if dtype == torch.bfloat16 else 8
+    assert 1 <= blocks <= sms
+    assert blocks == sms or (blocks - 1) * warps < rows <= blocks * warps
+    shares = [(b + 1) * rows // blocks - b * rows // blocks
+              for b in range(blocks)]
+    assert sum(shares) == rows and max(shares) - min(shares) <= 1
+    assert tln.bwd_partial_bytes(rows, 64, dtype, sms) == blocks * 2 * 64 * 4
+
+
 @pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
 def test_config_json_round_trip(direction):
     jc, tc = _cfgs("v2", type_vocab_size=N_STEPS)
@@ -359,20 +414,31 @@ def test_gelu_kernels_match_plain_on_card():
 
 
 @pytest.mark.cuda
-def test_layer_norm_kernels_match_plain_on_card():
+# 1000 features are not whole 16-byte vectors: the backward's scalar version
+@pytest.mark.parametrize("n", [1024, 1000])
+def test_layer_norm_kernels_match_plain_on_card(n):
     _cuda_or_skip()
     from multimodal_sequencing_tpu_torch.ops import layer_norm as tln
-    x = torch.randn(37, 1024, device="cuda", requires_grad=True)
-    w = torch.randn(1024, device="cuda", requires_grad=True)
-    b = torch.randn(1024, device="cuda", requires_grad=True)
-    dy = torch.randn(37, 1024, device="cuda")
-    before = tln.layer_norm_fwd.launches
+    x = torch.randn(37, n, device="cuda", requires_grad=True)
+    w = torch.randn(n, device="cuda", requires_grad=True)
+    b = torch.randn(n, device="cuda", requires_grad=True)
+    dy = torch.randn(37, n, device="cuda")
+    before = (tln.layer_norm_fwd.launches, tln.layer_norm_bwd.launches)
     y = tln.layer_norm(x, w, b, 1e-5, torch.float32)
     got = torch.autograd.grad(y, (x, w, b), dy)
-    assert tln.layer_norm_fwd.launches == before + 1
+    # one launch each way: dw and db come out of the backward's launch
+    assert (tln.layer_norm_fwd.launches, tln.layer_norm_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
     y_ref = tln.layer_norm_reference(x, w, b, 1e-5, torch.float32)
     want = torch.autograd.grad(y_ref, (x, w, b), dy)
     # f32, sums in another order
     torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=1e-4)
     for a, e in zip(got, want):
         torch.testing.assert_close(a, e, atol=1e-4, rtol=1e-4)
+    # dw and db are summed in a fixed order: a rerun gives the same bits,
+    # in both dtypes
+    for dtype in (torch.float32, torch.bfloat16):
+        xd, dyd = x.detach().to(dtype), dy.to(dtype)
+        first = tln.layer_norm_bwd(xd, dyd, w.detach(), 1e-5)
+        again = tln.layer_norm_bwd(xd, dyd, w.detach(), 1e-5)
+        assert all(torch.equal(a, e) for a, e in zip(first, again))
