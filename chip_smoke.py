@@ -83,7 +83,10 @@ KERNELS = {
                               "scripts/verify_hw_dropout_bits.py:76"),
     # not TPU kernels: the JAX package leaves the logit_erf GELU to XLA
     "gelu_logit_erf_fwd": (GELU_KERNEL,
-                           "multimodal_sequencing_tpu/ops/gelu.py:162"),
+                           "multimodal_sequencing_tpu/ops/gelu.py:163"),
+    # the same kernel at the eval shape
+    "gelu_logit_erf_fwd@eval": (GELU_KERNEL,
+                                "multimodal_sequencing_tpu/ops/gelu.py:163"),
     "gelu_logit_erf_bwd": (GELU_KERNEL,
                            "multimodal_sequencing_tpu/ops/gelu.py:175"),
     # nor the Flax LayerNorm the JAX encoder calls (models/encoder.py:146)
@@ -102,7 +105,8 @@ PATH_KERNELS = {"eval": ("flash_fwd", "gelu_logit_erf_fwd", "layer_norm_fwd"),
 # not the row's own name
 COUNTER = {"flash_bwd": "flash_bwd_main", "flash_bwd_dq": "flash_bwd_main",
            "flash_bwd_dkv": "flash_bwd_main",
-           "keep_bits_dump@verify": "keep_bits_dump"}
+           "keep_bits_dump@verify": "keep_bits_dump",
+           "gelu_logit_erf_fwd@eval": "gelu_logit_erf_fwd"}
 # the f32 backward kernels: the check path, never launched by the bf16
 # train path
 F32_BWD = ("flash_bwd_dq_f32", "flash_bwd_dkv_f32")
@@ -123,6 +127,18 @@ GELU_SHAPES = [(32 * 320, 4096), (8 * 320, 4096), (5, 7)]
 # outside the polynomials), an ulp of sigma and u' that the backward's
 # x sigma (1 - sigma) u' magnifies up to ~10x; bf16: one bf16 ulp.
 GELU_TOLERANCE = {"float32": (1e-5, 1e-5), "bfloat16": (1e-6, 2 ** -7)}
+# What a 16-byte vector kernel can get wrong, as (n, x offset, g offset) in
+# elements: n = 1, 7 and 8k + 3 (a scalar tail), x and g at a storage offset
+# that is not a multiple of 8 elements (a scalar head), x and g on
+# different 16-byte phases (every element scalar)
+GELU_EDGE_CASES = [(1, 0, 0), (7, 0, 0), (8 * 4099 + 3, 0, 0), (8005, 3, 3),
+                   (8005, 3, 0)]
+# The GELU's instruction floor: SASS instructions an element of its vector
+# loop, the FP32 pipe's at 128 lanes an SM a clock, MUFU's (ex2, rcp) at 16
+FP32_PIPE = {"FFMA", "FMUL", "FADD", "FMNMX", "FSEL", "FSETP", "FSET",
+             "FFMA32I", "FMUL32I", "FADD32I"}
+LANES_PER_SM_CLOCK = 128
+MUFU_PER_SM_CLOCK = 16
 
 WORDS = ("gather measure cut sand paint attach tighten clean check wait mark "
          "drill fold press rinse dry lift turn slide align glue clamp trim "
@@ -363,8 +379,11 @@ def _layer_norm_check(seed: int, errs: dict):
 
 
 def _gelu_check(seed: int, errs: dict):
-    """The GELU kernels against their plain versions on inputs spanning
-    the clip range and its tails."""
+    """The GELU kernels against their plain versions: on inputs spanning
+    the clip range and its tails at the main paths' shapes; on every finite
+    bf16 value (forward, backward with g = 1 and with a random g); and at
+    the lengths and offsets of GELU_EDGE_CASES. Both dtypes."""
+    import numpy as np
     import torch
     from multimodal_sequencing_tpu_torch.ops import gelu as gl
     failed = []
@@ -388,10 +407,78 @@ def _gelu_check(seed: int, errs: dict):
                 row[f"max_abs_err_{kname}"] = err.max().item()
                 row[f"ok_{kname}"] = ok
                 failed += [] if ok else [(f"gelu_{kname}", shape, name)]
-                if shape == GELU_SHAPES[1] and name == "bfloat16":
+                if name == "bfloat16" and shape == GELU_SHAPES[1]:
                     errs[f"gelu_logit_erf_{kname}"] = err.max().item()
+                if name == "bfloat16" and shape == GELU_SHAPES[0] and kname == "fwd":
+                    errs["gelu_logit_erf_fwd@eval"] = err.max().item()
             emit(row)
+    f32 = (np.arange(65536, dtype=np.uint32) << 16).view(np.float32)
+    every_bf16 = torch.from_numpy(f32[np.isfinite(f32)].copy())
+    gen = torch.Generator(device="cpu").manual_seed(seed + 3)
+    random_g = torch.randn(every_bf16.shape, generator=gen)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        x = every_bf16.to("cuda", dtype)
+        row = {"phase": "kernel_check", "kernel": "gelu_logit_erf",
+               "case": "every finite bf16 value", "n": x.numel(),
+               "dtype": name}
+        for label, g in (("bwd_g1", torch.ones_like(x)),
+                         ("bwd_random_g", random_g.to("cuda", dtype)),
+                         ("fwd", None)):
+            got = (gl.gelu_logit_erf_fwd(x) if g is None
+                   else gl.gelu_logit_erf_bwd(x, g))
+            want = (gl.gelu_logit_erf_reference(x) if g is None
+                    else gl.gelu_logit_erf_bwd_reference(x, g))
+            row[label] = _gelu_agree(got, want)
+            failed += [] if row[label]["ok"] else [(f"gelu_{label}", "every", name)]
+        emit(row)
+    for n, x_off, g_off in GELU_EDGE_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            gen = torch.Generator(device="cpu").manual_seed(seed + n)
+            x = (torch.randn(n + x_off, generator=gen) * 6).to("cuda", dtype)[x_off:]
+            g = torch.randn(n + g_off, generator=gen).to("cuda", dtype)[g_off:]
+            row = {"phase": "kernel_check", "kernel": "gelu_logit_erf",
+                   "case": "edge", "n": n, "x_offset": x_off,
+                   "g_offset": g_off, "dtype": name,
+                   "fwd": _gelu_agree(gl.gelu_logit_erf_fwd(x),
+                                      gl.gelu_logit_erf_reference(x)),
+                   "bwd": _gelu_agree(gl.gelu_logit_erf_bwd(x, g),
+                                      gl.gelu_logit_erf_bwd_reference(x, g))}
+            emit(row)
+            failed += [(f"gelu_{k}", n, x_off, g_off, name)
+                       for k in ("fwd", "bwd") if not row[k]["ok"]]
     return failed
+
+
+def _bf16_order(t):
+    """bf16 bit patterns as integers ordered like the values they encode,
+    so a difference of 1 is one ulp (also across zero)."""
+    import torch
+    b = t.view(torch.int16).to(torch.int32) & 0xFFFF
+    return torch.where(b >= 0x8000, -(b & 0x7FFF), b)
+
+
+def _gelu_agree(got, want) -> dict:
+    """f32: within GELU_TOLERANCE. bf16: at most one ulp apart, or less
+    than 1e-30 apart (the rule of tests/test_torch_models.py); with the
+    count of one-ulp flips and of differences that only the 1e-30 clause
+    allows."""
+    import torch
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    out = {"max_abs_err": err.max().item()}
+    if got.dtype == torch.float32:
+        atol, rtol = GELU_TOLERANCE["float32"]
+        out["ok"] = bool((err <= atol + rtol * want.float().abs()).all())
+        return out
+    ulp = (_bf16_order(got) - _bf16_order(want)).abs()
+    tiny = err < 1e-30
+    out.update(ok=bool(((ulp <= 1) | tiny).all()),
+               one_ulp_flips=int((ulp == 1).sum().item()),
+               bit_equal=int((ulp == 0).sum().item()),
+               below_1e30_only=int(((ulp > 1) & tiny).sum().item()))
+    return out
 
 
 def phase_bits_check(seed: int, errs: dict):
@@ -415,6 +502,107 @@ def phase_bits_check(seed: int, errs: dict):
         errs["keep_bits_dump" if ss == s else "keep_bits_dump@verify"] = float(mism)
     res = verify_dropout_bits.verify(device="cuda")
     emit({"phase": "bits_check", "verify_dropout_bits": res})
+
+
+def gelu_sass_per_element() -> dict:
+    """SASS instructions an element of the bf16 GELU kernels' vector loop,
+    read from the built library (`cuobjdump -sass`): the loop is the
+    backward branch whose body holds the most MUFU.EX2, which each element
+    takes once. Returns, for "fwd" and "bwd", the elements a turn and the
+    FP32-pipe, MUFU, other and total instructions an element."""
+    import re
+    from multimodal_sequencing_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build.library_path("gelu"))],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    out = {}
+    for fn in sass.split("Function : ")[1:]:
+        name = fn.split()[0]
+        if "gelu_kernel" not in name or "bfloat16" not in name:
+            continue
+        ins = [(int(a, 16), op, rest) for a, op, rest in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);",
+            fn)]
+        best = None  # (MUFU.EX2 count, opcodes of the loop body)
+        for addr, op, rest in ins:
+            target = re.search(r"0x([0-9a-f]+)", rest)
+            if not op.startswith("BRA") or not target:
+                continue
+            start = int(target.group(1), 16)
+            if start >= addr:
+                continue
+            body = [o for a, o, _ in ins if start <= a <= addr]
+            ex2 = body.count("MUFU.EX2")
+            if ex2 and (best is None or (ex2, -len(body)) > (best[0], -len(best[1]))):
+                best = (ex2, body)
+        if best is None:
+            continue
+        ex2, body = best
+        ops = [o.split(".")[0] for o in body]
+        fp32 = sum(o in FP32_PIPE for o in ops)
+        mufu = ops.count("MUFU")
+        out["bwd" if "Lb1E" in name else "fwd"] = {
+            "elements_per_turn": ex2, "fp32": fp32 / ex2, "mufu": mufu / ex2,
+            "other": (len(ops) - fp32 - mufu) / ex2, "total": len(ops) / ex2}
+    return out
+
+
+def _gelu_timing(gen) -> dict:
+    """The bf16 GELU kernels at the train MLP shape (forward and backward)
+    and the eval shape (forward), against their plain versions and PyTorch's
+    exact-erf GELU. The bound is the larger of the bytes at the published
+    rate and the instruction floor: the vector loop's SASS FP32-pipe
+    instructions at 128 lanes and its MUFU operations at 16 an SM a clock,
+    at the card's SM count and maximum SM clock read in the run."""
+    import torch
+    import torch.nn.functional as F
+    from multimodal_sequencing_tpu_torch.ops import gelu as gl
+    from multimodal_sequencing_tpu_torch.tools.host_cost import host_us
+    try:
+        sass = gelu_sass_per_element()
+    except (OSError, subprocess.SubprocessError) as e:
+        sass = {"error": repr(e)}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = max_sm_clock_hz()
+    rows = {}
+
+    def row(kind, n, tensors, kernel, plain, library):
+        per = sass.get(kind)
+        out = {"ms": kernel_ms(kernel), "plain_ms": kernel_ms(plain, iters=10),
+               "library_ms": kernel_ms(library),
+               "host_us_per_call": host_us(kernel),
+               "sass_per_element": per, "sm_clock_hz": clock}
+        t_bytes = tensors * n * 2 / PEAK_BYTES_PER_S * 1e3
+        t_ops = 0.0
+        if per:
+            out["fp32_floor_ms"] = (per["fp32"] * n / (
+                LANES_PER_SM_CLOCK * sms * clock) * 1e3)
+            out["mufu_floor_ms"] = (per["mufu"] * n / (
+                MUFU_PER_SM_CLOCK * sms * clock) * 1e3)
+            # every instruction takes an issue slot: 4 schedulers of 32 lanes
+            out["issue_floor_ms"] = (per["total"] * n / (
+                LANES_PER_SM_CLOCK * sms * clock) * 1e3)
+            t_ops = max(out["fp32_floor_ms"], out["mufu_floor_ms"])
+        out.update(bytes=tensors * n * 2, bytes_ms=t_bytes,
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        return out
+
+    for name, shape in (("gelu_logit_erf_fwd", GELU_SHAPES[1]),
+                        ("gelu_logit_erf_fwd@eval", GELU_SHAPES[0])):
+        x = torch.randn(shape, generator=gen).to("cuda", torch.bfloat16) * 3
+        rows[name] = {"shape": list(shape), **row(
+            "fwd", x.numel(), 2, lambda: gl.gelu_logit_erf_fwd(x),
+            lambda: gl.gelu_logit_erf_reference(x), lambda: F.gelu(x))}
+        if name == "gelu_logit_erf_fwd":
+            g = torch.randn(shape, generator=gen).to("cuda", torch.bfloat16)
+            rows["gelu_logit_erf_bwd"] = {"shape": list(shape), **row(
+                "bwd", x.numel(), 3, lambda: gl.gelu_logit_erf_bwd(x, g),
+                lambda: gl.gelu_logit_erf_bwd_reference(x, g),
+                lambda: torch.ops.aten.gelu_backward(g, x))}
+        del x
+    return rows
 
 
 def phase_timing(seed: int):
@@ -523,20 +711,7 @@ def phase_timing(seed: int):
                 sd, bs, hs, ss, DROPOUT_P, "cuda"), iters=10),
             "library_ms": None,
             **bound(2 * bs * hs * ss * ss, 0)}
-    from multimodal_sequencing_tpu_torch.ops import gelu as gl
-    x = torch.randn(GELU_SHAPES[1], generator=gen).to("cuda", torch.bfloat16) * 3
-    g = torch.randn(GELU_SHAPES[1], generator=gen).to("cuda", torch.bfloat16)
-    nbytes = x.numel() * 2
-    rows["gelu_logit_erf_fwd"] = {
-        "ms": kernel_ms(lambda: gl.gelu_logit_erf_fwd(x)),
-        "plain_ms": kernel_ms(lambda: gl.gelu_logit_erf_reference(x), iters=10),
-        "library_ms": kernel_ms(lambda: F.gelu(x)), **bound(2 * nbytes, 0)}
-    rows["gelu_logit_erf_bwd"] = {
-        "ms": kernel_ms(lambda: gl.gelu_logit_erf_bwd(x, g)),
-        "plain_ms": kernel_ms(lambda: gl.gelu_logit_erf_bwd_reference(x, g),
-                            iters=10),
-        "library_ms": kernel_ms(lambda: torch.ops.aten.gelu_backward(g, x)),
-        **bound(3 * nbytes, 0)}
+    rows.update(_gelu_timing(gen))
     from multimodal_sequencing_tpu_torch.ops import layer_norm as ln
     x = torch.randn(b * s, 1024, generator=gen).to("cuda", torch.bfloat16)
     dy = torch.randn(b * s, 1024, generator=gen).to("cuda", torch.bfloat16)
@@ -744,13 +919,20 @@ def phase_train_path(seed: int, work: str):
 
 KERNEL_CLASSES = (("flash_fwd", ("flash_fwd",)),
                   ("flash_bwd", ("flash_bwd_",)),
-                  ("gelu_logit_erf", ("gelu_fwd", "gelu_bwd")),
+                  ("gelu_logit_erf", ("gelu_kernel",)),
                   ("layer_norm", ("layer_norm_fwd", "layer_norm_bwd")),
                   ("matmul", ("gemm", "sm90_", "cutlass", "xmma", "cublas",
                               "nvjet")),
                   ("optimizer (foreach)", ("foreach", "multi_tensor")),
                   ("reduce", ("reduce",)),
                   ("elementwise", ("elementwise", "vectorized", "unrolled")))
+
+
+def _gelu_kind(key: str):
+    """"fwd" or "bwd" for a GELU kernel's (demangled) name, else None."""
+    if "gelu_kernel" not in key:
+        return None
+    return "bwd" if "true>" in key else "fwd"
 
 
 def _by_class(prof, wall_ms):
@@ -771,11 +953,15 @@ def _by_class(prof, wall_ms):
     busy = sum(by_class.values())
     return {"device_ms_by_class": by_class, "device_busy_ms": busy,
             "device_busy_share": busy / wall_ms,
-            # the two kernels this slice redesigned, apart from their class
+            # redesigned kernels, apart from their class
             "flash_fwd_device_ms": sum(ms for ms, _, key in kernels
                                        if "flash_fwd" in key),
             "layer_norm_bwd_device_ms": sum(ms for ms, _, key in kernels
                                             if "layer_norm_bwd" in key),
+            "gelu_fwd_device_ms": sum(ms for ms, _, key in kernels
+                                      if _gelu_kind(key) == "fwd"),
+            "gelu_bwd_device_ms": sum(ms for ms, _, key in kernels
+                                      if _gelu_kind(key) == "bwd"),
             "top_kernels": sorted(kernels, reverse=True)[:10]}
 
 

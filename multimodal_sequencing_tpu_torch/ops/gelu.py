@@ -140,34 +140,76 @@ def gelu_logit_erf_bwd_reference(x: torch.Tensor, g: torch.Tensor):
     return _ftz(d * g.float()).to(g.dtype)
 
 
-def _launch(fn_name: str, *tensors) -> torch.Tensor:
-    """Run `csrc/gelu.cu`'s `fn_name` over the contiguous inputs into a new
-    tensor like the first."""
-    x = tensors[0]
-    if x.dtype not in DTYPE_CODE or any(t.dtype != x.dtype for t in tensors):
-        raise TypeError(f"{fn_name} takes float32 or bfloat16 tensors of one "
-                        f"dtype, got {[t.dtype for t in tensors]}")
-    if any(t.shape != x.shape or t.device != x.device for t in tensors):
-        raise ValueError(f"{fn_name}: tensors must share shape and device")
-    tensors = [t.contiguous() for t in tensors]
-    out = torch.empty_like(tensors[0])
-    fn = getattr(_build.load("gelu"), fn_name)
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * (len(tensors) + 1)
-                       + [ctypes.c_longlong, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    rc = fn(DTYPE_CODE[x.dtype], *[t.data_ptr() for t in tensors],
-            out.data_ptr(), out.numel(),
-            torch.cuda.current_stream(x.device).cuda_stream)
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    # dtype, x, y, n, stream
+    "gelu_logit_erf_fwd": [_I, _P, _P, _L, _P],
+    # dtype, x, g, dx, n, stream
+    "gelu_logit_erf_bwd": [_I, _P, _P, _P, _L, _P],
+}
+_fns = {}
+
+
+def _fn(name: str):
+    """`csrc/gelu.cu`'s entry `name`; both entries get their signatures
+    once, when the library loads."""
+    fn = _fns.get(name)
+    if fn is None:
+        lib = _build.load("gelu")
+        for entry, signature in _SIGNATURES.items():
+            f = getattr(lib, entry)
+            f.argtypes, f.restype = signature, _I
+            _fns[entry] = f
+        fn = _fns[name]
+    return fn
+
+
+def _contiguous(t: torch.Tensor) -> torch.Tensor:
+    return t if t.is_contiguous() else t.contiguous()
+
+
+def _empty_on_phase(x: torch.Tensor) -> torch.Tensor:
+    """An uninitialised contiguous tensor like contiguous `x` whose data
+    starts at the same offset from a 16-byte boundary, so that the kernel's
+    16-byte vectors line up in both (x may be a view with a storage
+    offset)."""
+    k = x.data_ptr() % 16 // x.element_size()
+    if k == 0:
+        return torch.empty_like(x)
+    return torch.empty(x.numel() + k, dtype=x.dtype,
+                       device=x.device)[k:].view(x.shape)
+
+
+def _launch(name: str, x: torch.Tensor, g: torch.Tensor | None = None):
+    """Run `csrc/gelu.cu`'s `name` over x (and g) into a new tensor like
+    x. The kernel takes any element offset: a head and a tail that are not
+    whole 16-byte vectors go through its scalar path."""
+    if x.dtype not in DTYPE_CODE or (g is not None and g.dtype != x.dtype):
+        raise TypeError(f"{name} takes float32 or bfloat16 tensors of one "
+                        f"dtype, got {x.dtype}"
+                        + ("" if g is None else f" and {g.dtype}"))
+    if g is not None and (g.shape != x.shape or g.device != x.device):
+        raise ValueError(f"{name}: tensors must share shape and device")
+    x = _contiguous(x)
+    out = _empty_on_phase(x)
+    # the raw handle of the current stream, without building a Stream
+    stream = torch._C._cuda_getCurrentRawStream(x.get_device())
+    if g is None:
+        rc = _fn(name)(DTYPE_CODE[x.dtype], x.data_ptr(), out.data_ptr(),
+                       x.numel(), stream)
+    else:
+        rc = _fn(name)(DTYPE_CODE[x.dtype], x.data_ptr(),
+                       _contiguous(g).data_ptr(), out.data_ptr(), x.numel(),
+                       stream)
     if rc != 0:
-        raise RuntimeError(f"{fn_name} launch failed (code {rc})")
+        raise RuntimeError(f"{name} launch failed (code {rc})")
     return out
 
 
 def gelu_logit_erf_fwd(x: torch.Tensor) -> torch.Tensor:
     """logit_erf forward: the kernel for a CUDA tensor, the plain version
     for a CPU tensor. `.launches` counts kernel launches."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return gelu_logit_erf_reference(x)
     if x.numel() == 0:
         return torch.empty_like(x)
@@ -178,12 +220,13 @@ def gelu_logit_erf_fwd(x: torch.Tensor) -> torch.Tensor:
 
 def gelu_logit_erf_bwd(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """logit_erf backward (input gradient): kernel or plain version, as
-    `gelu_logit_erf_fwd`."""
-    if x.device.type == "cpu":
+    `gelu_logit_erf_fwd`; g is taken in x's dtype."""
+    if x.is_cpu:
         return gelu_logit_erf_bwd_reference(x, g)
     if x.numel() == 0:
         return torch.empty_like(x)
-    out = _launch("gelu_logit_erf_bwd", x, g.to(x.dtype))
+    out = _launch("gelu_logit_erf_bwd", x,
+                  g if g.dtype == x.dtype else g.to(x.dtype))
     gelu_logit_erf_bwd.launches += 1
     return out
 

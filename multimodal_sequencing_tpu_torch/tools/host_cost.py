@@ -1,13 +1,15 @@
-"""Host time per call of the port's flash-attention forward and LayerNorm
-backward wrappers, on one NVIDIA card.
+"""Host time per call of the port's flash-attention forward, LayerNorm
+backward and logit_erf GELU wrappers, on one NVIDIA card.
 
     python multimodal_sequencing_tpu_torch/tools/host_cost.py [--root DIR]
+        [--calls NAME ...]
 
 Imports `multimodal_sequencing_tpu_torch` from DIR (default: the checkout
 this file is in), so that one copy of the script times two trees of the
 package, such as a commit and its parent, on the same card; run them in
 turn (parent, change, change, parent) and compare within one machine. Each
-run builds the two kernels it calls into its tree's build directory.
+run builds the kernels it calls into its tree's build directory; `--calls`
+times a subset (and builds only their kernels).
 Prints one JSON line: the card's name and power limit, and for each call
 the mean host microseconds of one call over `--iters` calls issued while
 the card spins (so that no call waits for the card), once per repeat.
@@ -24,6 +26,7 @@ import time
 
 # the train and eval shapes of the RoBERTa-large sequencer (chip_smoke.py)
 EVAL_BHSD, TRAIN_BHSD, LN_ROWS = (32, 16, 320, 64), (8, 16, 320, 64), 8 * 320
+GELU_SHAPE = (8 * 320, 4096)  # the train MLP activation
 
 
 def host_us(fn, iters: int = 200, warmup: int = 5) -> float:
@@ -48,6 +51,8 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(here)))
     ap.add_argument("--iters", type=int, default=200)
     ap.add_argument("--repeats", type=int, default=5)
+    ap.add_argument("--calls", nargs="+", default=None,
+                    help="names of the calls to time (default: all)")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -56,6 +61,7 @@ def main(argv=None) -> int:
         print("host_cost: no CUDA device", file=sys.stderr)
         return 1
     from multimodal_sequencing_tpu_torch.ops import attention as att
+    from multimodal_sequencing_tpu_torch.ops import gelu as gl
     from multimodal_sequencing_tpu_torch.ops import layer_norm as ln
     gen = torch.Generator(device="cpu").manual_seed(0)
 
@@ -75,6 +81,10 @@ def main(argv=None) -> int:
              for _ in range(2))
     w = torch.ones(1024, device="cuda")
     calls["layer_norm_bwd"] = lambda: ln.layer_norm_bwd(x, dy, w, 1e-5)
+    a, g = (torch.randn(GELU_SHAPE, generator=gen).to("cuda", torch.bfloat16)
+            for _ in range(2))
+    calls["gelu_logit_erf_fwd"] = lambda: gl.gelu_logit_erf_fwd(a)
+    calls["gelu_logit_erf_bwd"] = lambda: gl.gelu_logit_erf_bwd(a, g)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -83,6 +93,8 @@ def main(argv=None) -> int:
     out = {"root": os.path.abspath(args.root), "card": card,
            "iters": args.iters, "host_us_per_call": {}}
     for name, fn in calls.items():
+        if args.calls and name not in args.calls:
+            continue
         out["host_us_per_call"][name] = [host_us(fn, args.iters)
                                          for _ in range(args.repeats)]
     print(json.dumps(out), flush=True)

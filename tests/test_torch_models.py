@@ -399,18 +399,32 @@ def _cuda_or_skip():
 
 
 @pytest.mark.cuda
-def test_gelu_kernels_match_plain_on_card():
+# what a 16-byte vector kernel can get wrong: n = 1, 7 and 8k + 3 (a scalar
+# tail), x and g at a storage offset that is not a multiple of 8 elements
+# (a scalar head), and x and g on different 16-byte phases (all scalar)
+@pytest.mark.parametrize("n,x_off,g_off", [(333 * 129, 0, 0), (1, 0, 0),
+                                           (7, 0, 0), (8 * 4099 + 3, 0, 0),
+                                           (8005, 3, 3), (8005, 3, 0)])
+def test_gelu_kernels_match_plain_on_card(n, x_off, g_off):
     _cuda_or_skip()
     from multimodal_sequencing_tpu_torch.ops import gelu as tgelu
-    x = torch.randn(333, 129, device="cuda") * 6
-    g = torch.randn(333, 129, device="cuda")
-    # f32: the same formula rounded in other places (see chip_smoke.py)
-    torch.testing.assert_close(tgelu.gelu_logit_erf_fwd(x),
-                               tgelu.gelu_logit_erf_reference(x),
-                               atol=1e-5, rtol=1e-5)
-    torch.testing.assert_close(tgelu.gelu_logit_erf_bwd(x, g),
-                               tgelu.gelu_logit_erf_bwd_reference(x, g),
-                               atol=1e-5, rtol=1e-5)
+    gen = torch.Generator().manual_seed(n)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.randn(n + x_off, generator=gen) * 6).to("cuda", dtype)[x_off:]
+        g = torch.randn(n + g_off, generator=gen).to("cuda", dtype)[g_off:]
+        got = (tgelu.gelu_logit_erf_fwd(x), tgelu.gelu_logit_erf_bwd(x, g))
+        want = (tgelu.gelu_logit_erf_reference(x),
+                tgelu.gelu_logit_erf_bwd_reference(x, g))
+        for a, e in zip(got, want):
+            if dtype == torch.float32:
+                # the same formula rounded in other places, with ex2.approx
+                # and rcp.approx (see chip_smoke.py)
+                torch.testing.assert_close(a, e, atol=1e-5, rtol=1e-5)
+            else:  # one bf16 ulp, or below 1e-30
+                ulp = (_bf16_order(a.cpu().view(torch.int16).numpy())
+                       - _bf16_order(e.cpu().view(torch.int16).numpy()))
+                tiny = (a.float() - e.float()).abs().cpu().numpy() < 1e-30
+                assert np.all((np.abs(ulp) <= 1) | tiny)
 
 
 @pytest.mark.cuda
