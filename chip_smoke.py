@@ -92,6 +92,9 @@ KERNELS = {
     # nor the Flax LayerNorm the JAX encoder calls (models/encoder.py:146)
     "layer_norm_fwd": (LN_KERNEL,
                        "multimodal_sequencing_tpu/models/encoder.py:146"),
+    # the same kernel at the eval shape
+    "layer_norm_fwd@eval": (LN_KERNEL,
+                            "multimodal_sequencing_tpu/models/encoder.py:146"),
     "layer_norm_bwd": (LN_KERNEL,
                        "multimodal_sequencing_tpu/models/encoder.py:146"),
 }
@@ -106,7 +109,8 @@ PATH_KERNELS = {"eval": ("flash_fwd", "gelu_logit_erf_fwd", "layer_norm_fwd"),
 COUNTER = {"flash_bwd": "flash_bwd_main", "flash_bwd_dq": "flash_bwd_main",
            "flash_bwd_dkv": "flash_bwd_main",
            "keep_bits_dump@verify": "keep_bits_dump",
-           "gelu_logit_erf_fwd@eval": "gelu_logit_erf_fwd"}
+           "gelu_logit_erf_fwd@eval": "gelu_logit_erf_fwd",
+           "layer_norm_fwd@eval": "layer_norm_fwd"}
 # the f32 backward kernels: the check path, never launched by the bf16
 # train path
 F32_BWD = ("flash_bwd_dq_f32", "flash_bwd_dkv_f32")
@@ -120,6 +124,18 @@ LN_SHAPES = [(32 * 320, 1024, 0.0), (8 * 320, 1024, 0.0), (8 * 320, 1024, 3.0),
 # entry). f32: the same formula, f32 sums in another order; bf16: one bf16
 # ulp of the output, and dx is rounded from f32 in both.
 LN_TOLERANCE = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 2 ** -7)}
+# Two more LayerNorm cases, as (rows, features, mean, x storage offset in
+# elements, constant rows): x one element past a 16-byte boundary (every row
+# takes the kernels' scalar path), and rows of one value each, at the
+# clamp's edge: the value has 7 significant bits, so its square and every
+# sum of up to 1024 copies of either are exact in f32, the variance is 0 in
+# any order of sums and y = b. (With more bits the rounded variance, below
+# or above 0 by ~1e-7, moves rsqrt(var + eps) by ~1 % in a way that depends
+# on the order of sums, so no two implementations agree on dx.)
+LN_EDGE_CASES = [(8 * 320, 1024, 0.0, 1, False), (8 * 320, 1024, 3.0, 0, True)]
+# rows of the eval shape whose statistics the forward and backward must
+# share bit for bit (see _layer_norm_shared_stats)
+LN_STATS_ROWS = (0, 4321, 32 * 320 - 1)
 # the MLP activation entering the GELU: (tokens, intermediate size)
 GELU_SHAPES = [(32 * 320, 4096), (8 * 320, 4096), (5, 7)]
 # |got - want| <= atol + rtol * |want|. f32: the kernel and the plain
@@ -333,19 +349,39 @@ def _bwd_bf16_checks(att, q, k, v, mask, o, lse, do, p, seed, got):
             "dq_rerun_max_abs_diff": _max_err(again[0], got[0])}
 
 
+def _layer_norm_inputs(rows, n, mean, offset, constant, dtype, seed):
+    """x (rows of std 1 around `mean`, or of one value each, at a storage
+    offset of `offset` elements), dy, w and b on the card."""
+    import torch
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    if constant:  # k / 32 for k in [64, 128): 7 significant bits
+        k = torch.randint(64, 128, (rows, 1), generator=gen)
+        x = (mean - 3.0 + k / 32.0).expand(rows, n)
+    else:
+        x = torch.randn(rows, n, generator=gen) + mean
+    flat = torch.empty(rows * n + offset, device="cuda", dtype=dtype)
+    flat[offset:] = x.reshape(-1).to("cuda", dtype)
+    x = flat[offset:].view(rows, n)
+    dy = torch.randn(rows, n, generator=gen).to("cuda", dtype)
+    w = (1 + 0.1 * torch.randn(n, generator=gen)).cuda()
+    b = (0.1 * torch.randn(n, generator=gen)).cuda()
+    return x, dy, w, b
+
+
 def _layer_norm_check(seed: int, errs: dict):
-    """The LayerNorm kernels against autograd of the plain version."""
+    """The LayerNorm kernels against autograd of the plain version at
+    LN_SHAPES and LN_EDGE_CASES, in both dtypes (bf16: with the count of
+    outputs one ulp from the plain version's); a rerun of the backward is
+    bit-equal; and the two kernels share their row statistics."""
     import torch
     from multimodal_sequencing_tpu_torch.ops import layer_norm as ln
     failed = []
-    for rows, n, mean in LN_SHAPES:
+    cases = [(rows, n, mean, 0, False) for rows, n, mean in LN_SHAPES]
+    for rows, n, mean, offset, constant in cases + LN_EDGE_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
-            gen = torch.Generator(device="cpu").manual_seed(seed)
-            x = (torch.randn(rows, n, generator=gen) + mean).to("cuda", dtype)
-            dy = torch.randn(rows, n, generator=gen).to("cuda", dtype)
-            w = (1 + 0.1 * torch.randn(n, generator=gen)).cuda()
-            b = (0.1 * torch.randn(n, generator=gen)).cuda()
+            x, dy, w, b = _layer_norm_inputs(rows, n, mean, offset, constant,
+                                             dtype, seed)
             y = ln.layer_norm_fwd(x, w, b, 1e-5)
             dx, dw, db = ln.layer_norm_bwd(x, dy, w, 1e-5)
             again = ln.layer_norm_bwd(x, dy, w, 1e-5)
@@ -354,27 +390,86 @@ def _layer_norm_check(seed: int, errs: dict):
             yr.backward(dy)
             atol, rtol = LN_TOLERANCE[name]
             row = {"phase": "kernel_check", "kernel": "layer_norm",
-                   "shape": [rows, n], "mean": mean, "dtype": name,
+                   "shape": [rows, n], "mean": mean, "x_offset": offset,
+                   "constant_rows": constant, "dtype": name,
                    "atol": atol, "rtol": rtol}
+            if constant:  # the plain version's variance: 0 in every row
+                xf = x.float()
+                var = (xf * xf).mean(-1) - xf.mean(-1) ** 2
+                row["rows_of_zero_variance_in_plain"] = int((var == 0).sum().item())
+                row["y_equals_b"] = bool(torch.equal(
+                    y.float(), b.to(dtype).float().expand(rows, n)))
+                failed += [] if row["y_equals_b"] else [
+                    ("layer_norm_constant_rows", n, name)]
             for kname, got, want in (("y", y, yr), ("dx", dx, xr.grad),
                                      ("dw", dw, wr.grad), ("db", db, br.grad)):
-                want = want.detach().float()
-                err = (got.float() - want).abs()
-                lim = atol * (want.abs().max().item() if kname in ("dw", "db")
-                              else 1.0)
-                ok = bool((err <= lim + rtol * want.abs()).all())
+                want = want.detach()
+                err = (got.float() - want.float()).abs()
+                lim = atol * (want.float().abs().max().item()
+                              if kname in ("dw", "db") else 1.0)
+                ok = bool((err <= lim + rtol * want.float().abs()).all())
                 row[f"max_abs_err_{kname}"] = err.max().item()
                 row[f"ok_{kname}"] = ok
-                failed += [] if ok else [(f"layer_norm_{kname}", rows, name)]
+                failed += [] if ok else [(f"layer_norm_{kname}", rows, n,
+                                          offset, constant, name)]
+                if dtype == torch.bfloat16 and kname in ("y", "dx"):
+                    ulp = (_bf16_order(got) - _bf16_order(want.to(dtype))).abs()
+                    row[f"one_ulp_flips_{kname}"] = int((ulp == 1).sum().item())
+                    row[f"over_one_ulp_{kname}"] = int((ulp > 1).sum().item())
             # dw and db are summed in a fixed order: a rerun is bit-equal
             row["dx_dw_db_bit_equal_on_rerun"] = all(
                 torch.equal(a, b) for a, b in zip(again, (dx, dw, db)))
             if not row["dx_dw_db_bit_equal_on_rerun"]:
-                failed.append(("layer_norm_bwd_determinism", rows, name))
+                failed.append(("layer_norm_bwd_determinism", rows, n, name))
             emit(row)
-            if rows == LN_SHAPES[1][0] and mean == 0.0 and name == "bfloat16":
+            if offset or constant or mean != 0.0 or name != "bfloat16":
+                continue
+            if rows == LN_SHAPES[1][0]:
                 errs["layer_norm_fwd"] = row["max_abs_err_y"]
                 errs["layer_norm_bwd"] = row["max_abs_err_dx"]
+            if rows == LN_SHAPES[0][0]:
+                errs["layer_norm_fwd@eval"] = row["max_abs_err_y"]
+    failed += _layer_norm_shared_stats(seed)
+    return failed
+
+
+def _layer_norm_shared_stats(seed: int):
+    """The forward and the backward compute each row's mean and rstd by one
+    routine, so the backward recomputes the forward's statistics bit for
+    bit. Neither returns them, so: (1) a forward/backward pair at the eval
+    shape in bf16 is bit-equal on a rerun; (2) in f32 with w = 1 and b = 0
+    the forward gives y = (x - mean) * rstd, rounded once, and the
+    backward's dw over a dy that is 1 on row r and 0 elsewhere is that
+    row's (x - mean) * rstd, rounded once and then added to zeros only: the
+    two are bit-equal exactly when both kernels saw the same mean and rstd.
+    Both on the vector path and (x at an odd storage offset) the scalar
+    path."""
+    import torch
+    from multimodal_sequencing_tpu_torch.ops import layer_norm as ln
+    rows, n, _ = LN_SHAPES[0]
+    failed = []
+    x, dy, w, b = _layer_norm_inputs(rows, n, 0.0, 0, False, torch.bfloat16, seed)
+    first = (ln.layer_norm_fwd(x, w, b, 1e-5), *ln.layer_norm_bwd(x, dy, w, 1e-5))
+    again = (ln.layer_norm_fwd(x, w, b, 1e-5), *ln.layer_norm_bwd(x, dy, w, 1e-5))
+    rerun = all(torch.equal(a, c) for a, c in zip(first, again))
+    row = {"phase": "kernel_check", "kernel": "layer_norm",
+           "case": "shared statistics", "shape": [rows, n],
+           "fwd_bwd_bit_equal_on_rerun_bf16": rerun}
+    failed += [] if rerun else [("layer_norm_fwd_bwd_rerun", rows)]
+    one, zero = torch.ones(n, device="cuda"), torch.zeros(n, device="cuda")
+    for offset in (0, 1):
+        x, _, _, _ = _layer_norm_inputs(rows, n, 0.5, offset, False,
+                                        torch.float32, seed + 1)
+        y = ln.layer_norm_fwd(x, one, zero, 1e-5)
+        equal = []
+        for r in LN_STATS_ROWS:
+            dy = torch.zeros(rows, n, device="cuda")
+            dy[r] = 1.0
+            dw = ln.layer_norm_bwd(x, dy, one, 1e-5)[1]
+            equal.append(torch.equal(dw, y[r]))
+        row[f"stats_bit_equal_rows_offset_{offset}"] = equal
+        failed += [] if all(equal) else [("layer_norm_shared_stats", offset)]
+    emit(row)
     return failed
 
 
@@ -607,7 +702,8 @@ def _gelu_timing(gen) -> dict:
 
 def phase_timing(seed: int):
     """Kernels, plain versions and library yardsticks at the train shape
-    (bf16, dropout 0.1; the forward also at the eval shape, no dropout)."""
+    (bf16, dropout 0.1; the flash, GELU and LayerNorm forwards also at the
+    eval shape, the flash forward there without dropout)."""
     import torch
     import torch.nn.functional as F
     from multimodal_sequencing_tpu_torch.ops import attention as att
@@ -718,13 +814,33 @@ def phase_timing(seed: int):
     w = torch.ones(1024, device="cuda")
     bias = torch.zeros(1024, device="cuda")
     nbytes = x.numel() * 2
-    rows["layer_norm_fwd"] = {
-        "ms": kernel_ms(lambda: ln.layer_norm_fwd(x, w, bias, 1e-5)),
-        "plain_ms": kernel_ms(lambda: ln.layer_norm_reference(
-            x, w, bias, 1e-5, torch.bfloat16)),
-        "library_ms": kernel_ms(lambda: torch.nn.functional.layer_norm(
-            x, (1024,), w.bfloat16(), bias.bfloat16())),
-        **bound(2 * nbytes + 2 * 1024 * 4, 0)}
+
+    def ln_fwd_row(xx):
+        nb = xx.numel() * 2
+        return {"shape": list(xx.shape),
+                "ms": kernel_ms(lambda: ln.layer_norm_fwd(xx, w, bias, 1e-5)),
+                "plain_ms": kernel_ms(lambda: ln.layer_norm_reference(
+                    xx, w, bias, 1e-5, torch.bfloat16)),
+                "library_ms": kernel_ms(lambda: torch.nn.functional.layer_norm(
+                    xx, (1024,), w.bfloat16(), bias.bfloat16())),
+                "host_us_per_call": host_us(
+                    lambda: ln.layer_norm_fwd(xx, w, bias, 1e-5)),
+                # reads x, w and b; writes y
+                **bound(2 * nb + 2 * 1024 * 4, 0)}
+
+    # what any launch costs in this timing loop: the kernel on one row, and
+    # PyTorch's fill of one element
+    one_row, one = x[:1].clone(), torch.empty(1, device="cuda")
+    launch_floor = {"layer_norm_fwd_one_row_ms": kernel_ms(
+        lambda: ln.layer_norm_fwd(one_row, w, bias, 1e-5)),
+        "fill_one_element_ms": kernel_ms(lambda: one.fill_(1.0))}
+
+    rows["layer_norm_fwd"] = ln_fwd_row(x)
+    rows["layer_norm_fwd@eval"] = ln_fwd_row(
+        torch.randn(LN_SHAPES[0][0], 1024, generator=gen).to("cuda", torch.bfloat16))
+    for name in ("layer_norm_fwd", "layer_norm_fwd@eval"):
+        rows[name]["library_ratio"] = rows[name]["ms"] / rows[name]["library_ms"]
+        rows[name]["launch_floor"] = launch_floor
 
     def plain_bwd():
         xp = x.detach().requires_grad_()
@@ -771,8 +887,8 @@ def write_wikihow(root: str, split: str, n_stories: int, seed: int) -> None:
                 "summary": "", "sections": [{"steps": steps}]}) + "\n")
 
 
-def _eval_argv(data_dir, out_dir, seed, *extra):
-    return ["--model_name_or_path", "simple", "--model_size", "large",
+def _eval_argv(data_dir, out_dir, seed, *extra, model="simple"):
+    return ["--model_name_or_path", model, "--model_size", "large",
             "--replace_token_type_embeddings", "--task_name", "wikihow_sort",
             "--hierarchical_version", "v1", "--sort_method", "heat_map",
             "--data_dir", data_dir, "--eval_splits", "test",
@@ -903,12 +1019,13 @@ def phase_train_path(seed: int, work: str):
           and all(counts[k] == TRAIN_STEPS * PER_FORWARD.get(k, NUM_LAYERS)
                   for k in PATH_KERNELS["train"])
           and all(counts[k] == 0 for k in F32_BWD)
-          and os.path.isfile(os.path.join(ckpt, "model.pt")))
+          and os.path.isfile(os.path.join(ckpt, "model.pt"))
+          and os.path.isfile(os.path.join(ckpt, "simple_tokenizer.json")))
     if not ok:
         raise AssertionError(f"train path check failed: {summary}")
+    # the checkpoint as --model_name_or_path: its tokenizer and its weights
     ev_dir = os.path.join(work, "train_eval")
-    results, evaluator = run_eval(_eval_argv(
-        data_dir, ev_dir, seed, "--model_name_or_path_1", ckpt))
+    results, evaluator = run_eval(_eval_argv(data_dir, ev_dir, seed, model=ckpt))
     perms = _check_eval_outputs(ev_dir, 16)
     emit({"phase": "train_path", "eval_of_checkpoint": results["test"],
           "forwards": evaluator.forwards, "all_permutations": perms})
@@ -956,6 +1073,8 @@ def _by_class(prof, wall_ms):
             # redesigned kernels, apart from their class
             "flash_fwd_device_ms": sum(ms for ms, _, key in kernels
                                        if "flash_fwd" in key),
+            "layer_norm_fwd_device_ms": sum(ms for ms, _, key in kernels
+                                            if "layer_norm_fwd" in key),
             "layer_norm_bwd_device_ms": sum(ms for ms, _, key in kernels
                                             if "layer_norm_bwd" in key),
             "gelu_fwd_device_ms": sum(ms for ms, _, key in kernels

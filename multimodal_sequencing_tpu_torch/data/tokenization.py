@@ -89,6 +89,14 @@ class SimpleWordTokenizer:
             out["token_type_ids"] = [[0] * len(e) for e in encs]
         return out
 
+    def save_pretrained(self, path):
+        """Write `simple_tokenizer.json` into `path`, as the JAX package
+        does, so that `load_tokenizer(path)` gives this tokenizer back."""
+        os.makedirs(path, exist_ok=True)
+        with open(os.path.join(path, "simple_tokenizer.json"), "w") as f:
+            json.dump({"type": "SimpleWordTokenizer",
+                       "vocab_size": self.vocab_size}, f)
+
     @classmethod
     def from_pretrained(cls, path):
         cfg = os.path.join(path, "simple_tokenizer.json")

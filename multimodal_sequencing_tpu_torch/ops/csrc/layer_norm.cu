@@ -9,23 +9,41 @@
 // (ops/layer_norm.py) takes ~10 elementwise and reduction passes forward and
 // more backward, this one pass each.
 //
+// Both kernels give a row to one warp and lay it out alike: lane l holds
+// the 16-byte groups l + 32 j (j < CHUNKS) of it, G = 16 / sizeof(T)
+// features each (8 bf16 or 4 f32: at N = 1024 a lane holds 32 features).
+// `row_stats` sums x and x^2 over a lane's groups in one order and then
+// across the warp by shuffles, with no block barrier and no shared memory;
+// both kernels call it, so the backward recomputes the forward's mean and
+// rstd bit for bit. Rows that are whole 16-byte vectors at 16-byte aligned
+// addresses take 16-byte loads and stores (VECTOR); other rows (N % G != 0,
+// or a view at an odd storage offset) take the same kernels with scalar
+// loads and stores over the same groups, so the order of sums, and the
+// statistics, do not depend on the path.
+//
+// Forward (`layer_norm_fwd_kernel`): a lane loads its row as 16-byte
+// vectors and stores y as 16-byte vectors; it reads its w and b once as
+// float4 `__ldg`s and holds them in registers across its rows. Reaching
+// 3.35 TB/s over ~0.7 us of load latency takes ~2.3 MB in flight, ~18 KB
+// per SM. The grid is at most one wave of FWD_WARPS-warp blocks (occupancy
+// API x SMs: 4 blocks, 16 warps, an SM at ~122 registers); a warp walks the
+// rows a grid of warps apart and loads its next row before it reduces the
+// current one. So at the train shape (2,560 rows, 2,112 warps) every row is
+// in flight at once, and at the eval shape (10,240 rows) a warp has two
+// rows of 2 KB in flight, ~64 KB an SM. Blocks sized to the rows with no
+// loop, and 2-, 8- and 16-warp blocks, measured no faster at either shape,
+// and reading w and b per row was slower at the eval shape (PERF.md).
+//
 // Backward (`layer_norm_bwd_kernel`, one launch yields dx, dw and db):
 //   dx = rstd * (g - mean(g) - xhat * mean(g * xhat)),  g = dy * w,
 //   dw = sum over rows of dy * xhat,  db = sum over rows of dy,
-// with the xhat term dropped in a row whose variance was clamped at 0. The
-// row statistics are recomputed from x by the forward's formula (the sums
-// in another order).
-//  * A warp per row: at N = 1024 a lane holds 32 features as four 16-byte
-//    vectors of x and of dy (eight in f32); the row's statistics and its two
-//    sums of g and g * xhat are warp shuffles, with no block barrier.
+// with the xhat term dropped in a row whose variance was clamped at 0.
 //  * Bytes in flight: one block per SM (16 warps in bf16, 8 in f32), each
 //    block an equal contiguous share of the rows (so no SM holds more rows
 //    than another but one), its warps taking turns; a warp copies its next
 //    row's x and dy into a two-row ring in shared memory with `cp.async`
-//    while it computes the current row. Reaching the card's 3.35 TB/s over
-//    ~0.7 us of load latency takes ~2.3 MB in flight, ~18 KB per SM; 16
-//    warps with a 4 KB bf16 row each in flight hold 64 KB, up to 128 KB
-//    with the next rows.
+//    while it computes the current row. 16 warps with a 4 KB bf16 row each
+//    in flight hold 64 KB, up to 128 KB with the next rows.
 //  * dw and db in the kernel, in a fixed order: each warp sums its rows'
 //    dy * xhat and dy in registers; a block sums its warps' in warp order
 //    through shared memory and writes one partial; then, past a barrier
@@ -39,10 +57,9 @@
 //    function's bytes.
 //
 // Bound on this card: the forward reads x and writes y, the backward reads
-// x and dy and writes dx, in the input dtype (w, dw, db: 12 KB); at the
+// x and dy and writes dx, in the input dtype (w, b, dw, db: 8-12 KB); at the
 // train shape (2560 x 1024, bf16) that is 10.5 and 15.7 MB, ~3.1 and ~4.7 us
-// at the published 3.35 TB/s. The forward runs one 128-thread block per row,
-// each thread owning up to 8 strided columns.
+// at the published 3.35 TB/s.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -53,69 +70,246 @@
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int PER_THREAD = 8;             // N <= THREADS * PER_THREAD
-constexpr int LANE_FEATURES = THREADS * PER_THREAD / 32;  // of a row, a lane
+constexpr int MAX_FEATURES = 1024;
+constexpr int LANE_FEATURES = MAX_FEATURES / 32;  // of a row, a lane
 
-__device__ __forceinline__ float load(const float* p, long long i) { return p[i]; }
-__device__ __forceinline__ float load(const __nv_bfloat16* p, long long i) {
-  return __bfloat162float(p[i]);
+// features in one 16-byte group, and a lane's groups of a row
+template <typename T>
+__host__ __device__ constexpr int group_size() { return 16 / sizeof(T); }
+template <typename T>
+__host__ __device__ constexpr int chunks() { return LANE_FEATURES / group_size<T>(); }
+
+// ----- one group: 16 bytes of a row, or fewer at its end ----------------------------
+
+__device__ __forceinline__ void unpack(const uint4& raw, float (&v)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
 }
-__device__ __forceinline__ void store(float* p, long long i, float v) { p[i] = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, long long i, float v) {
-  p[i] = __float2bfloat16_rn(v);
+__device__ __forceinline__ void unpack(const uint4& raw, float (&v)[4]) {
+  v[0] = __uint_as_float(raw.x); v[1] = __uint_as_float(raw.y);
+  v[2] = __uint_as_float(raw.z); v[3] = __uint_as_float(raw.w);
+}
+__device__ __forceinline__ uint4 pack(const float (&v)[8]) {
+  uint4 raw;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  return raw;
+}
+__device__ __forceinline__ uint4 pack(const float (&v)[4]) {
+  return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                    __float_as_uint(v[2]), __float_as_uint(v[3]));
+}
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void from_f32(float* p, float v) { *p = v; }
+__device__ __forceinline__ void from_f32(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
 }
 
-// Sums of a and b over the block; every thread gets both.
-__device__ __forceinline__ void block_sum2(float& a, float& b) {
-  __shared__ float sa[THREADS / 32], sb[THREADS / 32];
+// A group held in registers as loaded: one 16-byte vector, or (scalar
+// path) its n <= G features as floats, zeros past n.
+template <typename T, bool VECTOR>
+struct Raw {
+  uint4 v;
+  __device__ __forceinline__ void load(const T* p, int) {
+    v = *reinterpret_cast<const uint4*>(p);
+  }
+  __device__ __forceinline__ void get(float (&f)[group_size<T>()]) const { unpack(v, f); }
+};
+template <typename T>
+struct Raw<T, false> {
+  float e[group_size<T>()];
+  __device__ __forceinline__ void load(const T* p, int n) {
+#pragma unroll
+    for (int i = 0; i < group_size<T>(); ++i) e[i] = i < n ? to_f32(p[i]) : 0.f;
+  }
+  __device__ __forceinline__ void get(float (&f)[group_size<T>()]) const {
+#pragma unroll
+    for (int i = 0; i < group_size<T>(); ++i) f[i] = e[i];
+  }
+};
+
+// The group at p (n features of it valid) as floats, zeros past n.
+template <typename T, bool VECTOR>
+__device__ __forceinline__ void load_group(const T* p, int n, float (&v)[group_size<T>()]) {
+  Raw<T, VECTOR> r;
+  r.load(p, n);
+  r.get(v);
+}
+template <typename T, bool VECTOR>
+__device__ __forceinline__ void store_group(T* p, int n, const float (&v)[group_size<T>()]) {
+  if constexpr (VECTOR) {
+    *reinterpret_cast<uint4*>(p) = pack(v);
+  } else {
+#pragma unroll
+    for (int i = 0; i < group_size<T>(); ++i)
+      if (i < n) from_f32(p + i, v[i]);
+  }
+}
+// G f32 parameters (w or b) at p through the read-only cache, zeros past n
+template <int G, bool VECTOR>
+__device__ __forceinline__ void load_param(const float* p, int n, float (&v)[G]) {
+  if constexpr (VECTOR) {
+#pragma unroll
+    for (int i = 0; i < G; i += 4) {
+      const float4 f = __ldg(reinterpret_cast<const float4*>(p + i));
+      v[i] = f.x; v[i + 1] = f.y; v[i + 2] = f.z; v[i + 3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < G; ++i) v[i] = i < n ? __ldg(p + i) : 0.f;
+  }
+}
+// G f32 values to p, 16-byte aligned for VECTOR; the first n of them
+template <int G, bool VECTOR>
+__device__ __forceinline__ void store_f32(float* p, int n, const float* v) {
+  if constexpr (VECTOR) {
+#pragma unroll
+    for (int i = 0; i < G; i += 4)
+      *reinterpret_cast<float4*>(p + i) = make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < G; ++i)
+      if (i < n) p[i] = v[i];
+  }
+}
+
+// ----- the row statistics, shared by both kernels -------------------------------
+
+__device__ __forceinline__ void warp_sum2(float& a, float& b) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     a += __shfl_xor_sync(0xffffffffu, a, o);
     b += __shfl_xor_sync(0xffffffffu, b, o);
   }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  __syncthreads();  // the previous call's readers are done
-  if (lane == 0) { sa[warp] = a; sb[warp] = b; }
-  __syncthreads();
-  a = 0.f; b = 0.f;
-#pragma unroll
-  for (int w = 0; w < THREADS / 32; ++w) { a += sa[w]; b += sb[w]; }
 }
 
-// This thread's columns of one row, and the row's statistics.
-template <typename T>
-__device__ __forceinline__ void row_stats(const T* x, int N, float (&v)[PER_THREAD],
-                                          float& mean, float& rstd,
-                                          bool& clamped, float eps) {
+struct RowStats {
+  float mean, rstd;
+  bool clamped;  // E[x^2] - mean^2 < 0: the variance was clamped to 0
+};
+
+// The statistics of a row laid out across the warp: `group(j, v)` gives
+// this lane's group j as floats (zeros past N). The lane adds x and x^2 over
+// its groups in order, then the warp's lanes by an xor butterfly; every lane
+// gets the result. Both kernels sum through this one function, in this one
+// order.
+template <typename T, typename Group>
+__device__ __forceinline__ RowStats row_stats(Group group, int lane, int N, float eps) {
+  constexpr int G = group_size<T>();
   float s = 0.f, s2 = 0.f;
 #pragma unroll
-  for (int j = 0; j < PER_THREAD; ++j) {
-    const int c = threadIdx.x + j * THREADS;
-    v[j] = c < N ? load(x, c) : 0.f;
-    s += v[j];
-    s2 += v[j] * v[j];
+  for (int j = 0; j < chunks<T>(); ++j) {
+    if ((lane + 32 * j) * G < N) {
+      float v[G];
+      group(j, v);
+#pragma unroll
+      for (int e = 0; e < G; ++e) {
+        s += v[e];
+        s2 += v[e] * v[e];
+      }
+    }
   }
-  block_sum2(s, s2);
-  mean = s / N;
+  warp_sum2(s, s2);
+  const float mean = s / N;
   const float var = s2 / N - mean * mean;
-  clamped = var < 0.f;
-  rstd = rsqrtf(fmaxf(var, 0.f) + eps);
+  return {mean, rsqrtf(fmaxf(var, 0.f) + eps), var < 0.f};
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-layer_norm_fwd_kernel(const T* x, const float* w, const float* b, T* y, int N,
-                      float eps) {
-  const long long row = blockIdx.x;
-  float v[PER_THREAD], mean, rstd;
-  bool clamped;
-  row_stats(x + row * N, N, v, mean, rstd, clamped, eps);
+// ----- forward -----------------------------------------------------------------------
+
+// Warps of a forward block
+constexpr int FWD_WARPS = 4;
+
+// One warp a row at a time. The grid is at most one wave of blocks, and a
+// warp walks the rows a grid of warps apart: it loads its next row before it
+// reduces the current one, and holds its lanes' w and b in registers across
+// its rows.
+template <typename T, bool VECTOR>
+__global__ void __launch_bounds__(32 * FWD_WARPS)
+layer_norm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                      const float* __restrict__ b, T* __restrict__ y, int rows,
+                      int N, float eps) {
+  constexpr int G = group_size<T>(), CHUNKS = chunks<T>();
+  const int lane = threadIdx.x & 31;
+  const int stride = gridDim.x * FWD_WARPS;
+  int row = blockIdx.x * FWD_WARPS + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  Raw<T, VECTOR> cur[CHUNKS], nxt[CHUNKS];
+  auto load_row = [&](Raw<T, VECTOR> (&r)[CHUNKS], int at) {
+    const T* xr = x + static_cast<long long>(at) * N;
 #pragma unroll
-  for (int j = 0; j < PER_THREAD; ++j) {
-    const int c = threadIdx.x + j * THREADS;
-    if (c < N) store(y, row * N + c, (v[j] - mean) * (rstd * w[c]) + b[c]);
+    for (int j = 0; j < CHUNKS; ++j) {
+      const int f = (lane + 32 * j) * G;
+      if (f < N) r[j].load(xr + f, N - f);
+    }
+  };
+  load_row(cur, row);
+  float wv[CHUNKS][G], bv[CHUNKS][G];
+#pragma unroll
+  for (int j = 0; j < CHUNKS; ++j) {
+    const int f = (lane + 32 * j) * G;
+    if (f < N) {
+      load_param<G, VECTOR>(w + f, N - f, wv[j]);
+      load_param<G, VECTOR>(b + f, N - f, bv[j]);
+    }
   }
+  for (;;) {
+    const int next = row + stride;
+    if (next < rows) load_row(nxt, next);
+    const RowStats st = row_stats<T>(
+        [&](int j, float (&v)[G]) { cur[j].get(v); }, lane, N, eps);
+    T* yr = y + static_cast<long long>(row) * N;
+#pragma unroll
+    for (int j = 0; j < CHUNKS; ++j) {
+      const int f = (lane + 32 * j) * G;
+      if (f < N) {
+        float v[G];
+        cur[j].get(v);
+#pragma unroll
+        for (int e = 0; e < G; ++e)
+          v[e] = (v[e] - st.mean) * (st.rstd * wv[j][e]) + bv[j][e];
+        store_group<T, VECTOR>(yr + f, N - f, v);
+      }
+    }
+    if (next >= rows) break;
+    row = next;
+#pragma unroll
+    for (int j = 0; j < CHUNKS; ++j) cur[j] = nxt[j];
+  }
+}
+
+// the blocks of one forward instance that fit on the card at once, asked
+// once per instance (the port runs on one card)
+template <typename T, bool VECTOR>
+int fwd_resident_blocks() {
+  static int blocks = 0;
+  if (blocks == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, layer_norm_fwd_kernel<T, VECTOR>, 32 * FWD_WARPS, 0);
+    blocks = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  return blocks;
+}
+
+template <typename T, bool VECTOR>
+int launch_fwd(const void* x, const float* w, const float* b, void* y, int rows,
+               int N, float eps, cudaStream_t st) {
+  // a warp for every row, up to one wave of resident blocks
+  const int want = (rows + FWD_WARPS - 1) / FWD_WARPS;
+  const int cap = fwd_resident_blocks<T, VECTOR>();
+  layer_norm_fwd_kernel<T, VECTOR><<<want < cap ? want : cap, 32 * FWD_WARPS, 0, st>>>(
+      static_cast<const T*>(x), w, b, static_cast<T*>(y), rows, N, eps);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ----- backward --------------------------------------------------------------------
@@ -131,74 +325,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// VEC features from p (VEC * sizeof(T) = 16 bytes, 16-byte aligned, or
-// VEC = 1) as floats.
-template <int VEC>
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float (&v)[VEC]) {
-  if constexpr (VEC == 8) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      v[2 * i] = f.x;
-      v[2 * i + 1] = f.y;
-    }
-  } else {
-    v[0] = __bfloat162float(*p);
-  }
-}
-template <int VEC>
-__device__ __forceinline__ void load_vec(const float* p, float (&v)[VEC]) {
-  if constexpr (VEC == 4) {
-    const float4 f = *reinterpret_cast<const float4*>(p);
-    v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
-  } else {
-    v[0] = *p;
-  }
-}
-template <int VEC>
-__device__ __forceinline__ void load_w(const float* w, float (&v)[VEC]) {
-  if constexpr (VEC == 1) {
-    v[0] = __ldg(w);
-  } else {
-#pragma unroll
-    for (int i = 0; i < VEC; i += 4) {
-      const float4 f = __ldg(reinterpret_cast<const float4*>(w + i));
-      v[i] = f.x; v[i + 1] = f.y; v[i + 2] = f.z; v[i + 3] = f.w;
-    }
-  }
-}
-template <int VEC>
-__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float (&v)[VEC]) {
-  if constexpr (VEC == 8) {
-    uint4 raw;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    *reinterpret_cast<uint4*>(p) = raw;
-  } else {
-    *p = __float2bfloat16_rn(v[0]);
-  }
-}
-template <int VEC>
-__device__ __forceinline__ void store_vec(float* p, const float (&v)[VEC]) {
-  if constexpr (VEC == 4) *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  else *p = v[0];
-}
-
-// VEC floats to 16-byte aligned p (VEC = 1: any p).
-template <int VEC>
-__device__ __forceinline__ void store_f32(float* p, const float* v) {
-  if constexpr (VEC == 1) {
-    *p = v[0];
-  } else {
-#pragma unroll
-    for (int i = 0; i < VEC; i += 4)
-      *reinterpret_cast<float4*>(p + i) = make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
-  }
 }
 
 // Warps of a backward block, one block an SM: their two-row rings of x and
@@ -234,7 +360,7 @@ __device__ __forceinline__ void sum_rows(float* out, const float* src,
         for (int q = 0; q < Q; ++q)
           if (i0 + i < k) acc[q] += v[i][q];
     }
-    store_f32<Q>(out + c, acc);
+    store_f32<Q, Q == 4>(out + c, Q, acc);
   }
 }
 
@@ -244,27 +370,19 @@ __device__ __forceinline__ int load_acquire(const int* p) {
   return v;
 }
 
-__device__ __forceinline__ void warp_sum2(float& a, float& b) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    a += __shfl_xor_sync(0xffffffffu, a, o);
-    b += __shfl_xor_sync(0xffffffffu, b, o);
-  }
-}
-
-// One warp a row. A lane owns chunks lane + 32 j (j < CHUNKS) of VEC
-// features; VEC = 16 / sizeof(T) when rows are whole 16-byte vectors, else 1
-// (then the ring is filled by plain copies). `ld` is the ring's row pitch
-// in elements. part: (blocks, 2, N) f32 partials; dwb: dw then db, (2, N)
-// f32; tickets: 2 ints, 0 on entry and on exit. Launched cooperatively.
-template <typename T, int VEC>
+// One warp a row, in the groups of `row_stats`. VECTOR: rows are whole
+// 16-byte vectors, copied into the ring by `cp.async`; else by plain
+// copies. `ld` is the ring's row pitch in elements. part: (blocks, 2, N)
+// f32 partials; dwb: dw then db, (2, N) f32; tickets: 2 ints, 0 on entry
+// and on exit. Launched cooperatively.
+template <typename T, bool VECTOR>
 __global__ void __launch_bounds__(32 * bwd_warps<T>(), 1)
 layer_norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                       const float* __restrict__ w, T* __restrict__ dx,
                       float* __restrict__ part, float* __restrict__ dwb,
                       int* __restrict__ tickets, int rows, int N, int ld,
                       float eps) {
-  constexpr int CHUNKS = LANE_FEATURES / VEC;
+  constexpr int G = group_size<T>(), CHUNKS = chunks<T>();
   constexpr int W = bwd_warps<T>(), THREADS_ = 32 * W;
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -276,14 +394,19 @@ layer_norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
     T* sdy = sx + ld;
 #pragma unroll
     for (int j = 0; j < CHUNKS; ++j) {
-      const int f = (lane + 32 * j) * VEC;
+      const int f = (lane + 32 * j) * G;
       if (f < N) {
-        if constexpr (VEC > 1) {
+        if constexpr (VECTOR) {
           cp_async16(sx + f, x + row * N + f);
           cp_async16(sdy + f, dy + row * N + f);
         } else {
-          sx[f] = x[row * N + f];
-          sdy[f] = dy[row * N + f];
+#pragma unroll
+          for (int e = 0; e < G; ++e) {
+            if (f + e < N) {
+              sx[f + e] = x[row * N + f + e];
+              sdy[f + e] = dy[row * N + f + e];
+            }
+          }
         }
       }
     }
@@ -304,58 +427,45 @@ layer_norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
     cp_async_wait<1>();      // this row's copies have landed
     const T* sx = ring + slot * 2 * ld;
     const T* sdy = sx + ld;
-    float s = 0.f, s2 = 0.f;
-#pragma unroll
-    for (int j = 0; j < CHUNKS; ++j) {
-      const int f = (lane + 32 * j) * VEC;
-      if (f < N) {
-        float xv[VEC];
-        load_vec<VEC>(sx + f, xv);
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) {
-          s += xv[e];
-          s2 += xv[e] * xv[e];
-        }
-      }
-    }
-    warp_sum2(s, s2);
-    const float mean = s / N;
-    const float var = s2 / N - mean * mean;
-    const bool clamped = var < 0.f;
-    const float rstd = rsqrtf(fmaxf(var, 0.f) + eps);
+    const RowStats st = row_stats<T>(
+        [&](int j, float (&v)[G]) {
+          const int f = (lane + 32 * j) * G;
+          load_group<T, VECTOR>(sx + f, N - f, v);
+        },
+        lane, N, eps);
     float sg = 0.f, sgx = 0.f;
 #pragma unroll
     for (int j = 0; j < CHUNKS; ++j) {
-      const int f = (lane + 32 * j) * VEC;
+      const int f = (lane + 32 * j) * G;
       if (f < N) {
-        float xv[VEC], dv[VEC], wv[VEC];
-        load_vec<VEC>(sx + f, xv);
-        load_vec<VEC>(sdy + f, dv);
-        load_w<VEC>(w + f, wv);
+        float xv[G], dv[G], wv[G];
+        load_group<T, VECTOR>(sx + f, N - f, xv);
+        load_group<T, VECTOR>(sdy + f, N - f, dv);
+        load_param<G, VECTOR>(w + f, N - f, wv);
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) {
-          const float xh = (xv[e] - mean) * rstd, g = dv[e] * wv[e];
+        for (int e = 0; e < G; ++e) {
+          const float xh = (xv[e] - st.mean) * st.rstd, g = dv[e] * wv[e];
           sg += g;
           sgx += g * xh;
-          dw[j * VEC + e] += dv[e] * xh;
-          db[j * VEC + e] += dv[e];
+          dw[j * G + e] += dv[e] * xh;
+          db[j * G + e] += dv[e];
         }
       }
     }
     warp_sum2(sg, sgx);
-    const float mg = sg / N, mgx = clamped ? 0.f : sgx / N;
+    const float mg = sg / N, mgx = st.clamped ? 0.f : sgx / N;
 #pragma unroll
     for (int j = 0; j < CHUNKS; ++j) {
-      const int f = (lane + 32 * j) * VEC;
+      const int f = (lane + 32 * j) * G;
       if (f < N) {
-        float xv[VEC], dv[VEC], wv[VEC], out[VEC];
-        load_vec<VEC>(sx + f, xv);
-        load_vec<VEC>(sdy + f, dv);
-        load_w<VEC>(w + f, wv);
+        float xv[G], dv[G], wv[G], out[G];
+        load_group<T, VECTOR>(sx + f, N - f, xv);
+        load_group<T, VECTOR>(sdy + f, N - f, dv);
+        load_param<G, VECTOR>(w + f, N - f, wv);
 #pragma unroll
-        for (int e = 0; e < VEC; ++e)
-          out[e] = rstd * (dv[e] * wv[e] - mg - (xv[e] - mean) * rstd * mgx);
-        store_vec<VEC>(dx + (long long)row * N + f, out);
+        for (int e = 0; e < G; ++e)
+          out[e] = st.rstd * (dv[e] * wv[e] - mg - (xv[e] - st.mean) * st.rstd * mgx);
+        store_group<T, VECTOR>(dx + row * N + f, N - f, out);
       }
     }
   }
@@ -363,15 +473,15 @@ layer_norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   __syncthreads();  // every warp is done with its ring: it holds the sums now
 
   // the block's partial: its warps' sums in warp order
-  constexpr int Q = VEC > 1 ? 4 : 1;  // columns a thread reduces at once
+  constexpr int Q = VECTOR ? 4 : 1;  // columns a thread reduces at once
   const int n2 = 2 * N;
   float* red = reinterpret_cast<float*>(smem);  // [W][dw, db]
 #pragma unroll
   for (int j = 0; j < CHUNKS; ++j) {
-    const int f = (lane + 32 * j) * VEC;
+    const int f = (lane + 32 * j) * G;
     if (f < N) {
-      store_f32<VEC>(red + warp * n2 + f, dw + j * VEC);
-      store_f32<VEC>(red + warp * n2 + N + f, db + j * VEC);
+      store_f32<G, VECTOR>(red + warp * n2 + f, N - f, dw + j * G);
+      store_f32<G, VECTOR>(red + warp * n2 + N + f, N - f, db + j * G);
     }
   }
   __syncthreads();
@@ -388,9 +498,9 @@ layer_norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
     while (load_acquire(&tickets[0]) < (int)gridDim.x) __nanosleep(64);
   }
   __syncthreads();
-  const int G = gridDim.x, p0 = warp * G / W, p1 = (warp + 1) * G / W;
+  const int nb = gridDim.x, p0 = warp * nb / W, p1 = (warp + 1) * nb / W;
   float* wsum = red;  // [W][32], free again
-  for (int c0 = blockIdx.x * 32; c0 < n2; c0 += G * 32) {
+  for (int c0 = blockIdx.x * 32; c0 < n2; c0 += nb * 32) {
     const int c = min(c0 + lane, n2 - 1);
     float acc = 0.f;
     for (int i0 = p0; i0 < p1; i0 += 8) {
@@ -413,13 +523,13 @@ layer_norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
     __syncthreads();
   }
   // the last block through the barrier's exit leaves the tickets at 0
-  if (threadIdx.x == 0 && atomicAdd(&tickets[1], 1) == G - 1) {
+  if (threadIdx.x == 0 && atomicAdd(&tickets[1], 1) == nb - 1) {
     tickets[0] = 0;
     tickets[1] = 0;
   }
 }
 
-template <typename T, int VEC>
+template <typename T, bool VECTOR>
 int launch_bwd(const void* x, const void* dy, const float* w, void* dx,
                float* part, float* dwb, int* tickets, int rows, int N,
                int blocks, float eps, cudaStream_t st) {
@@ -428,7 +538,7 @@ int launch_bwd(const void* x, const void* dy, const float* w, void* dx,
   const int ring = W * 4 * ld * static_cast<int>(sizeof(T));
   const int red = W * 2 * N * 4;
   const int smem = ring > red ? ring : red;
-  cudaError_t err = allow_smem<layer_norm_bwd_kernel<T, VEC>>(smem);
+  cudaError_t err = allow_smem<layer_norm_bwd_kernel<T, VECTOR>>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   // cooperative: every block is resident at once (or the launch fails),
   // which the kernel's barrier over the grid needs
@@ -438,30 +548,35 @@ int launch_bwd(const void* x, const void* dy, const float* w, void* dx,
   void* args[] = {&xp, &dyp, &w, &dxp, &part, &dwb, &tickets, &rows, &N, &ld,
                   &eps};
   return static_cast<int>(cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(layer_norm_bwd_kernel<T, VEC>), dim3(blocks),
+      reinterpret_cast<const void*>(layer_norm_bwd_kernel<T, VECTOR>), dim3(blocks),
       dim3(32 * W), args, smem, st));
+}
+
+// whether every pointer is 16-byte aligned and rows are whole 16-byte groups
+bool vector_path(int dtype, int N, const void* const* ptrs, int nptr) {
+  uintptr_t bits = 0;
+  for (int i = 0; i < nptr; ++i) bits |= reinterpret_cast<uintptr_t>(ptrs[i]);
+  return N % (dtype == 1 ? 8 : 4) == 0 && bits % 16 == 0;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, y, dy and dx); w and b f32;
-// contiguous (rows, N) tensors. Returns 0, a CUDA error code from the
-// launch, or -1 for arguments the kernel does not take.
+// dtype: 0 = float32, 1 = bfloat16 (x and y); w and b f32; contiguous
+// (rows, N) tensors. Returns 0, a CUDA error code from the launch, or -1
+// for arguments the kernel does not take.
 extern "C" int layer_norm_fwd(int dtype, const void* x, const float* w,
                               const float* b, void* y, int rows, int N,
                               float eps, void* stream) {
-  if ((dtype != 0 && dtype != 1) || rows <= 0 || N <= 0 ||
-      N > THREADS * PER_THREAD)
+  if ((dtype != 0 && dtype != 1) || rows <= 0 || N <= 0 || N > MAX_FEATURES)
     return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const void* ptrs[] = {x, w, b, y};
+  const bool vec = vector_path(dtype, N, ptrs, 4);
   if (dtype == 1)
-    layer_norm_fwd_kernel<<<rows, THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), w, b,
-        static_cast<__nv_bfloat16*>(y), N, eps);
-  else
-    layer_norm_fwd_kernel<<<rows, THREADS, 0, st>>>(
-        static_cast<const float*>(x), w, b, static_cast<float*>(y), N, eps);
-  return static_cast<int>(cudaGetLastError());
+    return vec ? launch_fwd<__nv_bfloat16, true>(x, w, b, y, rows, N, eps, st)
+               : launch_fwd<__nv_bfloat16, false>(x, w, b, y, rows, N, eps, st);
+  return vec ? launch_fwd<float, true>(x, w, b, y, rows, N, eps, st)
+             : launch_fwd<float, false>(x, w, b, y, rows, N, eps, st);
 }
 
 // The backward in one launch: dx in the input dtype, and dwb = dw then db
@@ -474,22 +589,19 @@ extern "C" int layer_norm_bwd(int dtype, const void* x, const void* dy,
                               float* dwb, int* tickets, int rows, int N,
                               int blocks, float eps, void* stream) {
   if ((dtype != 0 && dtype != 1) || rows <= 0 || N <= 0 || blocks <= 0 ||
-      N > THREADS * PER_THREAD)
+      N > MAX_FEATURES)
     return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int vec = dtype == 1 ? 8 : 4;  // features in 16 bytes
-  const bool aligned =
-      N % vec == 0 &&
-      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dy) |
-       reinterpret_cast<uintptr_t>(dx) | reinterpret_cast<uintptr_t>(w) |
-       reinterpret_cast<uintptr_t>(part) | reinterpret_cast<uintptr_t>(dwb)) % 16 == 0;
+  const void* ptrs[] = {x, dy, dx, w, part, dwb};
   if (dtype == 1)
-    return aligned ? launch_bwd<__nv_bfloat16, 8>(x, dy, w, dx, part, dwb, tickets,
-                                                  rows, N, blocks, eps, st)
-                   : launch_bwd<__nv_bfloat16, 1>(x, dy, w, dx, part, dwb, tickets,
+    return vector_path(dtype, N, ptrs, 6)
+               ? launch_bwd<__nv_bfloat16, true>(x, dy, w, dx, part, dwb, tickets,
+                                                 rows, N, blocks, eps, st)
+               : launch_bwd<__nv_bfloat16, false>(x, dy, w, dx, part, dwb, tickets,
                                                   rows, N, blocks, eps, st);
-  return aligned ? launch_bwd<float, 4>(x, dy, w, dx, part, dwb, tickets, rows,
-                                        N, blocks, eps, st)
-                 : launch_bwd<float, 1>(x, dy, w, dx, part, dwb, tickets, rows,
-                                        N, blocks, eps, st);
+  return vector_path(dtype, N, ptrs, 6)
+             ? launch_bwd<float, true>(x, dy, w, dx, part, dwb, tickets, rows, N,
+                                       blocks, eps, st)
+             : launch_bwd<float, false>(x, dy, w, dx, part, dwb, tickets, rows, N,
+                                        blocks, eps, st);
 }

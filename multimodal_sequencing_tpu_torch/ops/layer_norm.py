@@ -48,12 +48,25 @@ _SIGNATURES = {
 }
 
 
+_fns = {}
+
+
 def _fn(name: str):
-    fn = getattr(_build.load("layer_norm"), name)
-    if fn.argtypes is None:
-        fn.argtypes = _SIGNATURES[name]
-        fn.restype = _I
+    """`csrc/layer_norm.cu`'s entry `name`; both entries get their
+    signatures once, when the library loads."""
+    fn = _fns.get(name)
+    if fn is None:
+        lib = _build.load("layer_norm")
+        for entry, signature in _SIGNATURES.items():
+            f = getattr(lib, entry)
+            f.argtypes, f.restype = signature, _I
+            _fns[entry] = f
+        fn = _fns[name]
     return fn
+
+
+def _contiguous(t: torch.Tensor) -> torch.Tensor:
+    return t if t.is_contiguous() else t.contiguous()
 
 
 @functools.lru_cache(maxsize=None)
@@ -106,14 +119,18 @@ def _check(x, weight, bias, dtype):
 
 
 def layer_norm_fwd(x, weight, bias, eps: float) -> torch.Tensor:
-    """Forward kernel: y in x's dtype. CUDA tensors only."""
-    xc = x.contiguous()
+    """Forward kernel: y in x's dtype. CUDA tensors only. Rows that are
+    whole 16-byte vectors at 16-byte aligned addresses take the kernel's
+    vector path, any other row (such as a view at an odd storage offset)
+    its scalar path."""
+    xc = _contiguous(x)
     y = torch.empty_like(xc)
     n = x.shape[-1]
     rc = _fn("layer_norm_fwd")(
-        DTYPE_CODE[x.dtype], xc.data_ptr(), weight.contiguous().data_ptr(),
-        bias.contiguous().data_ptr(), y.data_ptr(), xc.numel() // n, n, eps,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        DTYPE_CODE[x.dtype], xc.data_ptr(), _contiguous(weight).data_ptr(),
+        _contiguous(bias).data_ptr(), y.data_ptr(), xc.numel() // n, n, eps,
+        # the raw handle of the current stream, without building a Stream
+        torch._C._cuda_getCurrentRawStream(x.get_device()))
     if rc != 0:
         raise RuntimeError(f"layer_norm_fwd launch failed (code {rc})")
     layer_norm_fwd.launches += 1
@@ -123,18 +140,22 @@ def layer_norm_fwd(x, weight, bias, eps: float) -> torch.Tensor:
 def layer_norm_bwd(x, dy, weight, eps: float):
     """Backward kernel: (dx in x's dtype, dweight, dbias in f32), all three
     from one launch; dweight and dbias are summed in a fixed order, so a
-    rerun gives the same bits. CUDA tensors only."""
-    xc, dyc = x.contiguous(), dy.to(x.dtype).contiguous()
+    rerun gives the same bits. The row statistics are recomputed from x by
+    the forward's own routine, so they equal the forward's bit for bit.
+    CUDA tensors only."""
+    xc = _contiguous(x)
+    dyc = _contiguous(dy if dy.dtype == x.dtype else dy.to(x.dtype))
     n = x.shape[-1]
     rows = xc.numel() // n
-    blocks = bwd_grid(rows, x.dtype, _sm_count(x.device.index))
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    device = x.get_device()
+    blocks = bwd_grid(rows, x.dtype, _sm_count(device))
+    stream = torch._C._cuda_getCurrentRawStream(device)
     dx = torch.empty_like(xc)
     part = torch.empty(blocks * 2 * n, dtype=torch.float32, device=x.device)
     dwb = torch.empty(2 * n, dtype=torch.float32, device=x.device)
     rc = _fn("layer_norm_bwd")(
         DTYPE_CODE[x.dtype], xc.data_ptr(), dyc.data_ptr(),
-        weight.contiguous().data_ptr(), dx.data_ptr(), part.data_ptr(),
+        _contiguous(weight).data_ptr(), dx.data_ptr(), part.data_ptr(),
         dwb.data_ptr(), _tickets(x.device, stream).data_ptr(),
         rows, n, blocks, eps, stream)
     if rc != 0:

@@ -1,5 +1,5 @@
 """Host time per call of the port's flash-attention forward, LayerNorm
-backward and logit_erf GELU wrappers, on one NVIDIA card.
+forward and backward and logit_erf GELU wrappers, on one NVIDIA card.
 
     python multimodal_sequencing_tpu_torch/tools/host_cost.py [--root DIR]
         [--calls NAME ...]
@@ -79,7 +79,8 @@ def main(argv=None) -> int:
                        att.flash_attention(q, k, v, mask, p, 5))
     x, dy = (torch.randn(LN_ROWS, 1024, generator=gen).to("cuda", torch.bfloat16)
              for _ in range(2))
-    w = torch.ones(1024, device="cuda")
+    w, b = torch.ones(1024, device="cuda"), torch.zeros(1024, device="cuda")
+    calls["layer_norm_fwd"] = lambda: ln.layer_norm_fwd(x, w, b, 1e-5)
     calls["layer_norm_bwd"] = lambda: ln.layer_norm_bwd(x, dy, w, 1e-5)
     a, g = (torch.randn(GELU_SHAPE, generator=gen).to("cuda", torch.bfloat16)
             for _ in range(2))

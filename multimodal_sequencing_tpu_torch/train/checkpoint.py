@@ -3,8 +3,10 @@
 
 `checkpoint-{step}` (or `checkpoint-best`) folders holding `config.json`,
 `model.pt` (the weights' state dict, the format `main_eval` loads),
-`optimizer.pt` (global step, optimizer counts and moments) and
-`training_args.json`. Resume parses the global step from the folder name.
+`optimizer.pt` (global step, optimizer counts and moments),
+`training_args.json` and the tokenizer's own files (`simple_tokenizer.json`
+for the built-in tokenizer), so `trainers.eval --model_name_or_path
+<checkpoint>` loads both the tokenizer and the weights. Resume parses the global step from the folder name.
 The JAX package's orbax checkpoints are not read here (orbax imports JAX);
 weights cross over through `models/convert.py::params_from_jax`.
 """
@@ -36,7 +38,7 @@ def save_model(model, cfg, path: str) -> None:
 
 def save_checkpoint(output_dir: str, step: int, model, optimizer, cfg,
                     training_args: Optional[dict] = None,
-                    name: Optional[str] = None) -> str:
+                    name: Optional[str] = None, tokenizer=None) -> str:
     """Write `checkpoint-{step}` (or `checkpoint-{name}`); returns its path."""
     tag = name if name is not None else str(step)
     ckpt_dir = os.path.join(os.path.abspath(output_dir), f"checkpoint-{tag}")
@@ -47,6 +49,8 @@ def save_checkpoint(output_dir: str, step: int, model, optimizer, cfg,
             state[key] = {n: t.detach().cpu() for n, t in state[key].items()}
     torch.save({"step": step, "optimizer": state},
                os.path.join(ckpt_dir, OPTIMIZER_NAME))
+    if tokenizer is not None and hasattr(tokenizer, "save_pretrained"):
+        tokenizer.save_pretrained(ckpt_dir)
     if training_args is not None:
         with open(os.path.join(ckpt_dir, ARGS_NAME), "w") as f:
             json.dump(training_args, f, indent=2, default=str)

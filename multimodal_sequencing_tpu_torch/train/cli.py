@@ -7,14 +7,17 @@
       --per_seq_max_length 60 --per_gpu_train_batch_size 8 \\
       --output_dir <dir> [--do_eval] [--device cuda]
   python -m multimodal_sequencing_tpu_torch.trainers.eval \\
-      ... --task_name wikihow_sort --sort_method heat_map \\
-      --model_name_or_path_1 <dir>/checkpoint-N [--device cuda]
+      --model_name_or_path <dir>/checkpoint-N --task_name wikihow_sort \\
+      --sort_method heat_map ... [--device cuda]
 
 `build_parser` has every option of the JAX package's parser, with the same
 names, types, defaults and choices, plus `--device` (default `cuda`; without
 a card the run fails unless `--device cpu` is given). Options of paths the
-port does not run yet raise `NotImplementedError` when set. Checkpoints are
-the port's own format (`train/checkpoint.py`); a fresh eval model is seeded
+port does not run yet raise `NotImplementedError` when set, as does a
+`--model_name_or_path` that is a local HF model directory
+(`local_hf_model_files`). Checkpoints are the port's own format
+(`train/checkpoint.py`) and carry the tokenizer, so a checkpoint serves as
+`--model_name_or_path` of the eval; a fresh eval model is seeded
 from 0, as the JAX eval's `PRNGKey(0)`, and a fresh train model from
 `--seed`.
 """
@@ -23,9 +26,10 @@ from __future__ import annotations
 
 import argparse
 import copy
+import json
 import logging
 import os
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
@@ -245,11 +249,41 @@ def resolve_output_dir(args) -> str:
     return args.output_dir
 
 
+HF_WEIGHTS_NAMES = ("pytorch_model.bin", "model.safetensors")
+
+
+def local_hf_model_files(path: Optional[str]) -> List[str]:
+    """The files that make directory `path` a local HF model to the JAX
+    package: a `config.json` with a top-level `hidden_size`, from which it
+    builds the encoder (`train/cli.py::_encoder_config_from_local_hf`), and
+    `pytorch_model.bin` or `model.safetensors`, which it looks for as weights
+    (`models/convert.py::load_pretrained_weights`). Empty for a name that is
+    not a directory (such as `simple`) and for a port checkpoint, whose
+    `config.json` keeps `hidden_size` under `encoder`."""
+    if not path or not os.path.isdir(path):
+        return []
+    found = [name for name in HF_WEIGHTS_NAMES
+             if os.path.exists(os.path.join(path, name))]
+    config = os.path.join(path, CONFIG_NAME)
+    if os.path.exists(config):
+        with open(config) as f:
+            hf = json.load(f)
+        if isinstance(hf, dict) and "hidden_size" in hf:
+            found.insert(0, CONFIG_NAME)
+    return found
+
+
 def build_config(args):
     """argparse namespace -> (MultimodalConfig, tokenizer)."""
     from ..models.config import EncoderConfig, MultimodalConfig
     from ..data.tokenization import load_tokenizer
 
+    hf_files = local_hf_model_files(args.model_name_or_path)
+    if hf_files:
+        raise NotImplementedError(
+            f"--model_name_or_path {args.model_name_or_path} is a local HF "
+            f"model ({', '.join(hf_files)}): HF encoders and their weights "
+            f"come with a later slice of the port")
     tokenizer = load_tokenizer(args.tokenizer_name or args.model_name_or_path)
     vocab = len(tokenizer)
     if args.model_size == "tiny":
@@ -370,7 +404,7 @@ def main_train(argv=None):
         eval_fn = _make_dev_eval_fn(args, cfg, tokenizer, data_name, device)
     result = run_finetune(cfg, model, dataset, args, device,
                           eval_fn=eval_fn if args.evaluate_during_training
-                          else None)
+                          else None, tokenizer=tokenizer)
     logger.info("training done at step %d; checkpoints in %s",
                 result.global_step, args.output_dir)
     if args.do_eval and eval_fn is not None:

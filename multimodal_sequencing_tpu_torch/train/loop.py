@@ -72,14 +72,16 @@ class TrainResult:
 
 
 def run_finetune(cfg, model, train_dataset, args, device,
-                 eval_fn: Optional[Callable] = None) -> TrainResult:
+                 eval_fn: Optional[Callable] = None,
+                 tokenizer=None) -> TrainResult:
     """Fresh init from `args.seed`, optional resume, then the step loop.
 
     args needs: per_gpu_train_batch_size, learning_rate, weight_decay,
     adam_epsilon, max_grad_norm, num_train_epochs, max_steps, warmup_steps,
     gradient_accumulation_steps, logging_steps, save_steps, seed,
     output_dir, overwrite_output_dir, do_not_load_optimizer,
-    evaluate_during_training."""
+    evaluate_during_training. `tokenizer`, when given, is saved into every
+    checkpoint."""
     batch_size = args.per_gpu_train_batch_size
     steps_per_epoch = max(1, len(train_dataset) // batch_size)
     if args.max_steps > 0:
@@ -136,7 +138,7 @@ def run_finetune(cfg, model, train_dataset, args, device,
             save_now = args.save_steps and global_step % args.save_steps == 0
             if save_now:
                 save_checkpoint(args.output_dir, global_step, model, optimizer,
-                                cfg, training_args)
+                                cfg, training_args, tokenizer=tokenizer)
             if save_now and args.evaluate_during_training and eval_fn:
                 res = eval_fn(model)
                 for k, v in res.items():
@@ -145,13 +147,14 @@ def run_finetune(cfg, model, train_dataset, args, device,
                 if score > best_score:
                     best_score = score
                     save_checkpoint(args.output_dir, global_step, model,
-                                    optimizer, cfg, training_args, name="best")
+                                    optimizer, cfg, training_args, name="best",
+                                    tokenizer=tokenizer)
             if global_step >= total_steps:
                 break
         if global_step >= total_steps:
             break
     save_checkpoint(args.output_dir, global_step, model, optimizer, cfg,
-                    training_args)
+                    training_args, tokenizer=tokenizer)
     writer.close()
     result.global_step = global_step
     return result

@@ -456,3 +456,56 @@ def test_layer_norm_kernels_match_plain_on_card(n):
         first = tln.layer_norm_bwd(xd, dyd, w.detach(), 1e-5)
         again = tln.layer_norm_bwd(xd, dyd, w.detach(), 1e-5)
         assert all(torch.equal(a, e) for a, e in zip(first, again))
+
+
+@pytest.mark.cuda
+# x one element past a 16-byte boundary takes both kernels' scalar path
+@pytest.mark.parametrize("offset", [0, 1])
+def test_layer_norm_kernels_share_row_statistics_on_card(offset):
+    _cuda_or_skip()
+    from multimodal_sequencing_tpu_torch.ops import layer_norm as tln
+    rows, n = 300, 1024
+    flat = torch.randn(rows * n + offset, device="cuda") + 0.5
+    x = flat[offset:].view(rows, n)
+    one, zero = torch.ones(n, device="cuda"), torch.zeros(n, device="cuda")
+    # f32, w = 1, b = 0: y = (x - mean) * rstd rounded once; the backward's
+    # dw over a dy that is 1 on row r alone is the same product, added to
+    # zeros only: bit-equal when both kernels saw the same mean and rstd
+    y = tln.layer_norm_fwd(x, one, zero, 1e-5)
+    for r in (0, 137, rows - 1):
+        dy = torch.zeros(rows, n, device="cuda")
+        dy[r] = 1.0
+        assert torch.equal(tln.layer_norm_bwd(x, dy, one, 1e-5)[1], y[r])
+    # the scalar path agrees with the plain version as the vector path does
+    w, b = torch.randn(n, device="cuda"), torch.randn(n, device="cuda")
+    torch.testing.assert_close(
+        tln.layer_norm_fwd(x, w, b, 1e-5),
+        tln.layer_norm_reference(x, w, b, 1e-5, torch.float32),
+        atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_constant_rows_on_card(dtype):
+    _cuda_or_skip()
+    from multimodal_sequencing_tpu_torch.ops import layer_norm as tln
+    rows, n = 64, 1024
+    # values of 7 significant bits: every sum of them and of their squares
+    # is exact, so the variance is 0 in any order and y = b
+    k = torch.randint(64, 128, (rows, 1), device="cuda")
+    x = (k / 32.0).expand(rows, n).to(dtype)
+    dy = torch.randn(rows, n, device="cuda").to(dtype)
+    w, b = torch.randn(n, device="cuda"), torch.randn(n, device="cuda")
+    y = tln.layer_norm_fwd(x, w, b, 1e-5)
+    assert torch.equal(y, b.to(dtype).expand(rows, n))
+    xr, wr, br = (t.clone().requires_grad_() for t in (x, w, b))
+    tln.layer_norm_reference(xr, wr, br, 1e-5, dtype).backward(dy)
+    atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 2 ** -7)
+    # chip_smoke.py's LN_TOLERANCE: dw and db's atol relative to their
+    # largest entry
+    for name, got, want in zip(("dx", "dw", "db"),
+                               tln.layer_norm_bwd(x, dy, w, 1e-5),
+                               (xr.grad, wr.grad, br.grad)):
+        scale = 1.0 if name == "dx" else want.float().abs().max().item()
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=atol * scale, rtol=rtol)

@@ -201,7 +201,8 @@ def test_train_cli_on_cpu_and_its_checkpoint_evaluates(wikihow_dir, tmp_path):
     assert names == ["checkpoint-2", "checkpoint-4", "checkpoint-best"]
     for name in names:
         assert sorted(os.listdir(out / name)) == [
-            "config.json", "model.pt", "optimizer.pt", "training_args.json"]
+            "config.json", "model.pt", "optimizer.pt", "simple_tokenizer.json",
+            "training_args.json"]
     assert json.loads((out / "checkpoint-4" / "training_args.json").read_text()
                       )["max_steps"] == 4
     scalars = [json.loads(line) for line in
@@ -296,6 +297,103 @@ def test_options_of_later_slices_raise(wikihow_dir, tmp_path, flag):
     with pytest.raises(NotImplementedError):
         tcli.main_train(_train_argv(wikihow_dir, tmp_path, "--max_steps", "1",
                                     *flag))
+
+
+def _eval_argv(wikihow_dir, out, model_path, *extra):
+    return ["--model_name_or_path", model_path, "--model_size", "tiny",
+            "--task_name", "wikihow_sort", "--sort_method", "heat_map",
+            "--data_dir", wikihow_dir, "--eval_splits", "dev",
+            "--max_seq_length", str(MAX_LEN), "--per_seq_max_length",
+            str(PER_SEQ), "--per_gpu_eval_batch_size", "2", "--seed", "0",
+            "--output_dir", str(out), "--device", "cpu", *extra]
+
+
+# What makes a directory a local HF model to the JAX package: a config.json
+# with a top-level hidden_size (it builds the encoder from it), or a weights
+# file it looks for; the weights files may be empty placeholders here
+HF_DIRS = {"config": {"config.json": json.dumps({"hidden_size": 64,
+                                                 "num_hidden_layers": 2})},
+           "bin": {"pytorch_model.bin": ""},
+           "safetensors": {"model.safetensors": ""}}
+
+
+@pytest.mark.parametrize("entry", ["train", "eval"])
+@pytest.mark.parametrize("kind", sorted(HF_DIRS))
+def test_local_hf_model_dir_raises(wikihow_dir, tmp_path, kind, entry):
+    hf = tmp_path / "hf"
+    hf.mkdir()
+    for name, text in HF_DIRS[kind].items():
+        (hf / name).write_text(text)
+    assert tcli.local_hf_model_files(str(hf)) == list(HF_DIRS[kind])
+    # the JAX package takes the config.json's encoder; the port raises
+    # rather than train or evaluate another model
+    if kind == "config":
+        # the JAX parser has no --device
+        args = jcli.build_parser("train").parse_args(
+            _train_argv(wikihow_dir, tmp_path)[:-2])
+        args.model_name_or_path, args.tokenizer_name = str(hf), "simple"
+        assert jcli.build_config(args)[0].encoder.hidden_size == 64
+    argv = (_train_argv(wikihow_dir, tmp_path / "out", "--max_steps", "1",
+                        "--tokenizer_name", "simple")
+            if entry == "train" else
+            _eval_argv(wikihow_dir, tmp_path / "out", "simple",
+                       "--tokenizer_name", "simple"))
+    argv[argv.index("--model_name_or_path") + 1] = str(hf)
+    run = tcli.main_train if entry == "train" else tcli.main_eval
+    with pytest.raises(NotImplementedError, match="local HF model"):
+        run(argv)
+
+
+def test_port_checkpoints_and_other_dirs_are_not_hf_models(tmp_path):
+    _, tc = _tiny_cfgs()
+    model = SequencingModel(tc)
+    opt = AdamW(model, learning_rate=1e-2, warmup_steps=1, total_steps=9)
+    ckpt = save_checkpoint(str(tmp_path), 1, model, opt, tc,
+                           tokenizer=ttok.SimpleWordTokenizer(1000))
+    # the port's config.json keeps hidden_size under "encoder"
+    assert "hidden_size" in json.loads(
+        (tmp_path / "checkpoint-1" / "config.json").read_text())["encoder"]
+    assert tcli.local_hf_model_files(ckpt) == []
+    other = tmp_path / "other"
+    other.mkdir()
+    (other / "config.json").write_text(json.dumps({"vocab_size": 5}))
+    for path in (str(other), str(tmp_path / "missing"), "simple",
+                 str(tmp_path / "checkpoint-1" / "model.pt"), None):
+        assert tcli.local_hf_model_files(path) == []
+    assert ttok.load_tokenizer(ckpt).vocab_size == 1000
+
+
+def test_port_checkpoint_evaluates_as_model_name_or_path(wikihow_dir,
+                                                          tmp_path):
+    out = tmp_path / "run"
+    tcli.main_train(_train_argv(wikihow_dir, out, "--max_steps", "2",
+                                "--save_steps", "0", "--overwrite_output_dir"))
+    ckpt = out / "checkpoint-2"
+    assert (ckpt / "simple_tokenizer.json").is_file()
+    # the checkpoint gives the eval both its tokenizer and its weights, as
+    # in the JAX package: no --model_name_or_path_1, no --tokenizer_name
+    ev_dir = tmp_path / "eval"
+    got = tcli.main_eval(_eval_argv(wikihow_dir, ev_dir, str(ckpt)))
+    orders = [[int(i) for i in line.split()] for line in
+              (ev_dir / "output_order.txt").read_text().splitlines()]
+    assert orders and all(sorted(o) == list(range(len(o))) for o in orders)
+    want = tcli.main_eval(_eval_argv(
+        wikihow_dir, tmp_path / "eval_1", "simple",
+        "--model_name_or_path_1", str(ckpt)))
+    assert got == want
+
+
+@pytest.mark.parametrize("vocab_size", [50265, 1000, 6])
+def test_simple_tokenizer_files_match_jax(tmp_path, vocab_size):
+    jtok.SimpleWordTokenizer(vocab_size).save_pretrained(str(tmp_path / "jax"))
+    ttok.SimpleWordTokenizer(vocab_size).save_pretrained(str(tmp_path / "port"))
+    name = "simple_tokenizer.json"
+    assert os.listdir(tmp_path / "port") == [name]
+    assert (tmp_path / "port" / name).read_bytes() == (
+        tmp_path / "jax" / name).read_bytes()
+    # each package reads the other's file
+    assert jtok.load_tokenizer(str(tmp_path / "port")).vocab_size == vocab_size
+    assert ttok.load_tokenizer(str(tmp_path / "jax")).vocab_size == vocab_size
 
 
 def test_train_needs_a_heatmap_task(wikihow_dir, tmp_path):
