@@ -9,7 +9,12 @@ version on the card, times it, and drives the port's two main paths at the
 full RoBERTa-large width on `cuda`: the heat-map sort evaluation
 (`trainers.eval --sort_method heat_map`, through `run_eval`) and fine-tuning
 (`trainers.train --hierarchical_version v1`, through `main_train`), whose
-checkpoint the evaluation then loads. Every output line before the last is
+checkpoint the evaluation then loads. The `hf_path` phase writes a local HF
+RoBERTa-large directory of random weights, fine-tunes from it, sweeps its
+checkpoints with `--device_decode --eval_all_checkpoints`, holds the card's
+order decode against the CPU's, and times device against host decode and
+the native packer against numpy; `remat` holds a train step with
+`EncoderConfig.remat` against one without. Every output line before the last is
 one JSON object (plus the raw `nvidia-smi` line and the paper-format eval
 rows); the last line is the contract line `{"ok": true, "device": {...}}`,
 printed only when every phase passed. Without a CUDA device, or without the
@@ -61,6 +66,23 @@ INT_OPS_PER_SM_CLOCK = 64
 NUM_LAYERS = 24  # RoBERTa-large: one attention call per layer per forward
 N_STORIES = 40   # eval: 5 batches of 8
 TRAIN_STEPS = 8  # train: steps of 8 stories
+HF_STEPS = 4     # the HF path: steps of 8 stories, a checkpoint every 2
+# the published roberta-large config.json, as a local HF directory has it
+HF_ROBERTA_LARGE = {
+    "architectures": ["RobertaForMaskedLM"], "model_type": "roberta",
+    "hidden_size": 1024, "num_hidden_layers": 24, "num_attention_heads": 16,
+    "intermediate_size": 4096, "hidden_act": "gelu", "vocab_size": 50265,
+    "max_position_embeddings": 514, "type_vocab_size": 1,
+    "layer_norm_eps": 1e-5, "pad_token_id": 1, "bos_token_id": 0,
+    "eos_token_id": 2, "hidden_dropout_prob": 0.1,
+    "attention_probs_dropout_prob": 0.1, "initializer_range": 0.02}
+# the decoders `--device_decode` runs on the card
+DEVICE_DECODE_METHODS = ("naive", "naive_v2", "naive_v3", "naive_sum",
+                         "naive_v2_sum", "naive_v3_sum", "topological")
+# two orders the card and the CPU decode differently must tie: their f64
+# scores agree within this, relative to max(1, |score|) (f32 sums of a few
+# logs near 20 round at ~2e-6)
+DECODE_TIE_REL = 1e-6
 BITS_KERNEL = "multimodal_sequencing_tpu_torch/ops/csrc/keep_bits_dump.cu"
 GELU_KERNEL = "multimodal_sequencing_tpu_torch/ops/csrc/gelu.cu"
 BWD_KERNEL = "multimodal_sequencing_tpu_torch/ops/csrc/flash_bwd.cu"
@@ -104,6 +126,9 @@ PATH_KERNELS = {"eval": ("flash_fwd", "gelu_logit_erf_fwd", "layer_norm_fwd"),
                           "flash_bwd_post", "gelu_logit_erf_fwd",
                           "gelu_logit_erf_bwd", "layer_norm_fwd",
                           "layer_norm_bwd")}
+# the HF path: training from the HF directory, the sweep of its checkpoints
+PATH_KERNELS.update(hf_train=PATH_KERNELS["train"],
+                    hf_eval=PATH_KERNELS["eval"])
 # the launch counter behind each row of the `kernels` line, where it is
 # not the row's own name
 COUNTER = {"flash_bwd": "flash_bwd_main", "flash_bwd_dq": "flash_bwd_main",
@@ -1284,8 +1309,457 @@ def phase_train_reference(seed: int):
         raise AssertionError("card and CPU disagree on the 2-layer train steps")
 
 
+def write_hf_roberta(path: str, seed: int) -> dict:
+    """A local HF RoBERTa-large directory: `config.json` at the published
+    widths and a `pytorch_model.bin` of f32 weights drawn from `seed` under
+    HF key names, the embeddings and the even layers under `roberta.` (as
+    an HF task model keeps them). Returns the state dict written."""
+    import torch
+    os.makedirs(path)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(HF_ROBERTA_LARGE, f, indent=2)
+    c = HF_ROBERTA_LARGE
+    h, ff = c["hidden_size"], c["intermediate_size"]
+    gen = torch.Generator().manual_seed(seed)
+
+    def normal(*shape, std=0.02, mean=0.0):
+        return torch.randn(*shape, generator=gen) * std + mean
+
+    sd = {}
+
+    def dense(key, n_out, n_in, prefixed):
+        pre = "roberta." if prefixed else ""
+        sd[f"{pre}{key}.weight"] = normal(n_out, n_in)
+        sd[f"{pre}{key}.bias"] = normal(n_out)
+
+    def ln(key, prefixed):
+        pre = "roberta." if prefixed else ""
+        sd[f"{pre}{key}.weight"] = normal(h, mean=1.0)
+        sd[f"{pre}{key}.bias"] = normal(h)
+
+    for name, rows in (("word", c["vocab_size"]),
+                       ("position", c["max_position_embeddings"]),
+                       ("token_type", c["type_vocab_size"])):
+        sd[f"roberta.embeddings.{name}_embeddings.weight"] = normal(rows, h)
+    ln("embeddings.LayerNorm", True)
+    for i in range(c["num_hidden_layers"]):
+        p, pre = f"encoder.layer.{i}", i % 2 == 0
+        for proj in ("query", "key", "value"):
+            dense(f"{p}.attention.self.{proj}", h, h, pre)
+        dense(f"{p}.attention.output.dense", h, h, pre)
+        ln(f"{p}.attention.output.LayerNorm", pre)
+        dense(f"{p}.intermediate.dense", ff, h, pre)
+        dense(f"{p}.output.dense", h, ff, pre)
+        ln(f"{p}.output.LayerNorm", pre)
+    dense("pooler.dense", h, h, False)
+    torch.save(sd, os.path.join(path, "pytorch_model.bin"))
+    return sd
+
+
+def _hf_key(port_key: str) -> str:
+    """The HF name (prefix stripped) of a port encoder parameter, written
+    out here apart from `models/convert.py`, which it checks."""
+    key = port_key.replace("embeddings.ln.", "embeddings.LayerNorm.")
+    if key.startswith("layer_"):
+        i, rest = key[len("layer_"):].split(".", 1)
+        rest = {"attention.query": "attention.self.query",
+                "attention.key": "attention.self.key",
+                "attention.value": "attention.self.value",
+                "attention.out": "attention.output.dense",
+                "attention_ln": "attention.output.LayerNorm",
+                "intermediate": "intermediate.dense",
+                "output": "output.dense",
+                "output_ln": "output.LayerNorm"}[rest.rsplit(".", 1)[0]] + \
+            "." + rest.rsplit(".", 1)[1]
+        key = f"encoder.layer.{i}.{rest}"
+    elif key.startswith("pooler."):
+        key = "pooler.dense." + key[len("pooler."):]
+    return key
+
+
+def _check_hf_weights(model, sd) -> dict:
+    """The encoder's weights against the HF file's, before the first step:
+    every one equal, the token-type table the file's one row tiled to 5."""
+    import torch
+    flat = {k[len("roberta."):] if k.startswith("roberta.") else k: v
+            for k, v in sd.items()}
+    tt = "embeddings.token_type_embeddings.weight"
+    mismatched, checked = [], 0
+    for key, param in model.encoder.state_dict().items():
+        want = flat[_hf_key(key)]
+        if key == tt:
+            want = want.repeat(5, 1)
+        checked += 1
+        if not torch.equal(param.detach().cpu(), want):
+            mismatched.append(key)
+    return {"checked": checked, "mismatched": mismatched[:5],
+            "token_type_rows": int(model.encoder.state_dict()[tt].shape[0])}
+
+
+def _decode_score(hm, order, method) -> float:
+    """The exhaustive decode's objective of one order, in f64: the chain
+    (or |chain| for v3) of log(x + 1e-8) or of x for `_sum`, plus the
+    closing term for v2 (1 - hm[last, first]) and v3 (|hm[last, first]|)."""
+    import numpy as np
+    hm = np.abs(hm.astype(np.float64)) if "v3" in method else hm.astype(
+        np.float64)
+    f = (lambda x: x) if "sum" in method else (lambda x: np.log(x + 1e-8))
+    total = sum(f(hm[a, b]) for a, b in zip(order[:-1], order[1:]))
+    if "v2" in method:
+        total += f(1.0 - hm[order[-1], order[0]])
+    elif "v3" in method:
+        total += f(hm[order[-1], order[0]])
+    return float(total)
+
+
+def _decode_on_card_vs_cpu(heatmaps: dict) -> dict:
+    """Each device decoder on the card against the same decoder on the CPU,
+    for every heat map set: equal orders, or orders that tie."""
+    import numpy as np
+    import torch
+    from multimodal_sequencing_tpu_torch.ops import order_decode as od
+    out = {}
+    for method in DEVICE_DECODE_METHODS:
+        stats = {"orders": 0, "differ": 0, "worst_tie_rel": 0.0, "bad": []}
+        for name, hm in heatmaps.items():
+            n = hm.shape[-1]
+            t = torch.from_numpy(hm)
+            if method == "topological":
+                got = od.topological_decode_batch(t.cuda(), n).cpu().numpy()
+                want = od.topological_decode_batch(t, n).numpy()
+            else:
+                got = od.exhaustive_naive_decode(t.cuda(), n, method)
+                got = got.cpu().numpy()
+                want = od.exhaustive_naive_decode(t, n, method).numpy()
+            stats["orders"] += len(want)
+            for k in np.nonzero((got != want).any(-1))[0]:
+                stats["differ"] += 1
+                if method == "topological":  # no score: orders must agree
+                    stats["bad"].append([name, int(k)])
+                    continue
+                a = _decode_score(hm[k], got[k].tolist(), method)
+                b = _decode_score(hm[k], want[k].tolist(), method)
+                rel = abs(a - b) / max(1.0, abs(b))
+                stats["worst_tie_rel"] = max(stats["worst_tie_rel"], rel)
+                if rel > DECODE_TIE_REL:
+                    stats["bad"].append([name, int(k), a, b])
+        out[method] = stats
+    # torch.argmax gives the first of equal maxima on the card
+    gen = torch.Generator().manual_seed(0)
+    x = torch.zeros(256, 5040)
+    i = torch.randint(0, 5040, (256,), generator=gen)
+    j = torch.randint(0, 5040, (256,), generator=gen)
+    x[torch.arange(256), i] = 1.0
+    x[torch.arange(256), j] = 1.0
+    out["argmax_first_on_card"] = bool(torch.equal(
+        x.cuda().argmax(-1).cpu(), torch.minimum(i, j)))
+    return out
+
+
+def _packer_timing(stories, tokenizer, reps: int = 20) -> dict:
+    """Host time to pack `stories` at S = 320: the native packer against
+    numpy, on the same step ids; the packs must be identical."""
+    import numpy as np
+    from multimodal_sequencing_tpu_torch.data import _native
+    from multimodal_sequencing_tpu_torch.data.packing import (StoryPacker,
+                                                              pack_numpy)
+    packer = StoryPacker(tokenizer, 320, 60)
+    steps = [packer.encode_steps(t) for t in stories]
+    pad = tokenizer.pad_token_id
+    same = all(np.array_equal(a, b) for st in steps for a, b in zip(
+        _native.pack_story(st, 320, pad), pack_numpy(st, 320, pad)))
+    us = {}
+    for name, fn in (("numpy", pack_numpy), ("native", _native.pack_story),
+                     ("native_2", _native.pack_story),
+                     ("numpy_2", pack_numpy)):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            for st in steps:
+                fn(st, 320, pad)
+        us[name] = (time.perf_counter() - t0) / (reps * len(steps)) * 1e6
+    return {"identical_packs": same, "stories": len(steps),
+            "us_per_story": us}
+
+
+def phase_hf_path(seed: int, work: str):
+    """Fine-tune from a local HF RoBERTa-large directory through the train
+    CLI (4 steps, a checkpoint every 2), sweep both checkpoints through the
+    eval CLI with `--device_decode --eval_all_checkpoints`, hold the card's
+    order decode against the CPU's, and time device against host decode and
+    the native packer against numpy."""
+    import numpy as np
+    import torch
+    from multimodal_sequencing_tpu_torch.data import _native
+    from multimodal_sequencing_tpu_torch.data.tokenization import (
+        SimpleWordTokenizer)
+    from multimodal_sequencing_tpu_torch.train import loop
+    from multimodal_sequencing_tpu_torch.train.cli import (
+        _evaluator, build_config, load_model_for_eval, main_train, parse_args,
+        run_eval)
+    if not _native.available():
+        raise AssertionError(
+            f"the native packer did not build: {_native.build_error()}")
+    emit({"phase": "hf_path", "packer": "native",
+          "library": str(_native.library_path())})
+    hf_dir = os.path.join(work, "hf_roberta_large")
+    data_dir = os.path.join(work, "hf_data")
+    out_dir = os.path.join(work, "hf_out")
+    os.makedirs(data_dir)
+    write_wikihow(data_dir, "train", 8 * HF_STEPS, seed + 2)
+    write_wikihow(data_dir, "test", N_STORIES, seed + 3)
+    t0 = time.perf_counter()
+    sd = write_hf_roberta(hf_dir, seed)
+    write_s = time.perf_counter() - t0
+    argv = ["--model_name_or_path", hf_dir, "--tokenizer_name", "simple",
+            "--replace_token_type_embeddings", "--do_train",
+            "--task_name", "wikihow_hl_v1", "--hierarchical_version", "v1",
+            "--data_dir", data_dir, "--max_seq_length", "320",
+            "--per_seq_max_length", "60", "--per_gpu_train_batch_size", "8",
+            "--learning_rate", "1e-5", "--warmup_steps", "1",
+            "--max_steps", str(HF_STEPS), "--logging_steps", "1",
+            "--save_steps", "2", "--seed", str(seed),
+            "--output_dir", out_dir, "--overwrite_output_dir",
+            "--device", "cuda"]
+    # hold the weights the run starts from against the file, before its
+    # first step
+    checks = {}
+    real_step = loop.train_step
+
+    def checked_step(model, *a, **kw):
+        if not checks:
+            checks.update(_check_hf_weights(model, sd))
+        return real_step(model, *a, **kw)
+
+    loop.train_step = checked_step
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        res = main_train(argv)
+    finally:
+        loop.train_step = real_step
+    wall_s = time.perf_counter() - t0
+    counts = _read_counts()
+    del sd
+    losses = [h["loss"] for h in res.history]
+    times = [h["time"] for h in res.history]
+    step_s = [b - a for a, b in zip([res.start_time] + times[:-1], times)]
+    ckpts = sorted(d for d in os.listdir(out_dir)
+                   if d.startswith("checkpoint-"))
+    # step k's interval holds the checkpoint written after step k - 1
+    # when k - 1 is a multiple of 2
+    no_save = [t for k, t in enumerate(step_s, 1) if k > 1 and (k - 1) % 2]
+    summary = {"phase": "hf_path", "part": "train", "hf_write_s": write_s,
+               "weights_check": checks, "steps": res.global_step,
+               "losses": losses, "step_s": step_s,
+               "step_s_without_checkpoint_write": no_save,
+               "checkpoints": ckpts, "launches": counts,
+               "wall_s_incl_init": wall_s}
+    emit(summary)
+    if not (checks.get("checked") == 16 * NUM_LAYERS + 7
+            and not checks["mismatched"] and checks["token_type_rows"] == 5
+            and res.global_step == HF_STEPS
+            and all(math.isfinite(x) for x in losses)
+            and ckpts == ["checkpoint-2", "checkpoint-4"]
+            and all(counts[k] == HF_STEPS * PER_FORWARD.get(k, NUM_LAYERS)
+                    for k in PATH_KERNELS["train"])):
+        raise AssertionError(f"HF train check failed: {summary}")
+
+    # the sweep: both checkpoints, device decode on the card
+    sweep_dir = os.path.join(work, "hf_sweep")
+    _reset_counts()
+    results, evaluator = run_eval(_eval_argv(
+        data_dir, sweep_dir, seed, "--model_name_or_path_1", out_dir,
+        "--eval_all_checkpoints", "--device_decode"))
+    eval_counts = _read_counts()
+    files = sorted(f for f in os.listdir(sweep_dir)
+                   if f.startswith("eval_results_split_"))
+    batches = 2 * math.ceil(N_STORIES / 8)
+    summary = {"phase": "hf_path", "part": "sweep", "results": results,
+               "files": files, "forwards": evaluator.forwards,
+               "launches": eval_counts,
+               "all_permutations": _check_eval_outputs(sweep_dir, N_STORIES)}
+    emit(summary)
+    if not (sorted(results) == ckpts
+            and all(sorted(r) == ["test"] for r in results.values())
+            and files == [f"eval_results_split_test_{c}.txt" for c in ckpts]
+            and summary["all_permutations"]
+            and evaluator.forwards == batches
+            and all(eval_counts[k] == batches * PER_FORWARD.get(k, NUM_LAYERS)
+                    for k in PATH_KERNELS["eval"])):
+        raise AssertionError(f"HF sweep check failed: {summary}")
+
+    # device decode against host decode on the last checkpoint: the eval
+    # batch time and its split, in turns
+    ckpt = os.path.join(out_dir, ckpts[-1])
+    split = {}
+    for name, extra in (("host", []), ("device", ["--device_decode"]),
+                        ("device_2", ["--device_decode"]), ("host_2", [])):
+        _, ev = run_eval(_eval_argv(data_dir, os.path.join(work, f"hf_{name}"),
+                                    seed, "--model_name_or_path_1", ckpt,
+                                    *extra))
+        fwd, dec = ev.forward_seconds, ev.decode_seconds
+        split[name] = {
+            "median_batch_s": _median_after_first(
+                [f + d for f, d in zip(fwd, dec)]),
+            "median_forward_s": _median_after_first(fwd),
+            "median_decode_s": _median_after_first(dec)}
+    emit({"phase": "hf_path", "part": "decode_timing", "batch": 8,
+          "stories": N_STORIES, "split": split})
+
+    # the card's decode against the CPU's: the checkpoint's heat maps of 40
+    # stories, random maps at n = 5 and n = 7, and maps of clean orders
+    args = parse_args("eval", _eval_argv(data_dir, work, seed))
+    cfg, tok = build_config(args)
+    model = load_model_for_eval(cfg, ckpt, torch.device("cuda"))
+    rng = np.random.default_rng(seed)
+    stories = [[" ".join(rng.choice(WORDS, size=60)) for _ in range(5)]
+               for _ in range(N_STORIES)]
+    heatmaps = {
+        "checkpoint": _evaluator(args, cfg, tok, torch.device("cuda"))
+        .story_logits(model, stories).astype(np.float32),
+        "random_5": rng.uniform(0, 1, (512, 5, 5)).astype(np.float32),
+        "random_7": rng.uniform(0, 1, (64, 7, 7)).astype(np.float32)}
+    clean = np.zeros((64, 5, 5), np.float32)
+    for hm in clean:
+        pos = np.argsort(rng.permutation(5))
+        hm[:] = np.where(pos[None, :] == pos[:, None] + 1, 1.0,
+                         np.where(pos[None, :] > pos[:, None], 0.1, 0.0))
+    heatmaps["clean_5"] = clean
+    decode = _decode_on_card_vs_cpu(heatmaps)
+    emit({"phase": "hf_path", "part": "decode_check",
+          "heatmaps": {k: list(v.shape) for k, v in heatmaps.items()},
+          "tie_rel_tol": DECODE_TIE_REL, **decode})
+    bad = {m: st["bad"][:3] for m, st in decode.items()
+           if isinstance(st, dict) and st["bad"]}
+    if bad or not decode["argmax_first_on_card"]:
+        raise AssertionError(f"card and CPU decode disagree: {bad}")
+
+    # the native packer against numpy on these stories
+    pack = _packer_timing(stories, SimpleWordTokenizer())
+    emit({"phase": "hf_path", "part": "packer", **pack})
+    if not pack["identical_packs"]:
+        raise AssertionError("native and numpy packs differ")
+    return {"hf_train": counts, "hf_eval": eval_counts}
+
+
+def _loss_and_grads(model, batch, step, seed):
+    """One train step's loss and gradients, as `train/steps.py::train_step`
+    computes them (the optimizer update left out), with its wall time and
+    the peak memory it allocated above what was allocated before it (the
+    weights and the earlier runs' gradients)."""
+    import torch
+    from multimodal_sequencing_tpu_torch.models.encoder import DropoutRng
+    from multimodal_sequencing_tpu_torch.train.steps import (compute_loss,
+                                                             device_batch)
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    db = device_batch(batch, "cuda")
+    out = model(db["input_ids"], db["attention_mask"], db["token_type_ids"],
+                deterministic=False, rng=DropoutRng(seed + 1, step, "cuda"))
+    loss, _ = compute_loss(model.cfg, out, db)
+    loss.backward()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    peak_gib = (torch.cuda.max_memory_allocated() - start) / 2**30
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    return {"loss": loss.detach().float(), "grads": grads, "wall_ms": wall_ms,
+            "peak_gib": peak_gib}
+
+
+def phase_remat(seed: int):
+    """A full-width train step (B = 8, S = 320, dropout 0.1) with
+    `EncoderConfig.remat` on and off, from the same weights and (seed,
+    step), in turns: the loss bit-equal in f32, and every gradient as close
+    to the no-remat one as two no-remat runs are to each other (the flash
+    backward adds dq's partials in no fixed order, so gradients are not
+    bit-stable from run to run). The gradients no dq feeds (the head's, and
+    the last layer's but its query projection's) must be bit-equal."""
+    import torch
+    b, _, s, _ = TRAIN_SHAPE
+    cfg, model = _full_width_model(seed)
+    model = model.cuda().train()
+    batch = _random_batch(cfg, b, s, seed)
+    step = 3
+    runs = {}
+    # the first remat run also pays the checkpoint machinery's first use
+    for name, remat in (("remat_first", True), ("plain", False),
+                        ("remat", True), ("plain_2", False),
+                        ("remat_2", True)):
+        model.encoder.cfg.remat = remat
+        runs[name] = _loss_and_grads(model, batch, step, seed)
+    # what remat is for: the activations of a larger batch (B = 32, the
+    # eval micro-batch), beside the gradients that both runs hold; the
+    # first run at this shape warms it up
+    big = _random_batch(cfg, 4 * b, s, seed + 1)
+    peak_b32 = {}
+    for name, remat in (("warm_up", False), ("plain", False),
+                        ("remat", True)):
+        model.encoder.cfg.remat = remat
+        run = _loss_and_grads(model, big, step, seed)
+        peak_b32[name] = {"peak_memory_above_start_gib": run["peak_gib"],
+                          "wall_ms": run["wall_ms"]}
+        del run
+    model.encoder.cfg.remat = False
+    base = runs["plain"]["grads"]
+    # each gradient's distance to the first no-remat run's, over that run's
+    # global norm (as phase_train_reference measures it: the attention key
+    # biases' gradients are zero but for rounding, so their own norms are
+    # no scale)
+    total = math.sqrt(sum(g.float().norm().item() ** 2 for g in base.values()))
+
+    def rel(other):
+        return {n: (other[n].float() - g.float()).norm().item() / total
+                for n, g in base.items()}
+
+    spread = rel(runs["plain_2"]["grads"])
+    remats = ("remat_first", "remat", "remat_2")
+    diffs = {name: rel(runs[name]["grads"]) for name in remats}
+    last = f"encoder.layer_{cfg.encoder.num_hidden_layers - 1}."
+    dq_free = sorted(n for n in base if n.startswith("heatmap_head.") or (
+        n.startswith(last) and ".attention.query." not in n))
+    spread_max = max(spread.values())
+    # A remat run and a second no-remat run are draws of the same run-to-run
+    # noise when remat replays the step, so a bound of one spread would
+    # fail about half the time: the bound is twice the largest spread.
+    tol = 2 * spread_max
+    worst = {name: max(d.values()) for name, d in diffs.items()}
+    dq_free_equal = all(torch.equal(runs[name]["grads"][n], base[n])
+                        for name in remats + ("plain_2",) for n in dq_free)
+    losses_equal = all(torch.equal(runs[name]["loss"], runs["plain"]["loss"])
+                       for name in runs)
+    summary = {
+        "phase": "remat", "shape_bs": [b, s], "dropout": 0.1, "step": step,
+        "losses": {k: r["loss"].item() for k, r in runs.items()},
+        "losses_bit_equal": losses_equal,
+        "grad_spread_no_remat_max_rel": spread_max,
+        "grad_remat_max_rel": worst, "tol_rel": tol,
+        "gradients": len(base), "dq_free_gradients": len(dq_free),
+        "dq_free_bit_equal": dq_free_equal,
+        "equal_in_both_plain_runs": sum(v == 0.0 for v in spread.values()),
+        "equal_in_plain_runs_not_in_remat": sorted(
+            n for n, v in spread.items() if v == 0.0
+            and any(diffs[r][n] != 0.0 for r in remats)),
+        "worst_spread": sorted(((v, n) for n, v in spread.items()),
+                               reverse=True)[:3],
+        "worst_remat": sorted(((v, n) for n, v in diffs["remat"].items()),
+                              reverse=True)[:3],
+        "wall_ms": {k: r["wall_ms"] for k, r in runs.items()},
+        "peak_memory_above_start_gib": {k: r["peak_gib"]
+                                        for k, r in runs.items()},
+        "b32": peak_b32}
+    emit(summary)
+    if not (losses_equal and dq_free_equal
+            and all(w <= tol for w in worst.values())):
+        raise AssertionError(f"remat check failed: {summary}")
+
+
 PHASES = ("kernel_check", "bits_check", "timing", "main_path", "breakdown",
-          "reference", "train_path", "train_breakdown", "train_reference")
+          "reference", "train_path", "train_breakdown", "train_reference",
+          "hf_path", "remat")
 
 
 def main(argv=None) -> int:
@@ -1326,6 +1800,8 @@ def main(argv=None) -> int:
             "train_path": lambda: launches.update(train=phase_train_path(args.seed, work)),
             "train_breakdown": lambda: phase_train_breakdown(args.seed),
             "train_reference": lambda: phase_train_reference(args.seed),
+            "hf_path": lambda: launches.update(phase_hf_path(args.seed, work)),
+            "remat": lambda: phase_remat(args.seed),
         }
         for name in args.phases:
             t0 = time.perf_counter()

@@ -1,0 +1,109 @@
+"""ctypes binding of the native story packer (counterpart of
+`data/_native.py`, `pack_story` only).
+
+`csrc/packer.cc` is a byte-for-byte copy of the JAX package's
+`native/packer.cc` (a test holds the two equal). At first use it is built
+with the host C++ compiler (`$CXX`, else `g++`, with the flags of
+`native/Makefile`) into the port's git-ignored `_build/` directory, named by
+a hash of the source, and loaded with `ctypes`. Without a compiler, or when
+the build fails, `pack_story` returns None and `StoryPacker` packs with
+numpy, which gives the same arrays.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import logging
+import os
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+
+logger = logging.getLogger(__name__)
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "packer.cc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall")
+
+_I32P = np.ctypeslib.ndpointer(dtype=np.int32, flags="C_CONTIGUOUS")
+_lock = threading.Lock()
+_state = {"lib": None, "tried": False, "error": None}
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()
+    return BUILD_DIR / f"libpacker-{digest[:16]}.so"
+
+
+def _build(out: Path) -> None:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o", str(tmp),
+           str(SOURCE)]
+    subprocess.run(cmd, check=True, capture_output=True, text=True,
+                   timeout=120)
+    os.replace(tmp, out)
+
+
+def _load() -> Optional[ctypes.CDLL]:
+    with _lock:
+        if _state["tried"]:
+            return _state["lib"]
+        _state["tried"] = True
+        out = library_path()
+        try:
+            if not out.exists():
+                _build(out)
+            lib = ctypes.CDLL(str(out))
+        except (OSError, subprocess.SubprocessError) as e:
+            detail = getattr(e, "stderr", None) or e
+            _state["error"] = f"{type(e).__name__}: {detail}"
+            logger.info("native packer unavailable (%s); using numpy",
+                        _state["error"])
+            return None
+        lib.pack_story.restype = ctypes.c_int32
+        lib.pack_story.argtypes = [_I32P, _I32P, ctypes.c_int32,
+                                   ctypes.c_int32, ctypes.c_int32, _I32P,
+                                   _I32P]
+        _state["lib"] = lib
+        return lib
+
+
+def available() -> bool:
+    """Whether the native packer is built and loaded (building it now if
+    it was not tried yet)."""
+    return _load() is not None
+
+
+def build_error() -> Optional[str]:
+    """Why the native packer is not available; None when it is or was not
+    tried."""
+    return _state["error"]
+
+
+def _flatten(step_ids: Sequence[np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
+    offsets = np.zeros(len(step_ids) + 1, np.int32)
+    for k, s in enumerate(step_ids):
+        offsets[k + 1] = offsets[k] + len(s)
+    flat = (np.concatenate(step_ids).astype(np.int32) if step_ids
+            else np.zeros(0, np.int32))
+    return np.ascontiguousarray(flat), offsets
+
+
+def pack_story(step_ids: Sequence[np.ndarray], L: int, pad_id: int
+               ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """(input_ids, token_type_ids) of length L from the native packer, or
+    None when it is not available."""
+    lib = _load()
+    if lib is None:
+        return None
+    flat, offsets = _flatten(step_ids)
+    out_ids = np.empty(L, np.int32)
+    out_types = np.empty(L, np.int32)
+    lib.pack_story(flat, offsets, len(step_ids), L, pad_id, out_ids,
+                   out_types)
+    return out_ids, out_types

@@ -1,10 +1,12 @@
-"""Story packing (copy of `data/packing.py`, numpy path only).
+"""Story packing (copy of `data/packing.py`, story packs).
 
 Each step is tokenized separately up to `per_seq_max_length`, pad tokens are
 stripped, and the remaining ids are concatenated into ONE sequence of at most
 `max_seq_length`, keeping every step's own CLS/SEP. `token_type_ids[t]` is
 the step index of token t; `attention_mask = input_ids != pad_id`. Per-step
-CLS positions are later recovered by `input_ids == cls_id`.
+CLS positions are later recovered by `input_ids == cls_id`. The native
+packer (`data/_native.py`) packs when it is built; `pack_numpy` otherwise,
+with the same outputs.
 """
 
 from __future__ import annotations
@@ -12,6 +14,25 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from . import _native
+
+
+def pack_numpy(step_ids: Sequence[np.ndarray], L: int, pad_id: int
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """(input_ids, token_type_ids) of length L: the steps' ids concatenated
+    and cut at L, each token typed by its step index, then pad_id / 0."""
+    input_ids = np.full(L, pad_id, dtype=np.int32)
+    token_type_ids = np.zeros(L, dtype=np.int32)
+    if step_ids:
+        cat = np.concatenate(step_ids)
+        types = np.concatenate([
+            np.full(len(s), i, dtype=np.int32)
+            for i, s in enumerate(step_ids)])
+        n = min(L, len(cat))
+        input_ids[:n] = cat[:n]
+        token_type_ids[:n] = types[:n]
+    return input_ids, token_type_ids
 
 
 class StoryPacker:
@@ -46,18 +67,13 @@ class StoryPacker:
              max_seq_length: Optional[int] = None
              ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Concatenate per-step id arrays into (input_ids, attention_mask,
-        token_type_ids) of fixed length."""
+        token_type_ids) of fixed length, with the native packer when it is
+        built."""
         L = max_seq_length or self.max_seq_length
-        input_ids = np.full(L, self.pad_id, dtype=np.int32)
-        token_type_ids = np.zeros(L, dtype=np.int32)
-        if step_ids:
-            cat = np.concatenate(step_ids)
-            types = np.concatenate([
-                np.full(len(s), i, dtype=np.int32)
-                for i, s in enumerate(step_ids)])
-            n = min(L, len(cat))
-            input_ids[:n] = cat[:n]
-            token_type_ids[:n] = types[:n]
+        nat = _native.pack_story(step_ids, L, self.pad_id) if step_ids \
+            else None
+        input_ids, token_type_ids = nat if nat is not None else pack_numpy(
+            step_ids, L, self.pad_id)
         attention_mask = (input_ids != self.pad_id).astype(np.int32)
         return input_ids, attention_mask, token_type_ids
 

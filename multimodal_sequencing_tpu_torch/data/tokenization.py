@@ -1,9 +1,12 @@
-"""The built-in hash-vocab word tokenizer (copy of `data/tokenization.py`).
+"""Tokenizers (copy of `data/tokenization.py`): the built-in hash-vocab
+word tokenizer, and HF tokenizers from local files.
 
 `SimpleWordTokenizer` follows RoBERTa's special-id conventions (cls=0,
 pad=1, sep=2), so the packing conventions (`attention_mask = ids != 1`,
-CLS gather via `ids == cls_id`) behave as with the real tokenizer. HF
-tokenizers are not part of the port yet.
+CLS gather via `ids == cls_id`) behave as with the real tokenizer. Any
+other name goes to `transformers.AutoTokenizer` with local files only,
+imported when it is needed; where `transformers` is not installed, that
+branch raises the same `OSError` as a tokenizer that is not found.
 """
 
 from __future__ import annotations
@@ -108,12 +111,19 @@ class SimpleWordTokenizer:
 
 def load_tokenizer(name_or_path: str):
     """A SimpleWordTokenizer for names starting with 'simple' or a
-    directory holding `simple_tokenizer.json`."""
+    directory holding `simple_tokenizer.json`; else an HF tokenizer from a
+    local directory or cache (no download)."""
     if name_or_path.startswith("simple"):
         return SimpleWordTokenizer()
     if os.path.isdir(name_or_path) and os.path.exists(
             os.path.join(name_or_path, "simple_tokenizer.json")):
         return SimpleWordTokenizer.from_pretrained(name_or_path)
-    raise NotImplementedError(
-        f"Tokenizer '{name_or_path}': the port loads only the built-in "
-        f"'simple' tokenizer so far; HF tokenizers come with a later slice.")
+    try:
+        from transformers import AutoTokenizer
+        return AutoTokenizer.from_pretrained(
+            name_or_path, local_files_only=True)
+    except Exception as e:
+        raise OSError(
+            f"Tokenizer '{name_or_path}' not available locally (offline "
+            f"environment). Pass a local tokenizer directory or 'simple' "
+            f"for the built-in word tokenizer.") from e

@@ -33,9 +33,10 @@ class EncoderConfig:
     position_offset: int = 2
     initializer_range: float = 0.02
     dtype: str = "bfloat16"
+    # recompute each layer in the backward (models/encoder.py::remat_layer)
+    remat: bool = False
     # The fields below are read by the JAX package only; they are kept so
     # that a config written by either package loads in the other.
-    remat: bool = False
     use_pallas_attention: bool = True
     gelu_approximate: bool = False
     # "logit_erf" (default) / "fast_erf" / "erf" / "tanh" (ops/gelu.py)

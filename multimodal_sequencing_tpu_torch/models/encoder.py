@@ -21,6 +21,14 @@ kernels, one int32 seed per layer drawn from its host generator
 difference to the JAX package: at S < 512 the JAX encoder trains through its
 XLA probs path with JAX's random bits, the port through its kernels with the
 hash bits at every S, so the masks never match; parity runs at dropout 0.
+
+`EncoderConfig.remat` recomputes each layer in the backward
+(`torch.utils.checkpoint`) instead of keeping its activations. The
+recompute replays the layer's randomness: it draws from a copy of the
+`DropoutRng` taken before the layer ran (`DropoutRng.fork`), so it makes
+the same hidden-dropout masks and the same attention seed, whose keep bits
+the flash backward regenerates, while the step's own streams go on as
+without remat.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .config import EncoderConfig
 from ..ops.attention import multihead_attention
@@ -50,6 +59,16 @@ class DropoutRng:
 
     def attention_seed(self) -> int:
         return int(torch.randint(-2**31, 2**31 - 1, (), generator=self.host))
+
+    def fork(self) -> "DropoutRng":
+        """A copy with generators of its own that draws what this one would
+        draw next; drawing from either leaves the other as it was."""
+        new = object.__new__(DropoutRng)
+        new.device = torch.Generator(device=self.device.device)
+        new.device.set_state(self.device.get_state())
+        new.host = torch.Generator(device="cpu")
+        new.host.set_state(self.host.get_state())
+        return new
 
 
 def fold_in(seed: int, step: int) -> int:
@@ -223,7 +242,28 @@ class TextEncoder(nn.Module):
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
         mask = attention_mask.to(torch.int32)
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for i in range(self.cfg.num_hidden_layers):
-            x = getattr(self, f"layer_{i}")(x, mask, rng)
+            layer = getattr(self, f"layer_{i}")
+            x = (remat_layer(layer, x, mask, rng) if remat
+                 else layer(x, mask, rng))
         pooled = torch.tanh(self.pooler(x[:, 0]))
         return x, pooled
+
+
+def remat_layer(layer: TransformerLayer, x: torch.Tensor, mask: torch.Tensor,
+                rng: Optional[DropoutRng]) -> torch.Tensor:
+    """`layer(x, mask, rng)` whose activations are recomputed in the
+    backward. The first call draws from `rng` as a plain call does; every
+    recompute draws from a fresh fork of `rng` as it stood before the
+    layer. The layer draws nothing from the global generators, so their
+    states are not stashed (`preserve_rng_state=False`)."""
+    replay = None if rng is None else rng.fork()
+    calls = [0]
+
+    def run(h):
+        calls[0] += 1
+        r = rng if calls[0] == 1 or replay is None else replay.fork()
+        return layer(h, mask, r)
+
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)

@@ -13,13 +13,20 @@
 `build_parser` has every option of the JAX package's parser, with the same
 names, types, defaults and choices, plus `--device` (default `cuda`; without
 a card the run fails unless `--device cpu` is given). Options of paths the
-port does not run yet raise `NotImplementedError` when set, as does a
-`--model_name_or_path` that is a local HF model directory
-(`local_hf_model_files`). Checkpoints are the port's own format
-(`train/checkpoint.py`) and carry the tokenizer, so a checkpoint serves as
-`--model_name_or_path` of the eval; a fresh eval model is seeded
-from 0, as the JAX eval's `PRNGKey(0)`, and a fresh train model from
-`--seed`.
+port does not run yet raise `NotImplementedError` when set.
+
+Training from a local HF model directory (`--model_name_or_path <dir>`, or
+`--config_name <dir>`) takes the encoder's shape from its `config.json` and
+its weights from its `pytorch_model.bin` (`models/convert.py`). Checkpoints
+are the port's own format (`train/checkpoint.py`) and carry the tokenizer,
+so a checkpoint serves as `--model_name_or_path` of the eval; the eval
+refuses any other directory, an HF one included, as the JAX package's
+restore does. `--eval_all_checkpoints` / `--iters_to_eval` sweep the
+checkpoints under a run directory. A fresh eval model is seeded from 0, as
+the JAX eval's `PRNGKey(0)`, and a fresh train model from `--seed`.
+`--use_cached` keeps the examples of each split in a pickle under the data
+directory, named as the JAX package names its cache but ending in
+`_torch.pkl`: each package unpickles only its own example classes.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from typing import List, Optional
 import torch
 
 from .. import resolve_device
+from ..models.convert import HF_WEIGHTS_NAMES
 from .checkpoint import CONFIG_NAME, WEIGHTS_NAME, save_model  # noqa: F401
 from .evaluation import SORT_METHODS
 
@@ -195,7 +203,6 @@ def build_parser(kind: str = "train") -> argparse.ArgumentParser:
 _NOT_YET = {
     "model_name_or_path_2": "the head_and_* sort methods",
     "model_name_or_path_3": "the head_and_* sort methods",
-    "config_name": "encoders from local HF configs",
     "data_dirs": "multi-dataset pretraining",
     "data_names": "multi-dataset pretraining",
     "caption_transformations": "caption transformations",
@@ -208,7 +215,6 @@ _NOT_YET = {
     "clip_visual_model_weights": "the multimodal encoders",
     "vision_model_checkpoint": "the multimodal encoders",
     "freeze_vision_model": "the multimodal encoders",
-    "device_decode": "on-device decoding (ops/order_decode)",
     "wrapper_model_type": "BERSON",
     "wrapper_model_with_heatmap": "BERSON",
     "additional_wrapper_level_objectives": "BERSON",
@@ -219,19 +225,14 @@ _NOT_YET = {
     "fsdp": "the parallelism layer",
     "num_cpu_devices": "the parallelism layer",
     "profile_dir": "tracing (utils/profiling)",
-    "use_cached": "the example cache",
-    "overwrite_cache": "the example cache",
     "no_cuda": "--no_cuda (use --device cpu)",
 }
-_EVAL_NOT_YET = {"eval_all_checkpoints": "checkpoint sweeps in the eval CLI",
-                 "iters_to_eval": "checkpoint sweeps in the eval CLI"}
 
 
 def parse_args(kind: str, argv=None):
     parser = build_parser(kind)
     args = parser.parse_args(argv)
-    not_yet = dict(_NOT_YET, **(_EVAL_NOT_YET if kind == "eval" else {}))
-    for dest, what in not_yet.items():
+    for dest, what in _NOT_YET.items():
         if getattr(args, dest) != parser.get_default(dest):
             raise NotImplementedError(
                 f"--{dest}: {what} come(s) with a later slice of the port")
@@ -247,9 +248,6 @@ def resolve_output_dir(args) -> str:
     if args.output_root:
         return os.path.join(args.output_root, args.output_dir)
     return args.output_dir
-
-
-HF_WEIGHTS_NAMES = ("pytorch_model.bin", "model.safetensors")
 
 
 def local_hf_model_files(path: Optional[str]) -> List[str]:
@@ -278,20 +276,16 @@ def build_config(args):
     from ..models.config import EncoderConfig, MultimodalConfig
     from ..data.tokenization import load_tokenizer
 
-    hf_files = local_hf_model_files(args.model_name_or_path)
-    if hf_files:
-        raise NotImplementedError(
-            f"--model_name_or_path {args.model_name_or_path} is a local HF "
-            f"model ({', '.join(hf_files)}): HF encoders and their weights "
-            f"come with a later slice of the port")
     tokenizer = load_tokenizer(args.tokenizer_name or args.model_name_or_path)
     vocab = len(tokenizer)
-    if args.model_size == "tiny":
-        enc = EncoderConfig.tiny(vocab_size=vocab)
-    elif args.model_size == "base":
-        enc = EncoderConfig.roberta_base(vocab_size=vocab)
-    else:
-        enc = EncoderConfig.roberta_large(vocab_size=vocab)
+    enc = _encoder_config_from_local_hf(args)
+    if enc is None:
+        if args.model_size == "tiny":
+            enc = EncoderConfig.tiny(vocab_size=vocab)
+        elif args.model_size == "base":
+            enc = EncoderConfig.roberta_base(vocab_size=vocab)
+        else:
+            enc = EncoderConfig.roberta_large(vocab_size=vocab)
     if args.replace_token_type_embeddings:
         enc.type_vocab_size = args.max_story_length
     if args.gelu_approximate:
@@ -312,8 +306,45 @@ def build_config(args):
         hl_include_objectives=args.hl_include_objectives or [],
         heatmap_decode_method=args.heatmap_decode_method,
         heatmap_decode_beam_size=args.heatmap_decode_beam_size,
+        device_decode=args.device_decode,
     )
     return cfg, tokenizer
+
+
+def _encoder_config_from_local_hf(args):
+    """The encoder of the first of `--config_name`, `--model_name_or_path`
+    that is a directory whose `config.json` has a top-level `hidden_size`
+    (an HF config); None when neither is."""
+    from ..models.config import EncoderConfig
+    for cand in (args.config_name, args.model_name_or_path):
+        if not cand or not os.path.isdir(cand):
+            continue
+        path = os.path.join(cand, CONFIG_NAME)
+        if not os.path.exists(path):
+            continue
+        with open(path) as f:
+            hf = json.load(f)
+        if "hidden_size" not in hf:
+            continue
+        model_type = hf.get("model_type", "roberta")
+        return EncoderConfig(
+            vocab_size=hf.get("vocab_size", 50265),
+            hidden_size=hf["hidden_size"],
+            num_hidden_layers=hf.get("num_hidden_layers", 12),
+            num_attention_heads=hf.get("num_attention_heads", 12),
+            intermediate_size=hf.get("intermediate_size",
+                                     4 * hf["hidden_size"]),
+            max_position_embeddings=hf.get("max_position_embeddings", 514),
+            type_vocab_size=hf.get("type_vocab_size", 1),
+            layer_norm_eps=hf.get("layer_norm_eps", 1e-5),
+            pad_token_id=hf.get("pad_token_id",
+                                1 if model_type == "roberta" else 0),
+            position_offset=2 if model_type == "roberta" else 0,
+            hidden_dropout_prob=hf.get("hidden_dropout_prob", 0.1),
+            attention_probs_dropout_prob=hf.get(
+                "attention_probs_dropout_prob", 0.1),
+        )
+    return None
 
 
 def _parse_task(args):
@@ -331,25 +362,56 @@ def _split_version(split: str):
     return split, None
 
 
-def load_examples(args, data_name, split):
+def example_cache_path(args, data_name, task_type, split) -> str:
+    """The JAX package's cache path for these examples with `_torch.pkl`
+    in place of `.pkl`: `cached_{split}_{model}_{len}_{data}_{task}`
+    under the data directory."""
+    model_tag = os.path.basename(
+        str(args.model_name_or_path).rstrip("/")) or "model"
+    return os.path.join(
+        args.data_dir, f"cached_{split.replace('/', '_')}_{model_tag}_"
+                       f"{args.max_seq_length}_{data_name}_{task_type}"
+                       f"_torch.pkl")
+
+
+def load_examples(args, data_name, task_type, split):
     """Whole-story examples of a split (the sort, hl_v1 and pure_class
-    tasks read the same processor)."""
+    tasks read the same processor). With `--use_cached`, read them from
+    `example_cache_path` when it exists (unless `--overwrite_cache`), else
+    write them there."""
+    import pickle
     from ..data.registry import get_processor
+    cache_path = None
+    if args.use_cached and args.data_dir:
+        cache_path = example_cache_path(args, data_name, task_type, split)
+        if os.path.exists(cache_path) and not args.overwrite_cache:
+            logger.info("loading cached examples from %s", cache_path)
+            with open(cache_path, "rb") as f:
+                return pickle.load(f)
     base_split, version = _split_version(split)
     proc = get_processor(
         f"{data_name}_sort", data_dir=args.data_dir,
         min_story_length=args.min_story_length,
         max_story_length=args.max_story_length, version_text=version)
     if base_split == "train":
-        return proc.get_train_examples()
-    if base_split in ("dev", "val"):
-        return proc.get_dev_examples()
-    return proc.get_test_examples()
+        examples = proc.get_train_examples()
+    elif base_split in ("dev", "val"):
+        examples = proc.get_dev_examples()
+    else:
+        examples = proc.get_test_examples()
+    if cache_path:
+        try:
+            with open(cache_path, "wb") as f:
+                pickle.dump(examples, f)
+            logger.info("cached %d examples to %s", len(examples), cache_path)
+        except OSError as e:
+            logger.warning("could not write cache %s: %s", cache_path, e)
+    return examples
 
 
 def _sort_loader(args, tokenizer, data_name, split):
     from ..data.datasets import SortDataset, data_loader
-    ds = SortDataset(load_examples(args, data_name, split), tokenizer,
+    ds = SortDataset(load_examples(args, data_name, "sort", split), tokenizer,
                      max_length=args.max_seq_length,
                      per_seq_max_length=args.per_seq_max_length,
                      max_story_length=args.max_story_length, seed=args.seed)
@@ -393,7 +455,7 @@ def main_train(argv=None):
     from .loop import run_finetune
 
     dataset = PureClassDataset(
-        load_examples(args, data_name, args.train_split), tokenizer,
+        load_examples(args, data_name, task_type, args.train_split), tokenizer,
         max_length=args.max_seq_length,
         per_seq_max_length=args.per_seq_max_length,
         max_story_length=args.max_story_length, scramble=True,
@@ -424,7 +486,7 @@ def _make_dev_eval_fn(args, cfg, tokenizer, data_name, device):
     the loop keys the best checkpoint on partial + exact match."""
     split = args.eval_splits[0]
     try:
-        load_examples(args, data_name, split)
+        load_examples(args, data_name, "sort", split)
     except (FileNotFoundError, ValueError) as e:
         logger.warning("no dev split for eval-during-training: %s", e)
         return None
@@ -452,7 +514,13 @@ def main_eval(argv=None):
 
 def run_eval(argv=None):
     """The body of `main_eval`; also returns the `SortEvaluator`, whose
-    counts and per-batch times a caller may read."""
+    counts and per-batch times a caller may read.
+
+    `--eval_all_checkpoints` (every checkpoint) or `--iters_to_eval` (those
+    named) evaluates each checkpoint under `--model_name_or_path_1` (else
+    `--model_name_or_path`) when that is a directory, else under
+    `--output_dir`. With more than one, the results are keyed by checkpoint
+    name and each split is written as `{split}_{name}`."""
     args = parse_args("eval", argv)
     logging.basicConfig(level=logging.INFO)
     device = resolve_device(args.device)
@@ -464,25 +532,45 @@ def run_eval(argv=None):
             f"--sort_method {args.sort_method}: the port evaluates heat_map "
             f"so far; the other methods come with later slices")
     evaluator = _evaluator(args, cfg, tokenizer, device)
-    path = args.model_name_or_path_1 or args.model_name_or_path
-    models = {"heatmap": load_model_for_eval(cfg, path, device)}
-    results = {}
-    for split in args.data_splits or args.eval_splits:
-        res = evaluator.evaluate(
-            _sort_loader(args, tokenizer, data_name, split),
-            args.sort_method, models, metrics=args.metrics,
-            output_dir=args.output_dir, data_split=split,
-            max_batches=args.max_eval_steps, args_ns=args,
-            every_n=args.eval_on_every_iter)
-        results[split] = res
-        logger.info("split %s: %s", split, res)
-    return results, evaluator
+    base_path = args.model_name_or_path_1 or args.model_name_or_path
+    paths = [base_path]
+    if args.eval_all_checkpoints or args.iters_to_eval:
+        from .checkpoint import find_checkpoints
+        root = (base_path if base_path and os.path.isdir(base_path)
+                else args.output_dir)
+        paths = find_checkpoints(
+            root, None if args.eval_all_checkpoints else args.iters_to_eval
+        ) or paths
+    all_results = {}
+    for path in paths:
+        models = {"heatmap": load_model_for_eval(cfg, path, device)}
+        tag = os.path.basename(str(path).rstrip("/")) if len(paths) > 1 \
+            else None
+        results = {}
+        for split in args.data_splits or args.eval_splits:
+            res = evaluator.evaluate(
+                _sort_loader(args, tokenizer, data_name, split),
+                args.sort_method, models, metrics=args.metrics,
+                output_dir=args.output_dir,
+                data_split=split if tag is None else f"{split}_{tag}",
+                max_batches=args.max_eval_steps, args_ns=args,
+                every_n=args.eval_on_every_iter)
+            results[split] = res
+            logger.info("%ssplit %s: %s", f"[{tag}] " if tag else "", split,
+                        res)
+        if tag:
+            all_results[tag] = results
+        else:
+            all_results = results
+    return all_results, evaluator
 
 
 def load_model_for_eval(cfg, path: Optional[str], device):
     """The heat-map model on `device`, ready for inference: the checkpoint at
     `path` when it is a directory (its saved encoder config and head
-    version), else a fresh init seeded from 0."""
+    version), else a fresh init seeded from 0. A directory that is not a
+    checkpoint of this package (a local HF model, a run directory) raises
+    ValueError."""
     from ..models.config import MultimodalConfig
     from ..models.sequencer import (HEATMAP_VERSIONS, SequencingModel,
                                     cast_for_inference, init_weights)
@@ -491,6 +579,14 @@ def load_model_for_eval(cfg, path: Optional[str], device):
     if role_cfg.hierarchical_version not in HEATMAP_VERSIONS:
         role_cfg.hierarchical_version = "v1"
     if path and os.path.isdir(path):
+        if not os.path.exists(os.path.join(path, WEIGHTS_NAME)):
+            hf = local_hf_model_files(path)
+            raise ValueError(
+                f"{path} is not a checkpoint of this package (no "
+                f"{WEIGHTS_NAME})"
+                + (f"; it is a local HF model ({', '.join(hf)}), which the "
+                   f"eval does not load, as in the JAX package: train on it "
+                   f"first" if hf else ""))
         with open(os.path.join(path, CONFIG_NAME)) as f:
             saved = MultimodalConfig.from_json(f.read())
         role_cfg.encoder = saved.encoder

@@ -5,8 +5,9 @@ Each batch of stories is packed on the host, run through the model in
 fixed-size micro-batches on the evaluator's device (the tail padded by
 repeating the last story, so every forward has the same shape as in the
 JAX package), and the heat maps are decoded to orders on the host with the
-parity decoders of `utils/heatmap.py`. On-device decode (`--device_decode`)
-and the other sort methods are later slices.
+parity decoders of `utils/heatmap.py`, or with `--device_decode` on the
+evaluator's device (`ops/order_decode.py`). The other sort methods are
+later slices.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..ops.order_decode import (exhaustive_naive_decode,
+                                topological_decode_batch)
 from ..utils.heatmap import heatmap2order
 from ..utils.metrics import METRICS, compute_metrics
 
@@ -57,7 +60,8 @@ class SortEvaluator:
 
     `forwards` counts model forwards. For each batch, `forward_seconds`
     holds the host wall time of packing, the forwards and the copy back,
-    and `decode_seconds` that of decoding the heat maps on the host."""
+    and `decode_seconds` that of decoding the heat maps (on the host, or
+    on the device with `cfg.device_decode`)."""
 
     def __init__(self, cfg, packer, device: torch.device,
                  micro_batch: int = 64):
@@ -90,19 +94,49 @@ class SortEvaluator:
 
         return _batched_apply(fn, feed, self.micro_batch)
 
+    # the exhaustive n! decode is exact and cheap up to this story length
+    # (7! = 5040 candidate orders a story)
+    DEVICE_DECODE_MAX_N = 7
+
     def decode_heatmap(self, heatmaps: np.ndarray) -> List[List[int]]:
+        """Orders of (B, N, N) heat maps. With `cfg.device_decode`, the
+        naive family (but `super_naive`) at N <= 7 and `topological` decode
+        on the evaluator's device (`ops/order_decode.py`); every other case
+        decodes on the host (`utils/heatmap.py`)."""
         cfg = self.cfg
-        if getattr(cfg, "device_decode", False):
-            raise NotImplementedError(
-                "--device_decode (ops/order_decode) comes with a later slice "
-                "of the port")
+        method = cfg.heatmap_decode_method
+        n = int(heatmaps.shape[-1])
         if not np.isfinite(heatmaps).all():
             raise ValueError("heat map holds non-finite values")
+        if cfg.device_decode:
+            # the host decoders' range assertions: the device decoders would
+            # turn an out-of-range heat map into NaN scores silently
+            if "naive" in method and "v3" not in method \
+                    and not heatmaps.min() >= 0:
+                raise AssertionError("heat map cannot have negative values.")
+            if ("v2" in method or "v3" in method) \
+                    and not np.abs(heatmaps).max() <= 1.0:
+                raise AssertionError("prob is > 1, sigmoid applied?")
+            out = None
+            if ("naive" in method and method != "super_naive"
+                    and n <= self.DEVICE_DECODE_MAX_N):
+                out = exhaustive_naive_decode(self._on_device(heatmaps), n,
+                                              method)
+            elif method == "topological":
+                out = topological_decode_batch(self._on_device(heatmaps), n)
+            # else (super_naive, mst, n > 7): the host decoder; the greedy
+            # chain would change the v2/v3/_sum scoring
+            if out is not None:
+                return out.cpu().tolist()
         return [heatmap2order(
             hm.astype(np.float64),
-            decode_method=cfg.heatmap_decode_method,
+            decode_method=method,
             beam_size=cfg.heatmap_decode_beam_size)
             for hm in heatmaps]
+
+    def _on_device(self, heatmaps: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(heatmaps, np.float32)).to(
+            self.device)
 
     def evaluate(self, loader, sort_method: str, models: Dict,
                  metrics: Optional[Sequence[str]] = None,

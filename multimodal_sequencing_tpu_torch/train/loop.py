@@ -23,6 +23,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from ..data.datasets import data_loader, prefetch
+from ..models.convert import load_pretrained_weights
 from ..models.sequencer import init_weights
 from .checkpoint import (find_checkpoints, parse_step_from_name,
                          restore_checkpoint, save_checkpoint)
@@ -74,7 +75,9 @@ class TrainResult:
 def run_finetune(cfg, model, train_dataset, args, device,
                  eval_fn: Optional[Callable] = None,
                  tokenizer=None) -> TrainResult:
-    """Fresh init from `args.seed`, optional resume, then the step loop.
+    """Fresh init from `args.seed`, the HF text weights of a
+    `--model_name_or_path` directory (`models/convert.py`), optional
+    resume, then the step loop.
 
     args needs: per_gpu_train_batch_size, learning_rate, weight_decay,
     adam_epsilon, max_grad_norm, num_train_epochs, max_steps, warmup_steps,
@@ -91,7 +94,9 @@ def run_finetune(cfg, model, train_dataset, args, device,
         epochs = int(args.num_train_epochs)
         total_steps = steps_per_epoch * epochs
 
-    model = init_weights(model, args.seed).to(device)
+    model = init_weights(model, args.seed)
+    load_pretrained_weights(model, args)
+    model = model.to(device)
     optimizer = AdamW(
         model, learning_rate=args.learning_rate,
         warmup_steps=args.warmup_steps, total_steps=total_steps,

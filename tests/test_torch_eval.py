@@ -180,21 +180,37 @@ def _port_modules():
         [str(PORT)], prefix="multimodal_sequencing_tpu_torch."))
 
 
-def test_port_imports_without_jax():
-    code = ("import sys\n"
-            "for name in ('jax', 'jaxlib', 'flax', 'optax',"
-            " 'multimodal_sequencing_tpu'):\n"
-            "    sys.modules[name] = None\n"
-            "import importlib\n"
+def test_port_imports_without_jax(tmp_path):
+    from test_torch_convert import write_bpe_tokenizer
+    bpe = write_bpe_tokenizer(tmp_path / "bpe")
+    blocked = ("jax", "jaxlib", "flax", "optax", "multimodal_sequencing_tpu")
+    # every port module, and an HF tokenizer loaded through transformers
+    # that packs a story
+    body = (f"import importlib, sys\n"
             f"for mod in {_port_modules()!r}:\n"
-            "    importlib.import_module(mod)\n"
-            "import chip_smoke\n"
-            "print('ok')\n")
-    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                         capture_output=True, text=True, timeout=300)
-    assert res.returncode == 0, res.stderr
-    assert res.stdout.strip().endswith("ok")
-    assert len(_port_modules()) >= 20
+            f"    importlib.import_module(mod)\n"
+            f"import chip_smoke\n"
+            f"from multimodal_sequencing_tpu_torch.data.tokenization import "
+            f"load_tokenizer\n"
+            f"from multimodal_sequencing_tpu_torch.data.packing import "
+            f"StoryPacker\n"
+            f"tok = load_tokenizer({bpe!r})\n"
+            f"StoryPacker(tok, 32, 8).pack_story(['Cut the plank.', 'Sand it.'])\n"
+            f"print(sorted(m for m in {blocked!r} if sys.modules.get(m)))\n")
+    # once with the JAX modules made unimportable, once as they are: no
+    # import of them is tried, and none is made
+    block = (f"import sys\n"
+             f"for name in {blocked!r}:\n"
+             f"    sys.modules[name] = None\n")
+    for code in (block + body, body):
+        res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                             capture_output=True, text=True, timeout=300)
+        assert res.returncode == 0, res.stderr
+        assert res.stdout.strip().splitlines()[-1] == "[]"
+    mods = _port_modules()
+    assert len(mods) >= 20
+    assert {"multimodal_sequencing_tpu_torch.ops.order_decode",
+            "multimodal_sequencing_tpu_torch.data._native"} <= set(mods)
 
 
 def test_host_cost_tool_needs_a_card(monkeypatch):

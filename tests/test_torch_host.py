@@ -1,7 +1,10 @@
 """The port keeps its own copies of the JAX package's host modules; each
 copy is pinned here to its original on the same inputs: tokenizer ids,
-story packing, the WikiHow processor and sort dataset, every heat-map
-decode method and every metric."""
+story packing (the native packer, its pinned C++ source, and the numpy
+packer), the WikiHow processor and sort dataset, every heat-map decode
+method and every metric."""
+
+from pathlib import Path
 
 import jax  # noqa: F401  (both frameworks load in one test process)
 import numpy as np
@@ -14,6 +17,7 @@ from multimodal_sequencing_tpu.data import tokenization as jtok
 from multimodal_sequencing_tpu.data.registry import get_processor as j_get_processor
 from multimodal_sequencing_tpu.utils import heatmap as jhm
 from multimodal_sequencing_tpu.utils import metrics as jmet
+from multimodal_sequencing_tpu_torch.data import _native as tnative
 from multimodal_sequencing_tpu_torch.data import datasets as tds
 from multimodal_sequencing_tpu_torch.data import packing as tpack
 from multimodal_sequencing_tpu_torch.data import tokenization as ttok
@@ -23,6 +27,7 @@ from multimodal_sequencing_tpu_torch.utils import metrics as tmet
 
 torch.set_num_threads(1)
 
+REPO = Path(__file__).resolve().parent.parent
 TEXTS = [
     "Gather all the tools you need. Make sure the workbench is clean.",
     "Measure the plank twice before cutting!",
@@ -55,6 +60,53 @@ def test_pack_story_matches(max_len, per_seq):
         for a, b in zip(t.pack_story(story), j.pack_story(story)):
             np.testing.assert_array_equal(a, b)
         assert a.dtype == b.dtype
+
+
+def test_pinned_packer_source_is_the_native_one():
+    assert tnative.SOURCE == (REPO / "multimodal_sequencing_tpu_torch" / "data"
+                              / "csrc" / "packer.cc")
+    assert tnative.SOURCE.read_bytes() == (
+        REPO / "native" / "packer.cc").read_bytes()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_native_numpy_and_jax_packs_match(seed):
+    # the port's library is built from its pinned copy into its own
+    # _build/, never into or from native/
+    assert tnative.available(), tnative.build_error()
+    assert tnative.library_path().parent == (
+        REPO / "multimodal_sequencing_tpu_torch" / "_build")
+    assert tnative.library_path().is_file()
+    rng = np.random.default_rng(seed)
+    jp = jpack.StoryPacker(jtok.load_tokenizer("simple"), 64)
+    for _ in range(200):
+        n_steps = int(rng.integers(1, 8))
+        steps = [rng.integers(0, 50265, int(rng.integers(0, 40))).astype(
+            np.int32) for _ in range(n_steps)]
+        L = int(rng.integers(1, 160))
+        native = tnative.pack_story(steps, L, 1)
+        numpy = tpack.pack_numpy(steps, L, 1)
+        want = jp.pack(steps, L)
+        for got in (native, numpy):
+            np.testing.assert_array_equal(got[0], want[0])
+            np.testing.assert_array_equal(got[1], want[2])
+            assert got[0].dtype == got[1].dtype == np.int32
+
+
+def test_packer_falls_back_to_numpy_without_a_compiler(tmp_path, monkeypatch):
+    monkeypatch.setattr(tnative, "_state",
+                        {"lib": None, "tried": False, "error": None})
+    monkeypatch.setattr(tnative, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setenv("CXX", str(tmp_path / "no-such-compiler"))
+    assert not tnative.available()
+    assert "no-such-compiler" in tnative.build_error()
+    steps = [np.arange(5, dtype=np.int32), np.arange(9, dtype=np.int32)]
+    assert tnative.pack_story(steps, 12, 1) is None
+    packer = tpack.StoryPacker(ttok.load_tokenizer("simple"), 12)
+    got = packer.pack(steps)
+    want = jpack.StoryPacker(jtok.load_tokenizer("simple"), 12).pack(steps)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("split", ["train", "dev", "test", "acl22-train"])

@@ -289,7 +289,7 @@ def test_parser_options_match_jax(kind):
 
 
 @pytest.mark.parametrize("flag", [["--multimodal"], ["--fsdp"],
-                                  ["--device_decode"],
+                                  ["--profile_dir", "profile"],
                                   ["--wrapper_model_type", "berson"],
                                   ["--hl_include_objectives", "head"],
                                   ["--model_parallel_size", "2"]])
@@ -310,38 +310,97 @@ def _eval_argv(wikihow_dir, out, model_path, *extra):
 
 # What makes a directory a local HF model to the JAX package: a config.json
 # with a top-level hidden_size (it builds the encoder from it), or a weights
-# file it looks for; the weights files may be empty placeholders here
-HF_DIRS = {"config": {"config.json": json.dumps({"hidden_size": 64,
-                                                 "num_hidden_layers": 2})},
-           "bin": {"pytorch_model.bin": ""},
-           "safetensors": {"model.safetensors": ""}}
+# file it looks for (it reads pytorch_model.bin and finds but does not read
+# model.safetensors, which may be a placeholder here)
+HF_DIRS = {"config": ["config.json"], "bin": ["pytorch_model.bin"],
+           "safetensors": ["model.safetensors"]}
+HF_CONFIG = {"model_type": "roberta", "hidden_size": 64,
+             "num_hidden_layers": 2, "num_attention_heads": 4,
+             "intermediate_size": 128, "max_position_embeddings": 160,
+             "vocab_size": 50265}
+
+
+def _hf_state_dict(prefix, type_vocab_size=1):
+    """The state dict of a tiny HF RobertaModel with random weights, at the
+    tiny encoder's shapes, its keys under `prefix`."""
+    from transformers import RobertaConfig, RobertaModel
+    torch.manual_seed(0)
+    hf = RobertaModel(RobertaConfig(
+        **{k: v for k, v in HF_CONFIG.items() if k != "model_type"},
+        type_vocab_size=type_vocab_size, layer_norm_eps=1e-5,
+        pad_token_id=1))
+    return {prefix + k: v for k, v in hf.state_dict().items()}
+
+
+def _write_hf_dir(path, kind):
+    path.mkdir()
+    if kind == "config":
+        (path / "config.json").write_text(json.dumps(HF_CONFIG))
+    elif kind == "bin":
+        torch.save(_hf_state_dict("roberta."), path / "pytorch_model.bin")
+    else:
+        (path / "model.safetensors").write_text("")
 
 
 @pytest.mark.parametrize("entry", ["train", "eval"])
 @pytest.mark.parametrize("kind", sorted(HF_DIRS))
-def test_local_hf_model_dir_raises(wikihow_dir, tmp_path, kind, entry):
+def test_local_hf_model_dir_follows_jax(wikihow_dir, tmp_path, kind, entry):
+    from multimodal_sequencing_tpu.models import convert as jconvert
+    from multimodal_sequencing_tpu_torch.models import convert as tconvert
+    from multimodal_sequencing_tpu_torch.models.sequencer import init_weights
     hf = tmp_path / "hf"
-    hf.mkdir()
-    for name, text in HF_DIRS[kind].items():
-        (hf / name).write_text(text)
-    assert tcli.local_hf_model_files(str(hf)) == list(HF_DIRS[kind])
-    # the JAX package takes the config.json's encoder; the port raises
-    # rather than train or evaluate another model
-    if kind == "config":
-        # the JAX parser has no --device
-        args = jcli.build_parser("train").parse_args(
-            _train_argv(wikihow_dir, tmp_path)[:-2])
-        args.model_name_or_path, args.tokenizer_name = str(hf), "simple"
-        assert jcli.build_config(args)[0].encoder.hidden_size == 64
-    argv = (_train_argv(wikihow_dir, tmp_path / "out", "--max_steps", "1",
-                        "--tokenizer_name", "simple")
-            if entry == "train" else
-            _eval_argv(wikihow_dir, tmp_path / "out", "simple",
-                       "--tokenizer_name", "simple"))
+    _write_hf_dir(hf, kind)
+    assert tcli.local_hf_model_files(str(hf)) == HF_DIRS[kind]
+    if entry == "eval":
+        # the JAX eval hands the directory to its checkpoint restore, which
+        # fails; the port says why
+        argv = _eval_argv(wikihow_dir, tmp_path / "out", str(hf),
+                          "--tokenizer_name", "simple")
+        with pytest.raises(ValueError, match="not a checkpoint of this "
+                                             "package.*local HF model"):
+            tcli.main_eval(argv)
+        return
+    argv = _train_argv(wikihow_dir, tmp_path / "out", "--max_steps", "1",
+                       "--tokenizer_name", "simple")
     argv[argv.index("--model_name_or_path") + 1] = str(hf)
-    run = tcli.main_train if entry == "train" else tcli.main_eval
-    with pytest.raises(NotImplementedError, match="local HF model"):
-        run(argv)
+    # the JAX parser has no --device
+    at = argv.index("--device")
+    jargs = jcli.build_parser("train").parse_args(argv[:at] + argv[at + 2:])
+    targs = tcli.parse_args("train", argv)
+    jc, tc = jcli.build_config(jargs)[0], tcli.build_config(targs)[0]
+    assert json.loads(tc.encoder.to_json()) == json.loads(jc.encoder.to_json())
+    assert tc.encoder.hidden_size == 64 and tc.encoder.type_vocab_size == 5
+    # the initial weights: each package's init, then the HF weights
+    ids = np.full((1, MAX_LEN), jc.pad_id, np.int32)
+    ids[0, 0] = jc.cls_id
+    jparams = jax.tree.map(np.asarray, JSequencingModel(jc).init(
+        jax.random.PRNGKey(0), jnp.asarray(ids))["params"])
+    jloaded = jconvert.load_pretrained_weights(dict(jparams), jargs, jc)
+    model = init_weights(SequencingModel(tc), 0)
+    fresh = {k: v.clone() for k, v in model.state_dict().items()}
+    assert tconvert.load_pretrained_weights(model, targs) == (kind == "bin")
+    got = model.state_dict()
+    if kind == "bin":
+        want = params_from_jax(jloaded, tc)
+        enc = [k for k in got if k.startswith("encoder.")]
+        assert len(enc) == 3 + 2 + 2 * 16 + 2  # tables, LN, layers, pooler
+        for key in enc:
+            torch.testing.assert_close(got[key], want[key], rtol=0, atol=0,
+                                       msg=key)
+        hf_sd = _hf_state_dict("")
+        assert torch.equal(got["encoder.layer_1.attention.query.weight"],
+                           hf_sd["encoder.layer.1.attention.self.query.weight"])
+        table = got["encoder.embeddings.token_type_embeddings.weight"]
+        assert table.shape == (5, 64)
+        assert torch.equal(table, hf_sd[
+            "embeddings.token_type_embeddings.weight"].repeat(5, 1))
+    else:  # neither package loads weights
+        assert jax.tree.all(jax.tree.map(np.array_equal, jloaded, jparams))
+        for key, val in got.items():
+            assert torch.equal(val, fresh[key]), key
+    res = tcli.main_train(argv)
+    assert res.global_step == 1
+    assert np.isfinite(res.history[0]["loss"])
 
 
 def test_port_checkpoints_and_other_dirs_are_not_hf_models(tmp_path):
