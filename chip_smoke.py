@@ -14,7 +14,13 @@ RoBERTa-large directory of random weights, fine-tunes from it, sweeps its
 checkpoints with `--device_decode --eval_all_checkpoints`, holds the card's
 order decode against the CPU's, and times device against host decode and
 the native packer against numpy; `remat` holds a train step with
-`EncoderConfig.remat` against one without. Every output line before the last is
+`EncoderConfig.remat` against one without. The multimodal CLIP-RN50 path:
+`mm_check` holds the full-width RN50 tower on the card against the CPU,
+`mm_reference` a 2-layer full-width joint sequencer (forward and 4 train
+steps, BatchNorm statistics included), `mm_path` trains the full-width
+joint sequencer through `main_train --multimodal` on stories with PNG step
+images and evaluates its checkpoint with host and `--device_decode`
+decode, and `mm_breakdown` profiles its train step and eval forward. Every output line before the last is
 one JSON object (plus the raw `nvidia-smi` line and the paper-format eval
 rows); the last line is the contract line `{"ok": true, "device": {...}}`,
 printed only when every phase passed. Without a CUDA device, or without the
@@ -67,6 +73,19 @@ NUM_LAYERS = 24  # RoBERTa-large: one attention call per layer per forward
 N_STORIES = 40   # eval: 5 batches of 8
 TRAIN_STEPS = 8  # train: steps of 8 stories
 HF_STEPS = 4     # the HF path: steps of 8 stories, a checkpoint every 2
+MM_STEPS = 8     # the multimodal path: steps of 8 stories of 5 step images
+MM_IMAGE = 224   # the RN50 tower's resolution: a 7 x 7 grid an image
+# the folded visual stream: 5 images x 7 x 7 patches + the mean token
+MM_VISUAL_TOKENS = 5 * 7 * 7 + 1
+MM_JOINT_S = 320 + MM_VISUAL_TOKENS  # 566
+# per multimodal forward: 24 joint attentions + the attention pool; the
+# LayerNorms of the text path + visn_ln
+MM_PER_FORWARD = {"flash_fwd": NUM_LAYERS + 1, "flash_bwd_prep": NUM_LAYERS + 1,
+                  "flash_bwd_main": NUM_LAYERS + 1,
+                  "flash_bwd_post": NUM_LAYERS + 1,
+                  "gelu_logit_erf_fwd": NUM_LAYERS,
+                  "gelu_logit_erf_bwd": NUM_LAYERS,
+                  "layer_norm_fwd": 50, "layer_norm_bwd": 50}
 # the published roberta-large config.json, as a local HF directory has it
 HF_ROBERTA_LARGE = {
     "architectures": ["RobertaForMaskedLM"], "model_type": "roberta",
@@ -119,7 +138,25 @@ KERNELS = {
                             "multimodal_sequencing_tpu/models/encoder.py:146"),
     "layer_norm_bwd": (LN_KERNEL,
                        "multimodal_sequencing_tpu/models/encoder.py:146"),
+    # the flash kernels at the multimodal path's shapes: the joint stream
+    # (S = 566) of a train step and of an eval micro-batch, and the RN50
+    # attention pool (S = 246, 32 heads, no mask), which the JAX package
+    # computes with an XLA einsum (models/clip_visual.py:172)
+    "flash_fwd@joint": ("multimodal_sequencing_tpu_torch/ops/csrc/flash_fwd.cu",
+                        "multimodal_sequencing_tpu/ops/attention.py:126"),
+    "flash_fwd@joint_eval": ("multimodal_sequencing_tpu_torch/ops/csrc/flash_fwd.cu",
+                             "multimodal_sequencing_tpu/ops/attention.py:126"),
+    "flash_fwd@attnpool": ("multimodal_sequencing_tpu_torch/ops/csrc/flash_fwd.cu",
+                           "multimodal_sequencing_tpu/ops/attention.py:126"),
+    "flash_bwd@joint": (BWD_KERNEL, "multimodal_sequencing_tpu/ops/attention.py:343"),
+    "flash_bwd@attnpool": (BWD_KERNEL,
+                           "multimodal_sequencing_tpu/ops/attention.py:343"),
 }
+# (B, H, S, D) of the multimodal rows: joint train (batch 8), joint eval
+# (micro-batch 32), attention pool of a train batch (8 stories)
+MM_SHAPES = {"joint": (8, 16, MM_JOINT_S, 64),
+             "joint_eval": (32, 16, MM_JOINT_S, 64),
+             "attnpool": (8, 32, MM_VISUAL_TOKENS, 64)}
 # the kernels each main path must launch
 PATH_KERNELS = {"eval": ("flash_fwd", "gelu_logit_erf_fwd", "layer_norm_fwd"),
                 "train": ("flash_fwd", "flash_bwd_prep", "flash_bwd_main",
@@ -128,14 +165,25 @@ PATH_KERNELS = {"eval": ("flash_fwd", "gelu_logit_erf_fwd", "layer_norm_fwd"),
                           "layer_norm_bwd")}
 # the HF path: training from the HF directory, the sweep of its checkpoints
 PATH_KERNELS.update(hf_train=PATH_KERNELS["train"],
-                    hf_eval=PATH_KERNELS["eval"])
+                    hf_eval=PATH_KERNELS["eval"],
+                    mm_train=PATH_KERNELS["train"],
+                    mm_eval=PATH_KERNELS["eval"])
 # the launch counter behind each row of the `kernels` line, where it is
 # not the row's own name
 COUNTER = {"flash_bwd": "flash_bwd_main", "flash_bwd_dq": "flash_bwd_main",
            "flash_bwd_dkv": "flash_bwd_main",
            "keep_bits_dump@verify": "keep_bits_dump",
            "gelu_logit_erf_fwd@eval": "gelu_logit_erf_fwd",
-           "layer_norm_fwd@eval": "layer_norm_fwd"}
+           "layer_norm_fwd@eval": "layer_norm_fwd",
+           "flash_fwd@joint": "flash_fwd", "flash_fwd@joint_eval": "flash_fwd",
+           "flash_fwd@attnpool": "flash_fwd",
+           "flash_bwd@joint": "flash_bwd_main",
+           "flash_bwd@attnpool": "flash_bwd_main"}
+# the path whose launches the multimodal rows of the `kernels` line show
+# (the wrappers count launches of every shape together)
+ROW_PATH = {"flash_fwd@joint": "mm_train", "flash_fwd@joint_eval": "mm_eval",
+            "flash_fwd@attnpool": "mm_train", "flash_bwd@joint": "mm_train",
+            "flash_bwd@attnpool": "mm_train"}
 # the f32 backward kernels: the check path, never launched by the bf16
 # train path
 F32_BWD = ("flash_bwd_dq_f32", "flash_bwd_dkv_f32")
@@ -260,80 +308,129 @@ def _max_err(got, want):
     return (got.float() - want.float()).abs().max().item()
 
 
+def make_path_attention_inputs(name: str, dtype, seed: int):
+    """q, k, v and the key mask of a multimodal attention call (`MM_SHAPES`)
+    as the path gives them to the kernels: head-split views of (B, S, H*D)
+    projections. The joint stream keeps 260..320 text keys of each row and
+    every visual key; the attention pool has no mask (all ones)."""
+    import torch
+    b, h, s, d = MM_SHAPES[name]
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    q, k, v = (torch.randn((b, s, h, d), generator=gen).to("cuda", dtype)
+               .transpose(1, 2) for _ in range(3))
+    if name == "attnpool":
+        mask = torch.ones((b, s), dtype=torch.int32)
+    else:
+        lengths = torch.randint(260, 321, (b,), generator=gen)
+        pos = torch.arange(s)[None, :]
+        mask = ((pos < lengths[:, None]) | (pos >= 320)).to(torch.int32)
+    return q, k, v, mask.cuda()
+
+
+# the multimodal path's attention calls the kernel check holds, as (name in
+# MM_SHAPES, dropout rate): the joint stream of a train step (with dropout)
+# and of an eval forward (without, forward only), the attention pool
+MM_KERNEL_CASES = [("joint", DROPOUT_P), ("joint", 0.0),
+                   ("joint_eval", 0.0), ("attnpool", 0.0)]
+
+
+def _attention_check(att, q, k, v, mask, p, seed, labels, backward=True):
+    """One forward (and backward) of the flash kernels against the plain
+    versions under TOLERANCE and BWD_TOLERANCE; bwd inputs are the kernel
+    forward's O and lse and a random dO laid out as q. Returns the forward
+    row, the backward row (None without `backward`) and the failures."""
+    import torch
+    name = str(q.dtype).split(".")[-1]
+    failed = []
+    o, lse = att.flash_attention(q, k, v, mask, p, seed + 17)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = att.attention_reference_lse(q, k, v, mask, p, seed + 17)
+    atol, rtol = TOLERANCE[name]
+    ok = all(bool(((got.float() - want.float()).abs()
+                   <= atol + r * want.float().abs()).all())
+             for got, want, r in ((o, o_ref, rtol), (lse, lse_ref, 0.0)))
+    fwd = {"phase": "kernel_check", "kernel": "flash_fwd", **labels,
+           "shape_bhsd": list(q.shape), "dtype": name, "dropout_p": p,
+           "max_abs_err_o": _max_err(o, o_ref),
+           "max_abs_err_lse": _max_err(lse, lse_ref),
+           "atol": atol, "rtol": rtol, "ok": ok}
+    fwd["max_abs_err"] = max(fwd["max_abs_err_o"], fwd["max_abs_err_lse"])
+    emit(fwd)
+    failed += [] if ok else [("flash_fwd", labels, tuple(q.shape), name, p)]
+    if not backward:
+        return fwd, None, failed
+
+    gen = torch.Generator(device="cpu").manual_seed(seed + 1)
+    do = torch.empty_like(q).copy_(torch.randn(q.shape, generator=gen))
+    got = att.flash_attention_bwd(q, k, v, mask, o, lse, do, p, seed + 17)
+    torch.cuda.synchronize()
+    want = att.attention_bwd_reference(q, k, v, mask, o, lse, do, p,
+                                       seed + 17)
+    btol, brtol = BWD_TOLERANCE[name]
+    bwd = {"phase": "kernel_check", "kernel": "flash_bwd", **labels,
+           "shape_bhsd": list(q.shape), "dtype": name, "dropout_p": p,
+           "atol_of_max": btol, "rtol": brtol}
+    for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+        lim = btol * w.float().abs().max().item()
+        good = bool(((g.float() - w.float()).abs()
+                     <= lim + brtol * w.float().abs()).all())
+        bwd[f"max_abs_err_{gname}"] = _max_err(g, w)
+        bwd[f"max_abs_{gname}"] = w.float().abs().max().item()
+        bwd[f"ok_{gname}"] = good
+        failed += [] if good else [(gname, labels, tuple(q.shape), name, p)]
+    bwd["max_abs_err"] = max(bwd[f"max_abs_err_{g}"] for g in ("dq", "dk", "dv"))
+    if not bool(mask[-1].any()):
+        # a fully masked batch row gets zero gradient
+        bwd["masked_row_grad_zero"] = all(bool((g[-1] == 0).all())
+                                          for g in got)
+        failed += [] if bwd["masked_row_grad_zero"] else [
+            ("masked_row", labels, tuple(q.shape), name, p)]
+    if name == "bfloat16":
+        bwd.update(_bwd_bf16_checks(att, q, k, v, mask, o, lse, do, p,
+                                    seed + 17, got))
+        failed += [] if bwd["dk_dv_bit_equal_on_rerun"] else [
+            ("bwd_determinism", labels, tuple(q.shape), p)]
+        failed += [] if bwd["ok_prep"] and bwd["ok_post"] else [
+            ("bwd_prep_post", labels, tuple(q.shape), p)]
+    emit(bwd)
+    return fwd, bwd, failed
+
+
 def phase_kernel_check(seed: int, errs: dict):
     """Forward and backward kernels against the plain versions at every
-    shape, dtype and dropout rate; bwd inputs are the kernel forward's O and
-    lse and a random dO."""
+    shape, dtype and dropout rate, and at the multimodal path's attention
+    calls in the layout the path gives them."""
     import torch
     from multimodal_sequencing_tpu_torch.ops import attention as att
     failed = []
     for shape in KERNEL_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
-            name = str(dtype).split(".")[-1]
             for p in (0.0, DROPOUT_P):
                 q, k, v, mask = make_attention_inputs(shape, dtype, seed)
-                o, lse = att.flash_attention(q, k, v, mask, p, seed + 17)
-                torch.cuda.synchronize()
-                o_ref, lse_ref = att.attention_reference_lse(q, k, v, mask, p,
-                                                             seed + 17)
-                atol, rtol = TOLERANCE[name]
-                ok = all(bool(((got.float() - want.float()).abs()
-                               <= atol + r * want.float().abs()).all())
-                         for got, want, r in ((o, o_ref, rtol),
-                                              (lse, lse_ref, 0.0)))
-                row = {"phase": "kernel_check", "kernel": "flash_fwd",
-                       "shape_bhsd": list(shape), "dtype": name,
-                       "dropout_p": p, "max_abs_err_o": _max_err(o, o_ref),
-                       "max_abs_err_lse": _max_err(lse, lse_ref),
-                       "atol": atol, "rtol": rtol, "ok": ok}
-                emit(row)
-                failed += [] if ok else [("flash_fwd", shape, name, p)]
-
-                gen = torch.Generator(device="cpu").manual_seed(seed + 1)
-                do = torch.randn(shape, generator=gen).to("cuda", dtype)
-                got = att.flash_attention_bwd(q, k, v, mask, o, lse, do, p,
-                                              seed + 17)
-                torch.cuda.synchronize()
-                want = att.attention_bwd_reference(q, k, v, mask, o, lse, do,
-                                                   p, seed + 17)
-                btol, brtol = BWD_TOLERANCE[name]
-                row = {"phase": "kernel_check", "kernel": "flash_bwd",
-                       "shape_bhsd": list(shape), "dtype": name,
-                       "dropout_p": p, "atol_of_max": btol, "rtol": brtol}
-                for gname, g, w in zip(("dq", "dk", "dv"), got, want):
-                    lim = btol * w.float().abs().max().item()
-                    good = bool(((g.float() - w.float()).abs()
-                                 <= lim + brtol * w.float().abs()).all())
-                    row[f"max_abs_err_{gname}"] = _max_err(g, w)
-                    row[f"max_abs_{gname}"] = w.float().abs().max().item()
-                    row[f"ok_{gname}"] = good
-                    failed += [] if good else [(gname, shape, name, p)]
-                    if shape == TRAIN_SHAPE and name == "bfloat16" and p > 0:
-                        key = "flash_bwd_dq" if gname == "dq" else "flash_bwd_dkv"
-                        errs[key] = max(errs.get(key, 0.0),
-                                        row[f"max_abs_err_{gname}"])
-                # a fully masked batch row gets zero gradient
-                row["masked_row_grad_zero"] = all(
-                    bool((g[-1] == 0).all()) for g in got)
-                if name == "bfloat16":
-                    row.update(_bwd_bf16_checks(att, q, k, v, mask, o, lse, do,
-                                                p, seed + 17, got))
-                    failed += [] if row["dk_dv_bit_equal_on_rerun"] else [
-                        ("bwd_determinism", shape, p)]
-                    failed += [] if row["ok_prep"] and row["ok_post"] else [
-                        ("bwd_prep_post", shape, p)]
-                    if shape == TRAIN_SHAPE and p > 0:
-                        errs["flash_bwd"] = max(row["max_abs_err_dq"],
-                                                row["max_abs_err_dk"],
-                                                row["max_abs_err_dv"])
-                        errs["flash_bwd_prep"] = row["max_abs_err_delta"]
-                        errs["flash_bwd_post"] = row["max_abs_err_post"]
-                emit(row)
-                if not row["masked_row_grad_zero"]:
-                    failed.append(("masked_row", shape, name, p))
-                if shape == TRAIN_SHAPE and name == "bfloat16" and p > 0:
-                    errs["flash_fwd"] = max(_max_err(o, o_ref),
-                                            _max_err(lse, lse_ref))
+                fwd, bwd, bad = _attention_check(att, q, k, v, mask, p, seed,
+                                                 {})
+                failed += bad
+                if shape == TRAIN_SHAPE and dtype == torch.bfloat16 and p > 0:
+                    errs["flash_fwd"] = fwd["max_abs_err"]
+                    errs["flash_bwd"] = bwd["max_abs_err"]
+                    errs["flash_bwd_dq"] = bwd["max_abs_err_dq"]
+                    errs["flash_bwd_dkv"] = max(bwd["max_abs_err_dk"],
+                                                bwd["max_abs_err_dv"])
+                    errs["flash_bwd_prep"] = bwd["max_abs_err_delta"]
+                    errs["flash_bwd_post"] = bwd["max_abs_err_post"]
+    for name, p in MM_KERNEL_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, mask = make_path_attention_inputs(name, dtype, seed)
+            fwd, bwd, bad = _attention_check(
+                att, q, k, v, mask, p, seed, {"path_call": name},
+                backward=name != "joint_eval")
+            failed += bad
+            # the kernels line's rows: each call's bf16 case at its own
+            # dropout rate (the joint stream of a train step: 0.1)
+            if dtype == torch.bfloat16 and (p > 0 or name != "joint"):
+                errs[f"flash_fwd@{name}"] = fwd["max_abs_err"]
+                if bwd is not None:
+                    errs[f"flash_bwd@{name}"] = bwd["max_abs_err"]
     failed += _gelu_check(seed, errs)
     failed += _layer_norm_check(seed, errs)
     if failed:
@@ -887,29 +984,94 @@ def phase_timing(seed: int):
         **bound(3 * nbytes + 3 * 1024 * 4, 0)}
     rows["layer_norm_bwd"]["library_ratio"] = (
         rows["layer_norm_bwd"]["ms"] / rows["layer_norm_bwd"]["library_ms"])
+
+    # the multimodal path's calls (`make_path_attention_inputs`; their
+    # errors are held in kernel_check); an eval micro-batch has no dropout
+    for name, shape in MM_SHAPES.items():
+        b, h, s, d = shape
+        bhsd, bhs = b * h * s * d, b * h * s
+        q, k, v, mask = make_path_attention_inputs(name, torch.bfloat16, seed)
+        p = DROPOUT_P if name == "joint" else 0.0
+        o, lse = att.flash_attention(q, k, v, mask, p, sd)
+        rows[f"flash_fwd@{name}"] = {
+            "shape_bhsd": list(shape), "dropout_p": p,
+            **fwd_row(q, k, v, mask, p, sd, plain_iters=5)}
+        if name == "joint_eval":
+            continue
+        do = torch.randn_like(q)
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        out = F.scaled_dot_product_attention(
+            qg, kg, vg, attn_mask=mask.bool()[:, None, None, :], dropout_p=p)
+        bwd_ms = kernel_ms(lambda: att.flash_attention_bwd(
+            q, k, v, mask, o, lse, do, p, sd))
+        lib_ms = kernel_ms(lambda: torch.autograd.grad(
+            out, (qg, kg, vg), do, retain_graph=True))
+        rows[f"flash_bwd@{name}"] = {
+            "shape_bhsd": list(shape), "dropout_p": p,
+            "ms": bwd_ms, "library_ms": lib_ms, "library_ratio": bwd_ms / lib_ms,
+            "plain_ms": kernel_ms(lambda: att.attention_bwd_reference(
+                q, k, v, mask, o, lse, do, p, sd), iters=5),
+            **bound(8 * bhsd * 2 + bhs * 4 + b * s * 4,
+                    5 * 2 * b * h * s * s * d)}
     for name, row in rows.items():
         emit({"phase": "timing", "kernel": name, **row})
     return rows
 
 
-def write_wikihow(root: str, split: str, n_stories: int, seed: int) -> None:
+def write_png(path: str, rgb) -> None:
+    """An 8-bit RGB PNG of an (H, W, 3) uint8 array, written with the
+    standard library alone (no imaging package needed)."""
+    import struct
+    import zlib
+    h, w, _ = rgb.shape
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    raw = b"".join(b"\x00" + rgb[y].tobytes() for y in range(h))
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def write_wikihow(root: str, split: str, n_stories: int, seed: int,
+                  images: bool = False) -> dict:
     """A WikiHow-schema split of 5-step stories whose steps fill
-    `per_seq_max_length` = 60 tokens, so a packed story is ~300 tokens."""
+    `per_seq_max_length` = 60 tokens, so a packed story is ~300 tokens.
+    With `images`, each step has a 256 x 192 PNG (blocks of random colour,
+    so the loader's resize to 224 runs) under the mirror layout the
+    processor resolves, and the images are returned by path."""
     import numpy as np
     rng = np.random.default_rng(seed)
+    written = {}
+    img_dir = os.path.join(root, "www.wikihow.com", "images")
+    if images:
+        os.makedirs(img_dir, exist_ok=True)
     with open(os.path.join(root, f"wikihow-{split}.json"), "w") as f:
         for a in range(n_stories):
             steps = []
             for s in range(5):
                 words = rng.choice(WORDS, size=70).tolist()
+                assets = {}
+                if images:
+                    name = f"{split}_{a}_{s}.png"
+                    blocks = rng.integers(0, 256, (8, 6, 3), dtype=np.uint8)
+                    path = os.path.join(img_dir, name)
+                    written[path] = np.kron(blocks,
+                                            np.ones((32, 32, 1), np.uint8))
+                    write_png(path, written[path])
+                    assets = {"image-large": f"images/{name}"}
                 steps.append({
                     "step_headline": f"Step {s}",
                     "step_text": {"text": f"Story {a} step {s}. " + " ".join(words),
                                   "bullet_points": []},
-                    "step_assets": {}})
+                    "step_assets": assets})
             f.write(json.dumps({
                 "url": f"https://wikihow.test/{split}/{a}", "title": f"Story {a}",
                 "summary": "", "sections": [{"steps": steps}]}) + "\n")
+    return written
 
 
 def _eval_argv(data_dir, out_dir, seed, *extra, model="simple"):
@@ -1757,9 +1919,528 @@ def phase_remat(seed: int):
         raise AssertionError(f"remat check failed: {summary}")
 
 
+def _mm_model(seed, dtype="bfloat16", freeze=False, **enc):
+    """The multimodal sequencer at full width: RoBERTa-large over the joint
+    stream and the CLIP RN50 tower at 224 px, fresh weights from `seed`."""
+    from multimodal_sequencing_tpu_torch.models.config import (
+        CLIPVisionConfig, EncoderConfig, MultimodalConfig)
+    from multimodal_sequencing_tpu_torch.models.sequencer import (
+        SequencingModel, init_weights)
+    cfg = MultimodalConfig(
+        encoder=EncoderConfig.roberta_large(type_vocab_size=5, dtype=dtype,
+                                            **enc),
+        hierarchical_version="v1", max_seq_length=320, multimodal=True,
+        clip_model_name="RN50", image_size=(MM_IMAGE, MM_IMAGE),
+        freeze_vision_model=freeze)
+    vcfg = CLIPVisionConfig.rn50(dtype=dtype)
+    return cfg, init_weights(SequencingModel(cfg, vcfg), seed)
+
+
+def _random_images(b, seed):
+    """(b, 5, 224, 224, 3) uint8 step images, as the loader ships them."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 256, (b, 5, MM_IMAGE, MM_IMAGE, 3), dtype=np.uint8)
+
+
+def _bn_stats(model):
+    return {n: b.detach().double().cpu() for n, b in model.named_buffers()
+            if n.endswith(("running_mean", "running_var"))}
+
+
+def _rel_to_max(got, want):
+    """max |got - want| over max |want| (0 when both are 0)."""
+    scale = want.abs().max().item()
+    err = (got.double().cpu() - want.double().cpu()).abs().max().item()
+    return err / scale if scale else err
+
+
+# mm_check: the eval output and the BatchNorm statistics, card against CPU
+# in f32 without TF32 (f32 sums in another order through ~55 conv and
+# BatchNorm layers), relative to each tensor's largest entry. The
+# train-mode output and the gradients are ill-conditioned in f32 (the fast
+# variance E[x^2] - E[x]^2 of batch statistics; the CPU's own f32 gradients
+# of the stem convs are ~1 % of the global norm off an f64 run), so the
+# card is held to the f64 run instead: its distance at most MM_F32_FACTOR
+# times the CPU's f32 distance, plus MM_TOWER_TOL, for the output, the
+# gradients over their global norm and each gradient over its own norm
+# (card over CPU at most 1.70 over seeds 0-3). And the same tower in f64 on
+# the card against the f64 run on the CPU: every output, statistic and
+# gradient within MM_F64_TOL of its own largest entry or norm (at most
+# 8.5e-13 over seeds 0-3).
+MM_TOWER_TOL = 1e-4
+MM_F32_FACTOR = 4
+MM_F64_TOL = 1e-8
+
+
+def _pool_attention_f64(q, k, v, mask=None, dropout_p=0.0, seed=None):
+    """The attention pool's attention (no mask, no dropout) in f64, for the
+    f64 runs (the port's kernels and plain version take f32 and bf16)."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(q, k, v)
+
+
+def phase_mm_check(seed: int):
+    """The full-width CLIP RN50 tower at 224 px on the card against the CPU
+    (plain versions), f32, on the same weights and the same 2 stories x 5
+    random uint8 images: a train-mode forward (batch statistics; the
+    running averages it updates) and its backward from a random projection
+    of the output, then an eval forward on the updated averages. An f64 run
+    of the same tower on the CPU measures how far each f32 run is from the
+    exact result, and an f64 run on the card (convs, BatchNorms, the pool's
+    projections and fold; its attention by SDPA, which kernel_check holds
+    at this shape) is held to it gradient by gradient."""
+    import copy
+    import torch
+    from multimodal_sequencing_tpu_torch.models import clip_visual
+    from multimodal_sequencing_tpu_torch.models.config import CLIPVisionConfig
+    from multimodal_sequencing_tpu_torch.models.sequencer import init_weights
+    from multimodal_sequencing_tpu_torch.ops.preprocess import images_to_nchw
+    cpu = init_weights(clip_visual.CLIPVisualTower(CLIPVisionConfig.rn50()),
+                       seed)
+    card = copy.deepcopy(cpu).cuda()
+    f64 = clip_visual.CLIPVisualTower(CLIPVisionConfig.rn50(dtype="float64"))
+    f64.load_state_dict(cpu.state_dict())
+    f64.double()
+    card64 = copy.deepcopy(f64).cuda()
+    x = images_to_nchw(torch.from_numpy(_random_images(2, seed)))
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    w = torch.randn((2, MM_VISUAL_TOKENS, 2048), generator=gen)
+
+    def run(model, dev, dtype):
+        out = model(x.to(dev, dtype), img_len=5, deterministic=False)
+        (out * w.to(dev, dtype)).sum().backward()
+        with torch.no_grad():
+            ev = model(x.to(dev, dtype), img_len=5)
+        return {"train_output": out.detach().double().cpu(),
+                "eval_output": ev.double().cpu(), "stats": _bn_stats(model),
+                "grads": {n: p.grad.double().cpu()
+                          for n, p in model.named_parameters()}}
+
+    res = {"cpu": run(cpu, "cpu", torch.float32),
+           "cuda": run(card, "cuda", torch.float32)}
+    real = clip_visual.multihead_attention
+    clip_visual.multihead_attention = _pool_attention_f64
+    try:
+        res["f64"] = run(f64, "cpu", torch.float64)
+        res["cuda_f64"] = run(card64, "cuda", torch.float64)
+    finally:
+        clip_visual.multihead_attention = real
+    exact = res["f64"]["grads"]
+    total = math.sqrt(sum(g.norm().item() ** 2 for g in exact.values()))
+    # the pool's key bias: softmax is invariant to it, so its exact
+    # gradient is 0 and it is measured against the global norm alone
+    own = {n: total if n.endswith("k_proj.bias") else g.norm().item()
+           for n, g in exact.items()}
+
+    def grad_dist(name):  # the worst gradient's distance over the global norm
+        return max((g - exact[n]).norm().item() / total
+                   for n, g in res[name]["grads"].items())
+
+    def leaf_dist(name):  # each gradient's distance over its own f64 norm
+        return {n: (g - exact[n]).norm().item() / own[n]
+                for n, g in res[name]["grads"].items()}
+
+    direct = {
+        "eval_output": _rel_to_max(res["cuda"]["eval_output"],
+                                   res["cpu"]["eval_output"]),
+        "bn_stats": max(_rel_to_max(res["cuda"]["stats"][n], want)
+                        for n, want in res["cpu"]["stats"].items())}
+    to_f64 = {name: {"train_output": _rel_to_max(
+        res[name]["train_output"], res["f64"]["train_output"]),
+        "grads": grad_dist(name)} for name in ("cpu", "cuda")}
+    bounds = {k: MM_F32_FACTOR * v + MM_TOWER_TOL
+              for k, v in to_f64["cpu"].items()}
+    leaves = {name: leaf_dist(name) for name in ("cpu", "cuda", "cuda_f64")}
+    f64_card = {k: _rel_to_max(res["cuda_f64"][k], res["f64"][k])
+                for k in ("train_output", "eval_output")}
+    f64_card["bn_stats"] = max(_rel_to_max(res["cuda_f64"]["stats"][n], want)
+                               for n, want in res["f64"]["stats"].items())
+    f64_card["grads_own_norm"] = max(leaves["cuda_f64"].values())
+    # each gradient over its own norm: the card's f32 distance to f64
+    # against its bound from the CPU's
+    leaf_over = sorted(((leaves["cuda"][n] - MM_F32_FACTOR * leaves["cpu"][n]
+                         - MM_TOWER_TOL, n) for n in own), reverse=True)
+    moved = max((st - (0.0 if n.endswith("mean") else 1.0)).abs().max().item()
+                for n, st in res["cpu"]["stats"].items())
+    ok = (tuple(res["cuda"]["eval_output"].shape)
+          == (2, MM_VISUAL_TOKENS, 2048)
+          and all(v <= MM_TOWER_TOL for v in direct.values())
+          and all(to_f64["cuda"][k] <= bounds[k] for k in bounds)
+          and leaf_over[0][0] <= 0
+          and all(v <= MM_F64_TOL for v in f64_card.values())
+          and bool(torch.isfinite(res["cuda"]["eval_output"]).all())
+          and moved > 0)
+
+    def worst(d, n=5):
+        return sorted(((v, k) for k, v in d.items()), reverse=True)[:n]
+
+    ratio = {n: leaves["cuda"][n] / leaves["cpu"][n] for n in own
+             if leaves["cpu"][n] > 0}
+    emit({"phase": "mm_check", "tower": "RN50", "image": MM_IMAGE,
+          "images": [2, 5], "dtype": "float32",
+          "output_shape": list(res["cuda"]["eval_output"].shape),
+          "card_vs_cpu_rel_to_max": direct, "tol": MM_TOWER_TOL,
+          "distance_to_f64": to_f64, "bounds_to_f64": bounds,
+          "f64_card_vs_cpu": f64_card, "f64_tol": MM_F64_TOL,
+          "grads_to_f64_own_norm_worst": {k: worst(v) for k, v in
+                                          leaves.items()},
+          "grads_f32_card_over_cpu_own_norm_worst": worst(ratio),
+          "grads_f32_card_minus_bound_own_norm_worst": leaf_over[:3],
+          "f64_grad_global_norm": total, "bn_buffers": len(res["cpu"]["stats"]),
+          "bn_stats_max_move": moved, "ok": ok})
+    if not ok:
+        raise AssertionError("card and CPU disagree on the RN50 tower")
+
+
+def phase_mm_reference(seed: int):
+    """The joint sequencer at full width with 2 layers, f32, dropout 0, card
+    (kernels) against the CPU (plain versions) on the same weights, packed
+    ids and images: the forward heat map, then four train steps (losses,
+    grad norms, the first step's gradients, the BatchNorm statistics after
+    every step, and the weights after three updates of nonzero learning
+    rate), as `reference` and `train_reference` hold the text sequencer.
+    The steps train with `freeze_vision_model`: the tower's own gradients
+    are ill-conditioned in f32 (phase `mm_check` holds them to an f64 run),
+    and would move the two runs apart by more than rounding after one
+    update; its statistics still update, and its weights still decay.
+    cuDNN is asked for deterministic algorithms here."""
+    import copy
+    import torch
+    from multimodal_sequencing_tpu_torch.train.state import AdamW
+    from multimodal_sequencing_tpu_torch.train.steps import train_step
+    lr, n_steps, b = 1e-3, 4, 2
+    cfg, cpu_model = _mm_model(seed, dtype="float32", freeze=True,
+                               num_hidden_layers=2, hidden_dropout_prob=0.0,
+                               attention_probs_dropout_prob=0.0)
+    init = {n: p.detach().clone() for n, p in cpu_model.named_parameters()}
+    card_model = copy.deepcopy(cpu_model).cuda()
+    batches = []
+    for i in range(n_steps):
+        bt = _random_batch(cfg, b, 320, seed + i)
+        bt["images"] = _random_images(b, seed + 10 + i)
+        batches.append(bt)
+    torch.backends.cudnn.deterministic = True
+    try:
+        with torch.inference_mode():
+            ids, am, tt = (torch.from_numpy(batches[0][k]).long() for k in
+                           ("input_ids", "attention_mask", "token_type_ids"))
+            img = torch.from_numpy(batches[0]["images"])
+            want = cpu_model.eval()(ids, am, tt, img)["heatmap"]
+            got = card_model.eval()(ids.cuda(), am.cuda(), tt.cuda(),
+                                    img.cuda())["heatmap"].cpu()
+        hm_err = (got - want).abs().max().item()
+        hist, grads, stats = {}, {}, {}
+        for name, model in (("cpu", cpu_model), ("cuda", card_model)):
+            opt = AdamW(model, learning_rate=lr, warmup_steps=1,
+                        total_steps=10, weight_decay=0.01)
+            hist[name], stats[name] = [], []
+            for i, bt in enumerate(batches):
+                hist[name].append({k: float(v) for k, v in train_step(
+                    model.train(), opt, bt, i, seed).items()})
+                stats[name].append(_bn_stats(model))
+                if i == 0:
+                    grads[name] = {n: p.grad.detach().double().cpu()
+                                   for n, p in model.named_parameters()
+                                   if p.grad is not None}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    total = math.sqrt(sum(g.norm().item() ** 2 for g in grads["cpu"].values()))
+    grad_rel = sorted(((grads["cuda"][n] - g).norm().item() / total, n)
+                      for n, g in grads["cpu"].items())[::-1]
+    tower_grads = [n for g in grads.values() for n in g
+                   if ".visual_model." in n]
+    stat_err = max(_rel_to_max(c[n], w[n]) for c, w in
+                   zip(stats["cuda"], stats["cpu"]) for n in w)
+    card_params = dict(card_model.named_parameters())
+    w_err = {"key_bias": 0.0, "other": 0.0}
+    worst_w = []
+    moved = 0.0
+    for n, p in cpu_model.named_parameters():
+        # attention key biases: softmax is invariant to them, so their
+        # gradient is zero but for rounding (the joint layers' and the
+        # attention pool's)
+        kind = "key_bias" if n.endswith(("key.bias", "k_proj.bias")) \
+            else "other"
+        err = (card_params[n].detach().cpu() - p.detach()).abs().max().item()
+        w_err[kind] = max(w_err[kind], err)
+        worst_w.append((err, n))
+        if kind == "other":
+            moved = max(moved, (p.detach() - init[n]).abs().max().item())
+    rel = lambda a, c: abs(a - c) / max(abs(c), 1e-12)  # noqa: E731
+    loss_err = max(rel(g["loss"], w["loss"])
+                   for g, w in zip(hist["cuda"], hist["cpu"]))
+    gn_err = max(rel(g["grad_norm"], w["grad_norm"])
+                 for g, w in zip(hist["cuda"], hist["cpu"]))
+    # Limits of about 2.5-3x the largest reading over seeds 0-3 (two runs
+    # each, bit-equal; my card runs): loss 1.00e-5, grad norm 1.06e-5, worst
+    # gradient over the global norm 1.08e-5 (the text phase's 1e-5 leaves
+    # no margin: the frozen tower's train-mode output, whose batch
+    # statistics are ill-conditioned in f32 (mm_check), differs by ~1e-4
+    # between card and CPU and feeds the joint layers); BatchNorm
+    # statistics 5.9e-6 of each buffer's largest entry, after every step;
+    # heat map 6.6e-7. Weights: Adam turns entries whose gradient sits at
+    # that noise into steps of a fraction of lr either way (readings 1.08e-4
+    # to 3.41e-4, in visn_fc, the word embeddings and the head), so the
+    # weights are held at lr, a third of the largest move (2.68e-3)
+    tol = {"heatmap_abs": 2e-4, "loss_rel": 3e-5, "grad_norm_rel": 3e-5,
+           "grad_rel_to_norm": 3e-5, "bn_stats_rel": 1.5e-5,
+           "weight_abs": lr, "key_bias_abs": 2 * lr * (n_steps - 1),
+           "min_weight_move": 2 * lr}
+    ok = (not tower_grads and hm_err <= tol["heatmap_abs"]
+          and loss_err <= tol["loss_rel"]
+          and gn_err <= tol["grad_norm_rel"]
+          and grad_rel[0][0] <= tol["grad_rel_to_norm"]
+          and stat_err <= tol["bn_stats_rel"]
+          and w_err["other"] <= tol["weight_abs"]
+          and w_err["key_bias"] <= tol["key_bias_abs"]
+          and moved >= tol["min_weight_move"])
+    emit({"phase": "mm_reference", "layers": 2, "dtype": "float32",
+          "stories": b, "joint_s": MM_JOINT_S, "steps": n_steps,
+          "freeze_vision_model": True, "tower_grads": len(tower_grads),
+          "heatmap_max_abs_err": hm_err, "history": hist,
+          "loss_rel_err": loss_err, "grad_norm_rel_err": gn_err,
+          "bn_stats_rel_err": stat_err, "max_abs_weight_err": w_err,
+          "max_abs_weight_move": moved, "worst_grad_rel_err": grad_rel[:5],
+          "worst_weight_err": sorted(worst_w, reverse=True)[:6],
+          "tol": tol, "ok": ok})
+    if not ok:
+        raise AssertionError("card and CPU disagree on the joint sequencer")
+
+
+def _mm_train_argv(data_dir, out_dir, seed):
+    return ["--model_name_or_path", "simple", "--model_size", "large",
+            "--replace_token_type_embeddings", "--do_train", "--multimodal",
+            "--multimodal_model_type", "clip", "--clip_model_name", "RN50",
+            "--task_name", "wikihow_hl_v1", "--hierarchical_version", "v1",
+            "--data_dir", data_dir, "--max_seq_length", "320",
+            "--per_seq_max_length", "60", "--per_gpu_train_batch_size", "8",
+            "--learning_rate", "1e-5", "--warmup_steps", "2",
+            "--max_steps", str(MM_STEPS), "--logging_steps", "1",
+            "--save_steps", "0", "--seed", str(seed),
+            "--output_dir", out_dir, "--overwrite_output_dir",
+            "--device", "cuda"]
+
+
+def phase_mm_path(seed: int, work: str):
+    """The multimodal CLIP-RN50 path through the CLIs at full width on the
+    card: `main_train --multimodal` for 8 steps of 8 stories with 5 PNG step
+    images each (dropout 0.1), then `run_eval --sort_method heat_map` on its
+    checkpoint over 40 stories with host decode and with
+    `--device_decode`. Every flash forward (24 joint + the attention pool a
+    forward) and, in training, every backward must be a kernel launch."""
+    import torch
+    from multimodal_sequencing_tpu_torch.data import images
+    from multimodal_sequencing_tpu_torch.train.cli import main_train, run_eval
+    data_dir = os.path.join(work, "mm_data")
+    out_dir = os.path.join(work, "mm_out")
+    os.makedirs(data_dir)
+    t0 = time.perf_counter()
+    written = {
+        "train": write_wikihow(data_dir, "train", 8 * MM_STEPS, seed + 4,
+                               images=True),
+        "test": write_wikihow(data_dir, "test", N_STORIES, seed + 5,
+                              images=True)}
+    write_s = time.perf_counter() - t0
+    # the decoder `read_image_rgb` tries first, and whether each step image
+    # reads back as written; without a decoder every image is zeros
+    decoder = None
+    for module in ("cv2", "PIL.Image"):
+        try:
+            __import__(module)
+        except ImportError:
+            continue
+        decoder = module.split(".")[0]
+        break
+
+    def image_counts(split):
+        """Step images of `split` written, missing (the loader's
+        missing_images file), read back as written, and zero-filled."""
+        with open(os.path.join(data_dir, f"missing_images_{split}.txt")) as f:
+            missing = sum(1 for line in f if line.strip())
+        decoded = 0
+        if decoder is not None:
+            for path, rgb in written[split].items():
+                try:
+                    decoded += bool((images.read_image_rgb(path) == rgb).all())
+                except Exception:
+                    pass
+        n = len(written[split])
+        return {"written": n, "missing": missing, "decoded": decoded,
+                "zeroed": n - decoded}
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = main_train(_mm_train_argv(data_dir, out_dir, seed))
+    wall_s = time.perf_counter() - t0
+    counts = _read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    losses = [h["loss"] for h in res.history]
+    times = [h["time"] for h in res.history]
+    step_s = [b - a for a, b in zip([res.start_time] + times[:-1], times)]
+    med = _median_after_first(step_s)
+    ckpt = os.path.join(out_dir, f"checkpoint-{res.global_step}")
+    train_images = image_counts("train")
+    summary = {
+        "phase": "mm_path", "part": "train", "steps": res.global_step,
+        "decoder": decoder, "train_images": train_images,
+        "png_write_s": write_s, "launches": counts, "losses": losses,
+        "grad_norms": [h["grad_norm"] for h in res.history],
+        "step_s": step_s, "median_step_s_after_first": med,
+        "stories_per_s": 8 / med, "peak_memory_gib": peak_gb,
+        "wall_s_incl_init": wall_s, "checkpoint": os.path.basename(ckpt)}
+    emit(summary)
+    ok = (res.global_step == MM_STEPS
+          and all(math.isfinite(x) for x in losses) and len(set(losses)) > 1
+          and all(counts[k] == MM_STEPS * MM_PER_FORWARD[k]
+                  for k in PATH_KERNELS["mm_train"])
+          and all(counts[k] == 0 for k in F32_BWD)
+          and train_images["missing"] == 0
+          and (decoder is None
+               or train_images["decoded"] == 8 * MM_STEPS * 5)
+          and os.path.isfile(os.path.join(ckpt, "vision_config.json")))
+    if not ok:
+        raise AssertionError(f"multimodal train check failed: {summary}")
+    eval_counts = {}
+    for name, extra in (("host", []), ("device", ["--device_decode"])):
+        ev_dir = os.path.join(work, f"mm_eval_{name}")
+        _reset_counts()
+        results, evaluator = run_eval(_eval_argv(
+            data_dir, ev_dir, seed, "--multimodal", *extra, model=ckpt))
+        eval_counts[name] = _read_counts()
+        fwd, dec = evaluator.forward_seconds, evaluator.decode_seconds
+        batches = math.ceil(N_STORIES / 8)
+        perms = _check_eval_outputs(ev_dir, N_STORIES)
+        summary = {
+            "phase": "mm_path", "part": f"eval_{name}_decode",
+            "stories": N_STORIES, "forwards": evaluator.forwards,
+            "images": image_counts("test"),
+            "launches": eval_counts[name], "all_permutations": perms,
+            "median_batch_s": _median_after_first(
+                [f + d for f, d in zip(fwd, dec)]),
+            "median_forward_s": _median_after_first(fwd),
+            "median_decode_s": _median_after_first(dec),
+            "metrics": results["test"]}
+        emit(summary)
+        if not (perms and evaluator.forwards == batches
+                and summary["images"]["missing"] == 0
+                and (decoder is None
+                     or summary["images"]["decoded"] == N_STORIES * 5)
+                and all(eval_counts[name][k] == batches * MM_PER_FORWARD[k]
+                        for k in PATH_KERNELS["mm_eval"])):
+            raise AssertionError(f"multimodal eval check failed: {summary}")
+    return {"mm_train": counts, "mm_eval": eval_counts["host"]}
+
+
+# the multimodal eval forward's parts timed apart, by module class
+MM_PARTS = (("tower", "CLIPVisualTower"), ("batch_norm", "BatchNorm"),
+            ("attnpool", "AttentionPool2d"))
+
+
+def phase_mm_breakdown(seed: int):
+    """Device time of one warm multimodal train step (B = 8, 5 images a
+    story, joint S = 566, dropout 0.1) and one warm eval forward (B = 32) at
+    full width, bf16, by kernel class (convs apart); and, for the eval
+    forward, which keeps the card busy, the card time of its tower,
+    BatchNorm and attention-pool calls, from CUDA events the script
+    records around each call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from multimodal_sequencing_tpu_torch.models import clip_visual
+    from multimodal_sequencing_tpu_torch.models.sequencer import (
+        cast_for_inference)
+    from multimodal_sequencing_tpu_torch.train.state import AdamW
+    from multimodal_sequencing_tpu_torch.train.steps import train_step
+    originals, events = {}, {label: [] for label, _ in MM_PARTS}
+    timed = [False]
+    for label, cls_name in MM_PARTS:
+        cls = getattr(clip_visual, cls_name)
+        originals[cls] = cls.forward
+
+        def part(self, *a, _f=cls.forward, _l=label, **kw):
+            if not timed[0]:
+                return _f(self, *a, **kw)
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = _f(self, *a, **kw)
+            end.record()
+            events[_l].append((start, end))
+            return out
+
+        cls.forward = part
+    classes = (("conv", ("conv", "cudnn", "fprop", "dgrad", "wgrad",
+                         "implicit", "winograd")),) + KERNEL_CLASSES
+
+    def by_class(prof, wall_ms):
+        out = {name: 0.0 for name, _ in classes}
+        out["other"] = 0.0
+        for evt in prof.key_averages():
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            key = evt.key.lower()
+            cls = next((n for n, pats in classes
+                        if any(p in key for p in pats)), "other")
+            out[cls] += evt.self_device_time_total / 1e3
+        busy = sum(out.values())
+        return {"device_ms_by_class": out, "device_busy_ms": busy,
+                "device_busy_share": busy / wall_ms}
+
+    try:
+        cfg, model = _mm_model(seed)
+        model = model.cuda().train()
+        opt = AdamW(model, learning_rate=1e-5, warmup_steps=2,
+                    total_steps=100)
+        batch = _random_batch(cfg, 8, 320, seed)
+        batch["images"] = _random_images(8, seed)
+        step = [0]
+
+        def one():
+            out = train_step(model, opt, batch, step[0], seed)
+            step[0] += 1
+            return out
+
+        step_ms = cuda_ms(one, iters=3, warmup=2)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            one()
+            torch.cuda.synchronize()
+        emit({"phase": "mm_breakdown", "path": "train step",
+              "stories": 8, "joint_s": MM_JOINT_S, "step_ms": step_ms,
+              **by_class(prof, step_ms)})
+        del opt
+        model = cast_for_inference(model).eval()
+        ev = _random_batch(cfg, 32, 320, seed + 1)
+        ids, am, tt = (torch.from_numpy(ev[k]).long().cuda() for k in
+                       ("input_ids", "attention_mask", "token_type_ids"))
+        img = torch.from_numpy(_random_images(32, seed + 1)).cuda()
+        with torch.inference_mode():
+            forward_ms = cuda_ms(lambda: model(ids, am, tt, img), iters=5)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                model(ids, am, tt, img)
+                torch.cuda.synchronize()
+            timed[0] = True
+            model(ids, am, tt, img)
+            torch.cuda.synchronize()
+            timed[0] = False
+        parts = {label: sum(a.elapsed_time(b) for a, b in evs)
+                 for label, evs in events.items()}
+        emit({"phase": "mm_breakdown", "path": "eval forward",
+              "stories": 32, "joint_s": MM_JOINT_S, "forward_ms": forward_ms,
+              "part_ms_by_cuda_events": parts,
+              "part_calls": {k: len(v) for k, v in events.items()},
+              **by_class(prof, forward_ms)})
+    finally:
+        for cls, fwd in originals.items():
+            cls.forward = fwd
+
+
 PHASES = ("kernel_check", "bits_check", "timing", "main_path", "breakdown",
           "reference", "train_path", "train_breakdown", "train_reference",
-          "hf_path", "remat")
+          "hf_path", "remat", "mm_check", "mm_reference", "mm_path",
+          "mm_breakdown")
 
 
 def main(argv=None) -> int:
@@ -1802,6 +2483,10 @@ def main(argv=None) -> int:
             "train_reference": lambda: phase_train_reference(args.seed),
             "hf_path": lambda: launches.update(phase_hf_path(args.seed, work)),
             "remat": lambda: phase_remat(args.seed),
+            "mm_check": lambda: phase_mm_check(args.seed),
+            "mm_reference": lambda: phase_mm_reference(args.seed),
+            "mm_path": lambda: launches.update(phase_mm_path(args.seed, work)),
+            "mm_breakdown": lambda: phase_mm_breakdown(args.seed),
         }
         for name in args.phases:
             t0 = time.perf_counter()
@@ -1820,14 +2505,19 @@ def main(argv=None) -> int:
     rows = []
     for name, (source, replaces) in KERNELS.items():
         counter = COUNTER.get(name, name)
+        path = ROW_PATH.get(name, "train")
         row = {"name": name, "route": "cuda", "source": source,
-               "replaces": replaces, "max_abs_err": errs.get(name),
-               "launches": launches.get("train", {}).get(counter, 0)}
+               "replaces": replaces,
+               "max_abs_err": errs.get(name, timing.get(name, {}).get(
+                   "max_abs_err")),
+               "launches": launches.get(path, {}).get(counter, 0)}
         row.update({k: timing.get(name, {}).get(k) for k in
                     ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
         out = {k: row.get(k) for k in order}
         out["launches_by_path"] = {p: c.get(counter, 0)
                                    for p, c in launches.items()}
+        if name in ROW_PATH:  # the counter is shared by every shape
+            out["launches_counted"] = f"{counter} on {path}, every shape"
         rows.append(out)
     emit({"kernels": rows})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

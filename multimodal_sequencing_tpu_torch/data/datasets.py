@@ -1,12 +1,20 @@
-"""Datasets and batching, text only (copy of `data/datasets.py`:
-`SortDataset`, `PureClassDataset` in decode mode, `collate`, `data_loader`,
-`prefetch`).
+"""Datasets and batching (copy of `data/datasets.py`: `SortDataset`,
+`PureClassDataset` in decode mode, their step images, `collate`,
+`data_loader`, `prefetch`).
 
 Every example draws its scramble from a counter-based Philox key
 (seed, epoch, index), and the loader its shuffle from (seed, epoch), so the
 port scrambles and orders exactly as the JAX package. Batches collate into
 dense numpy dicts with a `valid` mask, so the final partial batch is padded
-instead of dropped.
+instead of dropped; the padding repeats the last example, its images
+included (in training they enter the BatchNorm statistics of that batch,
+as in the JAX package).
+
+With `multimodal`, each story carries its step images, the missing steps
+up to `max_story_length` as zeros: (N, H, W, 3) uint8 for the device tail
+(`uint8_images`, what the CLIs ship by default) or (N, 3, H, W) f32 from
+the host pipeline, in the `imagenet` or `detectron2` transform
+(`data/images.py`).
 """
 
 from __future__ import annotations
@@ -25,13 +33,20 @@ def _example_rng(seed: Optional[int], epoch: int, idx: int
                                        ^ (epoch << 20) ^ idx)))
 
 
-class SortDataset:
-    """Decode-time dataset: raw step texts + order labels."""
+class _StoryDatasetBase:
+    """Shared story handling: length clamp, scramble, packing, images."""
 
     def __init__(self, examples, tokenizer, max_length=None,
-                 per_seq_max_length=32, max_story_length=5, seed=None):
+                 per_seq_max_length=32, max_story_length=5, scramble=True,
+                 seed=None, multimodal=False, image_size=(224, 224),
+                 uint8_images=False, image_transform="imagenet"):
         self.examples = examples
+        self.scramble = scramble
         self.seed = seed
+        self.multimodal = multimodal
+        self.image_size = tuple(image_size)
+        self.uint8_images = uint8_images
+        self.image_transform = image_transform
         self.max_story_length = max(1, max_story_length)
         self.packer = StoryPacker(tokenizer, max_length or 512,
                                   per_seq_max_length)
@@ -40,57 +55,75 @@ class SortDataset:
         return len(self.examples)
 
     def _story(self, idx: int, epoch: int = 0):
-        """Return (texts, idx_seq) after clamp + scramble."""
-        ex = self.examples[idx]
-        texts = list(ex.text_seq[:self.max_story_length])
-        n = len(texts)
-        idx_seq = np.arange(n)
-        _example_rng(self.seed, epoch, idx).shuffle(idx_seq)
-        return [texts[i] for i in idx_seq], idx_seq
-
-    def __getitem__(self, idx, epoch: int = 0):
-        texts, idx_seq = self._story(idx, epoch)
-        ex = self.examples[idx]
-        return {
-            "texts": texts,
-            "labels": _decode_labels(ex, idx_seq, self.max_story_length),
-            "guid": ex.guid,
-        }
-
-
-class PureClassDataset:
-    """Scrambled, packed stories with order labels (the JAX package's
-    `PureClassDataset(decode=True)`, which the heat-map heads train on):
-    input_ids / attention_mask / token_type_ids, labels = argsort of the
-    scramble (or the scrambled multiref list), guid."""
-
-    def __init__(self, examples, tokenizer, max_length=None,
-                 per_seq_max_length=32, max_story_length=5, scramble=True,
-                 seed=None):
-        self.examples = examples
-        self.scramble = scramble
-        self.seed = seed
-        self.max_story_length = max(1, max_story_length)
-        if examples:
-            self.max_story_length = min(self.max_story_length,
-                                        len(examples[0].text_seq))
-        self.packer = StoryPacker(tokenizer, max_length or 512,
-                                  per_seq_max_length)
-
-    def __len__(self):
-        return len(self.examples)
-
-    def __getitem__(self, idx, epoch: int = 0):
+        """(texts, img_paths or None, idx_seq) after clamp + scramble."""
         ex = self.examples[idx]
         texts = list(ex.text_seq[:self.max_story_length])
         idx_seq = np.arange(len(texts))
         if self.scramble:
             _example_rng(self.seed, epoch, idx).shuffle(idx_seq)
             texts = [texts[i] for i in idx_seq]
+        img_paths = None
+        if self.multimodal and ex.img_path_seq is not None:
+            img_paths = [ex.img_path_seq[i] for i in idx_seq]
+        return texts, img_paths, idx_seq
+
+    def _load_images(self, paths):
+        from . import images
+        if self.image_transform == "detectron2":
+            if self.uint8_images:
+                return images.load_image_stack_uint8_bgr(paths,
+                                                         self.image_size)
+            return images.load_image_stack_detectron2(paths, self.image_size)
+        if self.uint8_images:
+            return images.load_image_stack_uint8(paths, self.image_size)
+        return images.load_image_stack(paths, self.image_size)
+
+    def _images(self, img_paths, n_steps) -> Dict[str, Any]:
+        """{"images": (max_story_length, ...) stack, zero-padded}, or {}
+        without `multimodal`."""
+        if not self.multimodal:
+            return {}
+        paths = list(img_paths or [None] * n_steps)
+        paths += [None] * (self.max_story_length - len(paths))
+        return {"images": self._load_images(paths)}
+
+
+class SortDataset(_StoryDatasetBase):
+    """Decode-time dataset: raw step texts + order labels (+ images)."""
+
+    def __getitem__(self, idx, epoch: int = 0):
+        texts, img_paths, idx_seq = self._story(idx, epoch)
+        ex = self.examples[idx]
+        item = {
+            "texts": texts,
+            "labels": _decode_labels(ex, idx_seq, self.max_story_length),
+            "guid": ex.guid,
+        }
+        item.update(self._images(img_paths, len(texts)))
+        return item
+
+
+class PureClassDataset(_StoryDatasetBase):
+    """Scrambled, packed stories with order labels (the JAX package's
+    `PureClassDataset(decode=True)`, which the heat-map heads train on):
+    input_ids / attention_mask / token_type_ids, labels = argsort of the
+    scramble (or the scrambled multiref list), guid (+ images)."""
+
+    def __init__(self, examples, tokenizer, **kw):
+        super().__init__(examples, tokenizer, **kw)
+        if examples:
+            self.max_story_length = min(self.max_story_length,
+                                        len(examples[0].text_seq))
+
+    def __getitem__(self, idx, epoch: int = 0):
+        texts, img_paths, idx_seq = self._story(idx, epoch)
+        ex = self.examples[idx]
         ii, am, tt = self.packer.pack_story(texts)
-        return {"input_ids": ii, "attention_mask": am, "token_type_ids": tt,
+        item = {"input_ids": ii, "attention_mask": am, "token_type_ids": tt,
                 "labels": _decode_labels(ex, idx_seq, self.max_story_length),
                 "guid": ex.guid}
+        item.update(self._images(img_paths, len(texts)))
+        return item
 
 
 def _decode_labels(ex, idx_seq, max_story_length):
@@ -111,7 +144,8 @@ def _decode_labels(ex, idx_seq, max_story_length):
     return np.argsort(np.asarray(idx_seq)).astype(np.int32)
 
 
-_ARRAY_KEYS = ("input_ids", "attention_mask", "token_type_ids", "labels")
+_ARRAY_KEYS = ("input_ids", "attention_mask", "token_type_ids", "labels",
+               "images")
 
 
 def collate(items: Sequence[Dict[str, Any]], pad_to: Optional[int] = None

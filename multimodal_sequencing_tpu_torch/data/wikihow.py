@@ -1,13 +1,19 @@
-"""WikiHow whole-story processor, text only (copy of the `sort` path of
-`data/wikihow.py`): JSONL parsing, `human_annot_only_filtered` gating,
-story length filters and multiref ground-truth passthrough."""
+"""WikiHow whole-story processor (copy of the `sort` path of
+`data/wikihow.py`): JSONL parsing, step images resolved across the mirror
+directory layouts with the missing ones logged to
+`missing_images_{split}.txt`, `human_annot_only_filtered` gating, story
+length filters and multiref ground-truth passthrough.
+
+With `paired_with_image` (the default, as in the JAX package; the CLIs pass
+`--multimodal`) a step whose image cannot be resolved is dropped, and a
+story left shorter than `min_story_length` with it."""
 
 from __future__ import annotations
 
 import json
 import logging
 import os
-from typing import List
+from typing import List, Optional
 
 from .examples import DataProcessor, HeadExample
 
@@ -15,13 +21,17 @@ logger = logging.getLogger(__name__)
 
 WIKIHOW_DATA_ROOT = "data/wikihow"
 
+# the step-image fields, in order of preference
+IMAGE_FIELD_NAMES = ["image-large", "image-src-1"]
+
 
 class WikiHowGeneralProcessor(DataProcessor):
     """Whole-story examples for the sort task."""
 
     def __init__(self, data_dir=None, max_story_length=5, min_story_length=5,
-                 version_text=None, **kwargs):
+                 version_text=None, paired_with_image=True, **kwargs):
         self.data_dir = data_dir or WIKIHOW_DATA_ROOT
+        self.paired_with_image = paired_with_image
         min_story_length = max(1, min_story_length)
         max_story_length = max(1, max_story_length)
         min_story_length = min(min_story_length, max_story_length)
@@ -42,9 +52,43 @@ class WikiHowGeneralProcessor(DataProcessor):
             return path
         return os.path.join(data_dir, f"wikihow-{split}.json")
 
+    def _resolve_image(self, data_dir: str, image_path: str) -> Optional[str]:
+        """The step image's path in the `www.wikihow.com/images/` or
+        `wikihow.com/images/` mirror layout, whichever exists; else None."""
+        image_path = os.path.join(data_dir, image_path)
+        if "wikihow.com" not in image_path:
+            cand = image_path.replace("/images/", "/www.wikihow.com/images/")
+        else:
+            cand = image_path
+        if os.path.exists(cand):
+            return cand
+        cand = image_path.replace("/images/", "/wikihow.com/images/")
+        if os.path.exists(cand):
+            return cand
+        return None
+
+    def _step_element(self, data_dir, step, text, key, missing):
+        """(text, image path) of a step, or None when it is paired with an
+        image that cannot be resolved (each failed field is logged in
+        `missing`)."""
+        if not self.paired_with_image:
+            return (text, None)
+        for name in IMAGE_FIELD_NAMES:
+            if name not in step.get("step_assets", {}):
+                continue
+            raw = step["step_assets"][name]
+            resolved = (self._resolve_image(data_dir, raw)
+                        if raw is not None and len(raw) > 0 else None)
+            if resolved is None:
+                missing.append(key)
+            else:
+                return (text, resolved)
+        return None
+
     def _read_json(self, data_dir=None, split="train"):
         """Read JSONL stories; each yielded story is
-        [story_id, (text, None), ...] or a multiref dict wrapper."""
+        [story_id, (text, img_path or None), ...] or a multiref dict
+        wrapper."""
         data_dir = data_dir or self.data_dir
         json_path = self._json_path(data_dir, split)
         logger.info("Using %s", json_path)
@@ -64,6 +108,7 @@ class WikiHowGeneralProcessor(DataProcessor):
                     human_check_dict[key] = True
 
         story_seqs = []
+        missing_images = []
         for data_raw in data:
             wikihow_url = data_raw["url"]
             if "multiref_gt" in data_raw and not self.multiref_gt:
@@ -74,14 +119,18 @@ class WikiHowGeneralProcessor(DataProcessor):
                 story_seq = [page_id]
                 include_data = human_check_dict is None
 
-                for step in section["steps"]:
+                for step_id, step in enumerate(section["steps"]):
                     step_text = step["step_text"]["text"]
                     bullets = step["step_text"]["bullet_points"]
                     combined_text = " ".join([step_text] + bullets)
                     if human_check_dict is not None:
                         if combined_text.split(".")[0] in human_check_dict:
                             include_data = True
-                    story_seq.append((combined_text, None))
+                    element = self._step_element(
+                        data_dir, step, combined_text,
+                        page_id + "###" + str(step_id), missing_images)
+                    if element is not None:
+                        story_seq.append(element)
 
                 if len(story_seq) < self.min_story_length + 1 or not include_data:
                     continue
@@ -94,6 +143,15 @@ class WikiHowGeneralProcessor(DataProcessor):
                         <= self.max_story_length + 1):
                     story_seqs.append(story_seq)
 
+        logger.warning("Number of missing images in %s: %d",
+                       split, len(missing_images))
+        try:
+            miss_path = os.path.join(data_dir, f"missing_images_{split}.txt")
+            with open(miss_path, "w") as mf:
+                mf.writelines(p + "\n" for p in missing_images)
+            logger.info("Missing-image log saved at: %s", miss_path)
+        except OSError:
+            pass  # read-only data dirs are fine
         logger.info("There are %d valid story sequences in %s",
                     len(story_seqs), json_path)
         return story_seqs

@@ -1,4 +1,5 @@
-"""Model configuration dataclasses (counterpart of `models/config.py`).
+"""Model configuration dataclasses (counterpart of `models/config.py`, and
+of `CLIPVisionConfig` in `models/clip_visual.py`).
 
 Same fields, defaults and JSON layout as the JAX package, so a
 `config.json` sidecar loads in either package. `compute_dtype` maps the
@@ -85,10 +86,101 @@ class EncoderConfig:
 
 
 @dataclass
+class CLIPVisionConfig:
+    """The CLIP visual tower (RN50 or ViT), fields and presets as in the
+    JAX package's `models/clip_visual.py`. `ref_fold_quirk` replays the
+    reference's byte-order fold of the RN50 attention-pool stream (see
+    `models/clip_visual.py::AttentionPool2d`)."""
+    model_name: str = "RN50"
+    image_resolution: int = 224
+    # RN50
+    layers: Tuple[int, int, int, int] = (3, 4, 6, 3)
+    width: int = 64
+    heads: int = 32
+    output_dim: int = 1024
+    # ViT
+    vit_layers: int = 12
+    vit_width: int = 768
+    vit_heads: int = 12
+    patch_size: int = 32
+    dtype: str = "float32"
+    ref_fold_quirk: bool = False
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @property
+    def is_resnet(self) -> bool:
+        return self.model_name.startswith("RN")
+
+    @property
+    def embed_dim(self):
+        return self.width * 32  # the RN50 trunk's output channels (2048)
+
+    @property
+    def grid(self):
+        if self.is_resnet:
+            return self.image_resolution // 32
+        return self.image_resolution // self.patch_size
+
+    @property
+    def feat_dim(self) -> int:
+        """Channels of the folded stream the multimodal encoder gets: the
+        RN50 attention pool's output duplicated (2 * output_dim), or the ViT
+        width. The ViT tower returns `output_dim` channels (`x @ proj`),
+        which the JAX encoder adds to a `vit_width` position table, so only
+        ViT configs with output_dim == vit_width run there; any other raises
+        here."""
+        if self.is_resnet:
+            return 2 * self.output_dim
+        if self.output_dim != self.vit_width:
+            raise ValueError(
+                f"{self.model_name}: the multimodal encoder takes a ViT tower "
+                f"only with output_dim == vit_width (the JAX encoder's "
+                f"position table is vit_width wide and its stream "
+                f"output_dim wide); got output_dim {self.output_dim}, "
+                f"vit_width {self.vit_width}")
+        return self.vit_width
+
+    @classmethod
+    def rn50(cls, **kw):
+        return cls(model_name="RN50", **kw)
+
+    @classmethod
+    def vit_b32(cls, **kw):
+        return cls(model_name="ViT-B/32", output_dim=512, **kw)
+
+    @classmethod
+    def tiny_rn(cls, **kw):
+        base = dict(model_name="RN50", image_resolution=32, width=8, heads=4,
+                    layers=(1, 1, 1, 1), output_dim=32)
+        base.update(kw)
+        return cls(**base)
+
+    @classmethod
+    def tiny_vit(cls, **kw):
+        base = dict(model_name="ViT-B/32", image_resolution=32, patch_size=8,
+                    vit_layers=2, vit_width=32, vit_heads=4, output_dim=32)
+        base.update(kw)
+        return cls(**base)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @classmethod
+    def from_json(cls, s: str):
+        d = json.loads(s)
+        d["layers"] = tuple(d["layers"])
+        return cls(**d)
+
+
+@dataclass
 class MultimodalConfig:
     """Sequencing task + multimodal fusion config. Every field of the JAX
     package's `MultimodalConfig` is kept for the shared JSON layout; the
-    port so far runs the text branch with the heat-map heads."""
+    port so far runs the text branch and the CLIP multimodal branch with
+    the heat-map heads."""
     encoder: EncoderConfig = field(default_factory=EncoderConfig)
     max_story_length: int = 5
     min_story_length: int = 5
@@ -146,3 +238,20 @@ class MultimodalConfig:
         d["encoder"] = EncoderConfig(**d["encoder"])
         d["image_size"] = tuple(d["image_size"])
         return cls(**d)
+
+
+def clip_vision_config(cfg: MultimodalConfig, tiny: bool = False,
+                       image_resolution: Optional[int] = None,
+                       ref_fold_quirk: bool = False) -> CLIPVisionConfig:
+    """The CLIP tower of a multimodal config: RN50 or ViT-B/32 by
+    `clip_model_name` (`tiny_rn` / `tiny_vit` with `tiny`), in the encoder's
+    dtype, at the preset's resolution unless `image_resolution` is given."""
+    rn = cfg.clip_model_name.startswith("RN")
+    if tiny:
+        make = CLIPVisionConfig.tiny_rn if rn else CLIPVisionConfig.tiny_vit
+    else:
+        make = CLIPVisionConfig.rn50 if rn else CLIPVisionConfig.vit_b32
+    vcfg = make(dtype=cfg.encoder.dtype, ref_fold_quirk=ref_fold_quirk)
+    if image_resolution is not None:
+        vcfg.image_resolution = image_resolution
+    return vcfg

@@ -1,31 +1,42 @@
-"""Weights into the port (counterpart of `models/convert.py`, text
-branch): from the JAX package's parameter tree, and from HF BERT/RoBERTa
-checkpoints.
+"""Weights into the port (counterpart of `models/convert.py`, text and
+CLIP branches): from the JAX package's variable trees, from HF BERT/RoBERTa
+checkpoints, and from OpenAI CLIP visual weights.
 
 The port's modules carry the Flax module names, so a Flax path maps to the
 same dotted state-dict key with its leaf renamed:
-  Dense `kernel` (in, out)   -> Linear `weight` (out, in), transposed
-  Embed `embedding`          -> Embedding `weight`
-  LayerNorm `scale` / `bias` -> `weight` / `bias`
-e.g. `encoder/layer_3/attention/query/kernel` ->
-`encoder.layer_3.attention.query.weight`.
+  Dense `kernel` (in, out)        -> Linear `weight` (out, in), transposed
+  Conv `kernel` (kh, kw, in, out) -> Conv2d `weight` (out, in, kh, kw)
+  Embed `embedding`               -> Embedding `weight`
+  LayerNorm/BatchNorm `scale`     -> `weight`; `bias` -> `bias`
+  raw `positional_embedding`, `class_embedding`, `proj` -> the same name
+and the `batch_stats` tree's BatchNorm `mean` / `var` -> the buffers
+`running_mean` / `running_var`; e.g. `encoder/layer_3/attention/query/
+kernel` -> `encoder.layer_3.attention.query.weight`.
 
 HF text weights (`--model_name_or_path <dir with pytorch_model.bin>`) map
-by name onto the same keys; HF `Linear` weights are already (out, in), so
-nothing is transposed. As in the JAX package, `model.safetensors` is found
-but not read.
+by name onto the same keys of either encoder layout (the multimodal
+encoder keeps the text encoder's names); HF `Linear` weights are already
+(out, in), so nothing is transposed. As in the JAX package,
+`model.safetensors` is found but not read.
+
+OpenAI CLIP visual weights (`--clip_visual_model_weights <file>`, the
+`visual.*` keys) load into the tower with little renaming, torch layouts
+being the port's own (`convert_clip_rn50`, `convert_clip_vit`). A
+directory given there is a checkpoint of this package, whose tower
+weights and BatchNorm statistics are read.
 """
 
 from __future__ import annotations
 
 import logging
 import os
-from typing import Dict, Mapping
+import re
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
-from .config import MultimodalConfig
+from .config import CLIPVisionConfig, MultimodalConfig
 from .sequencer import SequencingModel
 
 logger = logging.getLogger(__name__)
@@ -35,34 +46,53 @@ logger = logging.getLogger(__name__)
 HF_WEIGHTS_NAMES = ("pytorch_model.bin", "model.safetensors")
 
 _LEAVES = {"kernel": "weight", "embedding": "weight", "scale": "weight",
-           "bias": "bias"}
+           "bias": "bias", "positional_embedding": "positional_embedding",
+           "class_embedding": "class_embedding", "proj": "proj"}
+_STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 
 
-def params_from_jax(params: Mapping, cfg: MultimodalConfig
-                    ) -> Dict[str, torch.Tensor]:
-    """JAX `SequencingModel` params (nested dicts of numpy arrays, with or
-    without the outer `params` collection) -> a state dict for the port's
-    `SequencingModel(cfg)`. Raises if the tree does not match the model."""
-    if "params" in params:
-        params = params["params"]
+def tree_to_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None
+                       ) -> Dict[str, torch.Tensor]:
+    """A Flax `params` tree (and `batch_stats` tree) -> state-dict entries
+    by the leaf rules above. An unknown leaf raises KeyError."""
     out: Dict[str, torch.Tensor] = {}
 
-    def walk(tree: Mapping, path):
+    def walk(tree: Mapping, path, leaves):
         for name, val in tree.items():
             if isinstance(val, Mapping):
-                walk(val, path + (name,))
+                walk(val, path + (name,), leaves)
                 continue
-            if name not in _LEAVES:
-                raise KeyError(f"unknown parameter leaf {'/'.join(path + (name,))}")
+            if name not in leaves:
+                raise KeyError(f"unknown parameter leaf "
+                               f"{'/'.join(path + (name,))}")
             arr = np.array(val, dtype=np.float32)  # a writable copy
-            if name == "kernel":
-                arr = arr.T
-            out[".".join(path + (_LEAVES[name],))] = torch.from_numpy(
+            if name == "kernel":  # Dense (in, out); Conv HWIO -> OIHW
+                arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+            out[".".join(path + (leaves[name],))] = torch.from_numpy(
                 np.ascontiguousarray(arr))
 
-    walk(params, ())
+    walk(params, (), _LEAVES)
+    if batch_stats:
+        walk(batch_stats, (), _STAT_LEAVES)
+    return out
+
+
+def params_from_jax(params: Mapping, cfg: MultimodalConfig,
+                    batch_stats: Optional[Mapping] = None,
+                    vision_cfg: Optional[CLIPVisionConfig] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """JAX `SequencingModel` params (nested dicts of numpy arrays, with or
+    without the outer `params` collection) and, for a model with
+    BatchNorms, its `batch_stats` tree -> a state dict for the port's
+    `SequencingModel(cfg, vision_cfg)`. Raises if the trees do not match
+    the model."""
+    if "params" in params:
+        params = params["params"]
+    if batch_stats is not None and "batch_stats" in batch_stats:
+        batch_stats = batch_stats["batch_stats"]
+    out = tree_to_state_dict(params, batch_stats)
     with torch.device("meta"):
-        want = SequencingModel(cfg).state_dict()
+        want = SequencingModel(cfg, vision_cfg).state_dict()
     missing = sorted(set(want) - set(out))
     extra = sorted(set(out) - set(want))
     if missing or extra:
@@ -150,13 +180,128 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     return dict(sd)
 
 
+# ----- CLIP visual towers ---------------------------------------------------
+
+
+def filter_visual_state_dict(state_dict: Dict) -> Dict:
+    """The `--clip_visual_model_weights` filtered load: only the
+    `visual.`-prefixed weights, with everything up to that prefix
+    dropped."""
+    out = {}
+    for k, v in state_dict.items():
+        m = re.search(r"(?:^|\.)visual\.(.*)$", k)
+        if m:
+            out[m.group(1)] = v
+    return out
+
+
+def _t(x) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x, dtype=np.float32)).clone()
+
+
+def convert_clip_vit(state_dict: Dict) -> Dict[str, torch.Tensor]:
+    """OpenAI CLIP ViT `visual.*` weights (prefix stripped) -> the tower's
+    state-dict entries under `vit.`."""
+    sd = state_dict
+    out = {f"vit.{k}": _t(sd[k]) for k in (
+        "conv1.weight", "class_embedding", "positional_embedding",
+        "ln_pre.weight", "ln_pre.bias", "ln_post.weight", "ln_post.bias",
+        "proj")}
+    i = 0
+    while f"transformer.resblocks.{i}.ln_1.weight" in sd:
+        src, dst = f"transformer.resblocks.{i}", f"vit.resblock_{i}"
+        for a, b in (("ln_1", "ln_1"), ("ln_2", "ln_2"),
+                     ("attn.out_proj", "attn_out"), ("mlp.c_fc", "c_fc"),
+                     ("mlp.c_proj", "c_proj")):
+            for leaf in ("weight", "bias"):
+                out[f"{dst}.{b}.{leaf}"] = _t(sd[f"{src}.{a}.{leaf}"])
+        out[f"{dst}.qkv.weight"] = _t(sd[f"{src}.attn.in_proj_weight"])
+        out[f"{dst}.qkv.bias"] = _t(sd[f"{src}.attn.in_proj_bias"])
+        i += 1
+    return out
+
+
+def convert_clip_rn50(state_dict: Dict, layers=(3, 4, 6, 3)
+                      ) -> Dict[str, torch.Tensor]:
+    """OpenAI CLIP ModifiedResNet `visual.*` weights (prefix stripped) ->
+    the tower's state-dict entries under `resnet.`, BatchNorm running
+    statistics included (`num_batches_tracked` is dropped)."""
+    sd = state_dict
+    out: Dict[str, torch.Tensor] = {}
+
+    def bn(dst, src):
+        for leaf in ("weight", "bias", "running_mean", "running_var"):
+            out[f"resnet.{dst}.{leaf}"] = _t(sd[f"{src}.{leaf}"])
+
+    for i in (1, 2, 3):
+        out[f"resnet.conv{i}.weight"] = _t(sd[f"conv{i}.weight"])
+        bn(f"bn{i}", f"bn{i}")
+    for stage, blocks in enumerate(layers):
+        for b in range(blocks):
+            src, dst = f"layer{stage + 1}.{b}", f"layer{stage + 1}_{b}"
+            for c in (1, 2, 3):
+                out[f"resnet.{dst}.conv{c}.weight"] = _t(
+                    sd[f"{src}.conv{c}.weight"])
+                bn(f"{dst}.bn{c}", f"{src}.bn{c}")
+            if f"{src}.downsample.0.weight" in sd:
+                out[f"resnet.{dst}.downsample_conv.weight"] = _t(
+                    sd[f"{src}.downsample.0.weight"])
+                bn(f"{dst}.downsample_bn", f"{src}.downsample.1")
+    out["resnet.attnpool.positional_embedding"] = _t(
+        sd["attnpool.positional_embedding"])
+    for proj in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        for leaf in ("weight", "bias"):
+            out[f"resnet.attnpool.{proj}.{leaf}"] = _t(
+                sd[f"attnpool.{proj}.{leaf}"])
+    return out
+
+
+def _load_clip_visual_weights(model: SequencingModel, path: str) -> None:
+    """`--clip_visual_model_weights`: OpenAI CLIP weights (a file) or the
+    tower of a checkpoint of this package (a directory holding `model.pt`)
+    into `model.encoder.visual_model`, BatchNorm statistics included."""
+    tower = model.encoder.visual_model
+    if os.path.isdir(path):
+        from ..train.checkpoint import WEIGHTS_NAME
+        sd = load_torch_state_dict(os.path.join(path, WEIGHTS_NAME))
+        prefix = "encoder.visual_model."
+        weights = {k[len(prefix):]: v for k, v in sd.items()
+                   if k.startswith(prefix)}
+    else:
+        sd = filter_visual_state_dict(load_torch_state_dict(path))
+        if tower.cfg.is_resnet:
+            weights = convert_clip_rn50(sd, tower.cfg.layers)
+        else:
+            weights = convert_clip_vit(sd)
+    tower.load_state_dict(weights)
+
+
 def load_pretrained_weights(model: SequencingModel, args) -> bool:
-    """`--model_name_or_path <dir>` holding `pytorch_model.bin`: load its HF
-    text weights into `model.encoder` in place (the token-type table tiled
-    to `type_vocab_size` rows when that is above 2). Encoder weights the
-    file lacks (a pooler, a token-type table) keep their init. Returns
-    whether weights were loaded; a directory whose weights file is
-    `model.safetensors` loads none, as in the JAX package."""
+    """Pretrained weights into `model` in place; returns whether any were
+    loaded.
+
+    `--model_name_or_path <dir>` holding `pytorch_model.bin`: its HF text
+    weights into `model.encoder`, text or multimodal (the token-type table
+    tiled to `type_vocab_size` rows when that is above 2). Encoder weights
+    the file lacks (a pooler, a token-type table) keep their init; a
+    directory whose weights file is `model.safetensors` loads none, as in
+    the JAX package. `--clip_visual_model_weights <file or dir>` (an
+    existing path; the JAX package ignores a missing one): the CLIP tower's
+    weights (`_load_clip_visual_weights`)."""
+    loaded = _load_hf_text_weights(model, args)
+    cw = getattr(args, "clip_visual_model_weights", None)
+    if cw and model.cfg.multimodal and not model.cfg.multimodal_text_part:
+        if os.path.exists(cw):
+            _load_clip_visual_weights(model, cw)
+            logger.info("loaded CLIP visual weights from %s", cw)
+            loaded = True
+        else:
+            logger.warning("--clip_visual_model_weights %s does not exist; "
+                           "ignored, as in the JAX package", cw)
+    return loaded
+
+
+def _load_hf_text_weights(model: SequencingModel, args) -> bool:
     path = getattr(args, "model_name_or_path", None)
     if not path or not os.path.isdir(path):
         return False

@@ -1,10 +1,14 @@
-"""SequencingModel: text encoder + heat-map head (counterpart of
-`models/sequencer.py`, text branch, heat-map versions v1/v2/v3), the
+"""SequencingModel: text or CLIP multimodal encoder + heat-map head
+(counterpart of `models/sequencer.py`, heat-map versions v1/v2/v3), the
 heat-map targets and the fresh init.
 
-The other versions (v0 classification, p0/p1 pointer), the auxiliary
-objective heads and the multimodal encoders are later slices of the port
-and raise `NotImplementedError` here.
+With `cfg.multimodal` the encoder is the single-stream joint encoder
+(`models/multimodal_encoder.py`: CLIP tower + folded visual tokens + the
+shared transformer layers), built from `vision_cfg` (default: RN50 or
+ViT-B/32 by `cfg.clip_model_name`). The other versions (v0 classification,
+p0/p1 pointer), the auxiliary objective heads and the VisualBERT and naive
+multimodal encoders are later slices of the port and raise
+`NotImplementedError` here.
 """
 
 from __future__ import annotations
@@ -15,19 +19,33 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from .config import MultimodalConfig
+from .clip_visual import (AttentionPool2d, BatchNorm, Conv,
+                          VisualTransformer)
+from .config import CLIPVisionConfig, MultimodalConfig
 from .encoder import DropoutRng, Embed, LayerNorm, TextEncoder
 from .heads import HeatmapHead, gather_step_cls
+from .multimodal_encoder import MultimodalEncoder
 
 HEATMAP_VERSIONS = ("v1", "v2", "v3")
 
 
 class SequencingModel(nn.Module):
-    def __init__(self, cfg: MultimodalConfig):
+    def __init__(self, cfg: MultimodalConfig,
+                 vision_cfg: Optional[CLIPVisionConfig] = None):
         super().__init__()
-        if cfg.multimodal:
+        if cfg.multimodal and cfg.multimodal_model_type in (
+                "visualbert", "naive", "naive_model"):
             raise NotImplementedError(
-                "the multimodal encoders come with a later slice of the port")
+                f"multimodal_model_type {cfg.multimodal_model_type!r}: the "
+                f"VisualBERT and naive encoders (with models/resnet.py and "
+                f"models/fpn.py) come with a later slice of the port "
+                f"(ROADMAP A5); the port runs the CLIP encoder")
+        if cfg.multimodal and cfg.multimodal_img_part:
+            # the JAX package's gather returns NaN there: NaN heat maps
+            raise ValueError(
+                "multimodal_img_part cuts the language to its first CLS "
+                "token, so the heat-map heads find no step CLS tokens to "
+                "gather")
         if cfg.hierarchical_version not in HEATMAP_VERSIONS:
             raise NotImplementedError(
                 f"hierarchical_version {cfg.hierarchical_version!r}: the port "
@@ -39,23 +57,47 @@ class SequencingModel(nn.Module):
                 "auxiliary objective heads (head/binary/itm/mlm) come with a "
                 "later slice of the port")
         self.cfg = cfg
-        self.encoder = TextEncoder(cfg.encoder)
+        # "clip" (and the reference's unreachable vilbert/vlbert/uniter,
+        # which the JAX package also builds as the CLIP encoder)
+        self.encoder = (MultimodalEncoder(cfg, vision_cfg) if cfg.multimodal
+                        else TextEncoder(cfg.encoder))
         self.heatmap_head = HeatmapHead(cfg)
+
+    @property
+    def vision_cfg(self) -> Optional[CLIPVisionConfig]:
+        return self.encoder.vcfg if self.cfg.multimodal else None
+
+    def encode(self, input_ids, attention_mask=None, token_type_ids=None,
+               images=None, deterministic: bool = True,
+               rng: Optional[DropoutRng] = None):
+        """(lang_seq, visn_seq or None, pooled)."""
+        if self.cfg.multimodal:
+            return self.encoder(input_ids, attention_mask, token_type_ids,
+                                images, deterministic, rng)
+        seq, pooled = self.encoder(input_ids, attention_mask, token_type_ids,
+                                   deterministic, rng)
+        return seq, None, pooled
 
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
                 token_type_ids: Optional[torch.Tensor] = None,
+                images: Optional[torch.Tensor] = None,
                 deterministic: bool = True,
                 rng: Optional[DropoutRng] = None) -> Dict[str, torch.Tensor]:
-        """`deterministic=False` (training) needs `rng`, the step's
-        dropout streams."""
+        """`images`: a story's step images for the multimodal encoder,
+        (B, N, H, W, 3) uint8 or (B, N, 3, H, W) float. `deterministic=False`
+        (training) needs `rng`, the step's dropout streams; it also
+        normalizes the BatchNorms by the batch and updates their running
+        averages."""
         cfg = self.cfg
-        seq, pooled = self.encoder(input_ids, attention_mask, token_type_ids,
-                                   deterministic, rng)
+        seq, visn, pooled = self.encode(input_ids, attention_mask,
+                                        token_type_ids, images, deterministic,
+                                        rng)
         reprs, present = gather_step_cls(seq, input_ids, cfg.cls_id,
                                          cfg.max_story_length)
-        return {"sequence_output": seq, "pooled_output": pooled,
-                "step_reprs": reprs, "present": present,
+        return {"sequence_output": seq, "visual_output": visn,
+                "pooled_output": pooled, "step_reprs": reprs,
+                "present": present,
                 "heatmap": self.heatmap_head(reprs, present)}
 
 
@@ -74,11 +116,12 @@ def render_heatmap_targets(order_labels: torch.Tensor, n: int,
 
 
 def cast_for_inference(model: nn.Module) -> nn.Module:
-    """Store the Dense and Embed weights in their compute dtype. They are
-    cast to it at every call anyway, so outputs are unchanged; LayerNorm
-    parameters stay f32. For eval only: the optimizer needs f32 weights."""
+    """Store the Dense, Conv and Embed weights in their compute dtype. They
+    are cast to it at every call anyway, so outputs are unchanged;
+    LayerNorm and BatchNorm parameters and statistics stay f32. For eval
+    only: the optimizer needs f32 weights."""
     for mod in model.modules():
-        if isinstance(mod, (nn.Linear, Embed)):
+        if isinstance(mod, (nn.Linear, nn.Conv2d, Embed)):
             mod.to(mod.compute_dtype)
     return model
 
@@ -88,27 +131,55 @@ def cast_for_inference(model: nn.Module) -> nn.Module:
 _TRUNC_STD = 0.87962566103423978
 
 
+def _lecun_normal(shape, fan_in: int, gen) -> torch.Tensor:
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    w = torch.empty(shape)
+    nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=gen)
+    return w
+
+
+def _normal(shape, std: float, gen) -> torch.Tensor:
+    return torch.empty(shape).normal_(0.0, std, generator=gen)
+
+
 def init_weights(model: nn.Module, seed: int) -> nn.Module:
     """Fresh weights from `seed` with the distributions of Flax's default
     initializers, drawn on the CPU with an explicit generator so a seed
-    gives the same model on every device: Dense kernels `lecun_normal` (a
-    normal truncated at two standard deviations, variance 1 / fan_in), Embed
-    tables normal with std 1 / sqrt(features), zero biases, unit LayerNorm
-    scales. The bits differ from JAX's."""
+    gives the same model on every device: Dense and Conv kernels
+    `lecun_normal` (a normal truncated at two standard deviations, variance
+    1 / fan_in, fan_in = kh * kw * cin for a conv), Embed tables normal with
+    std 1 / sqrt(features), zero biases, unit LayerNorm and BatchNorm
+    scales, BatchNorm running mean 0 and variance 1; the CLIP towers' raw
+    parameters as their modules declare them (attention-pool positions
+    normal with std c^-0.5; ViT class embedding, positions and projection
+    normal with std width^-0.5). The bits differ from JAX's."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, nn.Linear):
-                std = math.sqrt(1.0 / mod.in_features) / _TRUNC_STD
-                w = torch.empty(mod.weight.shape)
-                nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
-                                      generator=gen)
-                mod.weight.copy_(w)
+                mod.weight.copy_(_lecun_normal(mod.weight.shape,
+                                               mod.in_features, gen))
                 mod.bias.zero_()
+            elif isinstance(mod, Conv):
+                o, i, kh, kw = mod.weight.shape
+                mod.weight.copy_(_lecun_normal(mod.weight.shape, i * kh * kw,
+                                               gen))
             elif isinstance(mod, Embed):
-                mod.weight.copy_(torch.empty(mod.weight.shape).normal_(
-                    0.0, 1.0 / math.sqrt(mod.embedding_dim), generator=gen))
-            elif isinstance(mod, LayerNorm):
+                mod.weight.copy_(_normal(mod.weight.shape,
+                                         1.0 / math.sqrt(mod.embedding_dim),
+                                         gen))
+            elif isinstance(mod, (LayerNorm, BatchNorm)):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
+                if isinstance(mod, BatchNorm):
+                    mod.running_mean.zero_()
+                    mod.running_var.fill_(1.0)
+            elif isinstance(mod, AttentionPool2d):
+                pe = mod.positional_embedding
+                pe.copy_(_normal(pe.shape, pe.shape[1] ** -0.5, gen))
+            elif isinstance(mod, VisualTransformer):
+                std = mod.cfg.vit_width ** -0.5
+                for p in (mod.class_embedding, mod.positional_embedding,
+                          mod.proj):
+                    p.copy_(_normal(p.shape, std, gen))
     return model

@@ -2,7 +2,10 @@
 `train/checkpoint.py`).
 
 `checkpoint-{step}` (or `checkpoint-best`) folders holding `config.json`,
-`model.pt` (the weights' state dict, the format `main_eval` loads),
+`model.pt` (the weights' state dict, BatchNorm statistics included, the
+format `main_eval` loads), for a multimodal model `vision_config.json` (its
+CLIP tower's config, which `config.json` shares with the JAX package and so
+cannot hold),
 `optimizer.pt` (global step, optimizer counts and moments),
 `training_args.json` and the tokenizer's own files (`simple_tokenizer.json`
 for the built-in tokenizer), so `trainers.eval --model_name_or_path
@@ -25,13 +28,18 @@ CONFIG_NAME = "config.json"
 WEIGHTS_NAME = "model.pt"
 OPTIMIZER_NAME = "optimizer.pt"
 ARGS_NAME = "training_args.json"
+VISION_CONFIG_NAME = "vision_config.json"
 
 
 def save_model(model, cfg, path: str) -> None:
-    """`config.json` + `model.pt` in `path`."""
+    """`config.json` + `model.pt` (+ `vision_config.json`) in `path`."""
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, CONFIG_NAME), "w") as f:
         f.write(cfg.to_json())
+    vision_cfg = getattr(model, "vision_cfg", None)
+    if vision_cfg is not None:
+        with open(os.path.join(path, VISION_CONFIG_NAME), "w") as f:
+            f.write(vision_cfg.to_json())
     torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
                os.path.join(path, WEIGHTS_NAME))
 

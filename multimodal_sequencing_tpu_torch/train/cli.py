@@ -21,8 +21,19 @@ its weights from its `pytorch_model.bin` (`models/convert.py`). Checkpoints
 are the port's own format (`train/checkpoint.py`) and carry the tokenizer,
 so a checkpoint serves as `--model_name_or_path` of the eval; the eval
 refuses any other directory, an HF one included, as the JAX package's
-restore does. `--eval_all_checkpoints` / `--iters_to_eval` sweep the
-checkpoints under a run directory. A fresh eval model is seeded from 0, as
+restore does.
+
+`--multimodal` (with `--multimodal_model_type clip`, the default) trains and
+evaluates the CLIP encoder: step images from the data directory, shipped
+as uint8 and normalized on the device (`--host_image_preprocess`: f32 from
+the host), `--clip_model_name RN50` or `ViT-B/32` (`--model_size tiny`:
+the `tiny_rn` / `tiny_vit` towers), `--clip_visual_model_weights` (OpenAI
+CLIP weights, or a checkpoint of this package), `--freeze_vision_model`,
+`--multimodal_text_part` / `--multimodal_img_part`. A multimodal checkpoint
+keeps its tower's config in `vision_config.json`, which the eval reads.
+
+`--eval_all_checkpoints` / `--iters_to_eval` sweep the checkpoints under a
+run directory. A fresh eval model is seeded from 0, as
 the JAX eval's `PRNGKey(0)`, and a fresh train model from `--seed`.
 `--use_cached` keeps the examples of each split in a pickle under the data
 directory, named as the JAX package names its cache but ending in
@@ -206,15 +217,8 @@ _NOT_YET = {
     "data_dirs": "multi-dataset pretraining",
     "data_names": "multi-dataset pretraining",
     "caption_transformations": "caption transformations",
-    "multimodal": "the multimodal encoders",
-    "multimodal_text_part": "the multimodal encoders",
-    "multimodal_img_part": "the multimodal encoders",
-    "multimodal_loss": "the multimodal encoders",
-    "include_num_img_regional_features": "the multimodal encoders",
-    "include_full_img_features": "the multimodal encoders",
-    "clip_visual_model_weights": "the multimodal encoders",
-    "vision_model_checkpoint": "the multimodal encoders",
-    "freeze_vision_model": "the multimodal encoders",
+    "include_num_img_regional_features": "the VisualBERT encoder",
+    "vision_model_checkpoint": "the naive and FPN vision towers",
     "wrapper_model_type": "BERSON",
     "wrapper_model_with_heatmap": "BERSON",
     "additional_wrapper_level_objectives": "BERSON",
@@ -231,7 +235,7 @@ _NOT_YET = {
 
 def parse_args(kind: str, argv=None):
     parser = build_parser(kind)
-    args = parser.parse_args(argv)
+    args = resolve_args(parser.parse_args(argv))
     for dest, what in _NOT_YET.items():
         if getattr(args, dest) != parser.get_default(dest):
             raise NotImplementedError(
@@ -241,6 +245,19 @@ def parse_args(kind: str, argv=None):
         raise NotImplementedError(
             "--hl_include_objectives: the port trains heatmap_pairwise_ranking "
             "so far; the head/binary/itm/mlm heads come with a later slice")
+    return args
+
+
+def _is_detectron2(args) -> bool:
+    return bool(args.multimodal
+                and str(args.vision_model).startswith("detectron2"))
+
+
+def resolve_args(args):
+    """`--vision_image_size` defaults by vision family: 256 for detectron2_*
+    (the reference's transform size), 224 otherwise."""
+    if args.vision_image_size is None:
+        args.vision_image_size = 256 if _is_detectron2(args) else 224
     return args
 
 
@@ -302,13 +319,41 @@ def build_config(args):
         pad_id=tokenizer.pad_token_id,
         mask_id=getattr(tokenizer, "mask_token_id", None) or 4,
         mlm_ignore_index=args.mlm_ignore_index,
+        multimodal=args.multimodal,
+        multimodal_model_type=args.multimodal_model_type,
+        vision_model=args.vision_model,
+        vision_feature_dim=args.vision_feature_dim,
+        clip_model_name=args.clip_model_name,
+        freeze_vision_model=args.freeze_vision_model,
+        multimodal_text_part=args.multimodal_text_part,
+        multimodal_img_part=args.multimodal_img_part,
+        multimodal_fusion_method=args.multimodal_fusion_method,
+        include_full_img_features=bool(args.include_full_img_features),
+        image_size=(args.vision_image_size, args.vision_image_size),
         hierarchical_version=args.hierarchical_version,
         hl_include_objectives=args.hl_include_objectives or [],
         heatmap_decode_method=args.heatmap_decode_method,
         heatmap_decode_beam_size=args.heatmap_decode_beam_size,
         device_decode=args.device_decode,
     )
+    if args.multimodal_fusion_method != "sum":
+        logger.warning(
+            "--multimodal_fusion_method %s has no effect (as in the JAX "
+            "package and the reference, whose only reader hardcodes 'mul')",
+            args.multimodal_fusion_method)
     return cfg, tokenizer
+
+
+def vision_config(cfg, args):
+    """The CLIP tower's config for a multimodal `cfg` (None otherwise):
+    `models.config.clip_vision_config` with `--model_size tiny`, at
+    `--vision_image_size`, with `--clip_ref_fold_quirk`."""
+    from ..models.config import clip_vision_config
+    if not cfg.multimodal:
+        return None
+    return clip_vision_config(cfg, tiny=args.model_size == "tiny",
+                              image_resolution=args.vision_image_size,
+                              ref_fold_quirk=args.clip_ref_fold_quirk)
 
 
 def _encoder_config_from_local_hf(args):
@@ -392,7 +437,8 @@ def load_examples(args, data_name, task_type, split):
     proc = get_processor(
         f"{data_name}_sort", data_dir=args.data_dir,
         min_story_length=args.min_story_length,
-        max_story_length=args.max_story_length, version_text=version)
+        max_story_length=args.max_story_length, version_text=version,
+        paired_with_image=args.multimodal)
     if base_split == "train":
         examples = proc.get_train_examples()
     elif base_split in ("dev", "val"):
@@ -409,12 +455,23 @@ def load_examples(args, data_name, task_type, split):
     return examples
 
 
+def dataset_kwargs(args) -> dict:
+    """Dataset arguments shared by the train dataset and the eval loader,
+    so both ship images through one pipeline."""
+    return dict(max_length=args.max_seq_length,
+                per_seq_max_length=args.per_seq_max_length,
+                max_story_length=args.max_story_length, seed=args.seed,
+                multimodal=args.multimodal,
+                image_size=(args.vision_image_size, args.vision_image_size),
+                uint8_images=args.device_image_preprocess,
+                image_transform=("detectron2" if _is_detectron2(args)
+                                 else "imagenet"))
+
+
 def _sort_loader(args, tokenizer, data_name, split):
     from ..data.datasets import SortDataset, data_loader
     ds = SortDataset(load_examples(args, data_name, "sort", split), tokenizer,
-                     max_length=args.max_seq_length,
-                     per_seq_max_length=args.per_seq_max_length,
-                     max_story_length=args.max_story_length, seed=args.seed)
+                     **dataset_kwargs(args))
     return data_loader(ds, args.per_gpu_eval_batch_size)
 
 
@@ -436,6 +493,11 @@ def main_train(argv=None):
     `eval_results` maps checkpoint name -> metrics)."""
     args = parse_args("train", argv)
     logging.basicConfig(level=logging.INFO)
+    if args.multimodal_loss:
+        # the reference reads --multimodal_loss only inside the BERSON
+        # wrapper
+        logger.warning("--multimodal_loss has no effect without "
+                       "--wrapper_model_type berson; ignoring")
     device = resolve_device(args.device)
     args.output_dir = resolve_output_dir(args)
     os.makedirs(args.output_dir, exist_ok=True)
@@ -456,11 +518,8 @@ def main_train(argv=None):
 
     dataset = PureClassDataset(
         load_examples(args, data_name, task_type, args.train_split), tokenizer,
-        max_length=args.max_seq_length,
-        per_seq_max_length=args.per_seq_max_length,
-        max_story_length=args.max_story_length, scramble=True,
-        seed=args.seed)
-    model = SequencingModel(cfg)
+        scramble=True, **dataset_kwargs(args))
+    model = SequencingModel(cfg, vision_config(cfg, args))
     eval_fn = None
     if args.evaluate_during_training or args.do_eval:
         eval_fn = _make_dev_eval_fn(args, cfg, tokenizer, data_name, device)
@@ -543,7 +602,8 @@ def run_eval(argv=None):
         ) or paths
     all_results = {}
     for path in paths:
-        models = {"heatmap": load_model_for_eval(cfg, path, device)}
+        models = {"heatmap": load_model_for_eval(
+            cfg, path, device, vision_config(cfg, args))}
         tag = os.path.basename(str(path).rstrip("/")) if len(paths) > 1 \
             else None
         results = {}
@@ -565,13 +625,23 @@ def run_eval(argv=None):
     return all_results, evaluator
 
 
-def load_model_for_eval(cfg, path: Optional[str], device):
+# the saved config's fields that decide a checkpoint's parameters
+_SAVED_FIELDS = ("encoder", "hierarchical_version", "multimodal",
+                 "multimodal_model_type", "clip_model_name",
+                 "multimodal_text_part", "multimodal_img_part",
+                 "use_positional_embedding", "use_token_type_embedding",
+                 "image_size")
+
+
+def load_model_for_eval(cfg, path: Optional[str], device, vision_cfg=None):
     """The heat-map model on `device`, ready for inference: the checkpoint at
-    `path` when it is a directory (its saved encoder config and head
-    version), else a fresh init seeded from 0. A directory that is not a
-    checkpoint of this package (a local HF model, a run directory) raises
-    ValueError."""
-    from ..models.config import MultimodalConfig
+    `path` when it is a directory (its saved encoder, head version and
+    multimodal fields, and its tower's `vision_config.json`; `vision_cfg`
+    where a multimodal checkpoint has none), else a fresh init seeded from
+    0 (with `vision_cfg`'s tower). A directory that is not a checkpoint of
+    this package (a local HF model, a run directory) raises ValueError."""
+    from ..models.config import CLIPVisionConfig, MultimodalConfig
+    from .checkpoint import VISION_CONFIG_NAME
     from ..models.sequencer import (HEATMAP_VERSIONS, SequencingModel,
                                     cast_for_inference, init_weights)
 
@@ -589,12 +659,16 @@ def load_model_for_eval(cfg, path: Optional[str], device):
                    f"first" if hf else ""))
         with open(os.path.join(path, CONFIG_NAME)) as f:
             saved = MultimodalConfig.from_json(f.read())
-        role_cfg.encoder = saved.encoder
-        role_cfg.hierarchical_version = saved.hierarchical_version
-        model = SequencingModel(role_cfg)
+        for name in _SAVED_FIELDS:
+            setattr(role_cfg, name, getattr(saved, name))
+        vision_path = os.path.join(path, VISION_CONFIG_NAME)
+        if os.path.exists(vision_path):
+            with open(vision_path) as f:
+                vision_cfg = CLIPVisionConfig.from_json(f.read())
+        model = SequencingModel(role_cfg, vision_cfg)
         model.load_state_dict(torch.load(os.path.join(path, WEIGHTS_NAME),
                                          map_location="cpu",
                                          weights_only=True))
     else:
-        model = init_weights(SequencingModel(role_cfg), 0)
+        model = init_weights(SequencingModel(role_cfg, vision_cfg), 0)
     return cast_for_inference(model.to(device)).eval()

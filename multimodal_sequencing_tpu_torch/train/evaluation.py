@@ -4,7 +4,9 @@
 Each batch of stories is packed on the host, run through the model in
 fixed-size micro-batches on the evaluator's device (the tail padded by
 repeating the last story, so every forward has the same shape as in the
-JAX package), and the heat maps are decoded to orders on the host with the
+JAX package; a multimodal story's images are padded the same way, which
+changes nothing in eval, where BatchNorm uses its running statistics), and
+the heat maps are decoded to orders on the host with the
 parity decoders of `utils/heatmap.py`, or with `--device_decode` on the
 evaluator's device (`ops/order_decode.py`). The other sort methods are
 later slices.
@@ -73,8 +75,11 @@ class SortEvaluator:
         self.forward_seconds: List[float] = []
         self.decode_seconds: List[float] = []
 
-    def story_logits(self, model, stories: List[List[str]]) -> np.ndarray:
-        """Whole-story forward; returns each story's (N, N) heat map."""
+    def story_logits(self, model, stories: List[List[str]],
+                     images: Optional[np.ndarray] = None) -> np.ndarray:
+        """Whole-story forward; returns each story's (N, N) heat map.
+        `images`: the stories' step images, (B, N, H, W, 3) uint8 or (B, N,
+        3, H, W) f32, for a multimodal model."""
         packs = [self.packer.pack_story(t, self.cfg.max_seq_length)
                  for t in stories]
         feed = {
@@ -82,13 +87,18 @@ class SortEvaluator:
             "attention_mask": np.stack([p[1] for p in packs]),
             "token_type_ids": np.stack([p[2] for p in packs]),
         }
+        if images is not None:
+            feed["images"] = images
 
         def fn(chunk):
             t = {k: torch.from_numpy(v).to(self.device, torch.long)
-                 for k, v in chunk.items()}
+                 for k, v in chunk.items() if k != "images"}
+            imgs = chunk.get("images")
+            if imgs is not None:
+                imgs = torch.from_numpy(imgs).to(self.device)
             with torch.inference_mode():
                 out = model(t["input_ids"], t["attention_mask"],
-                            t["token_type_ids"])
+                            t["token_type_ids"], images=imgs)
             self.forwards += 1
             return out["heatmap"]
 
@@ -163,7 +173,10 @@ class SortEvaluator:
                       if valid is None or valid[k]]
             guids = [g for k, g in enumerate(batch.get(
                 "guid", [""] * len(stories))) if valid is None or valid[k]]
-            preds = self._decode_batch(sort_method, models, stories)
+            images = batch.get("images")
+            if images is not None and valid is not None:
+                images = np.asarray(images)[np.asarray(valid)]
+            preds = self._decode_batch(sort_method, models, stories, images)
             all_preds.extend(preds)
             all_labels.extend([np.asarray(l) for l in labels])
             all_guids.extend(guids)
@@ -177,10 +190,10 @@ class SortEvaluator:
                                 all_labels, res)
         return res
 
-    def _decode_batch(self, sort_method, models, stories):
+    def _decode_batch(self, sort_method, models, stories, images=None):
         if sort_method == "heat_map":
             t0 = time.perf_counter()
-            hms = self.story_logits(models["heatmap"], stories)
+            hms = self.story_logits(models["heatmap"], stories, images)
             t1 = time.perf_counter()
             preds = self.decode_heatmap(hms)
             self.forward_seconds.append(t1 - t0)

@@ -11,8 +11,11 @@ in `optax.MultiSteps` for accumulation:
     (0.8984375 for bf16); only the stored copy is rounded to `mu_dtype`;
     the second moment stays f32;
   * bias correction uses the incremented count;
-  * no decay on biases and LayerNorm scales, decay on everything else
-    (embeddings included), chosen by module type;
+  * no decay on biases and LayerNorm and BatchNorm scales (the JAX mask
+    exempts every `bias` and `scale` leaf), decay on everything else
+    (embeddings, conv kernels and the CLIP towers' raw parameters
+    included), chosen by module type; a parameter without a gradient (a
+    frozen vision tower) takes a zero gradient and still decays;
   * the learning rate is the optax join of 0 -> lr over max(1, warmup)
     steps and lr -> 0 over the rest, at the count of real updates, so the
     first update has learning rate 0;
@@ -30,6 +33,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..models.clip_visual import BatchNorm
 from ..models.encoder import LayerNorm
 from .steps import global_norm
 
@@ -39,11 +43,13 @@ B1, B2 = 0.9, 0.999
 
 def _decay_flags(model: nn.Module):
     """(name, parameter, decays) in `model.parameters()` order: no decay on
-    `bias` leaves and LayerNorm scales (the Flax `bias`/`scale` leaves)."""
+    `bias` leaves and LayerNorm and BatchNorm scales (the Flax `bias` and
+    `scale` leaves)."""
     out = []
     for mod_name, mod in model.named_modules():
         for name, p in mod.named_parameters(recurse=False):
-            decays = not (name == "bias" or isinstance(mod, LayerNorm))
+            decays = not (name == "bias"
+                          or isinstance(mod, (LayerNorm, BatchNorm)))
             out.append((f"{mod_name}.{name}" if mod_name else name, p, decays))
     return out
 

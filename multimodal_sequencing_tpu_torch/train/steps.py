@@ -3,7 +3,10 @@
 `train_step` is one eager step: forward in train mode, the task loss,
 backward, the gradient norm, and the optimizer update (`train/state.py`).
 Its dropout streams derive from (seed + 1, step), as the JAX step folds the
-step into `PRNGKey(seed + 1)`.
+step into `PRNGKey(seed + 1)`. A multimodal batch's `images` go to the
+model as shipped (uint8 or f32); the train-mode forward updates the vision
+tower's BatchNorm statistics, once a step, before the gradient, as the JAX
+step's `mutable=["batch_stats"]` apply does.
 """
 
 from __future__ import annotations
@@ -50,13 +53,17 @@ def compute_loss(cfg, outputs: dict, batch: dict):
 
 def device_batch(batch: dict, device) -> Dict[str, torch.Tensor]:
     """The array entries of a collated numpy batch as tensors on `device`
-    (ids and labels as int64, `valid` as bool)."""
+    (ids and labels as int64, `valid` as bool, `images` in their own
+    dtype: uint8 or f32)."""
     out = {}
     for k, val in batch.items():
         if k in _HOST_KEYS or not isinstance(val, np.ndarray):
             continue
         t = torch.from_numpy(val)
-        out[k] = t.to(device, torch.bool if k == "valid" else torch.long)
+        if k == "images":
+            out[k] = t.to(device)
+        else:
+            out[k] = t.to(device, torch.bool if k == "valid" else torch.long)
     return out
 
 
@@ -77,7 +84,8 @@ def train_step(model, optimizer, batch: dict, step: int, seed: int
     db = device_batch(batch, device)
     model.train()
     outputs = model(db["input_ids"], db.get("attention_mask"),
-                    db.get("token_type_ids"), deterministic=False,
+                    db.get("token_type_ids"), images=db.get("images"),
+                    deterministic=False,
                     rng=DropoutRng(seed + 1, step, device))
     loss, _ = compute_loss(model.cfg, outputs, db)
     optimizer.zero_grad()

@@ -4,13 +4,18 @@
 sweep's root, tags and output file names, results equal to evaluating each
 checkpoint alone; the cache's path (the JAX package's name with
 `_torch.pkl`), what is read and rewritten, and that a JAX-named cache is
-never opened."""
+never opened. The multimodal CLIP path through both CLIs: its config and
+tower config equal the JAX package's, a tiny `--multimodal` run trains,
+checkpoints and evaluates on the CPU, and a ViT the encoder cannot take
+raises."""
 
+import json
 import os
 import pickle
 import shutil
 
 import jax  # noqa: F401  (both frameworks load in one test process)
+import numpy as np
 import pytest
 import torch
 
@@ -111,7 +116,10 @@ def test_cache_write_read_and_overwrite(wikihow_dir, tmp_path):
     data = _data_copy(wikihow_dir, tmp_path)
     plain = tcli.load_examples(tcli.parse_args("eval", _eval_argv(
         data, "out", "simple")), "wikihow", "sort", "dev")
-    assert sorted(os.listdir(data)) == sorted(os.listdir(wikihow_dir))
+    # no cache file without --use_cached (the loader logs the split's
+    # missing step images, as the JAX package's does)
+    assert (set(os.listdir(data)) - set(os.listdir(wikihow_dir))
+            <= {"missing_images_dev.txt"})
     args = _cache_args(data)
     path = tcli.example_cache_path(args, "wikihow", "sort", "dev")
     first = tcli.load_examples(args, "wikihow", "sort", "dev")
@@ -143,3 +151,66 @@ def test_jax_named_cache_is_never_opened(wikihow_dir, tmp_path):
     res = tcli.main_eval(_eval_argv(data, str(tmp_path / "out"), "simple",
                                     "--use_cached"))
     assert sorted(res) == ["dev"]
+
+
+# ----- the multimodal CLIP path ----------------------------------------------
+
+
+def _mm_flags(clip):
+    return ["--multimodal", "--clip_model_name", clip,
+            "--vision_image_size", "32"]
+
+
+@pytest.mark.parametrize("clip", ["RN50", "ViT-B/32"])
+def test_multimodal_config_matches_jax(wikihow_dir, tmp_path, clip):
+    argv = _train_argv(wikihow_dir, tmp_path, *_mm_flags(clip),
+                       "--clip_ref_fold_quirk", "--freeze_vision_model")
+    at = argv.index("--device")  # the JAX parser has no --device
+    jargs = jcli.resolve_args(jcli.build_parser("train").parse_args(
+        argv[:at] + argv[at + 2:]))
+    targs = tcli.parse_args("train", argv)
+    jc, tc = jcli.build_config(jargs)[0], tcli.build_config(targs)[0]
+    assert json.loads(tc.to_json()) == json.loads(jc.to_json())
+    jv, tv = jcli._vision_cfg(jc, jargs), tcli.vision_config(tc, targs)
+    assert json.loads(tv.to_json()) == {k: list(v) if isinstance(v, tuple)
+                                        else v for k, v in vars(jv).items()}
+    assert tv.ref_fold_quirk and tv.image_resolution == 32
+    assert tcli.dataset_kwargs(targs)["uint8_images"]
+
+
+@pytest.mark.parametrize("clip", ["RN50", "ViT-B/32"])
+def test_multimodal_train_checkpoint_eval_on_cpu(wikihow_dir, tmp_path, clip):
+    out = tmp_path / "run"
+    res = tcli.main_train(_train_argv(wikihow_dir, out, *_mm_flags(clip),
+                                      "--max_steps", "2", "--save_steps", "0",
+                                      "--overwrite_output_dir"))
+    assert res.global_step == 2
+    assert all(np.isfinite(h["loss"]) for h in res.history)
+    ckpt = out / "checkpoint-2"
+    saved = json.loads((ckpt / "vision_config.json").read_text())
+    assert saved["model_name"] == clip and saved["image_resolution"] == 32
+    assert json.loads((ckpt / "config.json").read_text())["multimodal"]
+    for decode in ([], ["--device_decode"]):  # host and device decode
+        ev = tmp_path / f"eval{len(decode)}"
+        res = tcli.main_eval(_eval_argv(wikihow_dir, ev, str(ckpt),
+                                        *_mm_flags(clip), *decode))
+        assert 0.0 <= res["dev"]["partial_match"] <= 1.0
+        orders = (ev / "output_order.txt").read_text().split("\n")[:-1]
+        assert len(orders) == 2  # the dev split's 2 stories
+        assert all(sorted(map(int, o.split())) == list(range(5))
+                   for o in orders)
+    # the checkpoint's BatchNorm statistics moved from their init
+    sd = torch.load(ckpt / "model.pt", weights_only=True)
+    var = [v for k, v in sd.items() if k.endswith("running_var")]
+    assert (clip == "RN50") == bool(var)
+    assert all(not torch.equal(v, torch.ones_like(v)) for v in var)
+
+
+def test_vit_wider_output_than_width_raises_in_the_cli(wikihow_dir, tmp_path):
+    # ViT-B/32 at its published widths (768 wide, 512 out): the JAX encoder
+    # fails on a broadcast; the port raises before building the tower
+    argv = _train_argv(wikihow_dir, tmp_path, "--multimodal",
+                       "--clip_model_name", "ViT-B/32", "--max_steps", "1")
+    argv[argv.index("tiny")] = "base"
+    with pytest.raises(ValueError, match="output_dim == vit_width"):
+        tcli.main_train(argv)

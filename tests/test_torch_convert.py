@@ -226,3 +226,200 @@ def test_missing_tokenizer_raises_oserror_in_both(tmp_path):
     for load in (jtok.load_tokenizer, ttok.load_tokenizer):
         with pytest.raises(OSError, match="not available locally"):
             load(str(tmp_path / "no_such_tokenizer"))
+
+
+# ----- CLIP visual weights ----------------------------------------------------
+
+
+def _openai_rn_state_dict(cfg, seed):
+    """A random state dict in OpenAI CLIP's ModifiedResNet layout (the
+    `visual.*` keys of a CLIP checkpoint) at `cfg`'s widths, with a text
+    tower key beside it."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def put(key, *shape):
+        sd[f"visual.{key}"] = torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32))
+
+    def bn(key, n):
+        for leaf in ("weight", "bias", "running_mean"):
+            put(f"{key}.{leaf}", n)
+        sd[f"visual.{key}.running_var"] = torch.from_numpy(
+            rng.uniform(0.5, 2, n).astype(np.float32))
+        sd[f"visual.{key}.num_batches_tracked"] = torch.tensor(7)
+
+    w = cfg.width
+    for i, (cin, cout) in enumerate(((3, w // 2), (w // 2, w // 2),
+                                     (w // 2, w)), 1):
+        put(f"conv{i}.weight", cout, cin, 3, 3)
+        bn(f"bn{i}", cout)
+    inplanes = w
+    for stage, blocks in enumerate(cfg.layers):
+        planes = w * 2 ** stage
+        for b in range(blocks):
+            p = f"layer{stage + 1}.{b}"
+            put(f"{p}.conv1.weight", planes, inplanes, 1, 1)
+            bn(f"{p}.bn1", planes)
+            put(f"{p}.conv2.weight", planes, planes, 3, 3)
+            bn(f"{p}.bn2", planes)
+            put(f"{p}.conv3.weight", 4 * planes, planes, 1, 1)
+            bn(f"{p}.bn3", 4 * planes)
+            if b == 0:
+                put(f"{p}.downsample.0.weight", 4 * planes, inplanes, 1, 1)
+                bn(f"{p}.downsample.1", 4 * planes)
+            inplanes = 4 * planes
+    c = cfg.embed_dim
+    put("attnpool.positional_embedding", cfg.grid ** 2 + 1, c)
+    for proj, out in (("q_proj", c), ("k_proj", c), ("v_proj", c),
+                      ("c_proj", cfg.output_dim)):
+        put(f"attnpool.{proj}.weight", out, c)
+        put(f"attnpool.{proj}.bias", out)
+    sd["transformer.resblocks.0.ln_1.weight"] = torch.ones(4)
+    return sd
+
+
+def _openai_vit_state_dict(cfg, seed):
+    rng = np.random.default_rng(seed)
+    sd = {}
+    w, p = cfg.vit_width, cfg.patch_size
+
+    def put(key, *shape):
+        sd[f"module.visual.{key}"] = torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32))
+
+    put("conv1.weight", w, 3, p, p)
+    put("class_embedding", w)
+    put("positional_embedding", cfg.grid ** 2 + 1, w)
+    for ln in ("ln_pre", "ln_post"):
+        put(f"{ln}.weight", w)
+        put(f"{ln}.bias", w)
+    put("proj", w, cfg.output_dim)
+    for i in range(cfg.vit_layers):
+        q = f"transformer.resblocks.{i}"
+        for ln in ("ln_1", "ln_2"):
+            put(f"{q}.{ln}.weight", w)
+            put(f"{q}.{ln}.bias", w)
+        put(f"{q}.attn.in_proj_weight", 3 * w, w)
+        put(f"{q}.attn.in_proj_bias", 3 * w)
+        put(f"{q}.attn.out_proj.weight", w, w)
+        put(f"{q}.attn.out_proj.bias", w)
+        put(f"{q}.mlp.c_fc.weight", 4 * w, w)
+        put(f"{q}.mlp.c_fc.bias", 4 * w)
+        put(f"{q}.mlp.c_proj.weight", w, 4 * w)
+        put(f"{q}.mlp.c_proj.bias", w)
+    return sd
+
+
+def _mm_cfgs(clip):
+    from multimodal_sequencing_tpu.models.clip_visual import (
+        CLIPVisionConfig as JV)
+    kw = dict(hierarchical_version="v1", max_story_length=3, multimodal=True,
+              clip_model_name=clip, max_seq_length=64)
+    enc = dict(vocab_size=50265)  # the tiny HF model's (test_torch_train)
+    jc = jcfg.MultimodalConfig(encoder=jcfg.EncoderConfig.tiny(**enc), **kw)
+    tc = tcfg.MultimodalConfig(encoder=tcfg.EncoderConfig.tiny(**enc), **kw)
+    if clip == "RN50":
+        return jc, tc, JV.tiny_rn(), tcfg.CLIPVisionConfig.tiny_rn()
+    return jc, tc, JV.tiny_vit(), tcfg.CLIPVisionConfig.tiny_vit()
+
+
+@pytest.mark.parametrize("clip", ["RN50", "ViT-B/32"])
+def test_clip_converters_match_jax(clip):
+    # the port's conversion of OpenAI weights equals the JAX conversion
+    # moved by params_from_jax's leaf rules, entry for entry, and loads
+    # into the port's tower as it is
+    from multimodal_sequencing_tpu_torch.models.clip_visual import (
+        CLIPVisualTower)
+    _, _, jv, tv = _mm_cfgs(clip)
+    if clip == "RN50":
+        raw = _openai_rn_state_dict(tv, 0)
+        filtered = tconvert.filter_visual_state_dict(raw)
+        jfilt = jconvert.filter_visual_state_dict(raw)
+        conv = jconvert.convert_clip_rn50(jfilt, tv.layers)
+        want = tconvert.tree_to_state_dict(conv["params"],
+                                           conv["batch_stats"])
+        got = tconvert.convert_clip_rn50(filtered, tv.layers)
+    else:
+        raw = _openai_vit_state_dict(tv, 1)
+        filtered = tconvert.filter_visual_state_dict(raw)
+        jfilt = jconvert.filter_visual_state_dict(raw)
+        want = tconvert.tree_to_state_dict(jconvert.convert_clip_vit(jfilt))
+        got = tconvert.convert_clip_vit(filtered)
+    assert sorted(filtered) == sorted(jfilt)
+    assert not any(k.startswith("transformer.") and "resblocks.0.ln_1" in k
+                   and clip == "RN50" for k in filtered)
+    assert sorted(got) == sorted(want)
+    for key in want:
+        torch.testing.assert_close(got[key], want[key], rtol=0, atol=0,
+                                   msg=key)
+    tower = CLIPVisualTower(tv)
+    tower.load_state_dict(got)  # strict: every weight and statistic
+
+
+@pytest.mark.parametrize("clip", ["RN50", "ViT-B/32"])
+def test_pretrained_weights_load_as_in_jax(tmp_path, clip):
+    # a local HF text model and --clip_visual_model_weights (a file of
+    # OpenAI weights) into the multimodal encoder: the result equals
+    # params_from_jax of the JAX load_pretrained_weights, with the RN50
+    # BatchNorm statistics merged as apply_pretrained_to_state merges them.
+    # (The JAX loader converts RN50 files at RN50's published depth only,
+    # so the tiny tower's file goes through its converter with the tiny
+    # depth; the port's loader reads the depth from the tower.)
+    import argparse
+    from multimodal_sequencing_tpu_torch.models.sequencer import (
+        SequencingModel as TSequencingModel, init_weights)
+    from multimodal_sequencing_tpu_torch.train.checkpoint import save_model
+    from test_torch_train import _hf_state_dict
+    jc, tc, jv, tv = _mm_cfgs(clip)
+    hf = tmp_path / "hf"
+    hf.mkdir()
+    torch.save(_hf_state_dict("roberta."), hf / "pytorch_model.bin")
+    weights = tmp_path / "clip.pt"
+    raw = (_openai_rn_state_dict(tv, 2) if clip == "RN50"
+           else _openai_vit_state_dict(tv, 3))
+    torch.save(raw, weights)
+    args = argparse.Namespace(model_name_or_path=str(hf),
+                              clip_visual_model_weights=str(weights))
+    ids = np.zeros((1, 64), np.int32)
+    res = tv.image_resolution
+    variables = jax.tree.map(np.asarray, jax.jit(JSequencingModel(jc, jv).init)(
+        jax.random.PRNGKey(0), jnp.asarray(ids),
+        images=jnp.zeros((1, 3, 3, res, res), jnp.float32)))
+    stats = variables.get("batch_stats")
+    if clip == "RN50":
+        loaded = jconvert.load_pretrained_weights(
+            dict(variables["params"]), argparse.Namespace(
+                model_name_or_path=str(hf), clip_visual_model_weights=None),
+            jc)
+        conv = jconvert.convert_clip_rn50(
+            jconvert.filter_visual_state_dict(raw), tv.layers)
+        loaded["encoder"] = {**loaded["encoder"],
+                             "visual_model": conv["params"]}
+        stats = {"encoder": {"visual_model": conv["batch_stats"]}}
+    else:
+        loaded = jconvert.load_pretrained_weights(
+            dict(variables["params"]), args, jc)
+    want = tconvert.params_from_jax(loaded, tc, stats, tv)
+    model = init_weights(TSequencingModel(tc, tv), 0)
+    assert tconvert.load_pretrained_weights(model, args)
+    got = model.state_dict()
+    keys = [k for k in got if k.startswith((
+        "encoder.visual_model.", "encoder.layer_", "encoder.embeddings."))]
+    assert len(keys) > 40
+    for key in keys:
+        torch.testing.assert_close(got[key], want[key], rtol=0, atol=0,
+                                   msg=key)
+    # a checkpoint of the port as --clip_visual_model_weights: its tower,
+    # statistics included, into a fresh model, and nothing else
+    save_model(model, tc, str(tmp_path / "ckpt"))
+    fresh = init_weights(TSequencingModel(tc, tv), 1)
+    assert tconvert.load_pretrained_weights(fresh, argparse.Namespace(
+        model_name_or_path="simple",
+        clip_visual_model_weights=str(tmp_path / "ckpt")))
+    for key, val in fresh.state_dict().items():
+        if key.startswith("encoder.visual_model."):
+            assert torch.equal(val, got[key]), key
+    assert not torch.equal(fresh.state_dict()[
+        "encoder.layer_0.attention.query.weight"],
+        got["encoder.layer_0.attention.query.weight"])

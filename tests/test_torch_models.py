@@ -352,7 +352,8 @@ def test_params_from_jax_rejects_a_mismatched_tree(fault):
 
 @pytest.mark.parametrize("change", [dict(hierarchical_version="v0"),
                                     dict(hierarchical_version="p1"),
-                                    dict(multimodal=True),
+                                    dict(multimodal=True,
+                                         multimodal_model_type="visualbert"),
                                     dict(hl_include_objectives=["head"])])
 def test_later_slices_raise(change):
     _, tc = _cfgs()

@@ -288,7 +288,8 @@ def test_parser_options_match_jax(kind):
     assert got == want
 
 
-@pytest.mark.parametrize("flag", [["--multimodal"], ["--fsdp"],
+@pytest.mark.parametrize("flag", [["--include_num_img_regional_features",
+                                   "4"], ["--fsdp"],
                                   ["--profile_dir", "profile"],
                                   ["--wrapper_model_type", "berson"],
                                   ["--hl_include_objectives", "head"],
