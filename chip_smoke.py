@@ -20,10 +20,16 @@ the native packer against numpy; `remat` holds a train step with
 steps, BatchNorm statistics included), `mm_path` trains the full-width
 joint sequencer through `main_train --multimodal` on stories with PNG step
 images and evaluates its checkpoint with host and `--device_decode`
-decode, and `mm_breakdown` profiles its train step and eval forward. Every output line before the last is
-one JSON object (plus the raw `nvidia-smi` line and the paper-format eval
-rows); the last line is the contract line `{"ok": true, "device": {...}}`,
-printed only when every phase passed. Without a CUDA device, or without the
+decode, and `mm_breakdown` profiles its train step and eval forward. The
+BERSON ordering wrapper: `berson_reference` holds a 2-layer full-width
+BERSON (text inner, and CLIP-RN50 inner with a frozen tower) on the card
+against the CPU (encode intermediates, pointer logits, loss, beam orders
+and four train steps), and `berson_path` trains and beam-evaluates the
+full-width text BERSON and the reference launcher's CLIP-RN50 BERSON
+through the CLIs and profiles a step and an eval batch. Every output line
+before the last is one JSON object (plus the raw `nvidia-smi` line and the
+paper-format eval rows); the last line is the contract line
+`{"ok": true, "device": {...}}`, printed only when every phase passed. Without a CUDA device, or without the
 port's package beside it, it exits non-zero and prints no result.
 `--phases` runs a subset (the build always runs); the contract line then
 is not printed.
@@ -87,6 +93,25 @@ MM_PER_FORWARD = {"flash_fwd": NUM_LAYERS + 1, "flash_bwd_prep": NUM_LAYERS + 1,
                   "gelu_logit_erf_bwd": NUM_LAYERS,
                   "layer_norm_fwd": 50, "layer_norm_bwd": 50}
 # the published roberta-large config.json, as a local HF directory has it
+# BERSON (models/berson.py): a 5-step story is P = 20 ordered step pairs of
+# L = 2 x 60 tokens; the multimodal inner folds each pair's two images into
+# 2 x 7 x 7 + 1 = 99 visual tokens after its text
+BERSON_P, BERSON_L = 20, 120
+BERSON_MM_S = BERSON_L + 2 * 7 * 7 + 1  # 219
+BERSON_STEPS = 8         # text: main_train steps of 2 stories
+BERSON_EVAL_STORIES = 48  # text eval: 3 batches of 16 stories, beam 16
+BERSON_MM_STEPS = 5      # the launcher's configuration: steps of 1 story
+BERSON_MM_EVAL_STORIES = 6  # at its eval batch of 1
+# kernel launches a forward (and, for the backward kernels, a train step):
+# the 24 inner layers (LayerNorm: + the embeddings' and the paragraph
+# encoder's four, which run in f32); the multimodal inner adds the
+# attention pool's flash calls and visn_ln
+BERSON_PER_FORWARD = {"flash_fwd": 24, "flash_bwd_prep": 24,
+                      "flash_bwd_main": 24, "flash_bwd_post": 24,
+                      "gelu_logit_erf_fwd": 24, "gelu_logit_erf_bwd": 24,
+                      "layer_norm_fwd": 53, "layer_norm_bwd": 53}
+BERSON_MM_PER_FORWARD = {k: v + (0 if k.startswith("gelu") else 1)
+                         for k, v in BERSON_PER_FORWARD.items()}
 HF_ROBERTA_LARGE = {
     "architectures": ["RobertaForMaskedLM"], "model_type": "roberta",
     "hidden_size": 1024, "num_hidden_layers": 24, "num_attention_heads": 16,
@@ -151,12 +176,44 @@ KERNELS = {
     "flash_bwd@joint": (BWD_KERNEL, "multimodal_sequencing_tpu/ops/attention.py:343"),
     "flash_bwd@attnpool": (BWD_KERNEL,
                            "multimodal_sequencing_tpu/ops/attention.py:343"),
+    # BERSON's calls: the text pairs of a train step (2 stories x 20 pairs,
+    # S = 120), the joint pairs of the launcher's step (1 story, S = 219)
+    # and their RN50 attention pool (99 tokens, 32 heads, no mask)
+    "flash_fwd@pair": ("multimodal_sequencing_tpu_torch/ops/csrc/flash_fwd.cu",
+                       "multimodal_sequencing_tpu/ops/attention.py:126"),
+    "flash_fwd@pair_joint": ("multimodal_sequencing_tpu_torch/ops/csrc/flash_fwd.cu",
+                             "multimodal_sequencing_tpu/ops/attention.py:126"),
+    "flash_fwd@pair_pool": ("multimodal_sequencing_tpu_torch/ops/csrc/flash_fwd.cu",
+                            "multimodal_sequencing_tpu/ops/attention.py:126"),
+    # the text pairs of a beam-eval batch (16 stories)
+    "flash_fwd@pair_eval": ("multimodal_sequencing_tpu_torch/ops/csrc/flash_fwd.cu",
+                            "multimodal_sequencing_tpu/ops/attention.py:126"),
+    "flash_bwd@pair": (BWD_KERNEL, "multimodal_sequencing_tpu/ops/attention.py:343"),
+    "flash_bwd@pair_joint": (BWD_KERNEL,
+                             "multimodal_sequencing_tpu/ops/attention.py:343"),
+    "flash_bwd@pair_pool": (BWD_KERNEL,
+                            "multimodal_sequencing_tpu/ops/attention.py:343"),
 }
 # (B, H, S, D) of the multimodal rows: joint train (batch 8), joint eval
 # (micro-batch 32), attention pool of a train batch (8 stories)
 MM_SHAPES = {"joint": (8, 16, MM_JOINT_S, 64),
              "joint_eval": (32, 16, MM_JOINT_S, 64),
-             "attnpool": (8, 32, MM_VISUAL_TOKENS, 64)}
+             "attnpool": (8, 32, MM_VISUAL_TOKENS, 64),
+             # BERSON: text pairs of 2 stories (one of 3 live steps: 14 of
+             # its 20 pairs fully masked), joint pairs of a story of 4 steps
+             # (its 8 dead pairs keep only the 99 visual keys), their pool
+             "pair": (2 * BERSON_P, 16, BERSON_L, 64),
+             "pair_joint": (BERSON_P, 16, BERSON_MM_S, 64),
+             "pair_pool": (BERSON_P, 32, BERSON_MM_S - BERSON_L, 64),
+             # the text pairs of a beam-eval batch of 16 stories, every
+             # third of 3 or 4 steps (fully masked rows)
+             "pair_eval": (16 * BERSON_P, 16, BERSON_L, 64)}
+# the live steps of each story in `pair_eval`
+PAIR_EVAL_STEPS = tuple(5 if a % 3 else 3 + a % 2 for a in range(16))
+# the calls of an eval forward: forward only
+EVAL_ONLY = ("joint_eval", "pair_eval")
+# the calls a train step makes with attention dropout
+PATH_DROPOUT = ("joint", "pair", "pair_joint")
 # the kernels each main path must launch
 PATH_KERNELS = {"eval": ("flash_fwd", "gelu_logit_erf_fwd", "layer_norm_fwd"),
                 "train": ("flash_fwd", "flash_bwd_prep", "flash_bwd_main",
@@ -167,7 +224,11 @@ PATH_KERNELS = {"eval": ("flash_fwd", "gelu_logit_erf_fwd", "layer_norm_fwd"),
 PATH_KERNELS.update(hf_train=PATH_KERNELS["train"],
                     hf_eval=PATH_KERNELS["eval"],
                     mm_train=PATH_KERNELS["train"],
-                    mm_eval=PATH_KERNELS["eval"])
+                    mm_eval=PATH_KERNELS["eval"],
+                    berson_train=PATH_KERNELS["train"],
+                    berson_eval=PATH_KERNELS["eval"],
+                    berson_mm_train=PATH_KERNELS["train"],
+                    berson_mm_eval=PATH_KERNELS["eval"])
 # the launch counter behind each row of the `kernels` line, where it is
 # not the row's own name
 COUNTER = {"flash_bwd": "flash_bwd_main", "flash_bwd_dq": "flash_bwd_main",
@@ -178,12 +239,24 @@ COUNTER = {"flash_bwd": "flash_bwd_main", "flash_bwd_dq": "flash_bwd_main",
            "flash_fwd@joint": "flash_fwd", "flash_fwd@joint_eval": "flash_fwd",
            "flash_fwd@attnpool": "flash_fwd",
            "flash_bwd@joint": "flash_bwd_main",
-           "flash_bwd@attnpool": "flash_bwd_main"}
+           "flash_bwd@attnpool": "flash_bwd_main",
+           "flash_fwd@pair": "flash_fwd", "flash_fwd@pair_joint": "flash_fwd",
+           "flash_fwd@pair_pool": "flash_fwd",
+           "flash_fwd@pair_eval": "flash_fwd",
+           "flash_bwd@pair": "flash_bwd_main",
+           "flash_bwd@pair_joint": "flash_bwd_main",
+           "flash_bwd@pair_pool": "flash_bwd_main"}
 # the path whose launches the multimodal rows of the `kernels` line show
 # (the wrappers count launches of every shape together)
 ROW_PATH = {"flash_fwd@joint": "mm_train", "flash_fwd@joint_eval": "mm_eval",
             "flash_fwd@attnpool": "mm_train", "flash_bwd@joint": "mm_train",
-            "flash_bwd@attnpool": "mm_train"}
+            "flash_bwd@attnpool": "mm_train",
+            "flash_fwd@pair": "berson_train", "flash_bwd@pair": "berson_train",
+            "flash_fwd@pair_joint": "berson_mm_train",
+            "flash_bwd@pair_joint": "berson_mm_train",
+            "flash_fwd@pair_pool": "berson_mm_train",
+            "flash_bwd@pair_pool": "berson_mm_train",
+            "flash_fwd@pair_eval": "berson_eval"}
 # the f32 backward kernels: the check path, never launched by the bf16
 # train path
 F32_BWD = ("flash_bwd_dq_f32", "flash_bwd_dkv_f32")
@@ -308,30 +381,57 @@ def _max_err(got, want):
     return (got.float() - want.float()).abs().max().item()
 
 
+def _pair_lengths(live_steps, gen):
+    """Token counts of BERSON's pair rows for stories of `live_steps` live
+    steps each (of 5): 0 for a pair that touches a dead step (a fully
+    masked row), else two steps of 20..60 tokens."""
+    import torch
+    from multimodal_sequencing_tpu_torch.data.packing import berson_pairs
+    pairs = torch.from_numpy(berson_pairs(5)).long()
+    rows = []
+    for m in live_steps:
+        steps = torch.randint(20, 61, (5,), generator=gen)
+        rows.append(torch.where((pairs < m).all(1),
+                                steps[pairs[:, 0]] + steps[pairs[:, 1]], 0))
+    return torch.cat(rows)
+
+
 def make_path_attention_inputs(name: str, dtype, seed: int):
-    """q, k, v and the key mask of a multimodal attention call (`MM_SHAPES`)
-    as the path gives them to the kernels: head-split views of (B, S, H*D)
-    projections. The joint stream keeps 260..320 text keys of each row and
-    every visual key; the attention pool has no mask (all ones)."""
+    """q, k, v and the key mask of a multimodal or BERSON attention call
+    (`MM_SHAPES`) as the path gives them to the kernels: head-split views
+    of (B, S, H*D) projections. The joint stream keeps 260..320 text keys
+    of each row and every visual key; BERSON's pairs their two steps'
+    tokens (none for a dead pair), followed in the joint pairs by the 99
+    visual keys; the attention pools have no mask (all ones)."""
     import torch
     b, h, s, d = MM_SHAPES[name]
     gen = torch.Generator(device="cpu").manual_seed(seed)
     q, k, v = (torch.randn((b, s, h, d), generator=gen).to("cuda", dtype)
                .transpose(1, 2) for _ in range(3))
-    if name == "attnpool":
+    pos = torch.arange(s)[None, :]
+    if name in ("attnpool", "pair_pool"):
         mask = torch.ones((b, s), dtype=torch.int32)
+    elif name in ("pair", "pair_eval"):
+        live = (5, 3) if name == "pair" else PAIR_EVAL_STEPS
+        mask = (pos < _pair_lengths(live, gen)[:, None]).to(torch.int32)
+    elif name == "pair_joint":
+        text = _pair_lengths((4,), gen)[:, None]
+        mask = ((pos < text) | (pos >= BERSON_L)).to(torch.int32)
     else:
         lengths = torch.randint(260, 321, (b,), generator=gen)
-        pos = torch.arange(s)[None, :]
         mask = ((pos < lengths[:, None]) | (pos >= 320)).to(torch.int32)
     return q, k, v, mask.cuda()
 
 
-# the multimodal path's attention calls the kernel check holds, as (name in
-# MM_SHAPES, dropout rate): the joint stream of a train step (with dropout)
-# and of an eval forward (without, forward only), the attention pool
+# the multimodal and BERSON paths' attention calls the kernel check holds,
+# as (name in MM_SHAPES, dropout rate): each train step's call with dropout
+# and without (the calls of an eval forward: `EVAL_ONLY`, forward only, and
+# the launcher's eval at the train shape), the attention pools
 MM_KERNEL_CASES = [("joint", DROPOUT_P), ("joint", 0.0),
-                   ("joint_eval", 0.0), ("attnpool", 0.0)]
+                   ("joint_eval", 0.0), ("attnpool", 0.0),
+                   ("pair", DROPOUT_P), ("pair", 0.0), ("pair_eval", 0.0),
+                   ("pair_joint", DROPOUT_P), ("pair_joint", 0.0),
+                   ("pair_pool", 0.0)]
 
 
 def _attention_check(att, q, k, v, mask, p, seed, labels, backward=True):
@@ -355,6 +455,15 @@ def _attention_check(att, q, k, v, mask, p, seed, labels, backward=True):
            "max_abs_err_lse": _max_err(lse, lse_ref),
            "atol": atol, "rtol": rtol, "ok": ok}
     fwd["max_abs_err"] = max(fwd["max_abs_err_o"], fwd["max_abs_err_lse"])
+    dead = ~mask.bool().any(1)  # fully masked batch rows
+    if bool(dead.any()):
+        # their lse (-1e9 + log S, lost to f32; (B * H, S) rows) bit-equal
+        # to the plain one
+        dead_bh = dead.repeat_interleave(q.shape[1])
+        fwd["fully_masked_rows"] = int(dead.sum())
+        fwd["masked_rows_lse_equal"] = torch.equal(lse[dead_bh],
+                                                   lse_ref[dead_bh])
+        ok = ok and fwd["masked_rows_lse_equal"]
     emit(fwd)
     failed += [] if ok else [("flash_fwd", labels, tuple(q.shape), name, p)]
     if not backward:
@@ -379,9 +488,9 @@ def _attention_check(att, q, k, v, mask, p, seed, labels, backward=True):
         bwd[f"ok_{gname}"] = good
         failed += [] if good else [(gname, labels, tuple(q.shape), name, p)]
     bwd["max_abs_err"] = max(bwd[f"max_abs_err_{g}"] for g in ("dq", "dk", "dv"))
-    if not bool(mask[-1].any()):
+    if bool(dead.any()):
         # a fully masked batch row gets zero gradient
-        bwd["masked_row_grad_zero"] = all(bool((g[-1] == 0).all())
+        bwd["masked_row_grad_zero"] = all(bool((g[dead] == 0).all())
                                           for g in got)
         failed += [] if bwd["masked_row_grad_zero"] else [
             ("masked_row", labels, tuple(q.shape), name, p)]
@@ -423,11 +532,12 @@ def phase_kernel_check(seed: int, errs: dict):
             q, k, v, mask = make_path_attention_inputs(name, dtype, seed)
             fwd, bwd, bad = _attention_check(
                 att, q, k, v, mask, p, seed, {"path_call": name},
-                backward=name != "joint_eval")
+                backward=name not in EVAL_ONLY)
             failed += bad
             # the kernels line's rows: each call's bf16 case at its own
-            # dropout rate (the joint stream of a train step: 0.1)
-            if dtype == torch.bfloat16 and (p > 0 or name != "joint"):
+            # dropout rate (the calls of a train step: 0.1)
+            if dtype == torch.bfloat16 and (p > 0
+                                            or name not in PATH_DROPOUT):
                 errs[f"flash_fwd@{name}"] = fwd["max_abs_err"]
                 if bwd is not None:
                     errs[f"flash_bwd@{name}"] = bwd["max_abs_err"]
@@ -991,12 +1101,12 @@ def phase_timing(seed: int):
         b, h, s, d = shape
         bhsd, bhs = b * h * s * d, b * h * s
         q, k, v, mask = make_path_attention_inputs(name, torch.bfloat16, seed)
-        p = DROPOUT_P if name == "joint" else 0.0
+        p = DROPOUT_P if name in PATH_DROPOUT else 0.0
         o, lse = att.flash_attention(q, k, v, mask, p, sd)
         rows[f"flash_fwd@{name}"] = {
             "shape_bhsd": list(shape), "dropout_p": p,
             **fwd_row(q, k, v, mask, p, sd, plain_iters=5)}
-        if name == "joint_eval":
+        if name in EVAL_ONLY:
             continue
         do = torch.randn_like(q)
         qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
@@ -1037,12 +1147,14 @@ def write_png(path: str, rgb) -> None:
 
 
 def write_wikihow(root: str, split: str, n_stories: int, seed: int,
-                  images: bool = False) -> dict:
+                  images: bool = False, steps_of=None, words=None) -> dict:
     """A WikiHow-schema split of 5-step stories whose steps fill
-    `per_seq_max_length` = 60 tokens, so a packed story is ~300 tokens.
-    With `images`, each step has a 256 x 192 PNG (blocks of random colour,
-    so the loader's resize to 224 runs) under the mirror layout the
-    processor resolves, and the images are returned by path."""
+    `per_seq_max_length` = 60 tokens, so a packed story is ~300 tokens;
+    `steps_of(a)`: story a's step count instead, `words`: a (low, high)
+    range of words a step instead of 70. With `images`, each step has a
+    256 x 192 PNG (blocks of random colour, so the loader's resize to 224
+    runs) under the mirror layout the processor resolves, and the images
+    are returned by path."""
     import numpy as np
     rng = np.random.default_rng(seed)
     written = {}
@@ -1052,8 +1164,9 @@ def write_wikihow(root: str, split: str, n_stories: int, seed: int,
     with open(os.path.join(root, f"wikihow-{split}.json"), "w") as f:
         for a in range(n_stories):
             steps = []
-            for s in range(5):
-                words = rng.choice(WORDS, size=70).tolist()
+            for s in range(5 if steps_of is None else steps_of(a)):
+                size = 70 if words is None else int(rng.integers(*words))
+                words_ = rng.choice(WORDS, size=size).tolist()
                 assets = {}
                 if images:
                     name = f"{split}_{a}_{s}.png"
@@ -1065,7 +1178,8 @@ def write_wikihow(root: str, split: str, n_stories: int, seed: int,
                     assets = {"image-large": f"images/{name}"}
                 steps.append({
                     "step_headline": f"Step {s}",
-                    "step_text": {"text": f"Story {a} step {s}. " + " ".join(words),
+                    "step_text": {"text": f"Story {a} step {s}. "
+                                  + " ".join(words_),
                                   "bullet_points": []},
                     "step_assets": assets})
             f.write(json.dumps({
@@ -1239,9 +1353,14 @@ def _gelu_kind(key: str):
     return "bwd" if "true>" in key else "fwd"
 
 
-def _by_class(prof, wall_ms):
+# cuDNN's convolution kernels, a class of their own on the multimodal paths
+CONV_CLASS = ("conv", ("conv", "cudnn", "fprop", "dgrad", "wgrad",
+                       "implicit", "winograd"))
+
+
+def _by_class(prof, wall_ms, classes=KERNEL_CLASSES):
     import torch
-    by_class = {name: 0.0 for name, _ in KERNEL_CLASSES}
+    by_class = {name: 0.0 for name, _ in classes}
     by_class["other"] = 0.0
     kernels = []
     for evt in prof.key_averages():
@@ -1250,7 +1369,7 @@ def _by_class(prof, wall_ms):
             continue
         ms = evt.self_device_time_total / 1e3
         key = evt.key.lower()
-        cls = next((name for name, pats in KERNEL_CLASSES
+        cls = next((name for name, pats in classes
                     if any(p in key for p in pats)), "other")
         by_class[cls] += ms
         kernels.append((ms, evt.count, evt.key[:80]))
@@ -2370,8 +2489,7 @@ def phase_mm_breakdown(seed: int):
             return out
 
         cls.forward = part
-    classes = (("conv", ("conv", "cudnn", "fprop", "dgrad", "wgrad",
-                         "implicit", "winograd")),) + KERNEL_CLASSES
+    classes = (CONV_CLASS,) + KERNEL_CLASSES
 
     def by_class(prof, wall_ms):
         out = {name: 0.0 for name, _ in classes}
@@ -2437,10 +2555,542 @@ def phase_mm_breakdown(seed: int):
             cls.forward = fwd
 
 
+# ----- BERSON ---------------------------------------------------------------
+
+
+def _berson_model(seed, multimodal=False, layers=24, dtype="bfloat16",
+                  freeze=False, **enc):
+    """BERSON at full width (RoBERTa-large inner, hidden 1024, 16 heads of
+    64; the head's paragraph encoder 8 heads of 128 and FF 3072; LSTM 1024)
+    over the text encoder or the CLIP-RN50 joint encoder at 224 px, fresh
+    weights from `seed`."""
+    from multimodal_sequencing_tpu_torch.models.berson import BersonOrdering
+    from multimodal_sequencing_tpu_torch.models.config import (
+        CLIPVisionConfig, EncoderConfig, MultimodalConfig)
+    from multimodal_sequencing_tpu_torch.models.sequencer import init_weights
+    kw = dict(multimodal=True, clip_model_name="RN50",
+              image_size=(MM_IMAGE, MM_IMAGE),
+              freeze_vision_model=freeze) if multimodal else {}
+    cfg = MultimodalConfig(
+        encoder=EncoderConfig.roberta_large(num_hidden_layers=layers,
+                                            dtype=dtype, **enc),
+        max_seq_length=320, per_seq_max_length=BERSON_L // 2,
+        wrapper_model_type="berson", **kw)
+    vcfg = CLIPVisionConfig.rn50(dtype=dtype) if multimodal else None
+    return cfg, init_weights(BersonOrdering(cfg, vcfg), seed)
+
+
+def _berson_batch(seed, lens, images=False):
+    """A collated batch of BERSON's packed pairs for stories of `lens`
+    steps (of 5; steps of 10..70 random words), with each story's (5, 224,
+    224, 3) uint8 step images when asked (zeros past its length)."""
+    import numpy as np
+    from multimodal_sequencing_tpu_torch.data.packing import StoryPacker
+    from multimodal_sequencing_tpu_torch.data.tokenization import (
+        SimpleWordTokenizer)
+    rng = np.random.default_rng(seed)
+    packer = StoryPacker(SimpleWordTokenizer(), 320, BERSON_L // 2)
+    items = [packer.pack_berson_story(
+        [" ".join(rng.choice(WORDS, size=int(rng.integers(10, 71))))
+         for _ in range(m)], rng.permutation(m).tolist(), max_story_length=5)
+        for m in lens]
+    batch = {k: np.stack([np.asarray(it[k]) for it in items]) for k in items[0]}
+    batch["valid"] = np.ones(len(lens), bool)
+    if images:
+        img = _random_images(len(lens), seed + 1)
+        for i, m in enumerate(lens):
+            img[i, m:] = 0
+        batch["images"] = img
+    return batch
+
+
+def _chain_scores(model, db, orders):
+    """Each story's beam score of `orders` ((B, 5), -1 past a story's
+    length) under `model`'s pointer logits: the sum over its first m - 1
+    steps of the log-softmax at the chosen step, teacher-forced along the
+    order, in f64."""
+    import torch
+    n = orders.shape[1]
+    m = (orders >= 0).sum(1)
+    gt = orders.clone()
+    for i in range(len(gt)):
+        gt[i, m[i]:] = torch.arange(int(m[i]), n)
+    with torch.inference_mode():
+        logits = model({**db, "ground_truth": gt.to(db["input_ids"].device)}
+                       )["pointer_logits"].double().cpu()
+    logp = torch.log_softmax(logits, dim=-1)
+    picked = logp.gather(2, gt[:, :, None].cpu())[..., 0]
+    steps = torch.arange(n)[None] < (m[:, None] - 1)
+    return (picked * steps).sum(1)
+
+
+# berson_reference: the encode() intermediates and the pointer logits, card
+# (f32, kernels) against the CPU (plain versions), each within
+# BERSON_FWD_TOL of its largest entry, the sequencer's forward limit; two
+# beam orders that differ must tie: their scores under either side's
+# logits within BERSON_TIE_ABS (sums of four log-probabilities, f32 logits
+# ~1e-5 apart). The train steps as train_reference / mm_reference.
+BERSON_FWD_TOL = 2e-4
+BERSON_TIE_ABS = 1e-4
+BERSON_ENC_KEYS = ("doc", "key", "cls_score", "cls_output_matrix",
+                   "cls_score_matrix", "his1_matrix", "his2_matrix")
+# The train steps run along the CPU's trajectory: before each step the
+# card's model and AdamW take the CPU's weights, statistics and moments, so
+# each step's readings are one step's disagreement and Adam does not
+# compound rounding. One update's weights are held two ways. (1) Against
+# the CPU's AdamW applied to the card's own gradients from the same state:
+# the card's update alone, elementwise f32 rounding, within lr * 1e-3 for
+# every parameter. (2) Against the CPU's weights: the gradients' card-CPU
+# distance and the update together. Adam divides each entry's step by its
+# own gradient scale, so where an entry's gradients sit near that distance
+# the step differs by a fraction of lr. A parameter whose CPU gradient is
+# below f32's unit roundoff (2^-24) of the global norm cannot be told from
+# rounding (the biases a softmax is invariant to: the attention keys', the
+# token-span scores', the pointer logits'); its direction is not
+# determined, and Adam steps it by up to ~1.001 lr_t either way
+# (|m_hat| / sqrt(v_hat) at counts <= 4), so in (2) it is held to two such
+# steps.
+BERSON_UNDETERMINED_GRAD = 2.0 ** -24
+BERSON_UNDETERMINED_STEPS = 2.01
+BERSON_UPDATE_TOL = 1e-3  # of lr
+
+
+def _berson_reference(seed, multimodal):
+    import copy
+    import torch
+    from multimodal_sequencing_tpu_torch.train.state import AdamW
+    from multimodal_sequencing_tpu_torch.train.steps import (
+        berson_train_step, device_batch)
+    lr, n_steps = 1e-3, 4
+    lens = [4] if multimodal else [5, 3]
+    cfg, cpu_model = _berson_model(
+        seed, multimodal, layers=2, dtype="float32", freeze=multimodal,
+        hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    cpu_model.para_encoder.dropout = 0.0  # its own 0.1 otherwise
+    init = {n: p.detach().clone() for n, p in cpu_model.named_parameters()}
+    card_model = copy.deepcopy(cpu_model).cuda()
+    batches = [_berson_batch(seed + i, lens, multimodal)
+               for i in range(n_steps)]
+    models = {"cpu": cpu_model.eval(), "cuda": card_model.eval()}
+    dbs = {name: device_batch(batches[0], name) for name in models}
+    enc, fwd, orders = {}, {}, {}
+    with torch.inference_mode():
+        for name, model in models.items():
+            enc[name] = model.encode(dbs[name])
+            fwd[name] = model(dbs[name])
+            orders[name] = model.beam_search(dbs[name], enc[name]).cpu()
+    enc_err = {k: _rel_to_max(enc["cuda"][k], enc["cpu"][k])
+               for k in BERSON_ENC_KEYS}
+    enc_err["h"] = _rel_to_max(enc["cuda"]["hcn"][0], enc["cpu"]["hcn"][0])
+    logits = {n: f["pointer_logits"].cpu() for n, f in fwd.items()}
+    masked = logits["cpu"] == -1e9
+    enc_err["pointer_logits"] = _rel_to_max(logits["cuda"][~masked],
+                                            logits["cpu"][~masked])
+    masked_equal = torch.equal(logits["cuda"] == -1e9, masked)
+    loss_fwd_err = abs(fwd["cuda"]["loss"].item() - fwd["cpu"]["loss"].item()
+                       ) / abs(fwd["cpu"]["loss"].item())
+    ties = []
+    differ = ~(orders["cuda"] == orders["cpu"]).all(1)
+    if bool(differ.any()):
+        for name, model in models.items():
+            a = _chain_scores(model, dbs[name], orders["cuda"])
+            b = _chain_scores(model, dbs[name], orders["cpu"])
+            ties.append((a - b).abs()[differ].max().item())
+    lengths_ok = all(sorted(o[:m].tolist()) == list(range(m))
+                     and bool((o[m:] == -1).all())
+                     for o, m in zip(orders["cuda"], lens))
+
+    # The text and joint sequencers' limits (train_reference, mm_reference),
+    # moved where the readings along the CPU's trajectory (seeds 0-3 on
+    # an H100, bit-equal run to run; PERF.md) came near them. Text: loss,
+    # grad norm and gradients <= 1.36e-6 (1e-5 kept); one update's weights
+    # <= 1.84e-5, held at lr / 10. Clip inner: its frozen tower's
+    # train-mode output is ~1e-4 apart between card and CPU in f32
+    # (mm_check) and feeds the 99 visual tokens of every pair: gradients
+    # <= 4.52e-5 of the global norm (1.2e-4 for 3e-5), grad norm 7.06e-5
+    # (2e-4 for 3e-5), statistics 1.14e-5 (3e-5 for 1.5e-5), and one
+    # update's weights 1.61e-4..3.76e-4 against the CPU's (Adam's division
+    # above, at the first update, whose moments hold one earlier gradient),
+    # held at lr; (1) holds the card's update itself
+    if multimodal:
+        tol = {"loss_rel": 3e-5, "grad_norm_rel": 2e-4,
+               "grad_rel_to_norm": 1.2e-4, "bn_stats_rel": 3e-5,
+               "weight_abs": lr}
+    else:
+        tol = {"loss_rel": 1e-5, "grad_norm_rel": 1e-5,
+               "grad_rel_to_norm": 1e-5, "bn_stats_rel": 0.0,
+               "weight_abs": lr / 10}
+    tol.update(forward_rel_to_max=BERSON_FWD_TOL, tie_abs=BERSON_TIE_ABS,
+               update_abs=BERSON_UPDATE_TOL * lr, min_weight_move=2 * lr,
+               undetermined_grad_rel=BERSON_UNDETERMINED_GRAD,
+               undetermined_lr_steps=BERSON_UNDETERMINED_STEPS)
+    replay = copy.deepcopy(cpu_model)  # the CPU's AdamW on card gradients
+    opts = {name: AdamW(model, learning_rate=lr, warmup_steps=1,
+                        total_steps=10, weight_decay=0.01)
+            for name, model in {**models, "replay": replay}.items()}
+    replay_params = dict(replay.named_parameters())
+    card_params = dict(card_model.named_parameters())
+    rel = lambda a, c: abs(a - c) / max(abs(c), 1e-12)  # noqa: E731
+    hist, grads = {"cpu": [], "cuda": []}, {}
+    loss_err = gn_err = stat_err = 0.0
+    grad_rel, w_err, worst_w = [], {"undetermined": 0.0, "other": 0.0}, []
+    update_err = (0.0, "", -1)
+    undetermined, tower_grads, smallest = set(), set(), []
+    for i, bt in enumerate(batches):
+        for name, model in (("cuda", card_model), ("replay", replay)):
+            model.load_state_dict(cpu_model.state_dict())
+            opts[name].load_state_dict(opts["cpu"].state_dict())
+        lr_t = opts["cpu"].schedule(opts["cpu"].count)
+        for name, model in models.items():
+            hist[name].append({k: float(v) for k, v in berson_train_step(
+                model, opts[name], bt, i, seed).items()})
+            grads[name] = {n: p.grad.detach().double().cpu()
+                           for n, p in model.named_parameters()
+                           if p.grad is not None}
+            tower_grads.update(n for n in grads[name]
+                               if ".visual_model." in n)
+        for n, p in replay.named_parameters():
+            p.grad = grads["cuda"][n].float() if n in grads["cuda"] else None
+        opts["replay"].step(opts["replay"].grads())
+        update_err = max([update_err] + [
+            ((card_params[n].detach().cpu() - replay_params[n].detach())
+             .abs().max().item(), n, i) for n in card_params])
+        loss_err = max(loss_err, rel(hist["cuda"][i]["loss"],
+                                     hist["cpu"][i]["loss"]))
+        gn_err = max(gn_err, rel(hist["cuda"][i]["grad_norm"],
+                                 hist["cpu"][i]["grad_norm"]))
+        total = math.sqrt(sum(g.norm().item() ** 2
+                              for g in grads["cpu"].values()))
+        grad_rel = max(grad_rel, sorted(
+            (((grads["cuda"][n] - g).norm().item() / total, n, i)
+             for n, g in grads["cpu"].items()), reverse=True)[:5])
+        smallest.append(sorted((g.norm().item() / total, n)
+                               for n, g in grads["cpu"].items())[:8])
+        want, got = _bn_stats(cpu_model), _bn_stats(card_model)
+        stat_err = max([stat_err] + [_rel_to_max(got[n], w)
+                                     for n, w in want.items()])
+        # each parameter after this step's update; an undetermined one's
+        # error in units of its two Adam steps
+        for n, p in cpu_model.named_parameters():
+            g = grads["cpu"].get(n)
+            free = g is None or g.norm().item() <= (
+                BERSON_UNDETERMINED_GRAD * total)
+            err = (card_params[n].detach().cpu() - p.detach()).abs().max(
+                ).item()
+            if free:  # the frozen tower has no gradient
+                undetermined.update([n] if g is not None else [])
+                err /= BERSON_UNDETERMINED_STEPS * max(lr_t, 1e-30)
+            w_err["undetermined" if free else "other"] = max(
+                w_err["undetermined" if free else "other"], err)
+            worst_w.append((err, n, i, free))
+    moved = max((p.detach() - init[n]).abs().max().item()
+                for n, p in cpu_model.named_parameters()
+                if n not in undetermined)
+    ok = (all(e <= BERSON_FWD_TOL for e in enc_err.values()) and masked_equal
+          and loss_fwd_err <= tol["loss_rel"] and lengths_ok
+          and all(t <= BERSON_TIE_ABS for t in ties) and not tower_grads
+          and loss_err <= tol["loss_rel"] and gn_err <= tol["grad_norm_rel"]
+          and grad_rel[0][0] <= tol["grad_rel_to_norm"]
+          and stat_err <= tol["bn_stats_rel"]
+          and update_err[0] <= tol["update_abs"]
+          and w_err["other"] <= tol["weight_abs"]
+          and w_err["undetermined"] <= 1.0
+          and moved >= tol["min_weight_move"])
+    emit({"phase": "berson_reference",
+          "inner": "clip_rn50_frozen" if multimodal else "text",
+          "layers": 2, "dtype": "float32", "story_lengths": lens,
+          "steps": n_steps, "forward_rel_err": enc_err,
+          "masked_logits_equal": masked_equal, "loss_rel_err_eval": loss_fwd_err,
+          "orders": {n: o.tolist() for n, o in orders.items()},
+          "orders_differ": int(differ.sum()), "tie_score_gaps": ties,
+          "history": hist, "loss_rel_err": loss_err,
+          "grad_norm_rel_err": gn_err, "bn_stats_rel_err": stat_err,
+          "max_abs_update_err": update_err,
+          "max_abs_weight_err": w_err, "max_abs_weight_move": moved,
+          "undetermined": sorted(undetermined),
+          "smallest_cpu_grad_rel_to_norm": smallest,
+          "tower_grads": len(tower_grads), "worst_grad_rel_err": grad_rel,
+          "worst_weight_err": sorted((w for w in worst_w if not w[3]),
+                                     reverse=True)[:5],
+          "worst_undetermined": sorted((w for w in worst_w if w[3]),
+                                       reverse=True)[:3],
+          "tol": tol, "ok": ok})
+    return ok
+
+
+def phase_berson_reference(seed: int):
+    """The 2-layer full-width BERSON, f32, card (kernels) against the CPU
+    (plain versions) on the same weights and batches, each with a short
+    story: the encode() intermediates, the pointer logits, the loss and the
+    beam orders (equal up to ties), then four train steps (losses, grad
+    norms, the first step's gradients, the weights after three updates);
+    the text inner (2 stories of 5 and 3 steps), then the CLIP-RN50 inner
+    with a frozen tower (a story of 4 steps; BatchNorm statistics after
+    every step). Dropout 0, the paragraph encoder's too. cuDNN is asked for
+    deterministic algorithms."""
+    import torch
+    torch.backends.cudnn.deterministic = True
+    try:
+        ok = [_berson_reference(seed, mm) for mm in (False, True)]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    if not all(ok):
+        raise AssertionError(f"card and CPU disagree on BERSON: {ok}")
+
+
+def _berson_train_argv(data_dir, out_dir, seed, *extra):
+    return ["--model_name_or_path", "simple", "--model_size", "large",
+            "--do_train", "--task_name", "wikihow_hl_v1",
+            "--wrapper_model_type", "berson", "--min_story_length", "3",
+            "--data_dir", data_dir, "--max_seq_length", "320",
+            "--per_seq_max_length", str(BERSON_L // 2),
+            "--warmup_steps", "2", "--logging_steps", "1", "--seed", str(seed),
+            "--output_dir", out_dir, "--overwrite_output_dir",
+            "--device", "cuda", *extra]
+
+
+def _berson_eval_argv(data_dir, out_dir, ckpt, batch, *extra):
+    return ["--model_name_or_path", ckpt, "--model_size", "large",
+            "--task_name", "wikihow_sort", "--sort_method", "berson",
+            "--beam_size", "16", "--min_story_length", "3",
+            "--data_dir", data_dir, "--eval_splits", "test",
+            "--max_seq_length", "320", "--per_seq_max_length",
+            str(BERSON_L // 2), "--per_gpu_eval_batch_size", str(batch),
+            "--output_dir", out_dir, "--device", "cuda", *extra]
+
+
+def _berson_steps(res):
+    times = [h["time"] for h in res.history]
+    return [b - a for a, b in zip([res.start_time] + times[:-1], times)]
+
+
+def _berson_orders_ok(out_dir, lengths):
+    """Every order of `output_order.txt` a permutation of its story's
+    length (the -1 tail stripped)."""
+    with open(os.path.join(out_dir, "output_order.txt")) as f:
+        orders = [[int(x) for x in line.split()] for line in f]
+    return len(orders) == len(lengths) and all(
+        sorted(o) == list(range(m)) for o, m in zip(orders, lengths))
+
+
+def _berson_counts_ok(counts, per_forward, names, forwards, steps):
+    """Exact launch counts: each forward kernel `forwards` times its
+    per-forward count, each backward kernel `steps` times."""
+    return all(counts[k] == (steps if "bwd" in k else forwards)
+               * per_forward[k] for k in names)
+
+
+def _story_lengths(n, seed):
+    """Step counts 3..5 of n stories: every third story shorter than 5."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [5 if a % 3 else int(rng.integers(3, 5)) for a in range(n)]
+
+
+def phase_berson_path(seed: int, work: str):
+    """BERSON through the CLIs at full width on the card. Text: `main_train
+    --wrapper_model_type berson` for 8 steps of 2 stories (40 pair
+    sequences of 120 tokens, dropout 0.1), then `run_eval --sort_method
+    berson` (beam 16) of its checkpoint over 48 stories in batches of 16.
+    The reference launcher's configuration (`scripts/wikihow_finetune.sh`:
+    CLIP RN50 inner, batch 1, lr 5e-6): 5 steps with PNG step images, a save
+    at step 3 with `--evaluate_during_training`, `--do_eval` of the best
+    and last checkpoints, then `run_eval --sort_method berson --multimodal`
+    of the last. Stories of 3-5 steps (dead pairs). Then a profile of a
+    text train step and an eval batch (forward, beam loop) by kernel
+    class. Every path must launch its kernels, in exact counts."""
+    import torch
+    from multimodal_sequencing_tpu_torch.train.cli import main_train, run_eval
+    data_dir = os.path.join(work, "berson_data")
+    os.makedirs(data_dir)
+    train_lens = _story_lengths(2 * BERSON_STEPS, seed + 6)
+    test_lens = _story_lengths(BERSON_EVAL_STORIES, seed + 7)
+    write_wikihow(data_dir, "train", len(train_lens), seed + 6,
+                  steps_of=train_lens.__getitem__, words=(10, 71))
+    write_wikihow(data_dir, "test", len(test_lens), seed + 7,
+                  steps_of=test_lens.__getitem__, words=(10, 71))
+    launches = {}
+
+    # --- text ---------------------------------------------------------------
+    out_dir = os.path.join(work, "berson_out")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = main_train(_berson_train_argv(
+        data_dir, out_dir, seed, "--per_gpu_train_batch_size", "2",
+        "--learning_rate", "1e-5", "--max_steps", str(BERSON_STEPS),
+        "--save_steps", "0"))
+    wall_s = time.perf_counter() - t0
+    launches["berson_train"] = counts = _read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    step_s = _berson_steps(res)
+    losses = [h["loss"] for h in res.history]
+    ckpt = os.path.join(out_dir, f"checkpoint-{res.global_step}")
+    summary = {"phase": "berson_path", "part": "text_train",
+               "steps": res.global_step, "stories_a_step": 2,
+               "pair_sequences_a_step": 2 * BERSON_P, "launches": counts,
+               "losses": losses, "step_s": step_s,
+               "median_step_s_after_first": _median_after_first(step_s),
+               "peak_memory_gib": peak_gb, "wall_s_incl_init": wall_s}
+    emit(summary)
+    if not (res.global_step == BERSON_STEPS
+            and all(math.isfinite(x) for x in losses)
+            and _berson_counts_ok(counts, BERSON_PER_FORWARD,
+                                  PATH_KERNELS["berson_train"],
+                                  BERSON_STEPS, BERSON_STEPS)
+            and all(counts[k] == 0 for k in F32_BWD)):
+        raise AssertionError(f"BERSON train check failed: {summary}")
+    ev_dir = os.path.join(work, "berson_eval")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    results, evaluator = run_eval(_berson_eval_argv(data_dir, ev_dir, ckpt,
+                                                    16))
+    launches["berson_eval"] = counts = _read_counts()
+    fwd, dec = evaluator.forward_seconds, evaluator.decode_seconds
+    batches = math.ceil(BERSON_EVAL_STORIES / 16)
+    summary = {"phase": "berson_path", "part": "text_eval",
+               "stories": BERSON_EVAL_STORIES, "batch": 16, "beam": 16,
+               "forwards": evaluator.forwards, "launches": counts,
+               "median_batch_s": _median_after_first(
+                   [f + d for f, d in zip(fwd, dec)]),
+               "median_forward_s": _median_after_first(fwd),
+               "median_decode_s": _median_after_first(dec),
+               "forward_s": fwd, "decode_s": dec,
+               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "metrics": results["test"]}
+    emit(summary)
+    if not (evaluator.forwards == batches
+            and _berson_orders_ok(ev_dir, test_lens)
+            and _berson_counts_ok(counts, BERSON_PER_FORWARD,
+                                  PATH_KERNELS["berson_eval"], batches, 0)):
+        raise AssertionError(f"BERSON eval check failed: {summary}")
+    _berson_breakdown(res.model, seed, "text", [5, 4],
+                      [5] * 12 + [4, 3, 4, 3])
+    del res
+
+    # --- the launcher's configuration -----------------------------------------
+    mm_train = _story_lengths(BERSON_MM_STEPS, seed + 8)
+    mm_test = _story_lengths(BERSON_MM_EVAL_STORIES, seed + 9)
+    mm_data = os.path.join(work, "berson_mm_data")
+    os.makedirs(mm_data)
+    write_wikihow(mm_data, "train", len(mm_train), seed + 8, images=True,
+                  steps_of=mm_train.__getitem__, words=(10, 71))
+    write_wikihow(mm_data, "test", len(mm_test), seed + 9, images=True,
+                  steps_of=mm_test.__getitem__, words=(10, 71))
+    out_dir = os.path.join(work, "berson_mm_out")
+    launcher = ["--multimodal", "--multimodal_model_type", "clip",
+                "--vision_model", "resnet50"]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    res = main_train(_berson_train_argv(
+        mm_data, out_dir, seed, *launcher, "--per_gpu_train_batch_size", "1",
+        "--per_gpu_eval_batch_size", "1", "--learning_rate", "5e-6",
+        "--order_criteria", "loose", "--do_not_load_optimizer",
+        "--max_steps", str(BERSON_MM_STEPS), "--save_steps", "3",
+        "--evaluate_during_training", "--do_eval", "--eval_splits", "test",
+        "--iters_to_eval", "best", str(BERSON_MM_STEPS)))
+    launches["berson_mm_train"] = counts = _read_counts()
+    step_s = _berson_steps(res)
+    losses = [h["loss"] for h in res.history]
+    # the forwards: the steps', the save's eval (6 stories a batch of 1)
+    # and the --do_eval sweep's two checkpoints
+    forwards = BERSON_MM_STEPS + 3 * BERSON_MM_EVAL_STORIES
+    summary = {"phase": "berson_path", "part": "launcher_train",
+               "steps": res.global_step, "stories_a_step": 1,
+               "joint_s": BERSON_MM_S, "launches": counts, "losses": losses,
+               "step_s": step_s,
+               "median_step_s_after_first": _median_after_first(step_s),
+               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "eval_results": res.eval_results}
+    emit(summary)
+    sweep = sorted(res.eval_results)
+    if not (res.global_step == BERSON_MM_STEPS
+            and all(math.isfinite(x) for x in losses)
+            and sweep == ["checkpoint-5", "checkpoint-best"]
+            and _berson_counts_ok(counts, BERSON_MM_PER_FORWARD,
+                                  PATH_KERNELS["berson_mm_train"],
+                                  forwards, BERSON_MM_STEPS)
+            and all(os.path.isfile(os.path.join(
+                out_dir, f"eval_results_split_test_{t}.txt")) for t in sweep)):
+        raise AssertionError(f"BERSON launcher train check failed: {summary}")
+    ckpt = os.path.join(out_dir, f"checkpoint-{res.global_step}")
+    _berson_breakdown(res.model, seed, "launcher", [5], [5], images=True)
+    del res
+    ev_dir = os.path.join(work, "berson_mm_eval")
+    _reset_counts()
+    results, evaluator = run_eval(_berson_eval_argv(
+        mm_data, ev_dir, ckpt, 1, *launcher))
+    launches["berson_mm_eval"] = counts = _read_counts()
+    fwd, dec = evaluator.forward_seconds, evaluator.decode_seconds
+    summary = {"phase": "berson_path", "part": "launcher_eval",
+               "stories": len(mm_test), "batch": 1, "beam": 16,
+               "forwards": evaluator.forwards, "launches": counts,
+               "median_batch_s": _median_after_first(
+                   [f + d for f, d in zip(fwd, dec)]),
+               "median_forward_s": _median_after_first(fwd),
+               "median_decode_s": _median_after_first(dec),
+               "metrics": results["test"]}
+    emit(summary)
+    if not (evaluator.forwards == len(mm_test)
+            and _berson_orders_ok(ev_dir, mm_test)
+            and _berson_counts_ok(counts, BERSON_MM_PER_FORWARD,
+                                  PATH_KERNELS["berson_mm_eval"],
+                                  len(mm_test), 0)):
+        raise AssertionError(f"BERSON launcher eval check failed: {summary}")
+    return launches
+
+
+def _berson_breakdown(model, seed, label, train_lens, eval_lens,
+                      images=False):
+    """One warm train step (stories of `train_lens` steps) and one warm
+    eval batch (`eval_lens`, beam 16) of a trained full-width BERSON by
+    kernel class (torch.profiler; convolutions apart with `images`), with
+    the eval batch's encode and beam loop timed apart by CUDA events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from multimodal_sequencing_tpu_torch.train.state import AdamW
+    from multimodal_sequencing_tpu_torch.train.steps import (
+        berson_train_step, device_batch)
+    classes = ((CONV_CLASS,) if images else ()) + KERNEL_CLASSES
+    opt = AdamW(model, learning_rate=1e-5, warmup_steps=2, total_steps=100)
+    batch = _berson_batch(seed, train_lens, images)
+    step = [0]
+
+    def one():
+        out = berson_train_step(model, opt, batch, step[0], seed)
+        step[0] += 1
+        return out
+
+    step_ms = cuda_ms(one, iters=3, warmup=2)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        one()
+        torch.cuda.synchronize()
+    emit({"phase": "berson_path", "part": f"{label}_train_breakdown",
+          "stories": len(train_lens), "step_ms": step_ms,
+          **_by_class(prof, step_ms, classes)})
+    del opt
+    model.eval()
+    db = device_batch(_berson_batch(seed + 1, eval_lens, images), "cuda")
+    with torch.inference_mode():
+        enc = model.encode(db)
+        model.beam_search(db, enc)
+        encode_ms = cuda_ms(lambda: model.encode(db), iters=3)
+        beam_ms = cuda_ms(lambda: model.beam_search(db, enc), iters=3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model.beam_search(db, model.encode(db))
+            torch.cuda.synchronize()
+    emit({"phase": "berson_path", "part": f"{label}_eval_breakdown",
+          "stories": len(eval_lens), "beam": 16, "encode_ms": encode_ms,
+          "beam_loop_ms": beam_ms,
+          **_by_class(prof, encode_ms + beam_ms, classes)})
+
+
 PHASES = ("kernel_check", "bits_check", "timing", "main_path", "breakdown",
           "reference", "train_path", "train_breakdown", "train_reference",
           "hf_path", "remat", "mm_check", "mm_reference", "mm_path",
-          "mm_breakdown")
+          "mm_breakdown", "berson_reference", "berson_path")
 
 
 def main(argv=None) -> int:
@@ -2487,6 +3137,9 @@ def main(argv=None) -> int:
             "mm_reference": lambda: phase_mm_reference(args.seed),
             "mm_path": lambda: launches.update(phase_mm_path(args.seed, work)),
             "mm_breakdown": lambda: phase_mm_breakdown(args.seed),
+            "berson_reference": lambda: phase_berson_reference(args.seed),
+            "berson_path": lambda: launches.update(
+                phase_berson_path(args.seed, work)),
         }
         for name in args.phases:
             t0 = time.perf_counter()

@@ -1,5 +1,5 @@
 """ctypes binding of the native story packer (counterpart of
-`data/_native.py`, `pack_story` only).
+`data/_native.py`: `pack_story` and `pack_berson`).
 
 `csrc/packer.cc` is a byte-for-byte copy of the JAX package's
 `native/packer.cc` (a test holds the two equal). At first use it is built
@@ -69,6 +69,10 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.pack_story.argtypes = [_I32P, _I32P, ctypes.c_int32,
                                    ctypes.c_int32, ctypes.c_int32, _I32P,
                                    _I32P]
+        lib.pack_berson.restype = None
+        lib.pack_berson.argtypes = [_I32P, _I32P, ctypes.c_int32,
+                                    ctypes.c_int32, ctypes.c_int32, _I32P,
+                                    _I32P, _I32P, _I32P, _I32P]
         _state["lib"] = lib
         return lib
 
@@ -107,3 +111,29 @@ def pack_story(step_ids: Sequence[np.ndarray], L: int, pad_id: int
     lib.pack_story(flat, offsets, len(step_ids), L, pad_id, out_ids,
                    out_types)
     return out_ids, out_types
+
+
+def pack_berson(step_ids: Sequence[np.ndarray], label: Sequence[int], L: int,
+                pad_id: int
+                ) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                    np.ndarray]]:
+    """A whole story's BERSON pairs from the native packer: (input_ids
+    (P, L), sep_positions (P, 2), pairwise_labels (P,), pairs (P, 2)) with
+    P = n (n - 1), `label` the chain (the step at each time); None when the
+    packer is not available or the story has more than 64 steps (its
+    position table's size)."""
+    lib = _load()
+    if lib is None or len(step_ids) > 64:
+        return None
+    n = len(step_ids)
+    P = n * (n - 1)
+    flat, offsets = _flatten(step_ids)
+    out_ids = np.empty((P, L), np.int32)
+    out_sep = np.empty((P, 2), np.int32)
+    out_plabels = np.empty(P, np.int32)
+    out_pairs = np.empty((P, 2), np.int32)
+    lib.pack_berson(flat, offsets, n, L, pad_id,
+                    np.ascontiguousarray(np.asarray(label, np.int32)),
+                    out_ids.reshape(-1), out_sep.reshape(-1), out_plabels,
+                    out_pairs.reshape(-1))
+    return out_ids, out_sep, out_plabels, out_pairs

@@ -1,6 +1,6 @@
 """Datasets and batching (copy of `data/datasets.py`: `SortDataset`,
-`PureClassDataset` in decode mode, their step images, `collate`,
-`data_loader`, `prefetch`).
+`PureClassDataset` in decode mode, `BersonDataset`, their step images,
+`collate`, `data_loader`, `prefetch`).
 
 Every example draws its scramble from a counter-based Philox key
 (seed, epoch, index), and the loader its shuffle from (seed, epoch), so the
@@ -126,6 +126,24 @@ class PureClassDataset(_StoryDatasetBase):
         return item
 
 
+class BersonDataset(_StoryDatasetBase):
+    """BERSON's pair-expanded stories (`StoryPacker.pack_berson_story`):
+    the packed pairs and their relation metadata, `labels` = the chain
+    padded with the dead step indices, guid (+ images)."""
+
+    def __getitem__(self, idx, epoch: int = 0):
+        texts, img_paths, idx_seq = self._story(idx, epoch)
+        label = np.argsort(np.asarray(idx_seq)).astype(np.int32)
+        item = self.packer.pack_berson_story(
+            texts, label.tolist(), max_story_length=self.max_story_length)
+        item["labels"] = np.concatenate(
+            [label, np.arange(len(texts), self.max_story_length,
+                              dtype=np.int32)])
+        item["guid"] = self.examples[idx].guid
+        item.update(self._images(img_paths, len(texts)))
+        return item
+
+
 def _decode_labels(ex, idx_seq, max_story_length):
     """Order label(s) for decode: argsort of the scramble, or the scrambled
     multiref list."""
@@ -145,7 +163,8 @@ def _decode_labels(ex, idx_seq, max_story_length):
 
 
 _ARRAY_KEYS = ("input_ids", "attention_mask", "token_type_ids", "labels",
-               "images")
+               "images", "sep_positions", "pairs_list", "pairwise_labels",
+               "ground_truth", "mask_cls", "passage_length", "pairs_num")
 
 
 def collate(items: Sequence[Dict[str, Any]], pad_to: Optional[int] = None

@@ -5,13 +5,19 @@ checkpoints, and from OpenAI CLIP visual weights.
 The port's modules carry the Flax module names, so a Flax path maps to the
 same dotted state-dict key with its leaf renamed:
   Dense `kernel` (in, out)        -> Linear `weight` (out, in), transposed
+  DenseGeneral `kernel` of `nn.MultiHeadDotProductAttention`: query, key,
+    value (in, heads, head_dim), out (heads, head_dim, out) -> Linear
+    `weight` (heads * head_dim, in) and (out, heads * head_dim); their
+    (heads, head_dim) biases flattened
   Conv `kernel` (kh, kw, in, out) -> Conv2d `weight` (out, in, kh, kw)
   Embed `embedding`               -> Embedding `weight`
   LayerNorm/BatchNorm `scale`     -> `weight`; `bias` -> `bias`
   raw `positional_embedding`, `class_embedding`, `proj` -> the same name
 and the `batch_stats` tree's BatchNorm `mean` / `var` -> the buffers
 `running_mean` / `running_var`; e.g. `encoder/layer_3/attention/query/
-kernel` -> `encoder.layer_3.attention.query.weight`.
+kernel` -> `encoder.layer_3.attention.query.weight`. The LSTM of BERSON's
+pointer keeps Flax's eight Denses (`decoder/ii`, ..., `decoder/ho`), so it
+needs no rule of its own.
 
 HF text weights (`--model_name_or_path <dir with pytorch_model.bin>`) map
 by name onto the same keys of either encoder layout (the multimodal
@@ -66,8 +72,15 @@ def tree_to_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None
                 raise KeyError(f"unknown parameter leaf "
                                f"{'/'.join(path + (name,))}")
             arr = np.array(val, dtype=np.float32)  # a writable copy
-            if name == "kernel":  # Dense (in, out); Conv HWIO -> OIHW
-                arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+            if name == "kernel" and arr.ndim == 4:  # Conv HWIO -> OIHW
+                arr = arr.transpose(3, 2, 0, 1)
+            elif name == "kernel" and arr.ndim == 3:  # DenseGeneral
+                arr = (arr.reshape(-1, arr.shape[-1]) if path[-1] == "out"
+                       else arr.reshape(arr.shape[0], -1)).T
+            elif name == "kernel":  # Dense (in, out)
+                arr = arr.T
+            elif name == "bias" and arr.ndim == 2:  # DenseGeneral (h, d)
+                arr = arr.reshape(-1)
             out[".".join(path + (leaves[name],))] = torch.from_numpy(
                 np.ascontiguousarray(arr))
 
@@ -81,18 +94,24 @@ def params_from_jax(params: Mapping, cfg: MultimodalConfig,
                     batch_stats: Optional[Mapping] = None,
                     vision_cfg: Optional[CLIPVisionConfig] = None
                     ) -> Dict[str, torch.Tensor]:
-    """JAX `SequencingModel` params (nested dicts of numpy arrays, with or
-    without the outer `params` collection) and, for a model with
-    BatchNorms, its `batch_stats` tree -> a state dict for the port's
-    `SequencingModel(cfg, vision_cfg)`. Raises if the trees do not match
-    the model."""
+    """JAX `SequencingModel` or `BersonOrdering` params (nested dicts of
+    numpy arrays, with or without the outer `params` collection) and, for a
+    model with BatchNorms, its `batch_stats` tree -> a state dict for the
+    port's `SequencingModel(cfg, vision_cfg)`, or for `BersonOrdering(cfg,
+    vision_cfg)` when the tree has BERSON's `inner` encoder (with its
+    image-stream pairwise head when the tree has `img_projection`). Raises
+    if the trees do not match the model."""
+    from .berson import BersonOrdering
     if "params" in params:
         params = params["params"]
     if batch_stats is not None and "batch_stats" in batch_stats:
         batch_stats = batch_stats["batch_stats"]
     out = tree_to_state_dict(params, batch_stats)
     with torch.device("meta"):
-        want = SequencingModel(cfg, vision_cfg).state_dict()
+        model = (BersonOrdering(cfg, vision_cfg,
+                                multimodal_loss="img_projection" in params)
+                 if "inner" in params else SequencingModel(cfg, vision_cfg))
+        want = model.state_dict()
     missing = sorted(set(want) - set(out))
     extra = sorted(set(out) - set(want))
     if missing or extra:
@@ -256,17 +275,27 @@ def convert_clip_rn50(state_dict: Dict, layers=(3, 4, 6, 3)
     return out
 
 
-def _load_clip_visual_weights(model: SequencingModel, path: str) -> None:
+def encoder_of(model) -> torch.nn.Module:
+    """The text or multimodal encoder of a model: `inner` of BERSON,
+    `encoder` of the sequencer."""
+    return model.inner if hasattr(model, "inner") else model.encoder
+
+
+def _load_clip_visual_weights(model, path: str) -> None:
     """`--clip_visual_model_weights`: OpenAI CLIP weights (a file) or the
-    tower of a checkpoint of this package (a directory holding `model.pt`)
-    into `model.encoder.visual_model`, BatchNorm statistics included."""
-    tower = model.encoder.visual_model
+    tower of a checkpoint of this package (a directory holding `model.pt`,
+    of the sequencer or of BERSON) into the encoder's `visual_model`,
+    BatchNorm statistics included."""
+    tower = encoder_of(model).visual_model
     if os.path.isdir(path):
         from ..train.checkpoint import WEIGHTS_NAME
         sd = load_torch_state_dict(os.path.join(path, WEIGHTS_NAME))
-        prefix = "encoder.visual_model."
-        weights = {k[len(prefix):]: v for k, v in sd.items()
-                   if k.startswith(prefix)}
+        weights = {}
+        for prefix in ("encoder.visual_model.", "inner.visual_model."):
+            weights = {k[len(prefix):]: v for k, v in sd.items()
+                       if k.startswith(prefix)}
+            if weights:
+                break
     else:
         sd = filter_visual_state_dict(load_torch_state_dict(path))
         if tower.cfg.is_resnet:
@@ -276,12 +305,14 @@ def _load_clip_visual_weights(model: SequencingModel, path: str) -> None:
     tower.load_state_dict(weights)
 
 
-def load_pretrained_weights(model: SequencingModel, args) -> bool:
-    """Pretrained weights into `model` in place; returns whether any were
-    loaded.
+def load_pretrained_weights(model, args) -> bool:
+    """Pretrained weights into `model` (the sequencer or BERSON) in place;
+    returns whether any were loaded.
 
     `--model_name_or_path <dir>` holding `pytorch_model.bin`: its HF text
-    weights into `model.encoder`, text or multimodal (the token-type table
+    weights into the encoder (`encoder_of`: BERSON's `inner`, as the JAX
+    package's `apply_pretrained_to_state(..., encoder_key="inner")`), text
+    or multimodal (the token-type table
     tiled to `type_vocab_size` rows when that is above 2). Encoder weights
     the file lacks (a pooler, a token-type table) keep their init; a
     directory whose weights file is `model.safetensors` loads none, as in
@@ -301,7 +332,7 @@ def load_pretrained_weights(model: SequencingModel, args) -> bool:
     return loaded
 
 
-def _load_hf_text_weights(model: SequencingModel, args) -> bool:
+def _load_hf_text_weights(model, args) -> bool:
     path = getattr(args, "model_name_or_path", None)
     if not path or not os.path.isdir(path):
         return False
@@ -319,7 +350,7 @@ def _load_hf_text_weights(model: SequencingModel, args) -> bool:
                                    enc_cfg.num_hidden_layers)
     if enc_cfg.type_vocab_size > 2:
         text = resize_token_type_embeddings(text, enc_cfg.type_vocab_size)
-    unexpected = model.encoder.load_state_dict(
+    unexpected = encoder_of(model).load_state_dict(
         text, strict=False).unexpected_keys
     if unexpected:
         raise KeyError(f"HF weights the encoder has no place for: "

@@ -92,17 +92,19 @@ def dropout(x: torch.Tensor, p: float, rng: Optional[DropoutRng]):
 
 
 class Dense(nn.Linear):
-    """Flax `nn.Dense(dtype=...)`: f32 (out, in) weight and bias; input,
-    weight and bias are cast to the compute dtype for the product."""
+    """Flax `nn.Dense(dtype=..., use_bias=...)`: f32 (out, in) weight and
+    bias; input, weight and bias are cast to the compute dtype for the
+    product."""
 
     def __init__(self, in_features: int, out_features: int,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__(in_features, out_features)
+                 dtype: torch.dtype = torch.float32, bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = dtype
 
     def forward(self, x):
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        return F.linear(x.to(dt), self.weight.to(dt),
+                        None if self.bias is None else self.bias.to(dt))
 
 
 class Embed(nn.Embedding):

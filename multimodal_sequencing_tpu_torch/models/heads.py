@@ -6,13 +6,14 @@ representations with a low-rank bilinear form plus a pairwise MLP term,
 squashed by a sigmoid (v1/v2) or tanh (v3). The pair MLP's GELU is the tanh
 approximation, as Flax `nn.gelu`'s default is in the JAX package. Its
 layers compute in the dtype of the step representations, as the JAX head's
-`dtype=step_reprs.dtype`.
+`dtype=step_reprs.dtype`: the encoder's compute dtype under the sequencer,
+f32 under BERSON (`dtype`).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,10 +44,11 @@ def gather_step_cls(sequence_output: torch.Tensor, input_ids: torch.Tensor,
 class HeatmapHead(nn.Module):
     """N x N precedence heatmap over step CLS representations."""
 
-    def __init__(self, cfg: MultimodalConfig):
+    def __init__(self, cfg: MultimodalConfig,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.version = cfg.hierarchical_version
-        hs, dt = cfg.encoder.hidden_size, cfg.encoder.compute_dtype
+        hs, dt = cfg.encoder.hidden_size, dtype or cfg.encoder.compute_dtype
         self.parent_proj = Dense(hs, hs, dt)
         self.child_proj = Dense(hs, hs, dt)
         self.pair_mlp = Dense(2 * hs, hs // 2, dt)

@@ -147,7 +147,9 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
     initializers, drawn on the CPU with an explicit generator so a seed
     gives the same model on every device: Dense and Conv kernels
     `lecun_normal` (a normal truncated at two standard deviations, variance
-    1 / fan_in, fan_in = kh * kw * cin for a conv), Embed tables normal with
+    1 / fan_in, fan_in = kh * kw * cin for a conv, the input width for
+    Flax's multi-head projections: heads * head_dim for their output), the
+    LSTM's recurrent kernels orthogonal, Embed tables normal with
     std 1 / sqrt(features), zero biases, unit LayerNorm and BatchNorm
     scales, BatchNorm running mean 0 and variance 1; the CLIP towers' raw
     parameters as their modules declare them (attention-pool positions
@@ -157,9 +159,13 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, nn.Linear):
-                mod.weight.copy_(_lecun_normal(mod.weight.shape,
-                                               mod.in_features, gen))
-                mod.bias.zero_()
+                if getattr(mod, "recurrent", False):
+                    nn.init.orthogonal_(mod.weight, generator=gen)
+                else:
+                    mod.weight.copy_(_lecun_normal(mod.weight.shape,
+                                                   mod.in_features, gen))
+                if mod.bias is not None:
+                    mod.bias.zero_()
             elif isinstance(mod, Conv):
                 o, i, kh, kw = mod.weight.shape
                 mod.weight.copy_(_lecun_normal(mod.weight.shape, i * kh * kw,

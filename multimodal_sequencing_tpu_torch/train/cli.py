@@ -10,6 +10,16 @@
       --model_name_or_path <dir>/checkpoint-N --task_name wikihow_sort \\
       --sort_method heat_map ... [--device cuda]
 
+`--wrapper_model_type berson` trains the BERSON ordering wrapper
+(`models/berson.py`) over the text encoder or, with `--multimodal`, the
+CLIP encoder (`--wrapper_model_with_heatmap`, `--multimodal_loss`,
+`--additional_wrapper_level_objectives time_contrastive`, `--beam_size`,
+`--pairwise_loss_lam`); its `--evaluate_during_training` and `--do_eval`
+run the beam search over `BersonDataset` stories, the sweep writing
+`eval_results_split_{split}_{checkpoint}.txt`. `trainers.eval --sort_method
+berson` evaluates a BERSON checkpoint (its `config.json` records
+`wrapper_model_type`) with the beam width and lambda of the flags.
+
 `build_parser` has every option of the JAX package's parser, with the same
 names, types, defaults and choices, plus `--device` (default `cuda`; without
 a card the run fails unless `--device cpu` is given). Options of paths the
@@ -219,9 +229,6 @@ _NOT_YET = {
     "caption_transformations": "caption transformations",
     "include_num_img_regional_features": "the VisualBERT encoder",
     "vision_model_checkpoint": "the naive and FPN vision towers",
-    "wrapper_model_type": "BERSON",
-    "wrapper_model_with_heatmap": "BERSON",
-    "additional_wrapper_level_objectives": "BERSON",
     "multimodal_pretrain_objectives": "pretraining",
     "model_parallel_size": "the parallelism layer",
     "pipeline_parallel_size": "the parallelism layer",
@@ -245,6 +252,13 @@ def parse_args(kind: str, argv=None):
         raise NotImplementedError(
             "--hl_include_objectives: the port trains heatmap_pairwise_ranking "
             "so far; the head/binary/itm/mlm heads come with a later slice")
+    extra = set(args.additional_wrapper_level_objectives or []) - {
+        "time_contrastive"}
+    if extra:
+        # the JAX package reads time_contrastive alone and skips the rest
+        logger.warning("--additional_wrapper_level_objectives %s: not an "
+                       "objective of the wrapper; ignored, as in the JAX "
+                       "package", sorted(extra))
     return args
 
 
@@ -335,6 +349,8 @@ def build_config(args):
         heatmap_decode_method=args.heatmap_decode_method,
         heatmap_decode_beam_size=args.heatmap_decode_beam_size,
         device_decode=args.device_decode,
+        wrapper_model_type=args.wrapper_model_type,
+        wrapper_model_with_heatmap=args.wrapper_model_with_heatmap,
     )
     if args.multimodal_fusion_method != "sum":
         logger.warning(
@@ -475,6 +491,17 @@ def _sort_loader(args, tokenizer, data_name, split):
     return data_loader(ds, args.per_gpu_eval_batch_size)
 
 
+def build_berson(cfg, args):
+    """The BERSON wrapper of the flags (JAX `build_model`'s berson branch)."""
+    from ..models.berson import BersonOrdering
+    extra = args.additional_wrapper_level_objectives or []
+    return BersonOrdering(cfg, vision_config(cfg, args),
+                          beam_size=args.beam_size,
+                          pairwise_loss_lam=args.pairwise_loss_lam,
+                          time_contrastive="time_contrastive" in extra,
+                          multimodal_loss=args.multimodal_loss)
+
+
 def _evaluator(args, cfg, tokenizer, device):
     from ..data.packing import StoryPacker
     from .evaluation import SortEvaluator
@@ -488,12 +515,14 @@ def _evaluator(args, cfg, tokenizer, device):
 
 
 def main_train(argv=None):
-    """Fine-tune the heat-map sequencer; with `--do_eval` evaluate the
-    checkpoints afterwards. Returns the loop's `TrainResult` (its
-    `eval_results` maps checkpoint name -> metrics)."""
+    """Fine-tune the heat-map sequencer, or with `--wrapper_model_type
+    berson` the BERSON wrapper; with `--do_eval` evaluate the checkpoints
+    afterwards. Returns the loop's `TrainResult` (its `eval_results` maps
+    checkpoint name -> metrics, for BERSON checkpoint name -> split ->
+    metrics)."""
     args = parse_args("train", argv)
     logging.basicConfig(level=logging.INFO)
-    if args.multimodal_loss:
+    if args.multimodal_loss and args.wrapper_model_type != "berson":
         # the reference reads --multimodal_loss only inside the BERSON
         # wrapper
         logger.warning("--multimodal_loss has no effect without "
@@ -505,6 +534,9 @@ def main_train(argv=None):
     data_name, task_type = _parse_task(args)
     if task_type == "hl_v1" and cfg.hierarchical_version == "v0":
         args.hierarchical_version = cfg.hierarchical_version = "v1"
+    if args.wrapper_model_type == "berson":
+        return _train_berson(args, cfg, tokenizer, data_name, task_type,
+                             device)
     if task_type not in ("hl_v1", "pure_class") or \
             cfg.hierarchical_version not in ("v1", "v2", "v3"):
         raise NotImplementedError(
@@ -538,6 +570,89 @@ def main_train(argv=None):
             result.eval_results[os.path.basename(ck)] = res
             logger.info("eval %s: %s", os.path.basename(ck), res)
     return result
+
+
+def _train_berson(args, cfg, tokenizer, data_name, task_type, device):
+    """`main_train`'s BERSON branch: train, then with `--do_eval` run the
+    beam-search eval of every checkpoint (or the final model) over every
+    eval split, each result written to
+    `eval_results_split_{split}_{checkpoint}.txt`."""
+    from ..data.datasets import BersonDataset
+    from .checkpoint import find_checkpoints, restore_checkpoint
+    from .loop import run_berson_training
+
+    dataset = BersonDataset(
+        load_examples(args, data_name, task_type, args.train_split),
+        tokenizer, scramble=True, **dataset_kwargs(args))
+    eval_fn = None
+    if args.evaluate_during_training:
+        eval_fn = _make_berson_eval_fn(args, tokenizer, data_name,
+                                       args.eval_splits[0], device)
+    result = run_berson_training(cfg, build_berson(cfg, args), dataset, args,
+                                 device, eval_fn=eval_fn, tokenizer=tokenizer)
+    logger.info("training done at step %d; checkpoints in %s",
+                result.global_step, args.output_dir)
+    if not args.do_eval:
+        return result
+    ckpts = find_checkpoints(
+        args.output_dir,
+        None if args.eval_all_checkpoints else args.iters_to_eval)
+    for split in args.eval_splits:
+        eval_fn = _make_berson_eval_fn(args, tokenizer, data_name, split,
+                                       device)
+        if eval_fn is None:
+            continue
+        for ck in ckpts or [None]:
+            if ck:
+                restore_checkpoint(ck, result.model)
+            res = eval_fn(result.model)
+            tag = (os.path.basename(ck.rstrip("/")) if ck
+                   else f"checkpoint-{result.global_step}")
+            logger.info("berson eval %s split %s: %s", tag, split, res)
+            result.eval_results.setdefault(tag, {})[split] = res
+            with open(os.path.join(
+                    args.output_dir,
+                    f"eval_results_split_{split}_{tag}.txt"), "w") as f:
+                for k, v in sorted(res.items()):
+                    f.write(f"{k} = {v}\n")
+    return result
+
+
+def _make_berson_eval_fn(args, tokenizer, data_name, split, device):
+    """The beam-search metrics (partial match, exact match, tau) of a BERSON
+    model over `BersonDataset` stories of `split`, as the JAX package's
+    `_make_berson_eval_fn`: the orders as the beam search returns them,
+    against the labels padded with the dead step indices. None when the
+    split has no data."""
+    import numpy as np
+    from ..data.datasets import BersonDataset, data_loader
+    from ..utils.metrics import compute_metrics
+    from .steps import device_batch
+    try:
+        examples = load_examples(args, data_name, "sort", split)
+    except (FileNotFoundError, ValueError) as e:
+        logger.warning("no dev split for berson eval: %s", e)
+        return None
+    ds = BersonDataset(examples, tokenizer, scramble=True,
+                       **dataset_kwargs(args))
+
+    def eval_fn(model):
+        model.eval()
+        preds, labels = [], []
+        for bi, batch in enumerate(data_loader(
+                ds, args.per_gpu_eval_batch_size)):
+            if args.max_eval_steps is not None and bi >= args.max_eval_steps:
+                break
+            with torch.inference_mode():
+                pred = model.beam_search(device_batch(batch, device))
+            for i, p in enumerate(pred.cpu().numpy()):
+                if batch["valid"][i]:
+                    preds.append(p.tolist())
+                    labels.append(np.asarray(batch["labels"][i]))
+        return {m: compute_metrics(args, m, preds, labels)
+                for m in ("partial_match", "exact_match", "tau")}
+
+    return eval_fn
 
 
 def _make_dev_eval_fn(args, cfg, tokenizer, data_name, device):
@@ -586,10 +701,11 @@ def run_eval(argv=None):
     args.output_dir = resolve_output_dir(args)
     cfg, tokenizer = build_config(args)
     data_name, _ = _parse_task(args)
-    if args.sort_method != "heat_map":
+    if args.sort_method not in ("heat_map", "berson"):
         raise NotImplementedError(
             f"--sort_method {args.sort_method}: the port evaluates heat_map "
-            f"so far; the other methods come with later slices")
+            f"and berson so far; the other methods come with later slices")
+    role = "heatmap" if args.sort_method == "heat_map" else "berson"
     evaluator = _evaluator(args, cfg, tokenizer, device)
     base_path = args.model_name_or_path_1 or args.model_name_or_path
     paths = [base_path]
@@ -602,8 +718,10 @@ def run_eval(argv=None):
         ) or paths
     all_results = {}
     for path in paths:
-        models = {"heatmap": load_model_for_eval(
-            cfg, path, device, vision_config(cfg, args))}
+        models = {role: load_model_for_eval(
+            cfg, path, device, vision_config(cfg, args), role=role,
+            beam_size=args.beam_size,
+            pairwise_loss_lam=args.pairwise_loss_lam)}
         tag = os.path.basename(str(path).rstrip("/")) if len(paths) > 1 \
             else None
         results = {}
@@ -630,24 +748,41 @@ _SAVED_FIELDS = ("encoder", "hierarchical_version", "multimodal",
                  "multimodal_model_type", "clip_model_name",
                  "multimodal_text_part", "multimodal_img_part",
                  "use_positional_embedding", "use_token_type_embedding",
-                 "image_size")
+                 "image_size", "wrapper_model_with_heatmap")
 
 
-def load_model_for_eval(cfg, path: Optional[str], device, vision_cfg=None):
-    """The heat-map model on `device`, ready for inference: the checkpoint at
-    `path` when it is a directory (its saved encoder, head version and
-    multimodal fields, and its tower's `vision_config.json`; `vision_cfg`
-    where a multimodal checkpoint has none), else a fresh init seeded from
-    0 (with `vision_cfg`'s tower). A directory that is not a checkpoint of
-    this package (a local HF model, a run directory) raises ValueError."""
+def load_model_for_eval(cfg, path: Optional[str], device, vision_cfg=None,
+                        role: str = "heatmap", beam_size: int = 16,
+                        pairwise_loss_lam: float = 0.6):
+    """The model of an eval `role` on `device`, ready for inference: the
+    heat-map sequencer (`heatmap`) or `BersonOrdering` (`berson`, built
+    with `beam_size` and `pairwise_loss_lam` and without the image-stream
+    pairwise head, as the JAX eval builds it). The checkpoint at `path`
+    when it is a directory (its saved encoder, head version, heat-map aux
+    and multimodal fields, and its tower's `vision_config.json`;
+    `vision_cfg` where a multimodal checkpoint has none), else a fresh init
+    seeded from 0 (with `vision_cfg`'s tower). A directory that is not a
+    checkpoint of this package (a local HF model, a run directory), a
+    checkpoint of the other model, and a BERSON checkpoint trained with
+    `--multimodal_loss` (whose image-stream head the eval model lacks: the
+    JAX eval's restore refuses it too) raise ValueError."""
+    from ..models.berson import BersonOrdering
     from ..models.config import CLIPVisionConfig, MultimodalConfig
     from .checkpoint import VISION_CONFIG_NAME
     from ..models.sequencer import (HEATMAP_VERSIONS, SequencingModel,
                                     cast_for_inference, init_weights)
 
+    berson = role == "berson"
     role_cfg = copy.deepcopy(cfg)
-    if role_cfg.hierarchical_version not in HEATMAP_VERSIONS:
+    if not berson and role_cfg.hierarchical_version not in HEATMAP_VERSIONS:
         role_cfg.hierarchical_version = "v1"
+
+    def build(vcfg):
+        if berson:
+            return BersonOrdering(role_cfg, vcfg, beam_size=beam_size,
+                                  pairwise_loss_lam=pairwise_loss_lam)
+        return SequencingModel(role_cfg, vcfg)
+
     if path and os.path.isdir(path):
         if not os.path.exists(os.path.join(path, WEIGHTS_NAME)):
             hf = local_hf_model_files(path)
@@ -659,16 +794,29 @@ def load_model_for_eval(cfg, path: Optional[str], device, vision_cfg=None):
                    f"first" if hf else ""))
         with open(os.path.join(path, CONFIG_NAME)) as f:
             saved = MultimodalConfig.from_json(f.read())
+        if (saved.wrapper_model_type == "berson") != berson:
+            raise ValueError(
+                f"{path} is a checkpoint of "
+                f"{'BERSON' if not berson else 'the heat-map sequencer'}; "
+                f"evaluate it with --sort_method "
+                f"{'heat_map' if berson else 'berson'}")
         for name in _SAVED_FIELDS:
             setattr(role_cfg, name, getattr(saved, name))
         vision_path = os.path.join(path, VISION_CONFIG_NAME)
         if os.path.exists(vision_path):
             with open(vision_path) as f:
                 vision_cfg = CLIPVisionConfig.from_json(f.read())
-        model = SequencingModel(role_cfg, vision_cfg)
-        model.load_state_dict(torch.load(os.path.join(path, WEIGHTS_NAME),
-                                         map_location="cpu",
-                                         weights_only=True))
+        model = build(vision_cfg)
+        weights = torch.load(os.path.join(path, WEIGHTS_NAME),
+                             map_location="cpu", weights_only=True)
+        if berson and any(k.startswith("img_projection.") for k in weights):
+            raise ValueError(
+                f"{path} was trained with --multimodal_loss: the eval's "
+                f"BERSON has no image-stream pairwise head for its "
+                f"img_projection / img_pairwise weights (the JAX eval's "
+                f"restore refuses such a checkpoint as well); evaluate it "
+                f"with main_train's --do_eval")
+        model.load_state_dict(weights)
     else:
-        model = init_weights(SequencingModel(role_cfg, vision_cfg), 0)
+        model = init_weights(build(vision_cfg), 0)
     return cast_for_inference(model.to(device)).eval()

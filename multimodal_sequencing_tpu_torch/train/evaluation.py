@@ -1,5 +1,5 @@
-"""Sort-decode evaluation harness, heat-map method (counterpart of
-`train/evaluation.py`).
+"""Sort-decode evaluation harness, heat-map and BERSON methods (counterpart
+of `train/evaluation.py`).
 
 Each batch of stories is packed on the host, run through the model in
 fixed-size micro-batches on the evaluator's device (the tail padded by
@@ -8,8 +8,11 @@ JAX package; a multimodal story's images are padded the same way, which
 changes nothing in eval, where BatchNorm uses its running statistics), and
 the heat maps are decoded to orders on the host with the
 parity decoders of `utils/heatmap.py`, or with `--device_decode` on the
-evaluator's device (`ops/order_decode.py`). The other sort methods are
-later slices.
+evaluator's device (`ops/order_decode.py`). `berson` packs each story's
+pairs (`StoryPacker.pack_berson_story`, an identity label that the beam
+search does not read), encodes the whole batch at once and runs
+`BersonOrdering.beam_search` on the device; each order is cut to its
+story's length. The other sort methods are later slices.
 """
 
 from __future__ import annotations
@@ -58,12 +61,14 @@ def _batched_apply(apply_fn: Callable[[Dict[str, np.ndarray]], torch.Tensor],
 
 
 class SortEvaluator:
-    """Evaluate heat-map ordering models over a SortDataset-style loader.
+    """Evaluate ordering models over a SortDataset-style loader.
 
     `forwards` counts model forwards. For each batch, `forward_seconds`
     holds the host wall time of packing, the forwards and the copy back,
     and `decode_seconds` that of decoding the heat maps (on the host, or
-    on the device with `cfg.device_decode`)."""
+    on the device with `cfg.device_decode`); for `berson`, of packing and
+    encoding the pairs, and of the beam search with the orders' copy
+    back."""
 
     def __init__(self, cfg, packer, device: torch.device,
                  micro_batch: int = 64):
@@ -190,7 +195,36 @@ class SortEvaluator:
                                 all_labels, res)
         return res
 
+    def berson_orders(self, model, stories: List[List[str]],
+                      images: Optional[np.ndarray] = None
+                      ) -> List[List[int]]:
+        """`BersonOrdering.beam_search` over the batch, each order cut to
+        its story's length; times its two parts."""
+        t0 = time.perf_counter()
+        items = [self.packer.pack_berson_story(
+            texts, list(range(len(texts))),
+            max_story_length=self.cfg.max_story_length) for texts in stories]
+        batch = {k: torch.from_numpy(np.stack([it[k] for it in items])).to(
+            self.device, torch.long) for k in items[0]}
+        if images is not None:
+            batch["images"] = torch.from_numpy(np.asarray(images)).to(
+                self.device)
+        with torch.inference_mode():
+            enc = model.encode(batch)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            t1 = time.perf_counter()
+            pred = model.beam_search(batch, enc).cpu().numpy()
+        self.forwards += 1
+        self.forward_seconds.append(t1 - t0)
+        self.decode_seconds.append(time.perf_counter() - t1)
+        # strip the -1 tail of stories shorter than max_story_length
+        return [[int(x) for x in p[:len(texts)]]
+                for p, texts in zip(pred, stories)]
+
     def _decode_batch(self, sort_method, models, stories, images=None):
+        if sort_method == "berson":
+            return self.berson_orders(models["berson"], stories, images)
         if sort_method == "heat_map":
             t0 = time.perf_counter()
             hms = self.story_logits(models["heatmap"], stories, images)
@@ -200,8 +234,8 @@ class SortEvaluator:
             self.decode_seconds.append(time.perf_counter() - t1)
             return preds
         raise NotImplementedError(
-            f"sort_method {sort_method}: the port decodes heat maps so far; "
-            f"the other methods come with later slices")
+            f"sort_method {sort_method}: the port decodes heat maps and "
+            f"BERSON so far; the other methods come with later slices")
 
     def _write_outputs(self, output_dir, split, guids, preds, labels, res):
         os.makedirs(output_dir, exist_ok=True)

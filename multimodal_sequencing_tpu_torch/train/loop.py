@@ -1,5 +1,6 @@
-"""Fine-tuning loop on one device (counterpart of `train/loop.py::
-run_finetune` and `MetricWriter`).
+"""Fine-tuning loops on one device (counterpart of `train/loop.py::
+run_finetune` and `MetricWriter`, and of the JAX CLI's
+`_run_berson_training`).
 
 The step count and epochs, the shuffled per-epoch loader, the scalar log
 (`logs/scalars.jsonl`, plus TensorBoard when it imports), periodic and final
@@ -9,6 +10,12 @@ checkpoint (`checkpoint-best`) kept on partial + exact match, as the JAX
 loop does. One eager `train_step` per batch; the host prepares the next
 batches on a thread meanwhile. The mlm/itm host surgery of the auxiliary
 objectives comes with those heads.
+
+`run_berson_training` is the BERSON wrapper's loop, as the JAX package runs
+it on one device: the same steps and epochs but for fractional
+`--num_train_epochs`, no resume, the time-contrastive plan drawn on the
+host from `default_rng(seed + 11)` for each batch, `berson_train_step`,
+and the beam-search eval at each save with the best checkpoint.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from ..data.datasets import data_loader, prefetch
@@ -27,8 +35,9 @@ from ..models.convert import load_pretrained_weights
 from ..models.sequencer import init_weights
 from .checkpoint import (find_checkpoints, parse_step_from_name,
                          restore_checkpoint, save_checkpoint)
+from .objectives import plan_objective
 from .state import AdamW
-from .steps import train_step
+from .steps import berson_train_step, train_step
 
 logger = logging.getLogger(__name__)
 
@@ -82,11 +91,12 @@ def run_finetune(cfg, model, train_dataset, args, device,
     args needs: per_gpu_train_batch_size, learning_rate, weight_decay,
     adam_epsilon, max_grad_norm, num_train_epochs, max_steps, warmup_steps,
     gradient_accumulation_steps, logging_steps, save_steps, seed,
-    output_dir, overwrite_output_dir, do_not_load_optimizer,
-    evaluate_during_training. `tokenizer`, when given, is saved into every
-    checkpoint."""
-    batch_size = args.per_gpu_train_batch_size
-    steps_per_epoch = max(1, len(train_dataset) // batch_size)
+    output_dir, overwrite_output_dir, do_not_load_optimizer.
+    `eval_fn(model)` runs at each save (the CLI passes it with
+    `--evaluate_during_training`). `tokenizer`, when given, is saved into
+    every checkpoint."""
+    steps_per_epoch = max(1, len(train_dataset)
+                          // args.per_gpu_train_batch_size)
     if args.max_steps > 0:
         total_steps = args.max_steps
         epochs = max(1, total_steps // steps_per_epoch + 1)
@@ -94,15 +104,7 @@ def run_finetune(cfg, model, train_dataset, args, device,
         epochs = int(args.num_train_epochs)
         total_steps = steps_per_epoch * epochs
 
-    model = init_weights(model, args.seed)
-    load_pretrained_weights(model, args)
-    model = model.to(device)
-    optimizer = AdamW(
-        model, learning_rate=args.learning_rate,
-        warmup_steps=args.warmup_steps, total_steps=total_steps,
-        weight_decay=args.weight_decay, adam_epsilon=args.adam_epsilon,
-        max_grad_norm=args.max_grad_norm,
-        grad_accum_steps=args.gradient_accumulation_steps)
+    model, optimizer = _model_and_optimizer(model, args, device, total_steps)
 
     start_step = 0
     if not args.overwrite_output_dir:
@@ -119,47 +121,132 @@ def run_finetune(cfg, model, train_dataset, args, device,
             logger.info("resumed from %s at step %d (optimizer %s)", latest,
                         start_step, "loaded" if load_opt else "reset")
 
-    training_args = vars(args)
+    return _train_loop(cfg, model, optimizer, train_dataset, args, epochs,
+                       total_steps, train_step, eval_fn=eval_fn,
+                       tokenizer=tokenizer, start_step=start_step)
+
+
+def run_berson_training(cfg, model, train_dataset, args, device,
+                        eval_fn: Optional[Callable] = None,
+                        tokenizer=None) -> TrainResult:
+    """Train `BersonOrdering` on a `BersonDataset`: fresh init from
+    `args.seed`, the HF text weights of a `--model_name_or_path` directory
+    into its `inner` encoder, then the step loop. `eval_fn(model)` (the
+    beam-search eval) runs at each save, and the best partial + exact
+    match is kept as `checkpoint-best`. args as `run_finetune`'s, plus
+    additional_wrapper_level_objectives."""
+    steps_per_epoch = max(1, len(train_dataset)
+                          // args.per_gpu_train_batch_size)
+    if args.max_steps > 0:
+        total_steps = args.max_steps
+        epochs = total_steps // steps_per_epoch + 1
+    else:  # a fractional --num_train_epochs counts
+        epochs = max(1, int(args.num_train_epochs))
+        total_steps = int(steps_per_epoch * args.num_train_epochs)
+    model, optimizer = _model_and_optimizer(model, args, device, total_steps)
+    prepare = None
+    if "time_contrastive" in (args.additional_wrapper_level_objectives
+                              or []):
+        tc_rng = np.random.default_rng(args.seed + 11)
+
+        def prepare(batch):
+            _, tc = plan_objective("time_contrastive",
+                                   {"input_ids": batch["input_ids"][:, 0]},
+                                   cfg, tc_rng)
+            batch.update(tc_anchor=tc["anchor_idx"],
+                         tc_positive=tc["positive_idx"],
+                         tc_negative=tc["negative_idx"])
+
+    return _train_loop(cfg, model, optimizer, train_dataset, args, epochs,
+                       total_steps, berson_train_step, eval_fn=eval_fn,
+                       tokenizer=tokenizer, prepare=prepare)
+
+
+def _train_loop(cfg, model, optimizer, train_dataset, args, epochs: int,
+                total_steps: int, step_fn: Callable,
+                eval_fn: Optional[Callable] = None, tokenizer=None,
+                start_step: int = 0,
+                prepare: Optional[Callable] = None) -> TrainResult:
+    """The step loop of both trainers: `epochs` shuffled passes, cut at
+    `total_steps`; `prepare(batch)` on the host, then `step_fn(model,
+    optimizer, batch, step, seed)`; logging, saves (with `eval_fn` and the
+    best checkpoint) and the final save."""
     writer = MetricWriter(os.path.join(args.output_dir, "logs"))
     result = TrainResult(model, optimizer, start_step, time.perf_counter())
     best_score = float("-inf")
     global_step = start_step
     for epoch in range(epochs):
-        for batch in prefetch(data_loader(train_dataset, batch_size,
+        for batch in prefetch(data_loader(train_dataset,
+                                          args.per_gpu_train_batch_size,
                                           shuffle=True, seed=args.seed,
                                           epoch=epoch)):
-            out = train_step(model, optimizer, batch, global_step, args.seed)
+            if prepare is not None:
+                prepare(batch)
+            out = step_fn(model, optimizer, batch, global_step, args.seed)
             global_step += 1
             if global_step % args.logging_steps == 0:
-                loss, gn = float(out["loss"]), float(out["grad_norm"])
-                now = time.perf_counter()
-                writer.scalar("train/loss", loss, global_step)
-                writer.scalar("train/grad_norm", gn, global_step)
-                writer.scalar("train/steps_per_sec", (global_step - start_step)
-                              / (now - result.start_time), global_step)
-                result.history.append({"step": global_step, "loss": loss,
-                                       "grad_norm": gn, "time": now})
-                logger.info("step %d loss %.4f", global_step, loss)
-            save_now = args.save_steps and global_step % args.save_steps == 0
-            if save_now:
-                save_checkpoint(args.output_dir, global_step, model, optimizer,
-                                cfg, training_args, tokenizer=tokenizer)
-            if save_now and args.evaluate_during_training and eval_fn:
-                res = eval_fn(model)
-                for k, v in res.items():
-                    writer.scalar(f"eval/{k}", v, global_step)
-                score = res.get("partial_match", 0) + res.get("exact_match", 0)
-                if score > best_score:
-                    best_score = score
-                    save_checkpoint(args.output_dir, global_step, model,
-                                    optimizer, cfg, training_args, name="best",
-                                    tokenizer=tokenizer)
+                _log_step(writer, result, out, global_step, start_step)
+            if args.save_steps and global_step % args.save_steps == 0:
+                best_score = _save_and_eval(
+                    args, cfg, model, optimizer, global_step, tokenizer,
+                    writer, eval_fn, best_score)
             if global_step >= total_steps:
                 break
         if global_step >= total_steps:
             break
     save_checkpoint(args.output_dir, global_step, model, optimizer, cfg,
-                    training_args, tokenizer=tokenizer)
+                    vars(args), tokenizer=tokenizer)
     writer.close()
     result.global_step = global_step
     return result
+
+
+def _model_and_optimizer(model, args, device, total_steps: int):
+    """The model's fresh init from `args.seed` and pretrained weights, on
+    `device`, and its AdamW."""
+    model = init_weights(model, args.seed)
+    load_pretrained_weights(model, args)
+    model = model.to(device)
+    optimizer = AdamW(
+        model, learning_rate=args.learning_rate,
+        warmup_steps=args.warmup_steps, total_steps=total_steps,
+        weight_decay=args.weight_decay, adam_epsilon=args.adam_epsilon,
+        max_grad_norm=args.max_grad_norm,
+        grad_accum_steps=args.gradient_accumulation_steps)
+    return model, optimizer
+
+
+def _log_step(writer, result: TrainResult, out: Dict, global_step: int,
+              start_step: int) -> None:
+    """Loss, gradient norm and steps/s of a logged step (the host waits for
+    the step's loss here)."""
+    loss, gn = float(out["loss"]), float(out["grad_norm"])
+    now = time.perf_counter()
+    writer.scalar("train/loss", loss, global_step)
+    writer.scalar("train/grad_norm", gn, global_step)
+    writer.scalar("train/steps_per_sec", (global_step - start_step)
+                  / (now - result.start_time), global_step)
+    result.history.append({"step": global_step, "loss": loss,
+                           "grad_norm": gn, "time": now})
+    logger.info("step %d loss %.4f", global_step, loss)
+
+
+def _save_and_eval(args, cfg, model, optimizer, step: int, tokenizer, writer,
+                   eval_fn: Optional[Callable], best_score: float) -> float:
+    """`checkpoint-{step}`, then `eval_fn(model)` when given, and
+    `checkpoint-best` when its partial + exact match beats `best_score`;
+    returns the best score."""
+    save_checkpoint(args.output_dir, step, model, optimizer, cfg, vars(args),
+                    tokenizer=tokenizer)
+    if eval_fn is None:
+        return best_score
+    res = eval_fn(model)
+    for k, v in res.items():
+        writer.scalar(f"eval/{k}", v, step)
+    logger.info("eval @%d: %s", step, res)
+    score = res.get("partial_match", 0) + res.get("exact_match", 0)
+    if score > best_score:
+        save_checkpoint(args.output_dir, step, model, optimizer, cfg,
+                        vars(args), name="best", tokenizer=tokenizer)
+        return score
+    return best_score

@@ -1,7 +1,10 @@
-"""Loss and train step (counterpart of `train/steps.py`, heat-map heads).
+"""Loss and train steps (counterpart of `train/steps.py`: the heat-map
+heads' step and BERSON's).
 
 `train_step` is one eager step: forward in train mode, the task loss,
 backward, the gradient norm, and the optimizer update (`train/state.py`).
+`berson_train_step` is the same around BERSON, whose forward returns its
+own loss.
 Its dropout streams derive from (seed + 1, step), as the JAX step folds the
 step into `PRNGKey(seed + 1)`. A multimodal batch's `images` go to the
 model as shipped (uint8 or f32); the train-mode forward updates the vision
@@ -88,6 +91,24 @@ def train_step(model, optimizer, batch: dict, step: int, seed: int
                     deterministic=False,
                     rng=DropoutRng(seed + 1, step, device))
     loss, _ = compute_loss(model.cfg, outputs, db)
+    return _update(optimizer, loss)
+
+
+def berson_train_step(model, optimizer, batch: dict, step: int, seed: int
+                      ) -> Dict[str, torch.Tensor]:
+    """One train step of `BersonOrdering` on `batch` (a collated numpy batch
+    of `BersonDataset`, with the time-contrastive plan's `tc_*` entries when
+    that objective is on): its loss as the model returns it, then the same
+    clipping and AdamW update as `train_step`, with the same dropout
+    streams; a multimodal inner's BatchNorm statistics update once."""
+    device = next(model.parameters()).device
+    model.train()
+    out = model(device_batch(batch, device), deterministic=False,
+                rng=DropoutRng(seed + 1, step, device))
+    return _update(optimizer, out["loss"])
+
+
+def _update(optimizer, loss: torch.Tensor) -> Dict[str, torch.Tensor]:
     optimizer.zero_grad()
     loss.backward()
     grad_norm = optimizer.step(optimizer.grads())

@@ -291,7 +291,7 @@ def test_parser_options_match_jax(kind):
 @pytest.mark.parametrize("flag", [["--include_num_img_regional_features",
                                    "4"], ["--fsdp"],
                                   ["--profile_dir", "profile"],
-                                  ["--wrapper_model_type", "berson"],
+                                  ["--pipeline_parallel_size", "2"],
                                   ["--hl_include_objectives", "head"],
                                   ["--model_parallel_size", "2"]])
 def test_options_of_later_slices_raise(wikihow_dir, tmp_path, flag):
