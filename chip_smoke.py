@@ -112,6 +112,16 @@ BERSON_PER_FORWARD = {"flash_fwd": 24, "flash_bwd_prep": 24,
                       "layer_norm_fwd": 53, "layer_norm_bwd": 53}
 BERSON_MM_PER_FORWARD = {k: v + (0 if k.startswith("gelu") else 1)
                          for k, v in BERSON_PER_FORWARD.items()}
+# pretraining (models/pretrainer.py): the objectives that subsample keep 2
+# of a story's 5 steps, 2 x 60 text tokens and a folded stream of
+# 2 x 7 x 7 + 1 = 99 visual tokens, at the launchers' batch of 4 stories;
+# the image-only launcher cuts the language to its CLS token (bert-base:
+# 12 heads of 64, 12 layers)
+PRETRAIN_L = 120
+PRETRAIN_VISUAL = 2 * 7 * 7 + 1  # 99
+PRETRAIN_STEPS = 8        # the two RoBERTa-large runs
+PRETRAIN_IMG_STEPS = 4    # the image-only run
+PRETRAIN_DEV_STORIES = 4  # the dev split, at the launchers' eval batch of 1
 HF_ROBERTA_LARGE = {
     "architectures": ["RobertaForMaskedLM"], "model_type": "roberta",
     "hidden_size": 1024, "num_hidden_layers": 24, "num_attention_heads": 16,
@@ -193,6 +203,40 @@ KERNELS = {
                              "multimodal_sequencing_tpu/ops/attention.py:343"),
     "flash_bwd@pair_pool": (BWD_KERNEL,
                             "multimodal_sequencing_tpu/ops/attention.py:343"),
+    # pretraining's calls: the joint stream of a subsampled batch (4
+    # stories, S = 120 + 99), its RN50 attention pool (99 tokens, 32 heads,
+    # no mask), and the image-only launcher's stream (one text key + 99)
+    "flash_fwd@pretrain_joint": (
+        "multimodal_sequencing_tpu_torch/ops/csrc/flash_fwd.cu",
+        "multimodal_sequencing_tpu/ops/attention.py:126"),
+    "flash_fwd@pretrain_pool": (
+        "multimodal_sequencing_tpu_torch/ops/csrc/flash_fwd.cu",
+        "multimodal_sequencing_tpu/ops/attention.py:126"),
+    "flash_fwd@pretrain_img": (
+        "multimodal_sequencing_tpu_torch/ops/csrc/flash_fwd.cu",
+        "multimodal_sequencing_tpu/ops/attention.py:126"),
+    "flash_bwd@pretrain_joint": (
+        BWD_KERNEL, "multimodal_sequencing_tpu/ops/attention.py:343"),
+    "flash_bwd@pretrain_pool": (
+        BWD_KERNEL, "multimodal_sequencing_tpu/ops/attention.py:343"),
+    "flash_bwd@pretrain_img": (
+        BWD_KERNEL, "multimodal_sequencing_tpu/ops/attention.py:343"),
+    # the text run's stream (4 stories, S = 300: time_contrastive and the
+    # NSP objectives keep every step) and margin_loss's doubled rows of two
+    # steps; the dev evals' (`mlm_only`, batch 1, nothing subsampled): the
+    # launcher's joint stream (300 + 246) and its pool, the text run's, the
+    # image-only run's (one text key + 246); the visual transfer's fine-tune
+    # step at bert-base widths (S = 566) and its pool
+    **{f"flash_fwd@{name}": (
+        "multimodal_sequencing_tpu_torch/ops/csrc/flash_fwd.cu",
+        "multimodal_sequencing_tpu/ops/attention.py:126")
+       for name in ("pretrain_text", "pretrain_margin", "pretrain_eval",
+                    "pretrain_eval_pool", "pretrain_text_eval",
+                    "pretrain_img_eval", "pretrain_ft", "pretrain_ft_pool")},
+    **{f"flash_bwd@{name}": (
+        BWD_KERNEL, "multimodal_sequencing_tpu/ops/attention.py:343")
+       for name in ("pretrain_text", "pretrain_margin", "pretrain_ft",
+                    "pretrain_ft_pool")},
 }
 # (B, H, S, D) of the multimodal rows: joint train (batch 8), joint eval
 # (micro-batch 32), attention pool of a train batch (8 stories)
@@ -207,13 +251,29 @@ MM_SHAPES = {"joint": (8, 16, MM_JOINT_S, 64),
              "pair_pool": (BERSON_P, 32, BERSON_MM_S - BERSON_L, 64),
              # the text pairs of a beam-eval batch of 16 stories, every
              # third of 3 or 4 steps (fully masked rows)
-             "pair_eval": (16 * BERSON_P, 16, BERSON_L, 64)}
+             "pair_eval": (16 * BERSON_P, 16, BERSON_L, 64),
+             # pretraining: a subsampled batch's joint stream and pool, the
+             # image-only launcher's stream
+             "pretrain_joint": (4, 16, PRETRAIN_L + PRETRAIN_VISUAL, 64),
+             "pretrain_pool": (4, 32, PRETRAIN_VISUAL, 64),
+             "pretrain_img": (4, 12, 1 + PRETRAIN_VISUAL, 64),
+             "pretrain_text": (4, 16, 300, 64),
+             "pretrain_margin": (8, 16, PRETRAIN_L, 64),
+             "pretrain_eval": (1, 16, 300 + MM_VISUAL_TOKENS, 64),
+             "pretrain_eval_pool": (1, 32, MM_VISUAL_TOKENS, 64),
+             "pretrain_text_eval": (1, 16, 300, 64),
+             "pretrain_img_eval": (1, 12, 1 + MM_VISUAL_TOKENS, 64),
+             "pretrain_ft": (4, 12, MM_JOINT_S, 64),
+             "pretrain_ft_pool": (4, 32, MM_VISUAL_TOKENS, 64)}
 # the live steps of each story in `pair_eval`
 PAIR_EVAL_STEPS = tuple(5 if a % 3 else 3 + a % 2 for a in range(16))
 # the calls of an eval forward: forward only
-EVAL_ONLY = ("joint_eval", "pair_eval")
+EVAL_ONLY = ("joint_eval", "pair_eval", "pretrain_eval", "pretrain_eval_pool",
+             "pretrain_text_eval", "pretrain_img_eval")
 # the calls a train step makes with attention dropout
-PATH_DROPOUT = ("joint", "pair", "pair_joint")
+PATH_DROPOUT = ("joint", "pair", "pair_joint", "pretrain_joint",
+                "pretrain_img", "pretrain_text", "pretrain_margin",
+                "pretrain_ft")
 # the kernels each main path must launch
 PATH_KERNELS = {"eval": ("flash_fwd", "gelu_logit_erf_fwd", "layer_norm_fwd"),
                 "train": ("flash_fwd", "flash_bwd_prep", "flash_bwd_main",
@@ -228,7 +288,14 @@ PATH_KERNELS.update(hf_train=PATH_KERNELS["train"],
                     berson_train=PATH_KERNELS["train"],
                     berson_eval=PATH_KERNELS["eval"],
                     berson_mm_train=PATH_KERNELS["train"],
-                    berson_mm_eval=PATH_KERNELS["eval"])
+                    berson_mm_eval=PATH_KERNELS["eval"],
+                    pretrain_train=PATH_KERNELS["train"],
+                    pretrain_text=PATH_KERNELS["train"],
+                    pretrain_img=PATH_KERNELS["train"],
+                    pretrain_train_eval=PATH_KERNELS["eval"],
+                    pretrain_text_eval=PATH_KERNELS["eval"],
+                    pretrain_img_eval=PATH_KERNELS["eval"],
+                    pretrain_finetune=PATH_KERNELS["train"])
 # the launch counter behind each row of the `kernels` line, where it is
 # not the row's own name
 COUNTER = {"flash_bwd": "flash_bwd_main", "flash_bwd_dq": "flash_bwd_main",
@@ -245,7 +312,9 @@ COUNTER = {"flash_bwd": "flash_bwd_main", "flash_bwd_dq": "flash_bwd_main",
            "flash_fwd@pair_eval": "flash_fwd",
            "flash_bwd@pair": "flash_bwd_main",
            "flash_bwd@pair_joint": "flash_bwd_main",
-           "flash_bwd@pair_pool": "flash_bwd_main"}
+           "flash_bwd@pair_pool": "flash_bwd_main",
+           **{name: name.split("@")[0].replace("flash_bwd", "flash_bwd_main")
+              for name in KERNELS if "@pretrain_" in name}}
 # the path whose launches the multimodal rows of the `kernels` line show
 # (the wrappers count launches of every shape together)
 ROW_PATH = {"flash_fwd@joint": "mm_train", "flash_fwd@joint_eval": "mm_eval",
@@ -256,7 +325,25 @@ ROW_PATH = {"flash_fwd@joint": "mm_train", "flash_fwd@joint_eval": "mm_eval",
             "flash_bwd@pair_joint": "berson_mm_train",
             "flash_fwd@pair_pool": "berson_mm_train",
             "flash_bwd@pair_pool": "berson_mm_train",
-            "flash_fwd@pair_eval": "berson_eval"}
+            "flash_fwd@pair_eval": "berson_eval",
+            "flash_fwd@pretrain_joint": "pretrain_train",
+            "flash_bwd@pretrain_joint": "pretrain_train",
+            "flash_fwd@pretrain_pool": "pretrain_train",
+            "flash_bwd@pretrain_pool": "pretrain_train",
+            "flash_fwd@pretrain_img": "pretrain_img",
+            "flash_bwd@pretrain_img": "pretrain_img",
+            "flash_fwd@pretrain_text": "pretrain_text",
+            "flash_bwd@pretrain_text": "pretrain_text",
+            "flash_fwd@pretrain_margin": "pretrain_text",
+            "flash_bwd@pretrain_margin": "pretrain_text",
+            "flash_fwd@pretrain_eval": "pretrain_train_eval",
+            "flash_fwd@pretrain_eval_pool": "pretrain_train_eval",
+            "flash_fwd@pretrain_text_eval": "pretrain_text_eval",
+            "flash_fwd@pretrain_img_eval": "pretrain_img_eval",
+            "flash_fwd@pretrain_ft": "pretrain_finetune",
+            "flash_bwd@pretrain_ft": "pretrain_finetune",
+            "flash_fwd@pretrain_ft_pool": "pretrain_finetune",
+            "flash_bwd@pretrain_ft_pool": "pretrain_finetune"}
 # the f32 backward kernels: the check path, never launched by the bf16
 # train path
 F32_BWD = ("flash_bwd_dq_f32", "flash_bwd_dkv_f32")
@@ -400,17 +487,31 @@ def make_path_attention_inputs(name: str, dtype, seed: int):
     """q, k, v and the key mask of a multimodal or BERSON attention call
     (`MM_SHAPES`) as the path gives them to the kernels: head-split views
     of (B, S, H*D) projections. The joint stream keeps 260..320 text keys
-    of each row and every visual key; BERSON's pairs their two steps'
-    tokens (none for a dead pair), followed in the joint pairs by the 99
-    visual keys; the attention pools have no mask (all ones)."""
+    of each row and every visual key (the fine-tune stream too); BERSON's
+    pairs their two steps' tokens (none for a dead pair), followed in the
+    joint pairs by the 99 visual keys; pretraining's subsampled stream (and
+    margin_loss's rows) two steps' tokens and the 99 visual keys, its text
+    and dev-eval streams five steps' tokens and the 246 visual keys; the
+    attention pools have no mask (all ones), nor have the image-only
+    streams."""
     import torch
     b, h, s, d = MM_SHAPES[name]
     gen = torch.Generator(device="cpu").manual_seed(seed)
     q, k, v = (torch.randn((b, s, h, d), generator=gen).to("cuda", dtype)
                .transpose(1, 2) for _ in range(3))
     pos = torch.arange(s)[None, :]
-    if name in ("attnpool", "pair_pool"):
+    if name in ("attnpool", "pair_pool", "pretrain_pool", "pretrain_img",
+                "pretrain_eval_pool", "pretrain_img_eval", "pretrain_ft_pool"):
+        # the image-only stream: its one text key (a CLS) and the visual keys
         mask = torch.ones((b, s), dtype=torch.int32)
+    elif name in ("pretrain_joint", "pretrain_margin"):
+        # two steps of 20..60 text tokens (and the joint stream's 99 visual)
+        text = torch.randint(20, 61, (b, 2), generator=gen).sum(1)[:, None]
+        mask = ((pos < text) | (pos >= PRETRAIN_L)).to(torch.int32)
+    elif name in ("pretrain_text", "pretrain_text_eval", "pretrain_eval"):
+        # five steps of 20..60 text tokens (and the eval's 246 visual)
+        text = torch.randint(20, 61, (b, 5), generator=gen).sum(1)[:, None]
+        mask = ((pos < text) | (pos >= 300)).to(torch.int32)
     elif name in ("pair", "pair_eval"):
         live = (5, 3) if name == "pair" else PAIR_EVAL_STEPS
         mask = (pos < _pair_lengths(live, gen)[:, None]).to(torch.int32)
@@ -431,7 +532,12 @@ MM_KERNEL_CASES = [("joint", DROPOUT_P), ("joint", 0.0),
                    ("joint_eval", 0.0), ("attnpool", 0.0),
                    ("pair", DROPOUT_P), ("pair", 0.0), ("pair_eval", 0.0),
                    ("pair_joint", DROPOUT_P), ("pair_joint", 0.0),
-                   ("pair_pool", 0.0)]
+                   ("pair_pool", 0.0), ("pretrain_joint", DROPOUT_P),
+                   ("pretrain_pool", 0.0), ("pretrain_img", DROPOUT_P),
+                   ("pretrain_text", DROPOUT_P), ("pretrain_margin", DROPOUT_P),
+                   ("pretrain_eval", 0.0), ("pretrain_eval_pool", 0.0),
+                   ("pretrain_text_eval", 0.0), ("pretrain_img_eval", 0.0),
+                   ("pretrain_ft", DROPOUT_P), ("pretrain_ft_pool", 0.0)]
 
 
 def _attention_check(att, q, k, v, mask, p, seed, labels, backward=True):
@@ -3087,10 +3193,596 @@ def _berson_breakdown(model, seed, label, train_lens, eval_lens,
           **_by_class(prof, encode_ms + beam_ms, classes)})
 
 
+# ----- pretraining -----------------------------------------------------------
+
+
+PRETRAIN_OBJECTIVES = (
+    "image_swapping", "image_sequence_predictions",
+    "whole_image_sequence_swapping", "multimodal_swapping", "margin_loss",
+    "multimodal_margin_loss", "time_contrastive",
+    "patch_based_image_swapping", "patch_based_image_sequence_predictions",
+    "patch_based_mrm_classification", "swapping_based_nsp",
+    "sequence_based_nsp", "mlm_only")
+LAUNCHER_OBJECTIVES = ("image_swapping", "patch_based_image_swapping",
+                       "patch_based_mrm_classification")
+TEXT_OBJECTIVES = ("margin_loss", "time_contrastive", "swapping_based_nsp",
+                   "sequence_based_nsp")
+
+
+def _pretrain_model(seed, objectives, **enc):
+    """The CLIP-RN50 pretrainer at full width with 2 layers, f32
+    (RoBERTa-large over the joint stream, the RN50 tower at 224 px, frozen)
+    with the heads of `objectives`, the built-in tokenizer's ids, fresh
+    weights from `seed`."""
+    from multimodal_sequencing_tpu_torch.data.tokenization import (
+        SimpleWordTokenizer as Tok)
+    from multimodal_sequencing_tpu_torch.models.config import (
+        CLIPVisionConfig, EncoderConfig, MultimodalConfig)
+    from multimodal_sequencing_tpu_torch.models.pretrainer import (
+        SequencingPretrainer)
+    from multimodal_sequencing_tpu_torch.models.sequencer import init_weights
+    cfg = MultimodalConfig(
+        encoder=EncoderConfig.roberta_large(num_hidden_layers=2,
+                                            dtype="float32", **enc),
+        max_seq_length=300, per_seq_max_length=60, multimodal=True,
+        clip_model_name="RN50", image_size=(MM_IMAGE, MM_IMAGE),
+        freeze_vision_model=True, cls_id=Tok.CLS_ID, pad_id=Tok.PAD_ID,
+        mask_id=Tok.MASK_ID, multimodal_pretrain_objectives=list(objectives))
+    vcfg = CLIPVisionConfig.rn50(dtype="float32")
+    return cfg, init_weights(SequencingPretrainer(cfg, vcfg), seed)
+
+
+def _pretrain_plan(cfg, objective, seed, b=2, modality=None):
+    """A batch of `b` packed 5-step stories (steps of 10..60 random words)
+    with their step images, masked (p = 0.1) and planned for `objective`
+    from `default_rng(seed)`; for multimodal_margin_loss the first seed
+    from `seed` on whose plan draws `modality`."""
+    import numpy as np
+    from multimodal_sequencing_tpu_torch.data.packing import StoryPacker
+    from multimodal_sequencing_tpu_torch.data.tokenization import (
+        SimpleWordTokenizer)
+    from multimodal_sequencing_tpu_torch.train.mlm import mask_tokens_sentence
+    from multimodal_sequencing_tpu_torch.train.objectives import plan_objective
+    packer = StoryPacker(SimpleWordTokenizer(), 300, 60)
+    while True:
+        rng = np.random.default_rng(seed)
+        rows = [packer.pack_story([" ".join(rng.choice(
+            WORDS, size=int(rng.integers(10, 61)))) for _ in range(5)])
+            for _ in range(b)]
+        batch = {k: np.stack([r[i] for r in rows]) for i, k in enumerate(
+            ("input_ids", "attention_mask", "token_type_ids"))}
+        batch["images"] = _random_images(b, seed + 1)
+        batch["input_ids"], batch["mlm_labels"] = mask_tokens_sentence(
+            batch["input_ids"], mlm_probability=0.1, pad_id=cfg.pad_id,
+            cls_id=cfg.cls_id, mask_id=cfg.mask_id,
+            vocab_size=cfg.encoder.vocab_size,
+            ignore_index=cfg.mlm_ignore_index, rng=rng)
+        nb, aux = plan_objective(objective, batch, cfg, rng)
+        if modality is None or aux.get("modality") == modality:
+            return nb, {k: v for k, v in aux.items()
+                        if isinstance(v, np.ndarray) and v.ndim > 0}
+        seed += 1
+
+
+def _pretrain_cases():
+    for obj in PRETRAIN_OBJECTIVES:
+        if obj == "multimodal_margin_loss":
+            for modality in ("multimodal", "text_only", "image_only"):
+                yield obj, modality
+        else:
+            yield obj, None
+
+
+# pretrain_reference, card (f32, kernels) against the CPU (plain versions)
+# on the same weights and plans, the tower frozen (its train-mode f32
+# gradients are ill-conditioned, mm_check), BatchNorm in train mode: each
+# loss term within its own limit (`_term_limit`: "mlm_rel" for the MLM
+# term, "loss_rel" for an objective's or margin's term, and the total
+# within the larger of its terms'), each gradient's distance over the CPU's
+# global norm within "grad_rel_to_norm", each statistic within
+# "bn_stats_rel" of its largest entry. The steps: along the CPU's
+# trajectory (the card takes its weights, statistics and Adam moments
+# before each step): loss terms as above, grad norm, gradients, statistics,
+# the card's update against the CPU's AdamW applied to the card's gradients
+# within lr * 1e-3, its weights within lr of the CPU's. The objective terms
+# read the pooled or step CLS outputs of a joint stream built on the frozen
+# tower's train-mode f32 output (~1e-4 apart, mm_check), and the image_only
+# margin's gradient rests on it alone (one CLS token of language, no MLM
+# term): over seeds 0-3 (an H100, PERF.md) the objective terms read up to
+# 4.71e-5 (time_contrastive, seed 1), the MLM terms up to 1.94e-6 (seed
+# 3), the gradients up to 1.184e-4 of the norm (the image_only margin; the
+# others 4.2e-5), statistics 1.18e-5; each limit is ~2.5x its readings, as
+# the joint sequencer's and BERSON's are (the first objective limit,
+# berson_reference's 3e-5, failed seeds 1 and 2).
+PRETRAIN_TOL = {"loss_rel": 1.2e-4, "mlm_rel": 5e-6, "grad_norm_rel": 2e-4,
+                "grad_rel_to_norm": 3e-4, "bn_stats_rel": 3e-5}
+PRETRAIN_REF_STEPS = 3
+# the dtype of each loss term in a bf16 model, as Flax promotes: the
+# objective heads, the MRM head and the MLM decoder are f32 over bf16
+# activations; time_contrastive's distances stay bf16
+PRETRAIN_LOSS_DTYPES = {"time_contrastive": "bfloat16"}
+
+
+def _term_limit(term, terms):
+    """The relative limit of loss term `term` of a loss dict with `terms`
+    (`PRETRAIN_TOL`); the total `loss` takes its largest term's."""
+    if term == "loss":
+        return max((_term_limit(t, ()) for t in terms if t != "loss"),
+                   default=PRETRAIN_TOL["mlm_rel"])
+    return PRETRAIN_TOL["mlm_rel" if term == "mlm" else "loss_rel"]
+
+
+def _terms_ok(rel_errs):
+    return all(v <= _term_limit(k, rel_errs) for k, v in rel_errs.items())
+
+
+def _pretrain_run(model, nb, aux, objective, dev, seed):
+    """One train-mode forward and backward of `objective`: the loss dict,
+    the gradients (f64 on the CPU) and the BatchNorm statistics after."""
+    import torch
+    from multimodal_sequencing_tpu_torch.models.encoder import DropoutRng
+    from multimodal_sequencing_tpu_torch.train.steps import device_batch
+    model.train()
+    model.zero_grad(set_to_none=True)
+    losses = model(device_batch(nb, dev), objective, device_batch(aux, dev),
+                   deterministic=False, rng=DropoutRng(seed + 1, 0, dev))
+    losses["loss"].backward()
+    grads = {n: p.grad.detach().double().cpu()
+             for n, p in model.named_parameters() if p.grad is not None}
+    return ({k: v.item() for k, v in losses.items()}, grads,
+            _bn_stats(model), {k: str(v.dtype).split(".")[-1]
+                               for k, v in losses.items()})
+
+
+def phase_pretrain_reference(seed: int):
+    """The full-width CLIP-RN50 pretrainer with 2 layers, f32, dropout 0,
+    the tower frozen: card (kernels) against the CPU (plain versions) on
+    the same weights and plans, for every objective (multimodal_margin_loss
+    in each modality) on 2 stories: the loss dict, every gradient and the
+    BatchNorm statistics; then the launcher's objectives for a few steps
+    along the CPU's trajectory; and a bf16 pass on the card that reports
+    each loss term's dtype against the JAX package's promotion."""
+    import copy
+    import dataclasses
+    import torch
+    from multimodal_sequencing_tpu_torch.models.pretrainer import (
+        SequencingPretrainer)
+    from multimodal_sequencing_tpu_torch.train.objectives import (
+        choose_objective)
+    from multimodal_sequencing_tpu_torch.train.state import AdamW
+    from multimodal_sequencing_tpu_torch.train.steps import pretrain_step
+    import numpy as np
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg, cpu_model = _pretrain_model(
+            seed, PRETRAIN_OBJECTIVES, hidden_dropout_prob=0.0,
+            attention_probs_dropout_prob=0.0)
+        init = copy.deepcopy(cpu_model.state_dict())
+        card_model = copy.deepcopy(cpu_model).cuda()
+        rel = lambda a, c: abs(a - c) / max(abs(c), 1e-12)  # noqa: E731
+        rows, ok = [], True
+        for objective, modality in _pretrain_cases():
+            nb, aux = _pretrain_plan(cfg, objective, seed, modality=modality)
+            out = {}
+            for dev, model in (("cpu", cpu_model), ("cuda", card_model)):
+                model.load_state_dict(init)
+                out[dev] = _pretrain_run(model, nb, aux, objective, dev, seed)
+            (cl, cg, cs, _), (gl, gg, gs, _) = out["cpu"], out["cuda"]
+            total = math.sqrt(sum(g.norm().item() ** 2 for g in cg.values()))
+            row = {"objective": objective, "modality": modality,
+                   "rows": int(nb["input_ids"].shape[0]),
+                   "text_len": int(nb["input_ids"].shape[1]),
+                   "images": (None if "images" not in nb
+                              else int(nb["images"].shape[1])),
+                   "losses_cpu": cl,
+                   "loss_rel_err": {k: rel(gl[k], v) for k, v in cl.items()},
+                   "grad_rel_to_norm": max(
+                       (gg[n] - g).norm().item() / total
+                       for n, g in cg.items()),
+                   "same_grads": set(cg) == set(gg),
+                   "tower_grads": sum(".visual_model." in n for n in gg),
+                   "bn_stats_rel": max(_rel_to_max(gs[n], w)
+                                       for n, w in cs.items())}
+            row["ok"] = (set(cl) == set(gl) and row["same_grads"]
+                         and not row["tower_grads"]
+                         and all(math.isfinite(v) for v in gl.values())
+                         and _terms_ok(row["loss_rel_err"])
+                         and row["grad_rel_to_norm"]
+                         <= PRETRAIN_TOL["grad_rel_to_norm"]
+                         and row["bn_stats_rel"]
+                         <= PRETRAIN_TOL["bn_stats_rel"])
+            ok = ok and row["ok"]
+            rows.append(row)
+        emit({"phase": "pretrain_reference", "part": "objectives",
+              "layers": 2, "dtype": "float32", "stories": 2,
+              "tol": PRETRAIN_TOL, "cases": rows, "ok": ok})
+
+        # the launcher's objectives, steps along the CPU's trajectory
+        lr = 1e-3
+        replay = copy.deepcopy(cpu_model)
+        models = {"cpu": cpu_model, "cuda": card_model, "replay": replay}
+        for model in models.values():
+            model.load_state_dict(init)
+        opts = {name: AdamW(model, learning_rate=lr, warmup_steps=1,
+                            total_steps=10, weight_decay=0.01)
+                for name, model in models.items()}
+        host_rng = np.random.default_rng(seed)
+        card_params = dict(card_model.named_parameters())
+        steps = []
+        for i in range(PRETRAIN_REF_STEPS):
+            objective = choose_objective(LAUNCHER_OBJECTIVES, host_rng)
+            nb, aux = _pretrain_plan(cfg, objective, seed + 10 + i)
+            for name in ("cuda", "replay"):
+                models[name].load_state_dict(cpu_model.state_dict())
+                opts[name].load_state_dict(opts["cpu"].state_dict())
+            hist, grads = {}, {}
+            for name in ("cpu", "cuda"):
+                hist[name] = {k: float(v) for k, v in pretrain_step(
+                    models[name], opts[name], nb, aux, objective, i,
+                    seed).items()}
+                grads[name] = {n: p.grad.detach().double().cpu()
+                               for n, p in models[name].named_parameters()
+                               if p.grad is not None}
+            for n, p in replay.named_parameters():
+                p.grad = (grads["cuda"][n].float() if n in grads["cuda"]
+                          else None)
+            opts["replay"].step(opts["replay"].grads())
+            total = math.sqrt(sum(g.norm().item() ** 2
+                                  for g in grads["cpu"].values()))
+            want, got = _bn_stats(cpu_model), _bn_stats(card_model)
+            step = {"step": i, "objective": objective,
+                    "loss": hist,
+                    "loss_rel_err": {k: rel(hist["cuda"][k], v)
+                                     for k, v in hist["cpu"].items()
+                                     if k != "grad_norm"},
+                    "grad_norm_rel_err": rel(hist["cuda"]["grad_norm"],
+                                             hist["cpu"]["grad_norm"]),
+                    "grad_rel_to_norm": max(
+                        (grads["cuda"][n] - g).norm().item() / total
+                        for n, g in grads["cpu"].items()),
+                    "bn_stats_rel": max(_rel_to_max(got[n], w)
+                                        for n, w in want.items()),
+                    "max_abs_update_err": max(
+                        (card_params[n].detach().cpu() - p.detach())
+                        .abs().max().item()
+                        for n, p in replay.named_parameters()),
+                    "max_abs_weight_err": max(
+                        (card_params[n].detach().cpu() - p.detach())
+                        .abs().max().item()
+                        for n, p in cpu_model.named_parameters())}
+            step["ok"] = (_terms_ok(step["loss_rel_err"])
+                          and step["grad_norm_rel_err"]
+                          <= PRETRAIN_TOL["grad_norm_rel"]
+                          and step["grad_rel_to_norm"]
+                          <= PRETRAIN_TOL["grad_rel_to_norm"]
+                          and step["bn_stats_rel"]
+                          <= PRETRAIN_TOL["bn_stats_rel"]
+                          and step["max_abs_update_err"] <= 1e-3 * lr
+                          and step["max_abs_weight_err"] <= lr)
+            ok = ok and step["ok"]
+            steps.append(step)
+        moved = max((p.detach() - init[n]).abs().max().item()
+                    for n, p in cpu_model.named_parameters())
+        emit({"phase": "pretrain_reference", "part": "steps", "lr": lr,
+              "steps": steps, "max_abs_weight_move": moved,
+              "ok": all(s_["ok"] for s_ in steps) and moved > 0})
+        ok = ok and moved > 0
+        del replay, opts, models
+
+        # bf16 on the card: each loss term's dtype
+        bf16 = SequencingPretrainer(
+            dataclasses.replace(cfg, encoder=dataclasses.replace(
+                cfg.encoder, dtype="bfloat16")),
+            dataclasses.replace(card_model.vision_cfg, dtype="bfloat16")
+        ).cuda()
+        bf16.load_state_dict(init)
+        dtypes, finite = {}, True
+        for objective, modality in _pretrain_cases():
+            nb, aux = _pretrain_plan(cfg, objective, seed, modality=modality)
+            losses, _, _, kinds = _pretrain_run(bf16, nb, aux, objective,
+                                                "cuda", seed)
+            case = f"{objective}@{modality}" if modality else objective
+            dtypes[case] = kinds
+            finite = finite and all(math.isfinite(v) for v in losses.values())
+        want = {case: {k: PRETRAIN_LOSS_DTYPES.get(k, "float32") for k in d}
+                for case, d in dtypes.items()}
+        emit({"phase": "pretrain_reference", "part": "bf16_loss_dtypes",
+              "dtypes": dtypes, "as_jax": dtypes == want, "finite": finite})
+        ok = ok and dtypes == want and finite
+    finally:
+        torch.backends.cudnn.deterministic = False
+    if not ok:
+        raise AssertionError("card and CPU disagree on the pretrainer")
+
+
+def _pretrain_argv(data_dir, out_dir, seed, kind, *extra):
+    """The flags of `scripts/wikihow_pretrain.sh` (`kind` "launcher"), the
+    same without the images and with the text objectives ("text"), or of
+    `scripts/wikihow_image_only_pretrain.sh` ("img"), each with the
+    built-in tokenizer at the launcher's widths (`--model_size large` /
+    `base`), this run's data (splits train and test), logging every step,
+    and `extra` (the step counts)."""
+    argv = ["--model_name_or_path", "simple", "--tokenizer_name", "simple",
+            "--do_train", "--do_eval", "--evaluate_during_training",
+            "--per_gpu_train_batch_size", "4",
+            "--per_gpu_eval_batch_size", "1", "--learning_rate", "1e-5",
+            "--data_dirs", data_dir, "--data_names", "wikihow",
+            "--max_story_length", "5", "--output_dir", out_dir,
+            "--task_type", "pretrain", "--order_criteria", "loose",
+            "--overwrite_output_dir", "--logging_steps", "1",
+            "--max_eval_steps", "200", "--iters_to_eval", "20000",
+            "--warmup_steps", "1000", "--eval_splits", "test",
+            "--train_split", "train", "--seed", str(seed),
+            "--device", "cuda"]
+    if kind == "img":
+        argv += ["--config_name", "bert-base-uncased", "--model_size", "base",
+                 "--num_train_epochs", "4.0", "--max_seq_length", "50",
+                 "--per_seq_max_length", "10", "--multimodal",
+                 "--multimodal_img_part", "--multimodal_model_type", "clip",
+                 "--vision_model", "resnet50",
+                 "--multimodal_pretrain_objectives",
+                 "patch_based_mrm_classification"]
+    else:
+        argv += ["--config_name", "roberta-large", "--model_size", "large",
+                 "--num_train_epochs", "8.0", "--max_seq_length", "300",
+                 "--per_seq_max_length", "60", "--mlm_probability", "0.1",
+                 "--multimodal_pretrain_objectives",
+                 *(LAUNCHER_OBJECTIVES if kind == "launcher"
+                   else TEXT_OBJECTIVES)]
+        if kind == "launcher":
+            argv += ["--multimodal", "--multimodal_model_type", "clip",
+                     "--vision_model", "resnet50"]
+    return argv + list(extra)
+
+
+def _pretrain_per_forward(layers, images, mlm, mrm):
+    """Kernel launches of one pretraining forward (and, for the backward
+    kernels, a step): the encoder's layers and, with images, the tower's
+    attention pool; the LayerNorms of the layers and the embeddings,
+    `visn_ln` with images, the MLM head's and the MRM head's (f32)."""
+    attn = layers + images
+    ln = 2 * layers + 1 + images + mlm + mrm
+    return {"flash_fwd": attn, "flash_bwd_prep": attn,
+            "flash_bwd_main": attn, "flash_bwd_post": attn,
+            "gelu_logit_erf_fwd": layers, "gelu_logit_erf_bwd": layers,
+            "layer_norm_fwd": ln, "layer_norm_bwd": ln}
+
+
+def _pretrain_expected(drawn, evals, layers, images, mlm):
+    """Exact launches of a run: (its train steps', a step for each
+    objective drawn; its `evals` eval forwards', `mlm_only`, forward
+    kernels only)."""
+    train = dict.fromkeys(PATH_KERNELS["train"], 0)
+    for objective in drawn:
+        per = _pretrain_per_forward(
+            layers, images, mlm, objective == "patch_based_mrm_classification")
+        for k in train:
+            train[k] += per[k]
+    per = _pretrain_per_forward(layers, images, mlm, False)
+    return train, {k: evals * per[k] if k in PATH_KERNELS["eval"] else 0
+                   for k in PATH_KERNELS["train"]}
+
+
+def _add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def _pretrain_breakdown(res, argv, label, seed):
+    """One warm train step of each of the run's objectives on a batch of
+    its data, by kernel class (torch.profiler; convolutions apart)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from multimodal_sequencing_tpu_torch.data.datasets import (
+        PretrainDataset, data_loader)
+    from multimodal_sequencing_tpu_torch.models.pretrainer import (
+        resolve_objectives)
+    from multimodal_sequencing_tpu_torch.train import cli
+    from multimodal_sequencing_tpu_torch.train.loop import (PRETRAIN_KEYS,
+                                                           mask_batch)
+    from multimodal_sequencing_tpu_torch.train.objectives import plan_objective
+    from multimodal_sequencing_tpu_torch.train.steps import pretrain_step
+    args = cli.parse_args("pretrain", argv)
+    cfg, tokenizer = cli.build_config(args)
+    args.data_dir = args.data_dirs[0]
+    ds = PretrainDataset(cli.load_examples(args, "wikihow", "pretrain",
+                                           "train"), tokenizer,
+                         **cli.dataset_kwargs(args))
+    sample = next(data_loader(ds, args.per_gpu_train_batch_size))
+    objectives, use_mlm = resolve_objectives(
+        cfg.multimodal_pretrain_objectives)
+    rng = np.random.default_rng(seed)
+    step = [10_000]
+    for objective in objectives:
+        nb = {k: sample[k] for k in PRETRAIN_KEYS if k in sample}
+        nb["input_ids"], nb["mlm_labels"] = mask_batch(cfg, args, nb, rng)
+        nb, aux = plan_objective(objective, nb, cfg, rng)
+        aux = {k: v for k, v in aux.items()
+               if isinstance(v, np.ndarray) and v.ndim > 0}
+
+        def one():
+            out = pretrain_step(res.model, res.optimizer, nb, aux, objective,
+                                step[0], seed, use_mlm)
+            step[0] += 1
+            return out
+
+        step_ms = cuda_ms(one, iters=3, warmup=1)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            one()
+            torch.cuda.synchronize()
+        emit({"phase": "pretrain_path", "part": f"{label}_breakdown",
+              "objective": objective,
+              "rows": int(nb["input_ids"].shape[0]),
+              "text_len": int(nb["input_ids"].shape[1]),
+              "images": (None if "images" not in nb
+                         else int(nb["images"].shape[1])),
+              "step_ms": step_ms,
+              **_by_class(prof, step_ms, (CONV_CLASS,) + KERNEL_CLASSES)})
+
+
+def phase_pretrain_path(seed: int, work: str):
+    """Pretraining through `trainers.run_pretraining`'s `main_pretrain` at
+    the launchers' settings on synthetic WikiHow stories with PNG step
+    images: `scripts/wikihow_pretrain.sh` (RoBERTa-large, CLIP-RN50 at 224
+    px, batch 4, S 300 / 60, MLM p = 0.1, lr 1e-5, its three objectives) for
+    8 steps with a save and dev eval at step 5, then `--do_eval`; the same
+    text-only with `margin_loss time_contrastive swapping_based_nsp
+    sequence_based_nsp`, 8 steps, then `--do_eval`;
+    `scripts/wikihow_image_only_pretrain.sh` (bert-base widths, S 50 / 10,
+    `--multimodal_img_part`, patch MRM) for 4 steps, then `--do_eval`, whose
+    final checkpoint's tower a fine-tune run (`main_train --multimodal
+    --clip_visual_model_weights`) then loads bit for bit. Each run: exact
+    launch counts of its train steps, from the objectives it drew, and of
+    its dev evals apart (`{label}_eval`), the median step, peak memory, the
+    dev eval, and a profiled step of each objective by kernel class."""
+    import torch
+    from multimodal_sequencing_tpu_torch.train import loop
+    from multimodal_sequencing_tpu_torch.train.cli import (main_pretrain,
+                                                           main_train)
+    data_dir = os.path.join(work, "pretrain_data")
+    os.makedirs(data_dir)
+    write_wikihow(data_dir, "train", 4 * PRETRAIN_STEPS, seed + 11,
+                  images=True)
+    write_wikihow(data_dir, "test", PRETRAIN_DEV_STORIES, seed + 12,
+                  images=True)
+    drawn = []
+    choose, evaluate = loop.choose_objective, loop.evaluate_pretraining
+    held, eval_counts = {}, {}
+
+    def recorded(objectives, rng):
+        drawn.append(choose(objectives, rng))
+        return drawn[-1]
+
+    def counted_eval(*a, **kw):
+        # the counts of each dev eval run from 0 just before it to just
+        # after it; the train steps' launches so far are held aside
+        _add_counts(held, _read_counts())
+        _reset_counts()
+        out = evaluate(*a, **kw)
+        _add_counts(eval_counts, _read_counts())
+        _reset_counts()
+        return out
+
+    # label, kind, steps, save_steps (0: the final save alone, no dev eval
+    # during training), layers, images, MLM. A checkpoint of the
+    # RoBERTa-large runs is ~3.9 GB with the optimizer's moments, and the
+    # machine takes 45 GiB of disk writes over the whole script (the full
+    # script comes within ~2 GB of it): one save during training, the
+    # launcher's, and each run's final one
+    runs = (
+        ("pretrain_train", "launcher", PRETRAIN_STEPS, 5, NUM_LAYERS, 1, 1),
+        ("pretrain_text", "text", PRETRAIN_STEPS, 0, NUM_LAYERS, 0, 1),
+        ("pretrain_img", "img", PRETRAIN_IMG_STEPS, 0, 12, 1, 0))
+    launches = {}
+    loop.choose_objective, loop.evaluate_pretraining = recorded, counted_eval
+    try:
+        for label, kind, steps, save, layers, images, mlm in runs:
+            out_dir = os.path.join(work, label)
+            argv = _pretrain_argv(data_dir, out_dir, seed, kind,
+                                  "--max_steps", str(steps),
+                                  "--save_steps", str(save))
+            if not save:
+                argv.remove("--evaluate_during_training")
+            drawn.clear()
+            held.clear()
+            eval_counts.clear()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            t0 = time.perf_counter()
+            res = main_pretrain(argv)
+            wall_s = time.perf_counter() - t0
+            # the train steps' launches and the dev evals' apart
+            launches[label] = counts = _add_counts(dict(held), _read_counts())
+            launches[f"{label}_eval"] = dev = dict(eval_counts)
+            # dev evals at each save and --do_eval, a forward a story
+            saves = list(range(save, steps + 1, save)) if save else []
+            evals = (len(saves) + 1) * PRETRAIN_DEV_STORIES
+            want, want_dev = _pretrain_expected(drawn, evals, layers, images,
+                                                mlm)
+            step_s = _berson_steps(res)
+            losses = [h["loss"] for h in res.history]
+            with open(os.path.join(out_dir, "logs", "scalars.jsonl")) as f:
+                rows = [json.loads(line) for line in f]
+            evals_at = {r["step"]: r["value"] for r in rows
+                        if r["tag"] == ("pretrain/eval_perplexity" if mlm
+                                        else "pretrain/eval_loss")}
+            summary = {"phase": "pretrain_path", "part": label,
+                       "steps": res.global_step, "objectives": list(drawn),
+                       "stories_a_step": 4, "launches": counts,
+                       "launches_predicted": want, "eval_forwards": evals,
+                       "eval_launches": dev,
+                       "eval_launches_predicted": want_dev,
+                       "losses": losses,
+                       "loss_terms": [{k: v for k, v in h.items()
+                                       if k not in ("step", "time")}
+                                      for h in res.history],
+                       "step_s": step_s,
+                       "median_step_s_after_first": _median_after_first(
+                           step_s),
+                       "peak_memory_gib":
+                           torch.cuda.max_memory_allocated() / 2**30,
+                       "eval_during_training": evals_at,
+                       "eval_results": res.eval_results,
+                       "wall_s_incl_init": wall_s}
+            emit(summary)
+            ok = (res.global_step == steps and len(drawn) == steps
+                  and all(math.isfinite(x) for x in losses)
+                  and all(counts[k] == want[k] for k in want)
+                  and all(dev.get(k, 0) == want_dev[k] for k in want_dev)
+                  and all(counts[k] == dev.get(k, 0) == 0 for k in F32_BWD)
+                  and sorted(evals_at) == saves
+                  and os.path.isfile(os.path.join(
+                      out_dir, "eval_results_pretrain.txt"))
+                  and all(math.isfinite(v) for v in res.eval_results.values())
+                  and (not mlm or res.eval_results.get(
+                      "eval_perplexity", 0) > 1))
+            if not ok:
+                raise AssertionError(f"pretraining check failed: {summary}")
+            _pretrain_breakdown(res, argv, label, seed)
+            ckpt = os.path.join(out_dir, f"checkpoint-{res.global_step}")
+            del res
+            torch.cuda.empty_cache()
+    finally:
+        loop.choose_objective, loop.evaluate_pretraining = choose, evaluate
+
+    # the image-only checkpoint's tower into a fine-tune run (the joint
+    # sequencer at bert-base widths, as the image-only launcher's): one
+    # step at learning rate 0 (the warmup's first update) keeps its weights
+    ft_dir = os.path.join(work, "pretrain_finetune")
+    _reset_counts()
+    res = main_train(_mm_train_argv(data_dir, ft_dir, seed) + [
+        "--model_size", "base", "--max_steps", "1",
+        "--per_gpu_train_batch_size", "4",
+        "--clip_visual_model_weights", ckpt])
+    launches["pretrain_finetune"] = counts = _read_counts()
+    prefix = "encoder.visual_model."
+    tower = {k: v for k, v in torch.load(
+        os.path.join(ckpt, "model.pt"), map_location="cpu",
+        weights_only=True).items() if k.startswith(prefix)}
+    tuned = torch.load(os.path.join(ft_dir, "checkpoint-1", "model.pt"),
+                       map_location="cpu", weights_only=True)
+    weights = [k for k in tower if "running_" not in k]
+    same = all(torch.equal(tuned[k], tower[k]) for k in weights)
+    summary = {"phase": "pretrain_path", "part": "visual_transfer",
+               "tower_tensors": len(tower), "weights_bit_equal": same,
+               "loss": res.history[0]["loss"], "launches": counts}
+    emit(summary)
+    want = _pretrain_per_forward(12, 1, 0, 0)  # a step of the sequencer
+    if not (weights and same and math.isfinite(res.history[0]["loss"])
+            and all(counts[k] == want[k]
+                    for k in PATH_KERNELS["pretrain_finetune"])):
+        raise AssertionError(f"visual transfer check failed: {summary}")
+    return launches
+
+
 PHASES = ("kernel_check", "bits_check", "timing", "main_path", "breakdown",
           "reference", "train_path", "train_breakdown", "train_reference",
           "hf_path", "remat", "mm_check", "mm_reference", "mm_path",
-          "mm_breakdown", "berson_reference", "berson_path")
+          "mm_breakdown", "berson_reference", "berson_path",
+          "pretrain_reference", "pretrain_path")
 
 
 def main(argv=None) -> int:
@@ -3140,6 +3832,9 @@ def main(argv=None) -> int:
             "berson_reference": lambda: phase_berson_reference(args.seed),
             "berson_path": lambda: launches.update(
                 phase_berson_path(args.seed, work)),
+            "pretrain_reference": lambda: phase_pretrain_reference(args.seed),
+            "pretrain_path": lambda: launches.update(
+                phase_pretrain_path(args.seed, work)),
         }
         for name in args.phases:
             t0 = time.perf_counter()

@@ -1,6 +1,6 @@
 """Datasets and batching (copy of `data/datasets.py`: `SortDataset`,
-`PureClassDataset` in decode mode, `BersonDataset`, their step images,
-`collate`, `data_loader`, `prefetch`).
+`PureClassDataset` in decode mode, `BersonDataset`, `PretrainDataset`,
+their step images, `collate`, `data_loader`, `prefetch`).
 
 Every example draws its scramble from a counter-based Philox key
 (seed, epoch, index), and the loader its shuffle from (seed, epoch), so the
@@ -140,6 +140,27 @@ class BersonDataset(_StoryDatasetBase):
             [label, np.arange(len(texts), self.max_story_length,
                               dtype=np.int32)])
         item["guid"] = self.examples[idx].guid
+        item.update(self._images(img_paths, len(texts)))
+        return item
+
+
+class PretrainDataset(_StoryDatasetBase):
+    """Whole unscrambled stories for MLM and the pretraining objectives:
+    input_ids / attention_mask / token_type_ids, `labels` = the position
+    of the first step (0 unscrambled), guid with `get_guid` (+ images)."""
+
+    def __init__(self, examples, tokenizer, scramble=False, get_guid=False,
+                 **kw):
+        super().__init__(examples, tokenizer, scramble=scramble, **kw)
+        self.get_guid = get_guid
+
+    def __getitem__(self, idx, epoch: int = 0):
+        texts, img_paths, idx_seq = self._story(idx, epoch)
+        ii, am, tt = self.packer.pack_story(texts)
+        item = {"input_ids": ii, "attention_mask": am, "token_type_ids": tt,
+                "labels": np.int32(np.argwhere(idx_seq == 0)[0][0])}
+        if self.get_guid:
+            item["guid"] = self.examples[idx].guid
         item.update(self._images(img_paths, len(texts)))
         return item
 

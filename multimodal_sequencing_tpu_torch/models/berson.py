@@ -44,7 +44,8 @@ from torch import nn
 
 from ..data.packing import berson_pairs
 from .config import CLIPVisionConfig, MultimodalConfig
-from .encoder import Dense, DropoutRng, LayerNorm, TextEncoder, dropout
+from .encoder import (Dense, DropoutRng, LayerNorm, TextEncoder, check_rng,
+                      dropout)
 from .heads import HeatmapHead
 from .multimodal_encoder import MultimodalEncoder
 from .sequencer import render_heatmap_targets
@@ -308,10 +309,7 @@ class BersonOrdering(nn.Module):
         and the paragraph encoder: doc, key, the LSTM's initial (h, c), the
         pairwise scores and the relation matrices."""
         cfg = self.cfg
-        if deterministic:
-            rng = None
-        elif rng is None:
-            raise ValueError("deterministic=False needs a DropoutRng")
+        rng = check_rng(deterministic, rng)
         ids = batch["input_ids"]
         b, p, L = ids.shape
 

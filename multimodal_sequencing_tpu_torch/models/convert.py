@@ -34,6 +34,7 @@ weights and BatchNorm statistics are read.
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 import re
@@ -94,24 +95,24 @@ def params_from_jax(params: Mapping, cfg: MultimodalConfig,
                     batch_stats: Optional[Mapping] = None,
                     vision_cfg: Optional[CLIPVisionConfig] = None
                     ) -> Dict[str, torch.Tensor]:
-    """JAX `SequencingModel` or `BersonOrdering` params (nested dicts of
-    numpy arrays, with or without the outer `params` collection) and, for a
-    model with BatchNorms, its `batch_stats` tree -> a state dict for the
-    port's `SequencingModel(cfg, vision_cfg)`, or for `BersonOrdering(cfg,
-    vision_cfg)` when the tree has BERSON's `inner` encoder (with its
-    image-stream pairwise head when the tree has `img_projection`). Raises
-    if the trees do not match the model."""
-    from .berson import BersonOrdering
+    """JAX `SequencingModel`, `BersonOrdering` or `SequencingPretrainer`
+    params (nested dicts of numpy arrays, with or without the outer `params`
+    collection) and, for a model with BatchNorms, its `batch_stats` tree ->
+    a state dict for the port's model of the same class, which the tree
+    picks: `BersonOrdering(cfg, vision_cfg)` when it has BERSON's `inner`
+    encoder (with its image-stream pairwise head when it has
+    `img_projection`), `SequencingPretrainer(cfg, vision_cfg)` when it has
+    no sequencer head (`heatmap_head`), its cfg's objectives those whose
+    heads the tree holds (`mlm_head`, `{objective}_mlp`, `margin_loss_mlp`,
+    `mrm_*`), else `SequencingModel(cfg, vision_cfg)`. Raises if the trees
+    do not match the model."""
     if "params" in params:
         params = params["params"]
     if batch_stats is not None and "batch_stats" in batch_stats:
         batch_stats = batch_stats["batch_stats"]
     out = tree_to_state_dict(params, batch_stats)
     with torch.device("meta"):
-        model = (BersonOrdering(cfg, vision_cfg,
-                                multimodal_loss="img_projection" in params)
-                 if "inner" in params else SequencingModel(cfg, vision_cfg))
-        want = model.state_dict()
+        want = _model_of_tree(params, cfg, vision_cfg).state_dict()
     missing = sorted(set(want) - set(out))
     extra = sorted(set(out) - set(want))
     if missing or extra:
@@ -122,6 +123,24 @@ def params_from_jax(params: Mapping, cfg: MultimodalConfig,
             raise ValueError(f"{key}: shape {tuple(out[key].shape)}, model "
                              f"wants {tuple(t.shape)}")
     return out
+
+
+def _model_of_tree(params: Mapping, cfg: MultimodalConfig,
+                   vision_cfg: Optional[CLIPVisionConfig]) -> torch.nn.Module:
+    """The port's model whose parameters a JAX tree holds."""
+    from .berson import BersonOrdering
+    from .pretrainer import SequencingPretrainer
+    if "inner" in params:
+        return BersonOrdering(cfg, vision_cfg,
+                              multimodal_loss="img_projection" in params)
+    if "heatmap_head" in params:
+        return SequencingModel(cfg, vision_cfg)
+    objectives = [("margin_loss" if k == "margin_loss_mlp" else k[:-4])
+                  for k in params if k.endswith("_mlp")]
+    if "mrm_dense" in params:
+        objectives.append("patch_based_mrm_classification")
+    return SequencingPretrainer(dataclasses.replace(
+        cfg, multimodal_pretrain_objectives=objectives), vision_cfg)
 
 
 def strip_prefixes(state_dict: Dict, prefixes=("roberta.", "bert.",

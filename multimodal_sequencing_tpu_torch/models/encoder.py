@@ -71,6 +71,17 @@ class DropoutRng:
         return new
 
 
+def check_rng(deterministic: bool, rng: Optional[DropoutRng]
+              ) -> Optional[DropoutRng]:
+    """The dropout streams a forward uses: none when `deterministic`; a
+    train-mode forward must be given them."""
+    if deterministic:
+        return None
+    if rng is None:
+        raise ValueError("deterministic=False needs a DropoutRng")
+    return rng
+
+
 def fold_in(seed: int, step: int) -> int:
     """A 63-bit generator seed from (seed, step): splitmix64 of the pair."""
     x = ((seed & 0xFFFFFFFF) << 32 | (step & 0xFFFFFFFF)) + 0x9E3779B97F4A7C15
@@ -236,10 +247,7 @@ class TextEncoder(nn.Module):
                 deterministic: bool = True,
                 rng: Optional[DropoutRng] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        if deterministic:
-            rng = None
-        elif rng is None:
-            raise ValueError("deterministic=False needs a DropoutRng")
+        rng = check_rng(deterministic, rng)
         x = self.embeddings(input_ids, token_type_ids, rng)
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)

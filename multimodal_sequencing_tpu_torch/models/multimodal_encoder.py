@@ -11,7 +11,9 @@ layers.
 
 Three modes, as in the JAX package: `multimodal_text_part` (no visual
 stream), `multimodal_img_part` (language cut to its CLS token) and the full
-joint stream. The text children keep `TextEncoder`'s names (`embeddings`,
+joint stream. The forward runs in three parts, as JAX's does:
+`embed_language`, `encode_visual` and `joint_encode`; the pretrainer does
+its patch surgery on the visual stream between the last two. The text children keep `TextEncoder`'s names (`embeddings`,
 `layer_{i}`, `pooler`), so the HF text loaders and `params_from_jax` map
 both layouts alike. The joint mask is the text mask followed by ones, and
 the joint layers are the text encoder's `TransformerLayer`s (remat
@@ -33,26 +35,28 @@ from torch import nn
 from .config import CLIPVisionConfig, MultimodalConfig, clip_vision_config
 from .clip_visual import CLIPVisualTower
 from .encoder import (Dense, DropoutRng, Embed, Embeddings, LayerNorm,
-                      TransformerLayer, dropout, remat_layer)
+                      TransformerLayer, check_rng, dropout, remat_layer)
 from ..ops.preprocess import images_to_nchw
 
 
 class VisualFeatEncoder(nn.Module):
-    """Dense + LayerNorm (eps 1e-12) + dropout into the text width. The
-    LayerNorm returns the compute dtype, where Flax's (no dtype given)
-    returns f32 that the joint stream then casts to the compute dtype:
-    the same values but for dropout's rounding."""
+    """Dense (compute dtype) + LayerNorm (eps 1e-12) + dropout into the text
+    width. The LayerNorm returns its input promoted with its f32
+    parameters (f32 for a bf16 encoder), as Flax's without a dtype does;
+    the joint stream casts the result to the compute dtype."""
 
     def __init__(self, feat_dim: int, hidden_size: int, dropout_p: float,
                  dtype: torch.dtype):
         super().__init__()
         self.dropout_p = dropout_p
+        ln_dtype = torch.promote_types(dtype, torch.float32)
         self.visn_fc = Dense(feat_dim, hidden_size, dtype)
-        self.visn_ln = LayerNorm(hidden_size, 1e-12, dtype)
+        self.visn_ln = LayerNorm(hidden_size, 1e-12, ln_dtype)
 
     def forward(self, feats: torch.Tensor,
                 rng: Optional[DropoutRng] = None) -> torch.Tensor:
-        return dropout(self.visn_ln(self.visn_fc(feats)), self.dropout_p, rng)
+        x = self.visn_fc(feats).to(self.visn_ln.compute_dtype)
+        return dropout(self.visn_ln(x), self.dropout_p, rng)
 
 
 class LinearPositionEmbedding(nn.Module):
@@ -169,26 +173,32 @@ class MultimodalEncoder(nn.Module):
         pooled = torch.tanh(self.pooler(lang_out[:, 0]))
         return lang_out, visn_out, pooled
 
+    def embed_language(self, input_ids: torch.Tensor,
+                       attention_mask: Optional[torch.Tensor] = None,
+                       token_type_ids: Optional[torch.Tensor] = None,
+                       rng: Optional[DropoutRng] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The text embeddings and their mask; with `multimodal_img_part`
+        the language shrinks to its CLS token."""
+        if attention_mask is None:
+            attention_mask = torch.ones_like(input_ids)
+        if self.cfg.multimodal_img_part:
+            input_ids = input_ids[:, :1]
+            attention_mask = attention_mask[:, :1]
+            if token_type_ids is not None:
+                token_type_ids = token_type_ids[:, :1]
+        return self.embeddings(input_ids, token_type_ids, rng), attention_mask
+
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
                 token_type_ids: Optional[torch.Tensor] = None,
                 images: Optional[torch.Tensor] = None,
                 deterministic: bool = True,
                 rng: Optional[DropoutRng] = None):
-        cfg = self.cfg
-        if deterministic:
-            rng = None
-        elif rng is None:
-            raise ValueError("deterministic=False needs a DropoutRng")
-        if attention_mask is None:
-            attention_mask = torch.ones_like(input_ids)
-        if cfg.multimodal_img_part:  # language shrinks to its CLS token
-            input_ids = input_ids[:, :1]
-            attention_mask = attention_mask[:, :1]
-            if token_type_ids is not None:
-                token_type_ids = token_type_ids[:, :1]
-        lang = self.embeddings(input_ids, token_type_ids, rng)
+        rng = check_rng(deterministic, rng)
+        lang, attention_mask = self.embed_language(
+            input_ids, attention_mask, token_type_ids, rng)
         visn = None
-        if images is not None and not cfg.multimodal_text_part:
+        if images is not None and not self.cfg.multimodal_text_part:
             visn = self.encode_visual(images, deterministic, rng)
         return self.joint_encode(lang, visn, attention_mask, rng)

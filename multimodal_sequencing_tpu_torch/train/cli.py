@@ -42,6 +42,13 @@ CLIP weights, or a checkpoint of this package), `--freeze_vision_model`,
 `--multimodal_text_part` / `--multimodal_img_part`. A multimodal checkpoint
 keeps its tower's config in `vision_config.json`, which the eval reads.
 
+`trainers.run_pretraining` (`main_pretrain`) pretrains MLM and the
+sequentiality objectives (`--multimodal_pretrain_objectives`, one drawn a
+batch, `--mlm_probability`) over the stories of `--data_dirs` /
+`--data_names`, text or CLIP (`--multimodal`, `--multimodal_img_part` for
+image-only pretraining); its checkpoint's tower feeds a fine-tune run's
+`--clip_visual_model_weights`.
+
 `--eval_all_checkpoints` / `--iters_to_eval` sweep the checkpoints under a
 run directory. A fresh eval model is seeded from 0, as
 the JAX eval's `PRNGKey(0)`, and a fresh train model from `--seed`.
@@ -224,12 +231,9 @@ def build_parser(kind: str = "train") -> argparse.ArgumentParser:
 _NOT_YET = {
     "model_name_or_path_2": "the head_and_* sort methods",
     "model_name_or_path_3": "the head_and_* sort methods",
-    "data_dirs": "multi-dataset pretraining",
-    "data_names": "multi-dataset pretraining",
     "caption_transformations": "caption transformations",
     "include_num_img_regional_features": "the VisualBERT encoder",
     "vision_model_checkpoint": "the naive and FPN vision towers",
-    "multimodal_pretrain_objectives": "pretraining",
     "model_parallel_size": "the parallelism layer",
     "pipeline_parallel_size": "the parallelism layer",
     "sequence_parallel": "the parallelism layer",
@@ -351,6 +355,9 @@ def build_config(args):
         device_decode=args.device_decode,
         wrapper_model_type=args.wrapper_model_type,
         wrapper_model_with_heatmap=args.wrapper_model_with_heatmap,
+        multimodal_pretrain_objectives=(
+            args.multimodal_pretrain_objectives or []),
+        mlm_probability=args.mlm_probability,
     )
     if args.multimodal_fusion_method != "sum":
         logger.warning(
@@ -423,6 +430,11 @@ def _split_version(split: str):
     return split, None
 
 
+def _data_dir(args) -> str:
+    """`--data_dir`, else the first of `--data_dirs`."""
+    return args.data_dir or (args.data_dirs[0] if args.data_dirs else "")
+
+
 def example_cache_path(args, data_name, task_type, split) -> str:
     """The JAX package's cache path for these examples with `_torch.pkl`
     in place of `.pkl`: `cached_{split}_{model}_{len}_{data}_{task}`
@@ -430,28 +442,30 @@ def example_cache_path(args, data_name, task_type, split) -> str:
     model_tag = os.path.basename(
         str(args.model_name_or_path).rstrip("/")) or "model"
     return os.path.join(
-        args.data_dir, f"cached_{split.replace('/', '_')}_{model_tag}_"
+        _data_dir(args), f"cached_{split.replace('/', '_')}_{model_tag}_"
                        f"{args.max_seq_length}_{data_name}_{task_type}"
                        f"_torch.pkl")
 
 
 def load_examples(args, data_name, task_type, split):
     """Whole-story examples of a split (the sort, hl_v1 and pure_class
-    tasks read the same processor). With `--use_cached`, read them from
+    tasks read the sort processor, pretraining the `pretrain` one: the
+    same general processor). With `--use_cached`, read them from
     `example_cache_path` when it exists (unless `--overwrite_cache`), else
     write them there."""
     import pickle
     from ..data.registry import get_processor
     cache_path = None
-    if args.use_cached and args.data_dir:
+    if args.use_cached and _data_dir(args):
         cache_path = example_cache_path(args, data_name, task_type, split)
         if os.path.exists(cache_path) and not args.overwrite_cache:
             logger.info("loading cached examples from %s", cache_path)
             with open(cache_path, "rb") as f:
                 return pickle.load(f)
     base_split, version = _split_version(split)
+    kind = "pretrain" if task_type == "pretrain" else "sort"
     proc = get_processor(
-        f"{data_name}_sort", data_dir=args.data_dir,
+        f"{data_name}_{kind}", data_dir=_data_dir(args),
         min_story_length=args.min_story_length,
         max_story_length=args.max_story_length, version_text=version,
         paired_with_image=args.multimodal)
@@ -676,6 +690,66 @@ def _make_dev_eval_fn(args, cfg, tokenizer, data_name, device):
             data_split=split)
 
     return eval_fn
+
+
+# ----- pretrain -------------------------------------------------------------
+
+
+def main_pretrain(argv=None):
+    """Pretrain `SequencingPretrainer` (MLM and the
+    `--multimodal_pretrain_objectives`) on the stories of every
+    (`--data_dirs`, `--data_names`) pair, concatenated (else `--data_dir`,
+    `--data_name`), from `--train_split`. With `--evaluate_during_training`
+    the dev MLM loss and perplexity of the first pair's first
+    `--eval_splits` split run at each save; with `--do_eval` after training
+    too, written to `eval_results_pretrain.txt`. Returns the loop's
+    `TrainResult` (`eval_results`: the final evaluation)."""
+    from ..data.datasets import PretrainDataset
+    from ..models.pretrainer import SequencingPretrainer, resolve_objectives
+    from .loop import evaluate_pretraining, run_pretraining
+
+    args = parse_args("pretrain", argv)
+    logging.basicConfig(level=logging.INFO)
+    device = resolve_device(args.device)
+    args.output_dir = resolve_output_dir(args)
+    os.makedirs(args.output_dir, exist_ok=True)
+    if args.task_type is None:
+        args.task_type = "pretrain"
+    cfg, tokenizer = build_config(args)
+    names = args.data_names or [args.data_name]
+    dirs = args.data_dirs or [args.data_dir]
+    examples = []
+    for data_name, data_dir in zip(names, dirs):
+        sub = copy.copy(args)
+        sub.data_dir, sub.data_dirs = data_dir, None
+        examples.extend(load_examples(sub, data_name, "pretrain",
+                                      args.train_split))
+    args.data_dir = dirs[0]
+    dataset = PretrainDataset(examples, tokenizer, **dataset_kwargs(args))
+    model = SequencingPretrainer(cfg, vision_config(cfg, args))
+    dev_dataset = None
+    if args.evaluate_during_training or args.do_eval:
+        try:
+            dev_dataset = PretrainDataset(
+                load_examples(args, names[0], "pretrain", args.eval_splits[0]),
+                tokenizer, **dataset_kwargs(args))
+        except (FileNotFoundError, ValueError) as e:
+            logger.warning("no pretrain dev split (%s); eval disabled", e)
+    result = run_pretraining(cfg, model, dataset, args, device,
+                             tokenizer=tokenizer, dev_dataset=dev_dataset)
+    logger.info("pretraining done at step %d", result.global_step)
+    if args.do_eval and dev_dataset is not None:
+        res = evaluate_pretraining(
+            cfg, result.model, args, dev_dataset,
+            use_mlm=resolve_objectives(cfg.multimodal_pretrain_objectives)[1],
+            max_eval_steps=args.max_eval_steps)
+        logger.info("pretrain eval: %s", res)
+        with open(os.path.join(args.output_dir,
+                               "eval_results_pretrain.txt"), "w") as f:
+            for k, v in res.items():
+                f.write(f"{k} = {v}\n")
+        result.eval_results = res
+    return result
 
 
 # ----- eval -----------------------------------------------------------------

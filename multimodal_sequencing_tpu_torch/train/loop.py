@@ -1,6 +1,6 @@
-"""Fine-tuning loops on one device (counterpart of `train/loop.py::
-run_finetune` and `MetricWriter`, and of the JAX CLI's
-`_run_berson_training`).
+"""Training loops on one device (counterpart of `train/loop.py::
+run_finetune`, `run_pretraining`, `evaluate_pretraining` and
+`MetricWriter`, and of the JAX CLI's `_run_berson_training`).
 
 The step count and epochs, the shuffled per-epoch loader, the scalar log
 (`logs/scalars.jsonl`, plus TensorBoard when it imports), periodic and final
@@ -16,6 +16,10 @@ it on one device: the same steps and epochs but for fractional
 `--num_train_epochs`, no resume, the time-contrastive plan drawn on the
 host from `default_rng(seed + 11)` for each batch, `berson_train_step`,
 and the beam-search eval at each save with the best checkpoint.
+
+`run_pretraining` drives the same loop with the pretraining step: the host
+masks each batch and plans one objective for it (`prepare`), and the dev
+MLM evaluation (`evaluate_pretraining`) runs at each save.
 """
 
 from __future__ import annotations
@@ -33,11 +37,13 @@ import torch
 from ..data.datasets import data_loader, prefetch
 from ..models.convert import load_pretrained_weights
 from ..models.sequencer import init_weights
+from ..models.pretrainer import resolve_objectives
 from .checkpoint import (find_checkpoints, parse_step_from_name,
                          restore_checkpoint, save_checkpoint)
-from .objectives import plan_objective
+from .mlm import mask_tokens_sentence
+from .objectives import choose_objective, plan_objective
 from .state import AdamW
-from .steps import berson_train_step, train_step
+from .steps import berson_train_step, device_batch, pretrain_step, train_step
 
 logger = logging.getLogger(__name__)
 
@@ -156,46 +162,173 @@ def run_berson_training(cfg, model, train_dataset, args, device,
             batch.update(tc_anchor=tc["anchor_idx"],
                          tc_positive=tc["positive_idx"],
                          tc_negative=tc["negative_idx"])
+            return batch
 
     return _train_loop(cfg, model, optimizer, train_dataset, args, epochs,
                        total_steps, berson_train_step, eval_fn=eval_fn,
                        tokenizer=tokenizer, prepare=prepare)
 
 
+def run_pretraining(cfg, model, train_dataset, args, device, tokenizer=None,
+                    dev_dataset=None) -> TrainResult:
+    """Pretrain `SequencingPretrainer` on a `PretrainDataset`: fresh init
+    from `args.seed` and the pretrained weights of the flags, then the step
+    loop, each batch masked on the host and planned for one objective drawn
+    uniformly from `cfg.multimodal_pretrain_objectives`
+    (`resolve_objectives`). The host draws come from one
+    `default_rng(args.seed)`, in the JAX package's order: first the plan of
+    every objective on the first (unshuffled) batch, which its init traces,
+    then for each step `choose_objective`, `mask_tokens_sentence` and
+    `plan_objective`; so one seed gives the same objectives and plans.
+    `pretrain/{name}` scalars at the logging steps; at each save with
+    `--evaluate_during_training` and a `dev_dataset`, `evaluate_pretraining`
+    (no best checkpoint, no resume, as in the JAX package). args as
+    `run_finetune`'s, plus mlm_probability, evaluate_during_training,
+    per_gpu_eval_batch_size and max_eval_steps."""
+    batch_size = args.per_gpu_train_batch_size
+    steps_per_epoch = max(1, len(train_dataset) // batch_size)
+    if args.max_steps > 0:
+        total_steps = args.max_steps
+        epochs = total_steps // steps_per_epoch + 1
+    else:
+        epochs = int(args.num_train_epochs)
+        total_steps = steps_per_epoch * epochs
+    objectives, use_mlm = resolve_objectives(
+        cfg.multimodal_pretrain_objectives)
+    if "visual_mlm" in (cfg.multimodal_pretrain_objectives or []):
+        logger.warning(
+            "--multimodal_pretrain_objectives visual_mlm is a dead flag in "
+            "the reference (config-only, never read by any model); it is "
+            "accepted but has no effect here either")
+    model, optimizer = _model_and_optimizer(model, args, device, total_steps)
+    host_rng = np.random.default_rng(args.seed)
+
+    def plan(batch, objective):
+        nb = {k: np.asarray(batch[k]) for k in PRETRAIN_KEYS if k in batch}
+        nb["input_ids"], nb["mlm_labels"] = mask_batch(cfg, args, nb,
+                                                       host_rng)
+        nb, aux = plan_objective(objective, nb, cfg, host_rng)
+        return nb, {k: v for k, v in aux.items()
+                    if isinstance(v, np.ndarray) and v.ndim > 0}
+
+    # the draws of the JAX package's init, which traces every objective
+    sample = next(data_loader(train_dataset, batch_size))
+    for objective in objectives:
+        plan(sample, objective)
+
+    def prepare(batch):
+        objective = choose_objective(objectives, host_rng)
+        return (objective, *plan(batch, objective))
+
+    def step_fn(model, optimizer, planned, step, seed):
+        objective, nb, aux = planned
+        return pretrain_step(model, optimizer, nb, aux, objective, step,
+                             seed, use_mlm)
+
+    eval_fn = None
+    if args.evaluate_during_training and dev_dataset is not None:
+        def eval_fn(m):
+            return evaluate_pretraining(
+                cfg, m, args, dev_dataset, use_mlm=use_mlm,
+                max_eval_steps=args.max_eval_steps)
+
+    return _train_loop(cfg, model, optimizer, train_dataset, args, epochs,
+                       total_steps, step_fn, eval_fn=eval_fn,
+                       tokenizer=tokenizer, prepare=prepare, tag="pretrain")
+
+
+# the entries of a collated batch that pretraining reads
+PRETRAIN_KEYS = ("input_ids", "attention_mask", "token_type_ids", "images")
+
+
+def mask_batch(cfg, args, batch, rng):
+    return mask_tokens_sentence(
+        batch["input_ids"], mlm_probability=args.mlm_probability,
+        pad_id=cfg.pad_id, cls_id=cfg.cls_id, mask_id=cfg.mask_id,
+        vocab_size=cfg.encoder.vocab_size,
+        ignore_index=cfg.mlm_ignore_index, rng=rng)
+
+
+def evaluate_pretraining(cfg, model, args, dev_dataset, use_mlm: bool = True,
+                         seed: int = 0, max_eval_steps=None) -> Dict:
+    """Pretraining dev evaluation, as the JAX package's: the `mlm_only`
+    objective, deterministic, over `dev_dataset` in batches of
+    `per_gpu_eval_batch_size` (else the train batch; the final batch padded
+    to it), masked on the host from `default_rng(seed)`; each loss averaged
+    over the batches as `eval_{name}`, and `eval_perplexity` =
+    exp(min(eval_mlm, 30)). Empty without a batch."""
+    device = next(model.parameters()).device
+    batch_size = getattr(args, "per_gpu_eval_batch_size", None) or \
+        args.per_gpu_train_batch_size
+    host_rng = np.random.default_rng(seed)
+    was_training = model.training
+    model.eval()
+    totals: Dict[str, float] = {}
+    n_batches = 0
+    for batch in data_loader(dev_dataset, batch_size):
+        nb = {k: np.asarray(batch[k]) for k in PRETRAIN_KEYS if k in batch}
+        nb["input_ids"], nb["mlm_labels"] = mask_batch(cfg, args, nb,
+                                                       host_rng)
+        with torch.inference_mode():
+            losses = model(device_batch(nb, device), "mlm_only", {},
+                           deterministic=True, use_mlm=use_mlm)
+        for k, v in losses.items():
+            totals[k] = totals.get(k, 0.0) + float(v)
+        n_batches += 1
+        if max_eval_steps and n_batches >= max_eval_steps:
+            break
+    model.train(was_training)
+    if n_batches == 0:
+        return {}
+    res = {f"eval_{k}": v / n_batches for k, v in totals.items()}
+    if "eval_mlm" in res:
+        res["eval_perplexity"] = float(np.exp(min(res["eval_mlm"], 30.0)))
+    return res
+
+
 def _train_loop(cfg, model, optimizer, train_dataset, args, epochs: int,
                 total_steps: int, step_fn: Callable,
                 eval_fn: Optional[Callable] = None, tokenizer=None,
                 start_step: int = 0,
-                prepare: Optional[Callable] = None) -> TrainResult:
-    """The step loop of both trainers: `epochs` shuffled passes, cut at
-    `total_steps`; `prepare(batch)` on the host, then `step_fn(model,
-    optimizer, batch, step, seed)`; logging, saves (with `eval_fn` and the
-    best checkpoint) and the final save."""
+                prepare: Optional[Callable] = None,
+                tag: str = "train") -> TrainResult:
+    """The step loop of the trainers: `epochs` shuffled passes, cut at
+    `total_steps`; `batch = prepare(batch)` on the host, then
+    `step_fn(model, optimizer, batch, step, seed)`, whose returned tensors
+    are logged as `{tag}/{name}`; saves with `eval_fn` (its results as
+    `eval/{name}`, or `{tag}/{name}` under another tag, and the best
+    checkpoint) and the final save (once: not again after a save at the
+    last step)."""
     writer = MetricWriter(os.path.join(args.output_dir, "logs"))
     result = TrainResult(model, optimizer, start_step, time.perf_counter())
     best_score = float("-inf")
-    global_step = start_step
+    global_step = saved_at = start_step
+    eval_tag = "eval" if tag == "train" else tag
     for epoch in range(epochs):
         for batch in prefetch(data_loader(train_dataset,
                                           args.per_gpu_train_batch_size,
                                           shuffle=True, seed=args.seed,
                                           epoch=epoch)):
             if prepare is not None:
-                prepare(batch)
+                batch = prepare(batch)
             out = step_fn(model, optimizer, batch, global_step, args.seed)
             global_step += 1
             if global_step % args.logging_steps == 0:
-                _log_step(writer, result, out, global_step, start_step)
+                _log_step(writer, result, out, global_step, start_step, tag)
             if args.save_steps and global_step % args.save_steps == 0:
                 best_score = _save_and_eval(
                     args, cfg, model, optimizer, global_step, tokenizer,
-                    writer, eval_fn, best_score)
+                    writer, eval_fn, best_score, eval_tag)
+                saved_at = global_step
             if global_step >= total_steps:
                 break
         if global_step >= total_steps:
             break
-    save_checkpoint(args.output_dir, global_step, model, optimizer, cfg,
-                    vars(args), tokenizer=tokenizer)
+    if saved_at != global_step or global_step == start_step:
+        # the final save, unless the last step's save wrote this checkpoint
+        # (the JAX loop writes it a second time, unchanged)
+        save_checkpoint(args.output_dir, global_step, model, optimizer, cfg,
+                        vars(args), tokenizer=tokenizer)
     writer.close()
     result.global_step = global_step
     return result
@@ -217,33 +350,37 @@ def _model_and_optimizer(model, args, device, total_steps: int):
 
 
 def _log_step(writer, result: TrainResult, out: Dict, global_step: int,
-              start_step: int) -> None:
-    """Loss, gradient norm and steps/s of a logged step (the host waits for
-    the step's loss here)."""
-    loss, gn = float(out["loss"]), float(out["grad_norm"])
+              start_step: int, tag: str = "train") -> None:
+    """Each tensor of the step's output (loss, gradient norm, a
+    pretraining step's loss terms) and steps/s of a logged step (the host
+    waits for the step's loss here)."""
+    vals = {k: float(v) for k, v in out.items() if torch.is_tensor(v)}
     now = time.perf_counter()
-    writer.scalar("train/loss", loss, global_step)
-    writer.scalar("train/grad_norm", gn, global_step)
-    writer.scalar("train/steps_per_sec", (global_step - start_step)
+    for k, v in vals.items():
+        writer.scalar(f"{tag}/{k}", v, global_step)
+    writer.scalar(f"{tag}/steps_per_sec", (global_step - start_step)
                   / (now - result.start_time), global_step)
-    result.history.append({"step": global_step, "loss": loss,
-                           "grad_norm": gn, "time": now})
-    logger.info("step %d loss %.4f", global_step, loss)
+    result.history.append({"step": global_step, **vals, "time": now})
+    logger.info("step %d loss %.4f", global_step, vals["loss"])
 
 
 def _save_and_eval(args, cfg, model, optimizer, step: int, tokenizer, writer,
-                   eval_fn: Optional[Callable], best_score: float) -> float:
-    """`checkpoint-{step}`, then `eval_fn(model)` when given, and
-    `checkpoint-best` when its partial + exact match beats `best_score`;
-    returns the best score."""
+                   eval_fn: Optional[Callable], best_score: float,
+                   eval_tag: str = "eval") -> float:
+    """`checkpoint-{step}`, then `eval_fn(model)` when given (its results
+    logged as `{eval_tag}/{name}`), and `checkpoint-best` when its partial +
+    exact match beats `best_score` (an eval without them, such as
+    pretraining's, keeps none); returns the best score."""
     save_checkpoint(args.output_dir, step, model, optimizer, cfg, vars(args),
                     tokenizer=tokenizer)
     if eval_fn is None:
         return best_score
     res = eval_fn(model)
     for k, v in res.items():
-        writer.scalar(f"eval/{k}", v, step)
+        writer.scalar(f"{eval_tag}/{k}", v, step)
     logger.info("eval @%d: %s", step, res)
+    if not {"partial_match", "exact_match"} & set(res):
+        return best_score
     score = res.get("partial_match", 0) + res.get("exact_match", 0)
     if score > best_score:
         save_checkpoint(args.output_dir, step, model, optimizer, cfg,

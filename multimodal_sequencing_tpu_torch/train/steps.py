@@ -1,10 +1,11 @@
 """Loss and train steps (counterpart of `train/steps.py`: the heat-map
-heads' step and BERSON's).
+heads' step, BERSON's and the pretrainer's).
 
 `train_step` is one eager step: forward in train mode, the task loss,
 backward, the gradient norm, and the optimizer update (`train/state.py`).
 `berson_train_step` is the same around BERSON, whose forward returns its
-own loss.
+own loss, and `pretrain_step` around the pretrainer, whose forward returns
+the loss dict of one planned objective.
 Its dropout streams derive from (seed + 1, step), as the JAX step folds the
 step into `PRNGKey(seed + 1)`. A multimodal batch's `images` go to the
 model as shipped (uint8 or f32); the train-mode forward updates the vision
@@ -106,6 +107,24 @@ def berson_train_step(model, optimizer, batch: dict, step: int, seed: int
     out = model(device_batch(batch, device), deterministic=False,
                 rng=DropoutRng(seed + 1, step, device))
     return _update(optimizer, out["loss"])
+
+
+def pretrain_step(model, optimizer, batch: dict, aux: dict, objective: str,
+                  step: int, seed: int, use_mlm: bool = True
+                  ) -> Dict[str, torch.Tensor]:
+    """One train step of `SequencingPretrainer` on a planned batch (numpy:
+    the masked batch and the plan's aux arrays of `objective`): the loss
+    dict as the model returns it, then the same clipping and AdamW update
+    as `train_step`, with the same dropout streams; the tower's BatchNorm
+    statistics update once. Returns the loss dict and the gradient's global
+    norm as tensors on the model's device."""
+    device = next(model.parameters()).device
+    model.train()
+    losses = model(device_batch(batch, device), objective,
+                   device_batch(aux, device), deterministic=False,
+                   rng=DropoutRng(seed + 1, step, device), use_mlm=use_mlm)
+    out = _update(optimizer, losses["loss"])
+    return {**{k: v.detach() for k, v in losses.items()}, **out}
 
 
 def _update(optimizer, loss: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -162,8 +162,8 @@ def test_time_contrastive_plan_matches_jax(n):
         assert set(got) == set(want)
         for k in want:
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-    with pytest.raises(NotImplementedError):
-        tobjectives.plan_objective("image_swapping", batch, cfg, tr)
+    with pytest.raises(NotImplementedError):  # not an objective
+        tobjectives.plan_objective("itm", batch, cfg, tr)
 
 
 # ----- modules alone ---------------------------------------------------------------
