@@ -38,6 +38,7 @@ is not printed.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -84,15 +85,27 @@ MM_IMAGE = 224   # the RN50 tower's resolution: a 7 x 7 grid an image
 # the folded visual stream: 5 images x 7 x 7 patches + the mean token
 MM_VISUAL_TOKENS = 5 * 7 * 7 + 1
 MM_JOINT_S = 320 + MM_VISUAL_TOKENS  # 566
+
+
+def per_forward(layers, extra_ln=0, extra_attn=0):
+    """Kernel launches of one forward (and, for the backward kernels, a
+    train step) of an encoder of `layers` layers: an attention and a GELU a
+    layer, two LayerNorms a layer and the embeddings'; `extra_attn` more
+    attention calls (the RN50 attention pool) and `extra_ln` more
+    LayerNorms (visn_ln, BERSON's paragraph encoder, the pretraining
+    heads)."""
+    attn, ln = layers + extra_attn, 2 * layers + 1 + extra_ln
+    return {"flash_fwd": attn, "flash_bwd_prep": attn,
+            "flash_bwd_main": attn, "flash_bwd_post": attn,
+            "gelu_logit_erf_fwd": layers, "gelu_logit_erf_bwd": layers,
+            "layer_norm_fwd": ln, "layer_norm_bwd": ln}
+
+
+# the text path's forward (LayerNorm: 2 per layer + the embeddings')
+PER_FORWARD = per_forward(NUM_LAYERS)
 # per multimodal forward: 24 joint attentions + the attention pool; the
 # LayerNorms of the text path + visn_ln
-MM_PER_FORWARD = {"flash_fwd": NUM_LAYERS + 1, "flash_bwd_prep": NUM_LAYERS + 1,
-                  "flash_bwd_main": NUM_LAYERS + 1,
-                  "flash_bwd_post": NUM_LAYERS + 1,
-                  "gelu_logit_erf_fwd": NUM_LAYERS,
-                  "gelu_logit_erf_bwd": NUM_LAYERS,
-                  "layer_norm_fwd": 50, "layer_norm_bwd": 50}
-# the published roberta-large config.json, as a local HF directory has it
+MM_PER_FORWARD = per_forward(NUM_LAYERS, extra_ln=1, extra_attn=1)
 # BERSON (models/berson.py): a 5-step story is P = 20 ordered step pairs of
 # L = 2 x 60 tokens; the multimodal inner folds each pair's two images into
 # 2 x 7 x 7 + 1 = 99 visual tokens after its text
@@ -100,18 +113,14 @@ BERSON_P, BERSON_L = 20, 120
 BERSON_MM_S = BERSON_L + 2 * 7 * 7 + 1  # 219
 BERSON_STEPS = 8         # text: main_train steps of 2 stories
 BERSON_EVAL_STORIES = 48  # text eval: 3 batches of 16 stories, beam 16
-BERSON_MM_STEPS = 5      # the launcher's configuration: steps of 1 story
+BERSON_MM_STEPS = 4      # the launcher's configuration: steps of 1 story
 BERSON_MM_EVAL_STORIES = 6  # at its eval batch of 1
 # kernel launches a forward (and, for the backward kernels, a train step):
 # the 24 inner layers (LayerNorm: + the embeddings' and the paragraph
 # encoder's four, which run in f32); the multimodal inner adds the
 # attention pool's flash calls and visn_ln
-BERSON_PER_FORWARD = {"flash_fwd": 24, "flash_bwd_prep": 24,
-                      "flash_bwd_main": 24, "flash_bwd_post": 24,
-                      "gelu_logit_erf_fwd": 24, "gelu_logit_erf_bwd": 24,
-                      "layer_norm_fwd": 53, "layer_norm_bwd": 53}
-BERSON_MM_PER_FORWARD = {k: v + (0 if k.startswith("gelu") else 1)
-                         for k, v in BERSON_PER_FORWARD.items()}
+BERSON_PER_FORWARD = per_forward(NUM_LAYERS, extra_ln=4)
+BERSON_MM_PER_FORWARD = per_forward(NUM_LAYERS, extra_ln=5, extra_attn=1)
 # pretraining (models/pretrainer.py): the objectives that subsample keep 2
 # of a story's 5 steps, 2 x 60 text tokens and a folded stream of
 # 2 x 7 x 7 + 1 = 99 visual tokens, at the launchers' batch of 4 stories;
@@ -122,6 +131,24 @@ PRETRAIN_VISUAL = 2 * 7 * 7 + 1  # 99
 PRETRAIN_STEPS = 8        # the two RoBERTa-large runs
 PRETRAIN_IMG_STEPS = 4    # the image-only run
 PRETRAIN_DEV_STORIES = 4  # the dev split, at the launchers' eval batch of 1
+# RecipeQA's launchers (scripts/recipeqa_*.sh) at bert-base widths (12
+# layers, 12 heads of 64, 768 / 3072 wide); BERSON's forward there: the 12
+# inner layers (+ the attention pool), LayerNorm 2 x 12 + the embeddings'
+# and the paragraph encoder's four (+ visn_ln)
+RQ_LAYERS = 12
+RQ_TRAIN = 16            # train recipes (new_splits train-human_annot)
+RQ_TEST = 3              # test recipes, the last of them human-annotated
+RQ_FT_STEPS = 4          # the finetune launcher: steps of 1 recipe,
+RQ_FT_SAVE = 3           # a save with its beam eval at step 3, then step 4
+RQ_PRE_STEPS = 4         # each pretraining launcher: steps of 4 recipes
+RQ_PER_FORWARD = per_forward(RQ_LAYERS, extra_ln=5, extra_attn=1)
+# the v0 baselines (RoBERTa-large): steps of 8 pairs / stories at S = 320,
+# and an eval of 8 stories (one batch): 160 ordered step pairs packed to
+# pair_len = 128 and 480 step triples packed to 320, at micro-batch 32
+V0_STEPS = 4
+V0_EVAL_STORIES = 8
+V0_PAIR_LEN = 128
+# the published roberta-large config.json, as a local HF directory has it
 HF_ROBERTA_LARGE = {
     "architectures": ["RobertaForMaskedLM"], "model_type": "roberta",
     "hidden_size": 1024, "num_hidden_layers": 24, "num_attention_heads": 16,
@@ -237,6 +264,29 @@ KERNELS = {
         BWD_KERNEL, "multimodal_sequencing_tpu/ops/attention.py:343")
        for name in ("pretrain_text", "pretrain_margin", "pretrain_ft",
                     "pretrain_ft_pool")},
+    # the v0 baselines' calls: a pairwise train step (8 pairs in S = 320),
+    # the all-pairs eval (pairs in 128) and the abductive cube (triples in
+    # 320); RecipeQA's at bert-base: BERSON's joint pairs (20 x 219), the
+    # pretraining launcher's subsampled stream (4 x 219), its dev eval
+    # (1 x 546)
+    **{f"flash_fwd@{name}": (
+        "multimodal_sequencing_tpu_torch/ops/csrc/flash_fwd.cu",
+        "multimodal_sequencing_tpu/ops/attention.py:126")
+       for name in ("v0_pair_train", "v0_pair_eval", "v0_cube_eval",
+                    "rq_pair_joint", "rq_pretrain_joint", "rq_pretrain_eval")},
+    **{f"flash_bwd@{name}": (
+        BWD_KERNEL, "multimodal_sequencing_tpu/ops/attention.py:343")
+       for name in ("v0_pair_train", "rq_pair_joint", "rq_pretrain_joint")},
+    # GELU and LayerNorm at bert-base widths (3072 / 768), at the rows of
+    # the RecipeQA finetune launcher's step (20 pairs x 219 tokens)
+    "gelu_logit_erf_fwd@bert_base": (
+        GELU_KERNEL, "multimodal_sequencing_tpu/ops/gelu.py:163"),
+    "gelu_logit_erf_bwd@bert_base": (
+        GELU_KERNEL, "multimodal_sequencing_tpu/ops/gelu.py:175"),
+    "layer_norm_fwd@bert_base": (
+        LN_KERNEL, "multimodal_sequencing_tpu/models/encoder.py:146"),
+    "layer_norm_bwd@bert_base": (
+        LN_KERNEL, "multimodal_sequencing_tpu/models/encoder.py:146"),
 }
 # (B, H, S, D) of the multimodal rows: joint train (batch 8), joint eval
 # (micro-batch 32), attention pool of a train batch (8 stories)
@@ -264,16 +314,29 @@ MM_SHAPES = {"joint": (8, 16, MM_JOINT_S, 64),
              "pretrain_text_eval": (1, 16, 300, 64),
              "pretrain_img_eval": (1, 12, 1 + MM_VISUAL_TOKENS, 64),
              "pretrain_ft": (4, 12, MM_JOINT_S, 64),
-             "pretrain_ft_pool": (4, 32, MM_VISUAL_TOKENS, 64)}
+             "pretrain_ft_pool": (4, 32, MM_VISUAL_TOKENS, 64),
+             # the v0 baselines: a pairwise train step (two steps in 320),
+             # the all-pairs eval micro-batch (two steps in 128), the
+             # abductive cube's (three steps in 320)
+             "v0_pair_train": (8, 16, 320, 64),
+             "v0_pair_eval": (32, 16, V0_PAIR_LEN, 64),
+             "v0_cube_eval": (32, 16, 320, 64),
+             # RecipeQA at bert-base: BERSON's joint pairs of a 5-step
+             # recipe, the subsampled pretraining stream, its dev eval
+             "rq_pair_joint": (BERSON_P, 12, BERSON_MM_S, 64),
+             "rq_pretrain_joint": (4, 12, PRETRAIN_L + PRETRAIN_VISUAL, 64),
+             "rq_pretrain_eval": (1, 12, 300 + MM_VISUAL_TOKENS, 64)}
 # the live steps of each story in `pair_eval`
 PAIR_EVAL_STEPS = tuple(5 if a % 3 else 3 + a % 2 for a in range(16))
 # the calls of an eval forward: forward only
 EVAL_ONLY = ("joint_eval", "pair_eval", "pretrain_eval", "pretrain_eval_pool",
-             "pretrain_text_eval", "pretrain_img_eval")
+             "pretrain_text_eval", "pretrain_img_eval", "v0_pair_eval",
+             "v0_cube_eval", "rq_pretrain_eval")
 # the calls a train step makes with attention dropout
 PATH_DROPOUT = ("joint", "pair", "pair_joint", "pretrain_joint",
                 "pretrain_img", "pretrain_text", "pretrain_margin",
-                "pretrain_ft")
+                "pretrain_ft", "v0_pair_train", "rq_pair_joint",
+                "rq_pretrain_joint")
 # the kernels each main path must launch
 PATH_KERNELS = {"eval": ("flash_fwd", "gelu_logit_erf_fwd", "layer_norm_fwd"),
                 "train": ("flash_fwd", "flash_bwd_prep", "flash_bwd_main",
@@ -295,7 +358,19 @@ PATH_KERNELS.update(hf_train=PATH_KERNELS["train"],
                     pretrain_train_eval=PATH_KERNELS["eval"],
                     pretrain_text_eval=PATH_KERNELS["eval"],
                     pretrain_img_eval=PATH_KERNELS["eval"],
-                    pretrain_finetune=PATH_KERNELS["train"])
+                    pretrain_finetune=PATH_KERNELS["train"],
+                    rq_finetune=PATH_KERNELS["train"],
+                    rq_finetune_eval=PATH_KERNELS["eval"],
+                    rq_pretrain=PATH_KERNELS["train"],
+                    rq_pretrain_eval=PATH_KERNELS["eval"],
+                    rq_img=PATH_KERNELS["train"],
+                    rq_img_eval=PATH_KERNELS["eval"],
+                    v0_pairwise=PATH_KERNELS["train"],
+                    v0_head=PATH_KERNELS["train"],
+                    **{f"v0_{m}": PATH_KERNELS["eval"] for m in (
+                        "topological", "topological_device",
+                        "head_and_topological", "head_and_sequential",
+                        "head_and_sequential_abductive", "pure_class")})
 # the launch counter behind each row of the `kernels` line, where it is
 # not the row's own name
 COUNTER = {"flash_bwd": "flash_bwd_main", "flash_bwd_dq": "flash_bwd_main",
@@ -314,7 +389,8 @@ COUNTER = {"flash_bwd": "flash_bwd_main", "flash_bwd_dq": "flash_bwd_main",
            "flash_bwd@pair_joint": "flash_bwd_main",
            "flash_bwd@pair_pool": "flash_bwd_main",
            **{name: name.split("@")[0].replace("flash_bwd", "flash_bwd_main")
-              for name in KERNELS if "@pretrain_" in name}}
+              for name in KERNELS if "@pretrain_" in name or "@v0_" in name
+              or "@rq_" in name or "@bert_base" in name}}
 # the path whose launches the multimodal rows of the `kernels` line show
 # (the wrappers count launches of every shape together)
 ROW_PATH = {"flash_fwd@joint": "mm_train", "flash_fwd@joint_eval": "mm_eval",
@@ -343,16 +419,30 @@ ROW_PATH = {"flash_fwd@joint": "mm_train", "flash_fwd@joint_eval": "mm_eval",
             "flash_fwd@pretrain_ft": "pretrain_finetune",
             "flash_bwd@pretrain_ft": "pretrain_finetune",
             "flash_fwd@pretrain_ft_pool": "pretrain_finetune",
-            "flash_bwd@pretrain_ft_pool": "pretrain_finetune"}
+            "flash_bwd@pretrain_ft_pool": "pretrain_finetune",
+            "flash_fwd@v0_pair_train": "v0_pairwise",
+            "flash_bwd@v0_pair_train": "v0_pairwise",
+            "flash_fwd@v0_pair_eval": "v0_topological",
+            "flash_fwd@v0_cube_eval": "v0_head_and_sequential_abductive",
+            "flash_fwd@rq_pair_joint": "rq_finetune",
+            "flash_bwd@rq_pair_joint": "rq_finetune",
+            "flash_fwd@rq_pretrain_joint": "rq_pretrain",
+            "flash_bwd@rq_pretrain_joint": "rq_pretrain",
+            "flash_fwd@rq_pretrain_eval": "rq_pretrain_eval",
+            **{f"{k}@bert_base": "rq_finetune" for k in (
+                "gelu_logit_erf_fwd", "gelu_logit_erf_bwd", "layer_norm_fwd",
+                "layer_norm_bwd")}}
 # the f32 backward kernels: the check path, never launched by the bf16
 # train path
 F32_BWD = ("flash_bwd_dq_f32", "flash_bwd_dkv_f32")
-# launches of each path kernel per forward (LayerNorm: 2 per layer + the
-# embeddings')
-PER_FORWARD = {"layer_norm_fwd": 49, "layer_norm_bwd": 49}
 # LayerNorm inputs: (rows, features, mean); rows of std 1 around `mean`
+# the rows of the RecipeQA launchers' steps at bert-base widths: the
+# pretraining one's (4 x 219), then the finetune one's (20 pairs x 219),
+# whose rows the kernels line shows
+RQ_ROWS = BERSON_P * BERSON_MM_S
 LN_SHAPES = [(32 * 320, 1024, 0.0), (8 * 320, 1024, 0.0), (8 * 320, 1024, 3.0),
-             (7, 64, 0.0), (37, 1000, 0.0)]  # 1000: not whole 16-byte vectors
+             (7, 64, 0.0), (37, 1000, 0.0),  # 1000: not whole 16-byte vectors
+             (4 * BERSON_MM_S, 768, 0.0), (RQ_ROWS, 768, 0.0)]
 # |got - want| <= atol + rtol * |want| (dw, db: atol relative to the largest
 # entry). f32: the same formula, f32 sums in another order; bf16: one bf16
 # ulp of the output, and dx is rounded from f32 in both.
@@ -370,7 +460,8 @@ LN_EDGE_CASES = [(8 * 320, 1024, 0.0, 1, False), (8 * 320, 1024, 3.0, 0, True)]
 # share bit for bit (see _layer_norm_shared_stats)
 LN_STATS_ROWS = (0, 4321, 32 * 320 - 1)
 # the MLP activation entering the GELU: (tokens, intermediate size)
-GELU_SHAPES = [(32 * 320, 4096), (8 * 320, 4096), (5, 7)]
+GELU_SHAPES = [(32 * 320, 4096), (8 * 320, 4096), (5, 7),
+               (4 * BERSON_MM_S, 3072), (RQ_ROWS, 3072)]
 # |got - want| <= atol + rtol * |want|. f32: the kernel and the plain
 # version round the same f32 formula in other places (fused multiply-adds
 # outside the polynomials), an ulp of sigma and u' that the backward's
@@ -412,6 +503,20 @@ def max_sm_clock_hz() -> float:
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         timeout=60, check=True)
     return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def bytes_written():
+    """The bytes this process and its reaped children (the parallel `nvcc`
+    builds, which `_build` waits for) have written so far: `wchar` of
+    /proc/self/io, which takes in each child's count when it is reaped;
+    None where the kernel does not report it. The card machine allows 45
+    GiB of disk writes to the whole script."""
+    try:
+        with open("/proc/self/io") as f:
+            return int(dict(line.split(": ") for line in
+                            f.read().splitlines())["wchar"])
+    except (OSError, KeyError, ValueError):
+        return None
 
 
 def cuda_ms(fn, iters: int = 30, warmup: int = 3,
@@ -489,9 +594,11 @@ def make_path_attention_inputs(name: str, dtype, seed: int):
     of (B, S, H*D) projections. The joint stream keeps 260..320 text keys
     of each row and every visual key (the fine-tune stream too); BERSON's
     pairs their two steps' tokens (none for a dead pair), followed in the
-    joint pairs by the 99 visual keys; pretraining's subsampled stream (and
-    margin_loss's rows) two steps' tokens and the 99 visual keys, its text
-    and dev-eval streams five steps' tokens and the 246 visual keys; the
+    joint pairs by the 99 visual keys (RecipeQA's at bert-base too); the
+    v0 baselines' rows two steps' tokens (a triple's three); pretraining's
+    subsampled stream (and margin_loss's rows; RecipeQA's) two steps'
+    tokens and the 99 visual keys, its text and dev-eval streams five
+    steps' tokens and the 246 visual keys; the
     attention pools have no mask (all ones), nor have the image-only
     streams."""
     import torch
@@ -504,19 +611,27 @@ def make_path_attention_inputs(name: str, dtype, seed: int):
                 "pretrain_eval_pool", "pretrain_img_eval", "pretrain_ft_pool"):
         # the image-only stream: its one text key (a CLS) and the visual keys
         mask = torch.ones((b, s), dtype=torch.int32)
-    elif name in ("pretrain_joint", "pretrain_margin"):
+    elif name in ("pretrain_joint", "pretrain_margin", "rq_pretrain_joint"):
         # two steps of 20..60 text tokens (and the joint stream's 99 visual)
         text = torch.randint(20, 61, (b, 2), generator=gen).sum(1)[:, None]
         mask = ((pos < text) | (pos >= PRETRAIN_L)).to(torch.int32)
-    elif name in ("pretrain_text", "pretrain_text_eval", "pretrain_eval"):
+    elif name in ("pretrain_text", "pretrain_text_eval", "pretrain_eval",
+                  "rq_pretrain_eval"):
         # five steps of 20..60 text tokens (and the eval's 246 visual)
         text = torch.randint(20, 61, (b, 5), generator=gen).sum(1)[:, None]
         mask = ((pos < text) | (pos >= 300)).to(torch.int32)
+    elif name in ("v0_pair_train", "v0_pair_eval", "v0_cube_eval"):
+        # a step pair's (a triple's) 20..60 tokens each, the rest padding
+        steps = 3 if name == "v0_cube_eval" else 2
+        text = torch.randint(20, 61, (b, steps), generator=gen).sum(1)
+        mask = (pos < text[:, None]).to(torch.int32)
     elif name in ("pair", "pair_eval"):
         live = (5, 3) if name == "pair" else PAIR_EVAL_STEPS
         mask = (pos < _pair_lengths(live, gen)[:, None]).to(torch.int32)
-    elif name == "pair_joint":
-        text = _pair_lengths((4,), gen)[:, None]
+    elif name in ("pair_joint", "rq_pair_joint"):
+        # the launcher's story of 4 live steps; a recipe's 5
+        text = _pair_lengths((4,) if name == "pair_joint" else (5,),
+                             gen)[:, None]
         mask = ((pos < text) | (pos >= BERSON_L)).to(torch.int32)
     else:
         lengths = torch.randint(260, 321, (b,), generator=gen)
@@ -537,7 +652,11 @@ MM_KERNEL_CASES = [("joint", DROPOUT_P), ("joint", 0.0),
                    ("pretrain_text", DROPOUT_P), ("pretrain_margin", DROPOUT_P),
                    ("pretrain_eval", 0.0), ("pretrain_eval_pool", 0.0),
                    ("pretrain_text_eval", 0.0), ("pretrain_img_eval", 0.0),
-                   ("pretrain_ft", DROPOUT_P), ("pretrain_ft_pool", 0.0)]
+                   ("pretrain_ft", DROPOUT_P), ("pretrain_ft_pool", 0.0),
+                   ("v0_pair_train", DROPOUT_P), ("v0_pair_eval", 0.0),
+                   ("v0_cube_eval", 0.0), ("rq_pair_joint", DROPOUT_P),
+                   ("rq_pair_joint", 0.0), ("rq_pretrain_joint", DROPOUT_P),
+                   ("rq_pretrain_eval", 0.0)]
 
 
 def _attention_check(att, q, k, v, mask, p, seed, labels, backward=True):
@@ -765,6 +884,9 @@ def _layer_norm_check(seed: int, errs: dict):
             if rows == LN_SHAPES[1][0]:
                 errs["layer_norm_fwd"] = row["max_abs_err_y"]
                 errs["layer_norm_bwd"] = row["max_abs_err_dx"]
+            if (rows, n) == LN_SHAPES[-1][:2]:
+                errs["layer_norm_fwd@bert_base"] = row["max_abs_err_y"]
+                errs["layer_norm_bwd@bert_base"] = row["max_abs_err_dx"]
             if rows == LN_SHAPES[0][0]:
                 errs["layer_norm_fwd@eval"] = row["max_abs_err_y"]
     failed += _layer_norm_shared_stats(seed)
@@ -842,6 +964,8 @@ def _gelu_check(seed: int, errs: dict):
                 failed += [] if ok else [(f"gelu_{kname}", shape, name)]
                 if name == "bfloat16" and shape == GELU_SHAPES[1]:
                     errs[f"gelu_logit_erf_{kname}"] = err.max().item()
+                if name == "bfloat16" and shape == GELU_SHAPES[-1]:
+                    errs[f"gelu_logit_erf_{kname}@bert_base"] = err.max().item()
                 if name == "bfloat16" and shape == GELU_SHAPES[0] and kname == "fwd":
                     errs["gelu_logit_erf_fwd@eval"] = err.max().item()
             emit(row)
@@ -982,8 +1106,9 @@ def gelu_sass_per_element() -> dict:
 
 
 def _gelu_timing(gen) -> dict:
-    """The bf16 GELU kernels at the train MLP shape (forward and backward)
-    and the eval shape (forward), against their plain versions and PyTorch's
+    """The bf16 GELU kernels at the train MLP shape and the RecipeQA
+    launcher's bert-base rows (forward and backward) and the eval shape
+    (forward), against their plain versions and PyTorch's
     exact-erf GELU. The bound is the larger of the bytes at the published
     rate and the instruction floor: the vector loop's SASS FP32-pipe
     instructions at 128 lanes and its MUFU operations at 16 an SM a clock,
@@ -1023,14 +1148,15 @@ def _gelu_timing(gen) -> dict:
         return out
 
     for name, shape in (("gelu_logit_erf_fwd", GELU_SHAPES[1]),
-                        ("gelu_logit_erf_fwd@eval", GELU_SHAPES[0])):
+                        ("gelu_logit_erf_fwd@eval", GELU_SHAPES[0]),
+                        ("gelu_logit_erf_fwd@bert_base", GELU_SHAPES[-1])):
         x = torch.randn(shape, generator=gen).to("cuda", torch.bfloat16) * 3
         rows[name] = {"shape": list(shape), **row(
             "fwd", x.numel(), 2, lambda: gl.gelu_logit_erf_fwd(x),
             lambda: gl.gelu_logit_erf_reference(x), lambda: F.gelu(x))}
-        if name == "gelu_logit_erf_fwd":
+        if name != "gelu_logit_erf_fwd@eval":
             g = torch.randn(shape, generator=gen).to("cuda", torch.bfloat16)
-            rows["gelu_logit_erf_bwd"] = {"shape": list(shape), **row(
+            rows[name.replace("fwd", "bwd")] = {"shape": list(shape), **row(
                 "bwd", x.numel(), 3, lambda: gl.gelu_logit_erf_bwd(x, g),
                 lambda: gl.gelu_logit_erf_bwd_reference(x, g),
                 lambda: torch.ops.aten.gelu_backward(g, x))}
@@ -1200,6 +1326,35 @@ def phase_timing(seed: int):
         **bound(3 * nbytes + 3 * 1024 * 4, 0)}
     rows["layer_norm_bwd"]["library_ratio"] = (
         rows["layer_norm_bwd"]["ms"] / rows["layer_norm_bwd"]["library_ms"])
+    # both directions at bert-base width on the RecipeQA launcher's rows
+    rows_, n_ = LN_SHAPES[-1][:2]
+    xb = torch.randn(rows_, n_, generator=gen).to("cuda", torch.bfloat16)
+    dyb = torch.randn(rows_, n_, generator=gen).to("cuda", torch.bfloat16)
+    wn, bn_ = torch.ones(n_, device="cuda"), torch.zeros(n_, device="cuda")
+    _, mu_b, rstd_b = torch.ops.aten.native_layer_norm(
+        xb, (n_,), wn.bfloat16(), bn_.bfloat16(), 1e-5)
+
+    def plain_bwd_b():
+        xp = xb.detach().requires_grad_()
+        wp, bp = wn.detach().requires_grad_(), bn_.detach().requires_grad_()
+        ln.layer_norm_reference(xp, wp, bp, 1e-5, torch.bfloat16).backward(dyb)
+
+    rows["layer_norm_fwd@bert_base"] = {
+        "shape": [rows_, n_],
+        "ms": kernel_ms(lambda: ln.layer_norm_fwd(xb, wn, bn_, 1e-5)),
+        "plain_ms": kernel_ms(lambda: ln.layer_norm_reference(
+            xb, wn, bn_, 1e-5, torch.bfloat16)),
+        "library_ms": kernel_ms(lambda: torch.nn.functional.layer_norm(
+            xb, (n_,), wn.bfloat16(), bn_.bfloat16())),
+        **bound(2 * xb.numel() * 2 + 2 * n_ * 4, 0)}
+    rows["layer_norm_bwd@bert_base"] = {
+        "shape": [rows_, n_],
+        "ms": kernel_ms(lambda: ln.layer_norm_bwd(xb, dyb, wn, 1e-5)),
+        "plain_ms": kernel_ms(plain_bwd_b),
+        "library_ms": kernel_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+            dyb, xb, (n_,), mu_b, rstd_b, wn.bfloat16(), bn_.bfloat16(),
+            [True, True, True])),
+        **bound(3 * xb.numel() * 2 + 3 * n_ * 4, 0)}
 
     # the multimodal path's calls (`make_path_attention_inputs`; their
     # errors are held in kernel_check); an eval micro-batch has no dropout
@@ -1374,7 +1529,7 @@ def phase_main_path(seed: int, work: str):
     print(headers, flush=True)
     print(row, flush=True)
     if not (evaluator.forwards == batches and perms
-            and all(counts[k] == batches * PER_FORWARD.get(k, NUM_LAYERS)
+            and all(counts[k] == batches * PER_FORWARD[k]
                     for k in PATH_KERNELS["eval"])):
         raise AssertionError(f"main path check failed: {summary}")
     return counts
@@ -1423,7 +1578,7 @@ def phase_train_path(seed: int, work: str):
     ok = (res.global_step == TRAIN_STEPS
           and all(math.isfinite(x) for x in losses)
           and len(set(losses)) > 1
-          and all(counts[k] == TRAIN_STEPS * PER_FORWARD.get(k, NUM_LAYERS)
+          and all(counts[k] == TRAIN_STEPS * PER_FORWARD[k]
                   for k in PATH_KERNELS["train"])
           and all(counts[k] == 0 for k in F32_BWD)
           and os.path.isfile(os.path.join(ckpt, "model.pt"))
@@ -1947,7 +2102,7 @@ def phase_hf_path(seed: int, work: str):
             and res.global_step == HF_STEPS
             and all(math.isfinite(x) for x in losses)
             and ckpts == ["checkpoint-2", "checkpoint-4"]
-            and all(counts[k] == HF_STEPS * PER_FORWARD.get(k, NUM_LAYERS)
+            and all(counts[k] == HF_STEPS * PER_FORWARD[k]
                     for k in PATH_KERNELS["train"])):
         raise AssertionError(f"HF train check failed: {summary}")
 
@@ -1971,7 +2126,7 @@ def phase_hf_path(seed: int, work: str):
             and files == [f"eval_results_split_test_{c}.txt" for c in ckpts]
             and summary["all_permutations"]
             and evaluator.forwards == batches
-            and all(eval_counts[k] == batches * PER_FORWARD.get(k, NUM_LAYERS)
+            and all(eval_counts[k] == batches * PER_FORWARD[k]
                     for k in PATH_KERNELS["eval"])):
         raise AssertionError(f"HF sweep check failed: {summary}")
 
@@ -2003,7 +2158,7 @@ def phase_hf_path(seed: int, work: str):
                for _ in range(N_STORIES)]
     heatmaps = {
         "checkpoint": _evaluator(args, cfg, tok, torch.device("cuda"))
-        .story_logits(model, stories).astype(np.float32),
+        .story_logits(model, stories, want="heatmap").astype(np.float32),
         "random_5": rng.uniform(0, 1, (512, 5, 5)).astype(np.float32),
         "random_7": rng.uniform(0, 1, (64, 7, 7)).astype(np.float32)}
     clean = np.zeros((64, 5, 5), np.float32)
@@ -2979,11 +3134,16 @@ def _berson_orders_ok(out_dir, lengths):
         sorted(o) == list(range(m)) for o, m in zip(orders, lengths))
 
 
+def _expected(per_forward, forwards, steps, names):
+    """Exact launches: each forward kernel `forwards` times its per-forward
+    count, each backward kernel `steps` times."""
+    return {k: (steps if "bwd" in k else forwards) * per_forward[k]
+            for k in names}
+
+
 def _berson_counts_ok(counts, per_forward, names, forwards, steps):
-    """Exact launch counts: each forward kernel `forwards` times its
-    per-forward count, each backward kernel `steps` times."""
-    return all(counts[k] == (steps if "bwd" in k else forwards)
-               * per_forward[k] for k in names)
+    return all(counts[k] == v for k, v in
+               _expected(per_forward, forwards, steps, names).items())
 
 
 def _story_lengths(n, seed):
@@ -2999,9 +3159,8 @@ def phase_berson_path(seed: int, work: str):
     sequences of 120 tokens, dropout 0.1), then `run_eval --sort_method
     berson` (beam 16) of its checkpoint over 48 stories in batches of 16.
     The reference launcher's configuration (`scripts/wikihow_finetune.sh`:
-    CLIP RN50 inner, batch 1, lr 5e-6): 5 steps with PNG step images, a save
-    at step 3 with `--evaluate_during_training`, `--do_eval` of the best
-    and last checkpoints, then `run_eval --sort_method berson --multimodal`
+    CLIP RN50 inner, batch 1, lr 5e-6): 4 steps with PNG step images, the
+    final save, `--do_eval` of it, then `run_eval --sort_method berson --multimodal`
     of the last. Stories of 3-5 steps (dead pairs). Then a profile of a
     text train step and an eval batch (forward, beam loop) by kernel
     class. Every path must launch its kernels, in exact counts."""
@@ -3092,15 +3251,16 @@ def phase_berson_path(seed: int, work: str):
         mm_data, out_dir, seed, *launcher, "--per_gpu_train_batch_size", "1",
         "--per_gpu_eval_batch_size", "1", "--learning_rate", "5e-6",
         "--order_criteria", "loose", "--do_not_load_optimizer",
-        "--max_steps", str(BERSON_MM_STEPS), "--save_steps", "3",
-        "--evaluate_during_training", "--do_eval", "--eval_splits", "test",
+        "--max_steps", str(BERSON_MM_STEPS), "--save_steps", "0",
+        "--do_eval", "--eval_splits", "test",
         "--iters_to_eval", "best", str(BERSON_MM_STEPS)))
     launches["berson_mm_train"] = counts = _read_counts()
     step_s = _berson_steps(res)
     losses = [h["loss"] for h in res.history]
-    # the forwards: the steps', the save's eval (6 stories a batch of 1)
-    # and the --do_eval sweep's two checkpoints
-    forwards = BERSON_MM_STEPS + 3 * BERSON_MM_EVAL_STORIES
+    # the forwards: the steps' and the --do_eval sweep's (6 stories a batch
+    # of 1); the final checkpoint is the one save (the RecipeQA finetune
+    # launcher evaluates at a save, keeps checkpoint-best and trains on)
+    forwards = BERSON_MM_STEPS + BERSON_MM_EVAL_STORIES
     summary = {"phase": "berson_path", "part": "launcher_train",
                "steps": res.global_step, "stories_a_step": 1,
                "joint_s": BERSON_MM_S, "launches": counts, "losses": losses,
@@ -3112,7 +3272,7 @@ def phase_berson_path(seed: int, work: str):
     sweep = sorted(res.eval_results)
     if not (res.global_step == BERSON_MM_STEPS
             and all(math.isfinite(x) for x in losses)
-            and sweep == ["checkpoint-5", "checkpoint-best"]
+            and sweep == [f"checkpoint-{BERSON_MM_STEPS}"]
             and _berson_counts_ok(counts, BERSON_MM_PER_FORWARD,
                                   PATH_KERNELS["berson_mm_train"],
                                   forwards, BERSON_MM_STEPS)
@@ -3540,12 +3700,7 @@ def _pretrain_per_forward(layers, images, mlm, mrm):
     kernels, a step): the encoder's layers and, with images, the tower's
     attention pool; the LayerNorms of the layers and the embeddings,
     `visn_ln` with images, the MLM head's and the MRM head's (f32)."""
-    attn = layers + images
-    ln = 2 * layers + 1 + images + mlm + mrm
-    return {"flash_fwd": attn, "flash_bwd_prep": attn,
-            "flash_bwd_main": attn, "flash_bwd_post": attn,
-            "gelu_logit_erf_fwd": layers, "gelu_logit_erf_bwd": layers,
-            "layer_norm_fwd": ln, "layer_norm_bwd": ln}
+    return per_forward(layers, extra_ln=images + mlm + mrm, extra_attn=images)
 
 
 def _pretrain_expected(drawn, evals, layers, images, mlm):
@@ -3567,6 +3722,55 @@ def _add_counts(total, counts):
     for k, v in counts.items():
         total[k] = total.get(k, 0) + v
     return total
+
+
+@contextlib.contextmanager
+def _saves_not_written(calls: list):
+    """Inside it, the train loops record each checkpoint save in `calls` as
+    (absolute output_dir, step, name) and write nothing: for the runs whose
+    checkpoints no check reads. The card machine takes 45 GiB of disk
+    writes over the whole script, and a RoBERTa-large checkpoint with its
+    optimizer's moments is ~3.6 GB; the runs whose saves are read drive
+    the save itself."""
+    from multimodal_sequencing_tpu_torch.train import loop
+    save = loop.save_checkpoint
+
+    def recorded(output_dir, step, *a, name=None, **kw):
+        calls.append((os.path.abspath(output_dir), step, name))
+        return os.path.join(calls[-1][0],
+                            f"checkpoint-{step if name is None else name}")
+
+    loop.save_checkpoint = recorded
+    try:
+        yield calls
+    finally:
+        loop.save_checkpoint = save
+
+
+class _EvalCounts:
+    """Launch counts of a run's evals apart from its train steps': `wrap`
+    an eval function so the counts are reset to 0 just before each call
+    and read just after, the train steps' held aside."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.held, self.evals = {}, {}
+
+    def wrap(self, fn):
+        def counted(*a, **kw):
+            _add_counts(self.held, _read_counts())
+            _reset_counts()
+            out = fn(*a, **kw)
+            _add_counts(self.evals, _read_counts())
+            _reset_counts()
+            return out
+        return counted
+
+    def split(self):
+        """(the train steps' counts, the evals' counts) of the run."""
+        return _add_counts(dict(self.held), _read_counts()), dict(self.evals)
 
 
 def _pretrain_breakdown(res, argv, label, seed):
@@ -3628,7 +3832,7 @@ def phase_pretrain_path(seed: int, work: str):
     the launchers' settings on synthetic WikiHow stories with PNG step
     images: `scripts/wikihow_pretrain.sh` (RoBERTa-large, CLIP-RN50 at 224
     px, batch 4, S 300 / 60, MLM p = 0.1, lr 1e-5, its three objectives) for
-    8 steps with a save and dev eval at step 5, then `--do_eval`; the same
+    8 steps with a save and dev eval at step 8, then `--do_eval`; the same
     text-only with `margin_loss time_contrastive swapping_based_nsp
     sequence_based_nsp`, 8 steps, then `--do_eval`;
     `scripts/wikihow_image_only_pretrain.sh` (bert-base widths, S 50 / 10,
@@ -3648,38 +3852,28 @@ def phase_pretrain_path(seed: int, work: str):
                   images=True)
     write_wikihow(data_dir, "test", PRETRAIN_DEV_STORIES, seed + 12,
                   images=True)
-    drawn = []
+    drawn, counts = [], _EvalCounts()
     choose, evaluate = loop.choose_objective, loop.evaluate_pretraining
-    held, eval_counts = {}, {}
 
     def recorded(objectives, rng):
         drawn.append(choose(objectives, rng))
         return drawn[-1]
 
-    def counted_eval(*a, **kw):
-        # the counts of each dev eval run from 0 just before it to just
-        # after it; the train steps' launches so far are held aside
-        _add_counts(held, _read_counts())
-        _reset_counts()
-        out = evaluate(*a, **kw)
-        _add_counts(eval_counts, _read_counts())
-        _reset_counts()
-        return out
-
     # label, kind, steps, save_steps (0: the final save alone, no dev eval
-    # during training), layers, images, MLM. A checkpoint of the
-    # RoBERTa-large runs is ~3.9 GB with the optimizer's moments, and the
-    # machine takes 45 GiB of disk writes over the whole script (the full
-    # script comes within ~2 GB of it): one save during training, the
-    # launcher's, and each run's final one
+    # during training), layers, images, MLM, whether its saves are written.
+    # One save a run, the launcher's at its last step with a dev eval; the
+    # text run's save is recorded and not written (`_saves_not_written`):
+    # no check reads it
     runs = (
-        ("pretrain_train", "launcher", PRETRAIN_STEPS, 5, NUM_LAYERS, 1, 1),
-        ("pretrain_text", "text", PRETRAIN_STEPS, 0, NUM_LAYERS, 0, 1),
-        ("pretrain_img", "img", PRETRAIN_IMG_STEPS, 0, 12, 1, 0))
+        ("pretrain_train", "launcher", PRETRAIN_STEPS, PRETRAIN_STEPS,
+         NUM_LAYERS, 1, 1, True),
+        ("pretrain_text", "text", PRETRAIN_STEPS, 0, NUM_LAYERS, 0, 1, False),
+        ("pretrain_img", "img", PRETRAIN_IMG_STEPS, 0, 12, 1, 0, True))
     launches = {}
-    loop.choose_objective, loop.evaluate_pretraining = recorded, counted_eval
+    loop.choose_objective = recorded
+    loop.evaluate_pretraining = counts.wrap(evaluate)
     try:
-        for label, kind, steps, save, layers, images, mlm in runs:
+        for label, kind, steps, save, layers, images, mlm, written in runs:
             out_dir = os.path.join(work, label)
             argv = _pretrain_argv(data_dir, out_dir, seed, kind,
                                   "--max_steps", str(steps),
@@ -3687,16 +3881,17 @@ def phase_pretrain_path(seed: int, work: str):
             if not save:
                 argv.remove("--evaluate_during_training")
             drawn.clear()
-            held.clear()
-            eval_counts.clear()
+            counts.reset()
             torch.cuda.reset_peak_memory_stats()
             _reset_counts()
             t0 = time.perf_counter()
-            res = main_pretrain(argv)
+            with (contextlib.nullcontext([]) if written
+                  else _saves_not_written([])) as unwritten:
+                res = main_pretrain(argv)
             wall_s = time.perf_counter() - t0
             # the train steps' launches and the dev evals' apart
-            launches[label] = counts = _add_counts(dict(held), _read_counts())
-            launches[f"{label}_eval"] = dev = dict(eval_counts)
+            launches[label], launches[f"{label}_eval"] = train, dev = \
+                counts.split()
             # dev evals at each save and --do_eval, a forward a story
             saves = list(range(save, steps + 1, save)) if save else []
             evals = (len(saves) + 1) * PRETRAIN_DEV_STORIES
@@ -3711,7 +3906,7 @@ def phase_pretrain_path(seed: int, work: str):
                                         else "pretrain/eval_loss")}
             summary = {"phase": "pretrain_path", "part": label,
                        "steps": res.global_step, "objectives": list(drawn),
-                       "stories_a_step": 4, "launches": counts,
+                       "stories_a_step": 4, "launches": train,
                        "launches_predicted": want, "eval_forwards": evals,
                        "eval_launches": dev,
                        "eval_launches_predicted": want_dev,
@@ -3726,13 +3921,16 @@ def phase_pretrain_path(seed: int, work: str):
                            torch.cuda.max_memory_allocated() / 2**30,
                        "eval_during_training": evals_at,
                        "eval_results": res.eval_results,
+                       "saves_not_written": unwritten,
                        "wall_s_incl_init": wall_s}
             emit(summary)
             ok = (res.global_step == steps and len(drawn) == steps
+                  and (written or unwritten == [(os.path.abspath(out_dir), steps,
+                                                None)])
                   and all(math.isfinite(x) for x in losses)
-                  and all(counts[k] == want[k] for k in want)
+                  and all(train[k] == want[k] for k in want)
                   and all(dev.get(k, 0) == want_dev[k] for k in want_dev)
-                  and all(counts[k] == dev.get(k, 0) == 0 for k in F32_BWD)
+                  and all(train[k] == dev.get(k, 0) == 0 for k in F32_BWD)
                   and sorted(evals_at) == saves
                   and os.path.isfile(os.path.join(
                       out_dir, "eval_results_pretrain.txt"))
@@ -3751,38 +3949,531 @@ def phase_pretrain_path(seed: int, work: str):
     # the image-only checkpoint's tower into a fine-tune run (the joint
     # sequencer at bert-base widths, as the image-only launcher's): one
     # step at learning rate 0 (the warmup's first update) keeps its weights
+    # (the tuned weights read in memory; its save is not written)
     ft_dir = os.path.join(work, "pretrain_finetune")
     _reset_counts()
-    res = main_train(_mm_train_argv(data_dir, ft_dir, seed) + [
-        "--model_size", "base", "--max_steps", "1",
-        "--per_gpu_train_batch_size", "4",
-        "--clip_visual_model_weights", ckpt])
-    launches["pretrain_finetune"] = counts = _read_counts()
+    with _saves_not_written([]) as unwritten:
+        res = main_train(_mm_train_argv(data_dir, ft_dir, seed) + [
+            "--model_size", "base", "--max_steps", "1",
+            "--per_gpu_train_batch_size", "4",
+            "--clip_visual_model_weights", ckpt])
+    launches["pretrain_finetune"] = ft = _read_counts()
     prefix = "encoder.visual_model."
     tower = {k: v for k, v in torch.load(
         os.path.join(ckpt, "model.pt"), map_location="cpu",
         weights_only=True).items() if k.startswith(prefix)}
-    tuned = torch.load(os.path.join(ft_dir, "checkpoint-1", "model.pt"),
-                       map_location="cpu", weights_only=True)
+    tuned = res.model.state_dict()
     weights = [k for k in tower if "running_" not in k]
-    same = all(torch.equal(tuned[k], tower[k]) for k in weights)
+    same = all(torch.equal(tuned[k].cpu(), tower[k]) for k in weights)
     summary = {"phase": "pretrain_path", "part": "visual_transfer",
                "tower_tensors": len(tower), "weights_bit_equal": same,
-               "loss": res.history[0]["loss"], "launches": counts}
+               "loss": res.history[0]["loss"], "launches": ft,
+               "saves_not_written": unwritten}
     emit(summary)
     want = _pretrain_per_forward(12, 1, 0, 0)  # a step of the sequencer
     if not (weights and same and math.isfinite(res.history[0]["loss"])
-            and all(counts[k] == want[k]
+            and unwritten == [(os.path.abspath(ft_dir), 1, None)]
+            and all(ft[k] == want[k]
                     for k in PATH_KERNELS["pretrain_finetune"])):
         raise AssertionError(f"visual transfer check failed: {summary}")
     return launches
+
+
+# ----- RecipeQA ----------------------------------------------------------------
+
+
+def write_recipeqa(root: str, seed: int) -> dict:
+    """A RecipeQA tree: `texts/{train,val,test}.json` of 5-step recipes
+    whose steps fill `per_seq_max_length` = 60 tokens, each step with a
+    256 x 192 PNG named `{recipe_id}_{step}_0.jpg` under
+    `images/images-qa/<split>/images-qa/`; every test recipe carries
+    `multiref_gt` (the last one, which is human-annotated, two references);
+    then the port's `human_annotated_to_test` writes the `new_splits`
+    versions the launchers name (train-human_annot, test-acl_human,
+    test-human_annot_only, train-acl22, test-acl22_human). Returns the
+    images by path."""
+    import numpy as np
+    from multimodal_sequencing_tpu_torch.data.recipeqa import (
+        human_annotated_to_test)
+    rng = np.random.default_rng(seed)
+    written = {}
+    os.makedirs(os.path.join(root, "texts"))
+    for split, n in (("train", RQ_TRAIN), ("val", 2), ("test", RQ_TEST)):
+        img_dir = os.path.join(root, "images", "images-qa", split, "images-qa")
+        os.makedirs(img_dir)
+        data = []
+        for r in range(n):
+            rid = f"{split}-recipe_{r}"
+            context = []
+            for s in range(5):
+                words = rng.choice(WORDS, size=70).tolist()
+                context.append({"id": s, "body": f"Recipe {r} step {s}. "
+                                + " ".join(words)})
+                blocks = rng.integers(0, 256, (8, 6, 3), dtype=np.uint8)
+                path = os.path.join(img_dir, f"{rid}_{s}_0.jpg")
+                written[path] = np.kron(blocks, np.ones((32, 32, 1), np.uint8))
+                write_png(path, written[path])
+            record = {"recipe_id": rid, "context": context}
+            if split == "test":
+                record["multiref_gt"] = [[1, 2, 3, 4, 5]] + (
+                    [[2, 1, 3, 4, 5]] if r == n - 1 else [])
+            data.append(record)
+        with open(os.path.join(root, "texts", f"{split}.json"), "w") as f:
+            json.dump({"version": 0.9, "data": data}, f)
+    human = os.path.join(root, "human.jsonl")
+    with open(human, "w") as f:
+        f.write(json.dumps({"guid": f"test-recipe_{RQ_TEST - 1}"}) + "\n")
+    for version in ("human_annot", "acl_human", "acl22", "acl22_human"):
+        human_annotated_to_test(root, [human],
+                                out_dir=os.path.join(root, "new_splits"),
+                                version=version)
+    return written
+
+
+def _recipeqa_argv(kind, data_dir, out_dir, seed, *extra):
+    """The flags of `scripts/recipeqa_finetune.sh` ("finetune"),
+    `recipeqa_pretrain.sh` ("pretrain") or
+    `recipeqa_image_only_pretrain.sh` ("img"), their split versions
+    included, with the built-in tokenizer at the launchers' bert-base
+    widths (`--model_size base`), this run's data and output, logging
+    every step, and `extra` (the step counts). Their save steps (2000) lie
+    past the run's steps unless `extra` sets them."""
+    common = ["--model_name_or_path", "simple", "--config_name",
+              "bert-base-uncased", "--tokenizer_name", "simple",
+              "--model_size", "base", "--do_train", "--do_eval",
+              "--evaluate_during_training", "--per_gpu_eval_batch_size", "1",
+              "--output_dir", out_dir, "--order_criteria", "loose",
+              "--overwrite_output_dir", "--multimodal",
+              "--multimodal_model_type", "clip", "--vision_model", "resnet50",
+              "--save_steps", "2000", "--logging_steps", "1",
+              "--seed", str(seed), "--device", "cuda"]
+    if kind == "finetune":
+        argv = ["--do_not_load_optimizer", "--per_gpu_train_batch_size", "1",
+                "--learning_rate", "5e-6", "--num_train_epochs", "4.0",
+                "--max_seq_length", "300", "--per_seq_max_length", "60",
+                "--data_dir", data_dir, "--task_name", "recipeqa_hl_v1",
+                "--wrapper_model_type", "berson",
+                "--train_split", "train-human_annot",
+                "--max_eval_steps", "1000", "--iters_to_eval", "16000",
+                "--warmup_steps", "100", "--eval_splits", "test-acl_human"]
+    else:
+        argv = ["--per_gpu_train_batch_size", "4", "--num_train_epochs",
+                "20.0", "--data_dirs", data_dir, "--data_names", "recipeqa",
+                "--max_story_length", "5", "--task_type", "pretrain",
+                "--max_eval_steps", "200", "--iters_to_eval", "20000"]
+        if kind == "pretrain":
+            argv += ["--learning_rate", "5e-6", "--max_seq_length", "300",
+                     "--per_seq_max_length", "60", "--warmup_steps", "500",
+                     "--eval_splits", "test-human_annot_only",
+                     "--train_split", "train-human_annot",
+                     "--mlm_probability", "0.1",
+                     "--multimodal_pretrain_objectives", *LAUNCHER_OBJECTIVES]
+        else:
+            argv += ["--learning_rate", "1e-5", "--max_seq_length", "50",
+                     "--per_seq_max_length", "10", "--multimodal_img_part",
+                     "--warmup_steps", "1000", "--eval_splits",
+                     "test-acl22_human", "--train_split", "train-acl22",
+                     "--multimodal_pretrain_objectives",
+                     "patch_based_mrm_classification"]
+    return common + argv + list(extra)
+
+
+def _trained_on_after(out_dir, save, last):
+    """Whether a run that saved and evaluated at step `save` went back to
+    training: its dev eval logged at `save` alone, and between
+    `checkpoint-{save}` and `checkpoint-{last}` the optimizer counted each
+    step and the RN50 tower's BatchNorm running statistics moved (a model
+    left in eval mode would keep them)."""
+    import torch
+
+    def load(step, name):
+        return torch.load(os.path.join(out_dir, f"checkpoint-{step}", name),
+                          map_location="cpu", weights_only=True, mmap=True)
+
+    with open(os.path.join(out_dir, "logs", "scalars.jsonl")) as f:
+        eval_steps = sorted({r["step"] for r in map(json.loads, f)
+                             if r["tag"].startswith("eval/")})
+    counts = [load(s, "optimizer.pt")["optimizer"]["count"]
+              for s in (save, last)]
+    before, after = load(save, "model.pt"), load(last, "model.pt")
+    stats = [k for k in before if "running_" in k]
+    moved = sum(not torch.equal(before[k], after[k]) for k in stats)
+    return {"eval_steps": eval_steps, "optimizer_counts": counts,
+            "running_stats": len(stats), "running_stats_moved": moved,
+            "ok": (eval_steps == [save] and counts[1] - counts[0] == last - save
+                   and stats and moved == len(stats))}
+
+
+def phase_recipeqa_path(seed: int, work: str):
+    """The three RecipeQA launchers through the port's CLIs on a synthetic
+    recipe tree (`write_recipeqa`), each with its own split versions, at
+    bert-base widths with CLIP-RN50: `scripts/recipeqa_finetune.sh`
+    (`main_train`, BERSON, batch 1) for 4 steps, a save at step 3 with the
+    beam search over test-acl_human (`--evaluate_during_training`) and
+    `checkpoint-best`, a fourth step after it (which must update the RN50
+    BatchNorm statistics and the optimizer's count: the run went back to
+    training), the final save, then its `--do_eval` beam search;
+    `recipeqa_pretrain.sh` (`main_pretrain`, batch 4, S 300 / 60, its three
+    objectives) and `recipeqa_image_only_pretrain.sh` (S 50 / 10, one text
+    token, patch MRM) for 4 steps each, the final save (recorded, not
+    written: `_saves_not_written`), then their `--do_eval` dev MLM
+    evaluation. Each run: exact launch counts of its train steps and of its
+    evals apart, finite losses, its saves, the median step and peak memory.
+    Every step image fed is read back as written (a file that does not
+    decode would be fed as zeros)."""
+    import numpy as np
+    import torch
+    from multimodal_sequencing_tpu_torch.data import images
+    from multimodal_sequencing_tpu_torch.train import cli, loop
+    data_dir = os.path.join(work, "recipeqa")
+    written = write_recipeqa(data_dir, seed + 21)
+    fed = {"calls": 0, "bad": []}
+    read = images.read_image_rgb
+
+    def checked_read(path):
+        img = read(path)
+        fed["calls"] += 1
+        if not (img.any() and np.array_equal(img, written.get(path))):
+            fed["bad"].append(path)
+        return img
+
+    drawn, counts = [], _EvalCounts()
+    choose, evaluate = loop.choose_objective, loop.evaluate_pretraining
+    berson_eval = cli._make_berson_eval_fn
+
+    def recorded(objectives, rng):
+        drawn.append(choose(objectives, rng))
+        return drawn[-1]
+
+    def counted_berson_eval(*a, **kw):
+        fn = berson_eval(*a, **kw)
+        return None if fn is None else counts.wrap(fn)
+
+    runs = (("rq_finetune", "finetune", RQ_FT_STEPS),
+            ("rq_pretrain", "pretrain", RQ_PRE_STEPS),
+            ("rq_img", "img", RQ_PRE_STEPS))
+    launches = {}
+    images.read_image_rgb = checked_read
+    loop.choose_objective = recorded
+    loop.evaluate_pretraining = counts.wrap(evaluate)
+    cli._make_berson_eval_fn = counted_berson_eval
+    try:
+        for label, kind, steps in runs:
+            out_dir = os.path.join(work, label)
+            # the finetune launcher saves at step 3, with the beam eval
+            # during training and checkpoint-best, and trains on
+            argv = _recipeqa_argv(kind, data_dir, out_dir, seed,
+                                  "--max_steps", str(steps), "--save_steps",
+                                  str(RQ_FT_SAVE if kind == "finetune"
+                                      else 2000))
+            drawn.clear()
+            counts.reset()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            t0 = time.perf_counter()
+            main = cli.main_train if kind == "finetune" else cli.main_pretrain
+            with (contextlib.nullcontext([]) if kind == "finetune"
+                  else _saves_not_written([])) as unwritten:
+                res = main(argv)
+            wall_s = time.perf_counter() - t0
+            launches[label], launches[f"{label}_eval"] = train, evals = \
+                counts.split()
+            if kind == "finetune":
+                # the beam evals of test-acl_human, at the save and after
+                # training: one encode a recipe
+                want = _expected(RQ_PER_FORWARD, steps, steps,
+                                 PATH_KERNELS["train"])
+                want_eval = _expected(RQ_PER_FORWARD, 2 * RQ_TEST, 0,
+                                      PATH_KERNELS["train"])
+                saves = [f"checkpoint-{RQ_FT_SAVE}", f"checkpoint-{steps}",
+                         "checkpoint-best"]
+                eval_results = res.eval_results.get(
+                    f"checkpoint-{steps}", {}).get("test-acl_human", {})
+                resumed = _trained_on_after(out_dir, RQ_FT_SAVE, steps)
+            else:
+                # the dev eval of the human-annotated recipe(s), a forward
+                # a recipe at batch 1
+                dev = 1 if kind == "pretrain" else RQ_TEST
+                want, want_eval = _pretrain_expected(
+                    drawn, dev, RQ_LAYERS, 1, int(kind == "pretrain"))
+                eval_results = res.eval_results
+                saves = []
+                resumed = {"ok": unwritten == [(os.path.abspath(out_dir),
+                                                steps, None)]}
+            step_s = _berson_steps(res)
+            losses = [h["loss"] for h in res.history]
+            saved = sorted(n for n in os.listdir(out_dir)
+                           if n.startswith("checkpoint-"))
+            summary = {"phase": "recipeqa_path", "part": label,
+                       "steps": res.global_step, "objectives": list(drawn),
+                       "launches": train, "launches_predicted": want,
+                       "eval_launches": evals,
+                       "eval_launches_predicted": want_eval,
+                       "losses": losses, "step_s": step_s,
+                       "median_step_s_after_first": _median_after_first(
+                           step_s),
+                       "peak_memory_gib":
+                           torch.cuda.max_memory_allocated() / 2**30,
+                       "checkpoints": saved, "saves_not_written": unwritten,
+                       "after_the_save": resumed,
+                       "eval_results": eval_results,
+                       "wall_s_incl_init": wall_s}
+            emit(summary)
+            ok = (res.global_step == steps and saved == saves
+                  and resumed["ok"]
+                  and all(math.isfinite(x) for x in losses)
+                  and all(train.get(k, 0) == v for k, v in want.items())
+                  and all(evals.get(k, 0) == v for k, v in want_eval.items())
+                  and all(train.get(k, 0) == evals.get(k, 0) == 0
+                          for k in F32_BWD)
+                  and eval_results
+                  and all(math.isfinite(v) for v in eval_results.values()))
+            if not ok:
+                raise AssertionError(f"RecipeQA launcher check failed: "
+                                     f"{summary}")
+            del res
+            torch.cuda.empty_cache()
+    finally:
+        images.read_image_rgb = read
+        loop.choose_objective, loop.evaluate_pretraining = choose, evaluate
+        cli._make_berson_eval_fn = berson_eval
+    summary = {"phase": "recipeqa_path", "part": "step_images",
+               "written": len(written), "decoded": fed["calls"],
+               "not_as_written": fed["bad"][:5]}
+    emit(summary)
+    if fed["bad"] or not fed["calls"]:
+        raise AssertionError(f"RecipeQA step images: {summary}")
+    return launches
+
+
+# ----- the v0 baselines -----------------------------------------------------------
+
+
+def _v0_train_argv(data_dir, out_dir, seed, task):
+    return ["--model_name_or_path", "simple", "--model_size", "large",
+            "--replace_token_type_embeddings", "--do_train",
+            "--task_name", f"wikihow_{task}", "--hierarchical_version", "v0",
+            "--order_criteria", "loose", "--data_dir", data_dir,
+            "--max_seq_length", "320", "--per_seq_max_length", "60",
+            "--per_gpu_train_batch_size", "8", "--learning_rate", "1e-5",
+            "--warmup_steps", "2", "--max_steps", str(V0_STEPS),
+            "--logging_steps", "1", "--save_steps", "0", "--seed", str(seed),
+            "--output_dir", out_dir, "--overwrite_output_dir",
+            "--device", "cuda"]
+
+
+def _v0_eval_argv(data_dir, out_dir, seed, method, *extra):
+    return ["--model_name_or_path", "simple", "--model_size", "large",
+            "--replace_token_type_embeddings", "--task_name", "wikihow_sort",
+            "--sort_method", method, "--data_dir", data_dir,
+            "--eval_splits", "test", "--max_seq_length", "320",
+            "--per_seq_max_length", "60", "--per_gpu_eval_batch_size", "8",
+            "--seed", str(seed), "--output_dir", out_dir, "--device", "cuda",
+            *extra]
+
+
+def _v0_forwards(method, stories):
+    """The forwards of a baseline eval of `stories` 5-step stories in
+    batches of 8 at micro-batch 32: 20 pairs a story, a whole-story
+    forward for the head and pure_class models, 60 triples a story for the
+    abductive cube."""
+    batches = [min(8, stories - b) for b in range(0, stories, 8)]
+    per = {"pairs": lambda n: -(-20 * n // 32), "story": lambda n: 1,
+           "cube": lambda n: -(-60 * n // 32)}
+    parts = {"topological": ("pairs",), "topological_device": ("pairs",),
+             "head_and_topological": ("story", "pairs"),
+             "head_and_sequential": ("story", "pairs"),
+             "head_and_sequential_abductive": ("story", "pairs", "cube"),
+             "pure_class": ("story",)}[method]
+    return sum(per[p](n) for n in batches for p in parts)
+
+
+def phase_baselines_path(seed: int, work: str):
+    """The paper's v0 baselines through the port's CLIs at RoBERTa-large
+    width on the card: `main_train --hierarchical_version v0` of
+    wikihow_pairwise (loose pairs) and wikihow_head for 4 steps of 8, one
+    save each; then `run_eval` of 16 test stories in batches of 8 with
+    `topological` (host decode and `--device_decode`) on the pairwise
+    checkpoint, `head_and_topological` and `head_and_sequential` on the
+    head and pairwise checkpoints, `head_and_sequential_abductive` with a
+    fresh abductive model (`--model_name_or_path_3`), and `pure_class` with
+    a fresh 120-label model. Each: exact launch counts from its forwards
+    (steps), orders that are permutations, the median batch after the
+    first (forward and decode apart) and peak memory."""
+    import torch
+    from multimodal_sequencing_tpu_torch.train.cli import main_train, run_eval
+    data_dir = os.path.join(work, "v0_data")
+    os.makedirs(data_dir)
+    write_wikihow(data_dir, "train", 8, seed + 31)
+    write_wikihow(data_dir, "test", 2 * V0_EVAL_STORIES, seed + 32)
+    launches, ckpts = {}, {}
+    per = {k: PER_FORWARD[k] for k in PATH_KERNELS["train"]}
+    for task in ("pairwise", "head"):
+        out_dir = os.path.join(work, f"v0_{task}")
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        res = main_train(_v0_train_argv(data_dir, out_dir, seed, task))
+        launches[f"v0_{task}"] = counts = _read_counts()
+        want = _expected(per, V0_STEPS, V0_STEPS, PATH_KERNELS["train"])
+        step_s = _berson_steps(res)
+        losses = [h["loss"] for h in res.history]
+        ckpts[task] = os.path.join(out_dir, f"checkpoint-{V0_STEPS}")
+        summary = {"phase": "baselines_path", "part": f"train_{task}",
+                   "steps": res.global_step, "rows_a_step": 8,
+                   "launches": counts, "launches_predicted": want,
+                   "losses": losses, "step_s": step_s,
+                   "median_step_s_after_first": _median_after_first(step_s),
+                   "peak_memory_gib":
+                       torch.cuda.max_memory_allocated() / 2**30}
+        emit(summary)
+        if not (res.global_step == V0_STEPS
+                and all(math.isfinite(x) for x in losses)
+                and all(counts[k] == v for k, v in want.items())
+                and all(counts[k] == 0 for k in F32_BWD)
+                and os.path.isfile(os.path.join(ckpts[task], "model.pt"))):
+            raise AssertionError(f"v0 train check failed: {summary}")
+        del res
+        torch.cuda.empty_cache()
+    evals = {
+        "topological": ["--model_name_or_path_1", ckpts["pairwise"]],
+        "topological_device": ["--model_name_or_path_1", ckpts["pairwise"],
+                               "--device_decode"],
+        "head_and_topological": ["--model_name_or_path_1", ckpts["head"],
+                                 "--model_name_or_path_2", ckpts["pairwise"]],
+        "head_and_sequential": ["--model_name_or_path_1", ckpts["head"],
+                                "--model_name_or_path_2", ckpts["pairwise"]],
+        "head_and_sequential_abductive": [
+            "--model_name_or_path_1", ckpts["head"],
+            "--model_name_or_path_2", ckpts["pairwise"],
+            "--model_name_or_path_3", "simple"],
+        "pure_class": []}
+    stories = 2 * V0_EVAL_STORIES
+    per_eval = {k: PER_FORWARD[k]
+                for k in PATH_KERNELS["eval"]}
+    for name, flags in evals.items():
+        method = name.replace("_device", "")
+        ev_dir = os.path.join(work, f"v0_eval_{name}")
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        results, evaluator = run_eval(_v0_eval_argv(
+            data_dir, ev_dir, seed, method, *flags))
+        launches[f"v0_{name}"] = counts = _read_counts()
+        forwards = _v0_forwards(name, stories)
+        want = _expected(per_eval, forwards, 0, PATH_KERNELS["eval"])
+        fwd, dec = evaluator.forward_seconds, evaluator.decode_seconds
+        summary = {"phase": "baselines_path", "part": f"eval_{name}",
+                   "stories": stories, "batch": 8,
+                   "forwards": evaluator.forwards,
+                   "forwards_predicted": forwards, "launches": counts,
+                   "launches_predicted": want,
+                   "first_batch_s": fwd[0] + dec[0],
+                   "median_batch_s": _median_after_first(
+                       [f + d for f, d in zip(fwd, dec)]),
+                   "median_forward_s": _median_after_first(fwd),
+                   "median_decode_s": _median_after_first(dec),
+                   "peak_memory_gib":
+                       torch.cuda.max_memory_allocated() / 2**30,
+                   "metrics": results["test"]}
+        emit(summary)
+        if not (evaluator.forwards == forwards
+                and _check_eval_outputs(ev_dir, stories)
+                and all(counts[k] == v for k, v in want.items())
+                and all(counts[k] == 0 for k in PATH_KERNELS["train"]
+                        if k not in PATH_KERNELS["eval"])):
+            raise AssertionError(f"v0 eval check failed: {summary}")
+    return launches
+
+
+# per-term limits of the 2-layer v0 reference (card against CPU, f32):
+# the logits relative to their largest entry, the loss relative, each
+# parameter's gradient relative to the global gradient norm; ~2.5x the
+# largest reading over seeds 0-3 (3.97e-6, 2.17e-7, 1.19e-6)
+V0_REF_TOL = {"logits_rel": 1e-5, "loss_rel": 6e-7, "grad_rel_to_norm": 3e-6}
+
+
+def phase_baselines_reference(seed: int):
+    """The v0 sequencer at full RoBERTa-large width, 2 layers, f32, dropout
+    0: card (kernels) against the CPU (plain versions) on the same weights
+    and inputs, for the pairwise head (32 packed step pairs at S = 128)
+    and the head model (8 stories at S = 320, 5 labels): the eval-mode
+    logits, and the train-mode v0 loss and every parameter's gradient."""
+    import copy
+    import numpy as np
+    import torch
+    from multimodal_sequencing_tpu_torch.data.packing import StoryPacker
+    from multimodal_sequencing_tpu_torch.data.tokenization import (
+        SimpleWordTokenizer)
+    from multimodal_sequencing_tpu_torch.models.config import (
+        EncoderConfig, MultimodalConfig)
+    from multimodal_sequencing_tpu_torch.models.encoder import DropoutRng
+    from multimodal_sequencing_tpu_torch.models.sequencer import (
+        SequencingModel, init_weights)
+    from multimodal_sequencing_tpu_torch.train.steps import compute_loss
+    tok = SimpleWordTokenizer()
+    packer = StoryPacker(tok, 320, 60)
+    rng = np.random.default_rng(seed)
+    stories = [[" ".join(rng.choice(WORDS, size=int(rng.integers(10, 70))))
+                for _ in range(5)] for _ in range(8)]
+    pairs = [packer.pack_all_pairs(t, V0_PAIR_LEN) for t in stories[:2]]
+    pair_batch = [np.concatenate([p[i] for p in pairs])[:32]
+                  for i in range(3)]
+    packs = [packer.pack_story(t) for t in stories]
+    story_batch = [np.stack([p[i] for p in packs]) for i in range(3)]
+    readings, ok = {}, True
+    for task, labels, batch in (("pairwise", 2, pair_batch),
+                                ("head", 5, story_batch)):
+        cfg = MultimodalConfig(
+            encoder=EncoderConfig.roberta_large(
+                type_vocab_size=5, vocab_size=len(tok), num_hidden_layers=2,
+                dtype="float32", hidden_dropout_prob=0.0,
+                attention_probs_dropout_prob=0.0),
+            hierarchical_version="v0", num_labels=labels, max_seq_length=320)
+        cpu = init_weights(SequencingModel(cfg), seed)
+        card = copy.deepcopy(cpu).cuda()
+        ids, am, tt = (torch.from_numpy(x).long() for x in batch)
+        target = {"labels": torch.from_numpy(rng.integers(
+            0, labels, ids.shape[0])).long(),
+            "valid": torch.ones(ids.shape[0], dtype=torch.bool)}
+        out = {}
+        for name, model, dev in (("cpu", cpu, "cpu"), ("cuda", card, "cuda")):
+            inputs = [x.to(dev) for x in (ids, am, tt)]
+            with torch.inference_mode():
+                logits = model.eval()(*inputs)["logits"].cpu()
+            model.train()
+            res = model(*inputs, deterministic=False,
+                        rng=DropoutRng(seed, 0, dev))
+            loss = compute_loss(cfg, res, {k: v.to(dev) for k, v in
+                                           target.items()})[0]
+            loss.backward()
+            out[name] = (logits, loss.item(), {
+                n: p.grad.detach().double().cpu()
+                for n, p in model.named_parameters() if p.grad is not None})
+        (lw, sw, gw), (lg, sg, gg) = out["cpu"], out["cuda"]
+        norm = math.sqrt(sum(g.norm().item() ** 2 for g in gw.values()))
+        grad_rel = sorted((((gg[n] - g).norm().item() / norm, n)
+                           for n, g in gw.items()), reverse=True)
+        reading = {"logits_rel": ((lg - lw).abs().max()
+                                  / lw.abs().max()).item(),
+                   "loss_rel": abs(sg - sw) / abs(sw),
+                   "grad_rel_to_norm": grad_rel[0][0]}
+        readings[task] = {**reading, "rows": int(ids.shape[0]),
+                          "seq": int(ids.shape[1]), "loss": sw,
+                          "worst_grads": grad_rel[:3],
+                          "grads_compared": len(gw)}
+        ok = ok and set(gg) == set(gw) and all(
+            reading[k] <= V0_REF_TOL[k] for k in V0_REF_TOL)
+    emit({"phase": "baselines_reference", "layers": 2, "dtype": "float32",
+          "seed": seed, "readings": readings, "tol": V0_REF_TOL, "ok": ok})
+    if not ok:
+        raise AssertionError("card and CPU disagree on the 2-layer v0 model")
 
 
 PHASES = ("kernel_check", "bits_check", "timing", "main_path", "breakdown",
           "reference", "train_path", "train_breakdown", "train_reference",
           "hf_path", "remat", "mm_check", "mm_reference", "mm_path",
           "mm_breakdown", "berson_reference", "berson_path",
-          "pretrain_reference", "pretrain_path")
+          "pretrain_reference", "pretrain_path", "recipeqa_path",
+          "baselines_reference", "baselines_path")
 
 
 def main(argv=None) -> int:
@@ -3835,6 +4526,12 @@ def main(argv=None) -> int:
             "pretrain_reference": lambda: phase_pretrain_reference(args.seed),
             "pretrain_path": lambda: launches.update(
                 phase_pretrain_path(args.seed, work)),
+            "recipeqa_path": lambda: launches.update(
+                phase_recipeqa_path(args.seed, work)),
+            "baselines_reference": lambda: phase_baselines_reference(
+                args.seed),
+            "baselines_path": lambda: launches.update(
+                phase_baselines_path(args.seed, work)),
         }
         for name in args.phases:
             t0 = time.perf_counter()
@@ -3844,7 +4541,8 @@ def main(argv=None) -> int:
                 traceback.print_exc()
                 emit({"phase": name, "ok": False, "error": repr(e)})
                 failed.append(name)
-            emit({"phase": name, "seconds": time.perf_counter() - t0})
+            emit({"phase": name, "seconds": time.perf_counter() - t0,
+                  "bytes_written_so_far": bytes_written()})
     for path, names in PATH_KERNELS.items():
         if path in launches and any(launches[path][k] == 0 for k in names):
             failed.append(f"{path} path launched a kernel of its path no time")

@@ -1,5 +1,5 @@
 """ctypes binding of the native story packer (counterpart of
-`data/_native.py`: `pack_story` and `pack_berson`).
+`data/_native.py`: `pack_story`, `pack_all_pairs` and `pack_berson`).
 
 `csrc/packer.cc` is a byte-for-byte copy of the JAX package's
 `native/packer.cc` (a test holds the two equal). At first use it is built
@@ -69,6 +69,10 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.pack_story.argtypes = [_I32P, _I32P, ctypes.c_int32,
                                    ctypes.c_int32, ctypes.c_int32, _I32P,
                                    _I32P]
+        lib.pack_all_pairs.restype = None
+        lib.pack_all_pairs.argtypes = [_I32P, _I32P, ctypes.c_int32,
+                                       ctypes.c_int32, ctypes.c_int32,
+                                       _I32P, _I32P, _I32P]
         lib.pack_berson.restype = None
         lib.pack_berson.argtypes = [_I32P, _I32P, ctypes.c_int32,
                                     ctypes.c_int32, ctypes.c_int32, _I32P,
@@ -111,6 +115,26 @@ def pack_story(step_ids: Sequence[np.ndarray], L: int, pad_id: int
     lib.pack_story(flat, offsets, len(step_ids), L, pad_id, out_ids,
                    out_types)
     return out_ids, out_types
+
+
+def pack_all_pairs(step_ids: Sequence[np.ndarray], L: int, pad_id: int
+                   ) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """Every ordered pair (i, j), i != j, of the steps, i-major, packed to
+    length L: (input_ids (P, L), token_type_ids (P, L), pairs (P, 2)) with
+    P = n (n - 1), step i typed 0 and step j 1; None when the packer is not
+    available."""
+    lib = _load()
+    if lib is None:
+        return None
+    n = len(step_ids)
+    P = n * (n - 1)
+    flat, offsets = _flatten(step_ids)
+    out_ids = np.empty((P, L), np.int32)
+    out_types = np.empty((P, L), np.int32)
+    out_idx = np.empty((P, 2), np.int32)
+    lib.pack_all_pairs(flat, offsets, n, L, pad_id, out_ids.reshape(-1),
+                       out_types.reshape(-1), out_idx.reshape(-1))
+    return out_ids, out_types, out_idx
 
 
 def pack_berson(step_ids: Sequence[np.ndarray], label: Sequence[int], L: int,

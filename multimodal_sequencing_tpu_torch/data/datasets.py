@@ -1,6 +1,7 @@
-"""Datasets and batching (copy of `data/datasets.py`: `SortDataset`,
-`PureClassDataset` in decode mode, `BersonDataset`, `PretrainDataset`,
-their step images, `collate`, `data_loader`, `prefetch`).
+"""Datasets and batching (copy of `data/datasets.py`: `PairwiseDataset`,
+`HeadPredDataset`, `AbductiveDataset`, `PureClassDataset`, `SortDataset`,
+`PretrainDataset`, `RetrievalDataset`, `BersonDataset`, their step images,
+`collate`, `data_loader`, `prefetch`).
 
 Every example draws its scramble from a counter-based Philox key
 (seed, epoch, index), and the loader its shuffle from (seed, epoch), so the
@@ -24,6 +25,7 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 
 from .packing import StoryPacker
+from ..utils.permutation import build_permutation_label_maps
 
 
 def _example_rng(seed: Optional[int], epoch: int, idx: int
@@ -78,6 +80,10 @@ class _StoryDatasetBase:
             return images.load_image_stack_uint8(paths, self.image_size)
         return images.load_image_stack(paths, self.image_size)
 
+    def _pack(self, texts) -> Dict[str, Any]:
+        ii, am, tt = self.packer.pack_story(texts)
+        return {"input_ids": ii, "attention_mask": am, "token_type_ids": tt}
+
     def _images(self, img_paths, n_steps) -> Dict[str, Any]:
         """{"images": (max_story_length, ...) stack, zero-padded}, or {}
         without `multimodal`."""
@@ -86,6 +92,62 @@ class _StoryDatasetBase:
         paths = list(img_paths or [None] * n_steps)
         paths += [None] * (self.max_story_length - len(paths))
         return {"images": self._load_images(paths)}
+
+
+# the class of a pair's or a triple's label
+ORDER_LABELS = {"unordered": 0, "ordered": 1}
+
+
+class PairwiseDataset(_StoryDatasetBase):
+    """Ordered / unordered step pairs (`PairWiseExample`), unscrambled: the
+    pair packed to `max_length`, `labels` 1 for ordered, 0 for unordered,
+    guid (+ the two step images)."""
+
+    def __init__(self, examples, tokenizer, **kw):
+        kw.setdefault("scramble", False)
+        super().__init__(examples, tokenizer, **kw)
+
+    def __getitem__(self, idx, epoch: int = 0):
+        ex = self.examples[idx]
+        item = self._pack([ex.text_a, ex.text_b])
+        item["labels"] = np.int32(ORDER_LABELS[ex.label])
+        item["guid"] = ex.guid
+        if self.multimodal:
+            item["images"] = self._load_images([ex.img_path_a, ex.img_path_b])
+        return item
+
+
+class HeadPredDataset(_StoryDatasetBase):
+    """Scrambled, packed stories; `labels` = the scrambled position of the
+    true first step (+ images)."""
+
+    def __getitem__(self, idx, epoch: int = 0):
+        texts, img_paths, idx_seq = self._story(idx, epoch)
+        item = self._pack(texts)
+        item["labels"] = np.int32(np.argwhere(idx_seq == 0)[0][0])
+        item.update(self._images(img_paths, len(texts)))
+        return item
+
+
+class AbductiveDataset(_StoryDatasetBase):
+    """(h1, h2, h3) step triples (`AbductiveExample`), unscrambled, packed
+    to `max_length`; `labels` 1 for ordered, 0 for unordered; guid (+ the
+    three step images)."""
+
+    def __init__(self, examples, tokenizer, pred_method="binary", **kw):
+        kw.setdefault("scramble", False)
+        super().__init__(examples, tokenizer, **kw)
+        self.pred_method = pred_method  # read by no loss, as in JAX
+
+    def __getitem__(self, idx, epoch: int = 0):
+        ex = self.examples[idx]
+        item = self._pack([ex.text_h1, ex.text_h2, ex.text_h3])
+        item["labels"] = np.int32(ORDER_LABELS[ex.label])
+        item["guid"] = ex.guid
+        if self.multimodal:
+            item["images"] = self._load_images(
+                [ex.img_path_h1, ex.img_path_h2, ex.img_path_h3])
+        return item
 
 
 class SortDataset(_StoryDatasetBase):
@@ -104,24 +166,33 @@ class SortDataset(_StoryDatasetBase):
 
 
 class PureClassDataset(_StoryDatasetBase):
-    """Scrambled, packed stories with order labels (the JAX package's
-    `PureClassDataset(decode=True)`, which the heat-map heads train on):
-    input_ids / attention_mask / token_type_ids, labels = argsort of the
-    scramble (or the scrambled multiref list), guid (+ images)."""
+    """Scrambled, packed stories: input_ids / attention_mask /
+    token_type_ids, guid (+ images), and `labels`: with `decode` (the
+    default here, the set the heat-map heads train on) the argsort of the
+    scramble (or the scrambled multiref list); without it, as the v0
+    pure_class head trains, the scramble's permutation id (its
+    lexicographic rank). The JAX package's default is `decode=False`."""
 
-    def __init__(self, examples, tokenizer, **kw):
+    def __init__(self, examples, tokenizer, decode=True, **kw):
         super().__init__(examples, tokenizer, **kw)
+        self.decode = decode
         if examples:
             self.max_story_length = min(self.max_story_length,
                                         len(examples[0].text_seq))
+        self.label2id, _ = build_permutation_label_maps(
+            self.max_story_length)
 
     def __getitem__(self, idx, epoch: int = 0):
         texts, img_paths, idx_seq = self._story(idx, epoch)
         ex = self.examples[idx]
-        ii, am, tt = self.packer.pack_story(texts)
-        item = {"input_ids": ii, "attention_mask": am, "token_type_ids": tt,
-                "labels": _decode_labels(ex, idx_seq, self.max_story_length),
-                "guid": ex.guid}
+        item = self._pack(texts)
+        if self.decode:
+            item["labels"] = _decode_labels(ex, idx_seq,
+                                            self.max_story_length)
+        else:
+            item["labels"] = np.int32(
+                self.label2id["_".join(str(x) for x in idx_seq)])
+        item["guid"] = ex.guid
         item.update(self._images(img_paths, len(texts)))
         return item
 
@@ -156,13 +227,58 @@ class PretrainDataset(_StoryDatasetBase):
 
     def __getitem__(self, idx, epoch: int = 0):
         texts, img_paths, idx_seq = self._story(idx, epoch)
-        ii, am, tt = self.packer.pack_story(texts)
-        item = {"input_ids": ii, "attention_mask": am, "token_type_ids": tt,
-                "labels": np.int32(np.argwhere(idx_seq == 0)[0][0])}
+        item = self._pack(texts)
+        item["labels"] = np.int32(np.argwhere(idx_seq == 0)[0][0])
         if self.get_guid:
             item["guid"] = self.examples[idx].guid
         item.update(self._images(img_paths, len(texts)))
         return item
+
+
+class RetrievalDataset(_StoryDatasetBase):
+    """Missing-step retrieval: each story packed with one step, drawn from
+    the example's Philox key, left out; `labels` = the argsort of the kept
+    step indices followed by the skipped one, guid `{guid}###{skip}`,
+    `skip_idx` (+ the kept steps' images, zero-padded).
+    `candidates_list()` lists every step of every story, the retrieval
+    pool."""
+
+    def __getitem__(self, idx, epoch: int = 0):
+        ex = self.examples[idx]
+        texts = list(ex.text_seq[:self.max_story_length])
+        n = len(texts)
+        skip = int(_example_rng(self.seed, epoch, idx).integers(0, n))
+        kept = [i for i in range(n) if i != skip]
+        item = self._pack([texts[i] for i in kept])
+        item["labels"] = np.argsort(
+            np.asarray(kept + [skip])).astype(np.int32)
+        item["guid"] = f"{ex.guid}###{skip}"
+        item["skip_idx"] = np.int32(skip)
+        if self.multimodal and ex.img_path_seq is not None:
+            item["images"] = self._load_images(
+                [ex.img_path_seq[i] for i in kept]
+                + [None] * (self.max_story_length - len(kept)))
+        return item
+
+    def candidates_list(self):
+        """Every step of every story as a candidate: input_ids and
+        attention_mask of `per_seq_max_length`, guid `{guid}###{step}`
+        (+ its image)."""
+        out = []
+        for ex in self.examples:
+            for j, text in enumerate(ex.text_seq[:self.max_story_length]):
+                ids = self.packer.encode_step(text)
+                padded = np.full(self.packer.per_seq_max_length,
+                                 self.packer.pad_id, np.int32)
+                padded[:len(ids)] = ids[:len(padded)]
+                item = {"input_ids": padded,
+                        "attention_mask": (padded != self.packer.pad_id
+                                           ).astype(np.int32),
+                        "guid": f"{ex.guid}###{j}"}
+                if self.multimodal and ex.img_path_seq is not None:
+                    item["images"] = self._load_images([ex.img_path_seq[j]])
+                out.append(item)
+        return out
 
 
 def _decode_labels(ex, idx_seq, max_story_length):

@@ -1,5 +1,5 @@
-"""Story packing (copy of `data/packing.py`: story packs and BERSON's pair
-expansion).
+"""Story packing (copy of `data/packing.py`: story packs, step pairs and
+BERSON's pair expansion).
 
 Each step is tokenized separately up to `per_seq_max_length`, pad tokens are
 stripped, and the remaining ids are concatenated into ONE sequence of at most
@@ -9,6 +9,8 @@ CLS positions are later recovered by `input_ids == cls_id`. The native
 packer (`data/_native.py`) packs when it is built; `pack_numpy` otherwise,
 with the same outputs.
 
+`pack_all_pairs` packs every ordered pair (i, j), i != j, of a story's
+steps, i-major, as one (P, L) batch (the pairwise sort methods' queries).
 `pack_berson_story` expands a story into BERSON's N(N-1) ordered step
 pairs at the static layout of `berson_pairs`: every (i < j), then their
 reverses, each pair [steps_i ; steps_j] cut at L = 2 * per_seq_max_length.
@@ -124,6 +126,33 @@ class StoryPacker:
     def pack_story(self, texts: Sequence[str],
                    max_seq_length: Optional[int] = None):
         return self.pack(self.encode_steps(texts), max_seq_length)
+
+    def pack_pair(self, text_a: str, text_b: str,
+                  max_seq_length: Optional[int] = None):
+        """A two-step pack (pairwise training and the all-pairs queries)."""
+        return self.pack([self.encode_step(text_a), self.encode_step(text_b)],
+                         max_seq_length)
+
+    def pack_all_pairs(self, texts: Sequence[str],
+                       max_pair_len: Optional[int] = None):
+        """All n (n - 1) ordered pairs of a story as (input_ids,
+        attention_mask, token_type_ids) of (P, L) and the (i, j) index list
+        (P, 2), i-major, skipping i == j; natively when the packer is
+        built."""
+        n = len(texts)
+        step_ids = self.encode_steps(texts)
+        L = max_pair_len or self.max_seq_length
+        nat = _native.pack_all_pairs(step_ids, L, self.pad_id)
+        if nat is not None:
+            input_ids, types, idx = nat
+            return (input_ids, (input_ids != self.pad_id).astype(np.int32),
+                    types, idx)
+        idx = [(i, j) for i in range(n) for j in range(n) if i != j]
+        packs = [self.pack([step_ids[i], step_ids[j]], L) for i, j in idx]
+        return (np.stack([p[0] for p in packs]),
+                np.stack([p[1] for p in packs]),
+                np.stack([p[2] for p in packs]),
+                np.asarray(idx, dtype=np.int32).reshape(-1, 2))
 
     def pack_berson_story(self, texts: Sequence[str],
                           order_label: Sequence[int],

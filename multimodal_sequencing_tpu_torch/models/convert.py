@@ -101,11 +101,14 @@ def params_from_jax(params: Mapping, cfg: MultimodalConfig,
     a state dict for the port's model of the same class, which the tree
     picks: `BersonOrdering(cfg, vision_cfg)` when it has BERSON's `inner`
     encoder (with its image-stream pairwise head when it has
-    `img_projection`), `SequencingPretrainer(cfg, vision_cfg)` when it has
-    no sequencer head (`heatmap_head`), its cfg's objectives those whose
-    heads the tree holds (`mlm_head`, `{objective}_mlp`, `margin_loss_mlp`,
-    `mrm_*`), else `SequencingModel(cfg, vision_cfg)`. Raises if the trees
-    do not match the model."""
+    `img_projection`), `SequencingModel(cfg, vision_cfg)` when it has a
+    sequencer head (`heatmap_head`, or the v0 `cls_head`, whose Dense
+    kernels `dense` and `out_proj` transpose as every Dense does; `cfg`
+    gives the version and `num_labels`), else
+    `SequencingPretrainer(cfg, vision_cfg)`, its cfg's objectives those
+    whose heads the tree holds (`mlm_head`, `{objective}_mlp`,
+    `margin_loss_mlp`, `mrm_*`). Raises if the trees do not match the
+    model."""
     if "params" in params:
         params = params["params"]
     if batch_stats is not None and "batch_stats" in batch_stats:
@@ -133,7 +136,7 @@ def _model_of_tree(params: Mapping, cfg: MultimodalConfig,
     if "inner" in params:
         return BersonOrdering(cfg, vision_cfg,
                               multimodal_loss="img_projection" in params)
-    if "heatmap_head" in params:
+    if "heatmap_head" in params or "cls_head" in params:
         return SequencingModel(cfg, vision_cfg)
     objectives = [("margin_loss" if k == "margin_loss_mlp" else k[:-4])
                   for k in params if k.endswith("_mlp")]

@@ -1,5 +1,11 @@
-"""Heat-map ordering head (counterpart of `models/heads.py`:
-`gather_step_cls` and `HeatmapHead` with its losses).
+"""Ordering heads (counterpart of `models/heads.py`: the v0
+`ClassificationHead`, `gather_step_cls` and `HeatmapHead` with its
+losses).
+
+`ClassificationHead` (RoBERTa's classification head: dropout, dense, tanh,
+dropout, out_proj) scores the pooled CLS of a pair, a triple or a story;
+the pairwise, head, abductive and pure_class tasks differ only in its
+`num_labels`.
 
 `HeatmapHead` scores parent->child precedence over step CLS
 representations with a low-rank bilinear form plus a pairwise MLP term,
@@ -20,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .config import MultimodalConfig
-from .encoder import Dense
+from .encoder import Dense, DropoutRng, dropout
 
 
 def gather_step_cls(sequence_output: torch.Tensor, input_ids: torch.Tensor,
@@ -39,6 +45,25 @@ def gather_step_cls(sequence_output: torch.Tensor, input_ids: torch.Tensor,
     present = onehot.any(dim=1)
     idx = pos[:, :, None].expand(-1, -1, sequence_output.shape[-1])
     return torch.gather(sequence_output, 1, idx), present
+
+
+class ClassificationHead(nn.Module):
+    """dropout -> dense -> tanh -> dropout -> out_proj, in `dtype`."""
+
+    def __init__(self, num_labels: int, hidden_size: int,
+                 dropout_prob: float = 0.1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dropout_prob = dropout_prob
+        self.dense = Dense(hidden_size, hidden_size, dtype)
+        self.out_proj = Dense(hidden_size, num_labels, dtype)
+
+    def forward(self, features: torch.Tensor,
+                rng: Optional[DropoutRng] = None) -> torch.Tensor:
+        x = dropout(features, self.dropout_prob, rng)
+        x = torch.tanh(self.dense(x))
+        x = dropout(x, self.dropout_prob, rng)
+        return self.out_proj(x)
 
 
 class HeatmapHead(nn.Module):

@@ -1,13 +1,17 @@
-"""SequencingModel: text or CLIP multimodal encoder + heat-map head
-(counterpart of `models/sequencer.py`, heat-map versions v1/v2/v3), the
+"""SequencingModel: text or CLIP multimodal encoder + ordering head
+(counterpart of `models/sequencer.py`, versions v0 and v1/v2/v3), the
 heat-map targets and the fresh init.
+
+  v0            pooled CLS -> `ClassificationHead` (`cls_head`): pairwise,
+                head, abductive or pure_class logits (`cfg.num_labels`)
+  v1 | v2 | v3  per-step CLS -> `HeatmapHead` (`heatmap_head`)
 
 With `cfg.multimodal` the encoder is the single-stream joint encoder
 (`models/multimodal_encoder.py`: CLIP tower + folded visual tokens + the
 shared transformer layers), built from `vision_cfg` (default: RN50 or
-ViT-B/32 by `cfg.clip_model_name`). The other versions (v0 classification,
-p0/p1 pointer), the auxiliary objective heads and the VisualBERT and naive
-multimodal encoders are later slices of the port and raise
+ViT-B/32 by `cfg.clip_model_name`). The p0/p1 pointer heads (ROADMAP A5d),
+the auxiliary objective heads (A5c) and the VisualBERT and naive multimodal
+encoders (A5e) are later slices of the port and raise
 `NotImplementedError` here.
 """
 
@@ -23,10 +27,11 @@ from .clip_visual import (AttentionPool2d, BatchNorm, Conv,
                           VisualTransformer)
 from .config import CLIPVisionConfig, MultimodalConfig
 from .encoder import DropoutRng, Embed, LayerNorm, TextEncoder
-from .heads import HeatmapHead, gather_step_cls
+from .heads import ClassificationHead, HeatmapHead, gather_step_cls
 from .multimodal_encoder import MultimodalEncoder
 
 HEATMAP_VERSIONS = ("v1", "v2", "v3")
+VERSIONS = ("v0",) + HEATMAP_VERSIONS
 
 
 class SequencingModel(nn.Module):
@@ -40,17 +45,19 @@ class SequencingModel(nn.Module):
                 f"VisualBERT and naive encoders (with models/resnet.py and "
                 f"models/fpn.py) come with a later slice of the port "
                 f"(ROADMAP A5); the port runs the CLIP encoder")
-        if cfg.multimodal and cfg.multimodal_img_part:
+        if cfg.hierarchical_version not in VERSIONS:
+            raise NotImplementedError(
+                f"hierarchical_version {cfg.hierarchical_version!r}: the port "
+                f"has the classification and heat-map heads {VERSIONS} so "
+                f"far; the p0/p1 pointer heads come with a later slice "
+                f"(ROADMAP A5d)")
+        if (cfg.multimodal and cfg.multimodal_img_part
+                and cfg.hierarchical_version != "v0"):
             # the JAX package's gather returns NaN there: NaN heat maps
             raise ValueError(
                 "multimodal_img_part cuts the language to its first CLS "
                 "token, so the heat-map heads find no step CLS tokens to "
                 "gather")
-        if cfg.hierarchical_version not in HEATMAP_VERSIONS:
-            raise NotImplementedError(
-                f"hierarchical_version {cfg.hierarchical_version!r}: the port "
-                f"has the heat-map heads {HEATMAP_VERSIONS} so far; the "
-                f"classification and pointer heads come with a later slice")
         if cfg.hl_include_objectives and set(cfg.hl_include_objectives) != {
                 "heatmap_pairwise_ranking"}:
             raise NotImplementedError(
@@ -61,7 +68,13 @@ class SequencingModel(nn.Module):
         # which the JAX package also builds as the CLIP encoder)
         self.encoder = (MultimodalEncoder(cfg, vision_cfg) if cfg.multimodal
                         else TextEncoder(cfg.encoder))
-        self.heatmap_head = HeatmapHead(cfg)
+        if cfg.hierarchical_version == "v0":
+            enc = cfg.encoder
+            self.cls_head = ClassificationHead(
+                cfg.num_labels, enc.hidden_size, enc.hidden_dropout_prob,
+                enc.compute_dtype)
+        else:
+            self.heatmap_head = HeatmapHead(cfg)
 
     @property
     def vision_cfg(self) -> Optional[CLIPVisionConfig]:
@@ -85,14 +98,20 @@ class SequencingModel(nn.Module):
                 deterministic: bool = True,
                 rng: Optional[DropoutRng] = None) -> Dict[str, torch.Tensor]:
         """`images`: a story's step images for the multimodal encoder,
-        (B, N, H, W, 3) uint8 or (B, N, 3, H, W) float. `deterministic=False`
-        (training) needs `rng`, the step's dropout streams; it also
-        normalizes the BatchNorms by the batch and updates their running
-        averages."""
+        (B, N, H, W, 3) uint8 or (B, N, 3, H, W) float. v0 returns the
+        classification head's f32 `logits` of the pooled CLS; the heat-map
+        versions the step representations and the `heatmap`.
+        `deterministic=False` (training) needs `rng`, the step's dropout
+        streams; it also normalizes the BatchNorms by the batch and updates
+        their running averages."""
         cfg = self.cfg
         seq, visn, pooled = self.encode(input_ids, attention_mask,
                                         token_type_ids, images, deterministic,
                                         rng)
+        if cfg.hierarchical_version == "v0":
+            logits = self.cls_head(pooled, None if deterministic else rng)
+            return {"sequence_output": seq, "visual_output": visn,
+                    "pooled_output": pooled, "logits": logits.float()}
         reprs, present = gather_step_cls(seq, input_ids, cfg.cls_id,
                                          cfg.max_story_length)
         return {"sequence_output": seq, "visual_output": visn,

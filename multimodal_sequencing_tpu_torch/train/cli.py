@@ -49,6 +49,20 @@ batch, `--mlm_probability`) over the stories of `--data_dirs` /
 image-only pretraining); its checkpoint's tower feeds a fine-tune run's
 `--clip_visual_model_weights`.
 
+`--hierarchical_version v0` trains the classification head on the
+`{data}_pairwise`, `_head`, `_abductive` (`--abd_pred_method`) or
+`_pure_class` task of WikiHow or RecipeQA (`num_labels` 2, 2,
+`--max_story_length` and N!; `--order_criteria` labels the pairs), and the
+eval's baseline sort methods decode with such models: `topological`
+(`--model_name_or_path_1`: a pairwise model; `--device_decode` decodes on
+the card), `head_and_topological` / `head_and_sequential` (a head model,
+then `--model_name_or_path_2` a pairwise one), `head_and_sequential_abductive`
+(and `--model_name_or_path_3` an abductive one) and `pure_class`. A role
+whose path is not a directory gets a fresh model. RecipeQA reads
+`texts/{split}.json` or, for a split `{split}-{version}`,
+`new_splits/{split}-{version}.json`; `--caption_transformations` edit the
+step texts (`data/caption_transforms.py`).
+
 `--eval_all_checkpoints` / `--iters_to_eval` sweep the checkpoints under a
 run directory. A fresh eval model is seeded from 0, as
 the JAX eval's `PRNGKey(0)`, and a fresh train model from `--seed`.
@@ -63,6 +77,7 @@ import argparse
 import copy
 import json
 import logging
+import math
 import os
 from typing import List, Optional
 
@@ -229,9 +244,6 @@ def build_parser(kind: str = "train") -> argparse.ArgumentParser:
 # default raises. Flags that change nothing on the ported path (as in the
 # JAX package) are accepted.
 _NOT_YET = {
-    "model_name_or_path_2": "the head_and_* sort methods",
-    "model_name_or_path_3": "the head_and_* sort methods",
-    "caption_transformations": "caption transformations",
     "include_num_img_regional_features": "the VisualBERT encoder",
     "vision_model_checkpoint": "the naive and FPN vision towers",
     "model_parallel_size": "the parallelism layer",
@@ -447,14 +459,30 @@ def example_cache_path(args, data_name, task_type, split) -> str:
                        f"_torch.pkl")
 
 
-def load_examples(args, data_name, task_type, split):
-    """Whole-story examples of a split (the sort, hl_v1 and pure_class
-    tasks read the sort processor, pretraining the `pretrain` one: the
-    same general processor). With `--use_cached`, read them from
-    `example_cache_path` when it exists (unless `--overwrite_cache`), else
-    write them there."""
-    import pickle
+def make_processor(args, data_name: str, split: str, for_task: str):
+    """The processor of `{data_name}_{for_task}` for `split` (a
+    `{split}-{version}` name reads that version's file), with the split's
+    caption transformations; returns (processor, base split)."""
+    from ..data.caption_transforms import select_caption_transforms
     from ..data.registry import get_processor
+    base_split, version = _split_version(split)
+    proc = get_processor(
+        f"{data_name}_{for_task}", data_dir=_data_dir(args),
+        order_criteria=args.order_criteria,
+        min_story_length=args.min_story_length,
+        max_story_length=args.max_story_length, version_text=version,
+        caption_transforms=select_caption_transforms(args, data_name,
+                                                     base_split),
+        pure_class=for_task == "pure_class",
+        paired_with_image=args.multimodal)
+    return proc, base_split
+
+
+def load_examples(args, data_name, task_type, split):
+    """The examples of `task_type` (pairs, triples or whole stories) of a
+    split. With `--use_cached`, read them from `example_cache_path` when it
+    exists (unless `--overwrite_cache`), else write them there."""
+    import pickle
     cache_path = None
     if args.use_cached and _data_dir(args):
         cache_path = example_cache_path(args, data_name, task_type, split)
@@ -462,13 +490,7 @@ def load_examples(args, data_name, task_type, split):
             logger.info("loading cached examples from %s", cache_path)
             with open(cache_path, "rb") as f:
                 return pickle.load(f)
-    base_split, version = _split_version(split)
-    kind = "pretrain" if task_type == "pretrain" else "sort"
-    proc = get_processor(
-        f"{data_name}_{kind}", data_dir=_data_dir(args),
-        min_story_length=args.min_story_length,
-        max_story_length=args.max_story_length, version_text=version,
-        paired_with_image=args.multimodal)
+    proc, base_split = make_processor(args, data_name, split, task_type)
     if base_split == "train":
         examples = proc.get_train_examples()
     elif base_split in ("dev", "val"):
@@ -496,6 +518,48 @@ def dataset_kwargs(args) -> dict:
                 uint8_images=args.device_image_preprocess,
                 image_transform=("detectron2" if _is_detectron2(args)
                                  else "imagenet"))
+
+
+# the tasks each head trains on
+TRAIN_TASKS = {"v0": ("pairwise", "head", "abductive", "pure_class"),
+               "v1": ("hl_v1", "pure_class")}
+TRAIN_TASKS["v2"] = TRAIN_TASKS["v3"] = TRAIN_TASKS["v1"]
+
+
+def num_labels_of(task_type: str, max_story_length: int) -> int:
+    """The classification head's width for a v0 task or eval role: 2 for
+    pairwise and abductive, a class per step for head, per permutation for
+    pure_class."""
+    if task_type in ("pairwise", "abductive"):
+        return 2
+    if task_type == "head":
+        return max_story_length
+    if task_type == "pure_class":
+        return math.factorial(max_story_length)
+    raise ValueError(f"no classification head for {task_type!r}")
+
+
+def make_dataset(args, tokenizer, task_type, examples, version="v0"):
+    """The training set of `task_type` for the head `version`: step pairs,
+    scrambled stories labelled by their first step, step triples, or
+    scrambled stories labelled by permutation id (v0) or by order (the
+    heat-map heads)."""
+    from ..data.datasets import (AbductiveDataset, HeadPredDataset,
+                                 PairwiseDataset, PureClassDataset)
+    if task_type not in TRAIN_TASKS.get(version, ()):
+        raise ValueError(
+            f"task {task_type!r} does not train the {version} head (it "
+            f"trains on {TRAIN_TASKS.get(version)})")
+    common = dataset_kwargs(args)
+    if task_type == "pairwise":
+        return PairwiseDataset(examples, tokenizer, **common)
+    if task_type == "head":
+        return HeadPredDataset(examples, tokenizer, scramble=True, **common)
+    if task_type == "abductive":
+        return AbductiveDataset(examples, tokenizer,
+                                pred_method=args.abd_pred_method, **common)
+    return PureClassDataset(examples, tokenizer, scramble=True,
+                            decode=version != "v0", **common)
 
 
 def _sort_loader(args, tokenizer, data_name, split):
@@ -529,11 +593,11 @@ def _evaluator(args, cfg, tokenizer, device):
 
 
 def main_train(argv=None):
-    """Fine-tune the heat-map sequencer, or with `--wrapper_model_type
-    berson` the BERSON wrapper; with `--do_eval` evaluate the checkpoints
-    afterwards. Returns the loop's `TrainResult` (its `eval_results` maps
-    checkpoint name -> metrics, for BERSON checkpoint name -> split ->
-    metrics)."""
+    """Fine-tune the sequencer (a v0 classification head on its task, or a
+    heat-map head), or with `--wrapper_model_type berson` the BERSON
+    wrapper; with `--do_eval` evaluate the checkpoints afterwards. Returns
+    the loop's `TrainResult` (its `eval_results` maps checkpoint name ->
+    metrics, for BERSON checkpoint name -> split -> metrics)."""
     args = parse_args("train", argv)
     logging.basicConfig(level=logging.INFO)
     if args.multimodal_loss and args.wrapper_model_type != "berson":
@@ -551,20 +615,21 @@ def main_train(argv=None):
     if args.wrapper_model_type == "berson":
         return _train_berson(args, cfg, tokenizer, data_name, task_type,
                              device)
-    if task_type not in ("hl_v1", "pure_class") or \
-            cfg.hierarchical_version not in ("v1", "v2", "v3"):
+    if task_type == "pure_decode" or cfg.hierarchical_version in ("p0", "p1"):
         raise NotImplementedError(
             f"task {task_type!r} with --hierarchical_version "
-            f"{cfg.hierarchical_version}: the port trains the heat-map heads "
-            f"(v1/v2/v3) on hl_v1/pure_class stories so far")
-    from ..data.datasets import PureClassDataset
+            f"{cfg.hierarchical_version}: the pure_decode encoder-decoder and "
+            f"the pointer heads come with a later slice (ROADMAP A5d)")
+    if cfg.hierarchical_version == "v0":
+        cfg.num_labels = num_labels_of(task_type, args.max_story_length)
     from ..models.sequencer import SequencingModel
     from .checkpoint import find_checkpoints, restore_checkpoint
     from .loop import run_finetune
 
-    dataset = PureClassDataset(
-        load_examples(args, data_name, task_type, args.train_split), tokenizer,
-        scramble=True, **dataset_kwargs(args))
+    dataset = make_dataset(
+        args, tokenizer, task_type,
+        load_examples(args, data_name, task_type, args.train_split),
+        cfg.hierarchical_version)
     model = SequencingModel(cfg, vision_config(cfg, args))
     eval_fn = None
     if args.evaluate_during_training or args.do_eval:
@@ -670,8 +735,10 @@ def _make_berson_eval_fn(args, tokenizer, data_name, split, device):
 
 
 def _make_dev_eval_fn(args, cfg, tokenizer, data_name, device):
-    """Decode metrics on the first eval split during and after training;
-    the loop keys the best checkpoint on partial + exact match."""
+    """Decode metrics on the first eval split during and after training:
+    `heat_map` for a heat-map head, `topological` with the model as the
+    pairwise role for v0 (whatever its task, as in the JAX package); the
+    loop keys the best checkpoint on partial + exact match."""
     split = args.eval_splits[0]
     try:
         load_examples(args, data_name, "sort", split)
@@ -679,11 +746,14 @@ def _make_dev_eval_fn(args, cfg, tokenizer, data_name, device):
         logger.warning("no dev split for eval-during-training: %s", e)
         return None
     evaluator = _evaluator(args, cfg, tokenizer, device)
+    method, role = (("topological", "pairwise")
+                    if cfg.hierarchical_version == "v0"
+                    else ("heat_map", "heatmap"))
 
     def eval_fn(model):
         return evaluator.evaluate(
-            _sort_loader(args, tokenizer, data_name, split), "heat_map",
-            {"heatmap": model}, max_batches=args.max_eval_steps,
+            _sort_loader(args, tokenizer, data_name, split), method,
+            {role: model}, max_batches=args.max_eval_steps,
             args_ns=args,
             output_dir=(args.output_dir if args.eval_save_all_results
                         else None),
@@ -775,11 +845,11 @@ def run_eval(argv=None):
     args.output_dir = resolve_output_dir(args)
     cfg, tokenizer = build_config(args)
     data_name, _ = _parse_task(args)
-    if args.sort_method not in ("heat_map", "berson"):
+    if args.sort_method == "pure_decode":
         raise NotImplementedError(
-            f"--sort_method {args.sort_method}: the port evaluates heat_map "
-            f"and berson so far; the other methods come with later slices")
-    role = "heatmap" if args.sort_method == "heat_map" else "berson"
+            "--sort_method pure_decode: the encoder-decoder and the pointer "
+            "heads come with a later slice of the port (ROADMAP A5d)")
+    roles = ROLES_BY_METHOD[args.sort_method]
     evaluator = _evaluator(args, cfg, tokenizer, device)
     base_path = args.model_name_or_path_1 or args.model_name_or_path
     paths = [base_path]
@@ -792,10 +862,15 @@ def run_eval(argv=None):
         ) or paths
     all_results = {}
     for path in paths:
+        # the first role takes the swept path, the others
+        # --model_name_or_path_2 and _3
+        role_paths = [path, args.model_name_or_path_2,
+                      args.model_name_or_path_3]
         models = {role: load_model_for_eval(
-            cfg, path, device, vision_config(cfg, args), role=role,
+            cfg, role_path, device, vision_config(cfg, args), role=role,
             beam_size=args.beam_size,
-            pairwise_loss_lam=args.pairwise_loss_lam)}
+            pairwise_loss_lam=args.pairwise_loss_lam)
+            for role, role_path in zip(roles, role_paths)}
         tag = os.path.basename(str(path).rstrip("/")) if len(paths) > 1 \
             else None
         results = {}
@@ -817,8 +892,23 @@ def run_eval(argv=None):
     return all_results, evaluator
 
 
+# the models each sort method evaluates with, in the order of
+# --model_name_or_path_1 (or --model_name_or_path), _2 and _3
+ROLES_BY_METHOD = {
+    "topological": ["pairwise"],
+    "head_and_topological": ["head", "pairwise"],
+    "head_and_sequential": ["head", "pairwise"],
+    "head_and_sequential_abductive": ["head", "pairwise", "abductive"],
+    "pure_class": ["pure_class"],
+    "heat_map": ["heatmap"],
+    "berson": ["berson"],
+}
+# the v0 roles, each with the head width of its task (`num_labels_of`)
+V0_ROLES = ("pairwise", "abductive", "head", "pure_class")
+
 # the saved config's fields that decide a checkpoint's parameters
-_SAVED_FIELDS = ("encoder", "hierarchical_version", "multimodal",
+_SAVED_FIELDS = ("encoder", "hierarchical_version", "num_labels",
+                 "multimodal",
                  "multimodal_model_type", "clip_model_name",
                  "multimodal_text_part", "multimodal_img_part",
                  "use_positional_embedding", "use_token_type_embedding",
@@ -829,17 +919,19 @@ def load_model_for_eval(cfg, path: Optional[str], device, vision_cfg=None,
                         role: str = "heatmap", beam_size: int = 16,
                         pairwise_loss_lam: float = 0.6):
     """The model of an eval `role` on `device`, ready for inference: the
-    heat-map sequencer (`heatmap`) or `BersonOrdering` (`berson`, built
-    with `beam_size` and `pairwise_loss_lam` and without the image-stream
-    pairwise head, as the JAX eval builds it). The checkpoint at `path`
-    when it is a directory (its saved encoder, head version, heat-map aux
-    and multimodal fields, and its tower's `vision_config.json`;
-    `vision_cfg` where a multimodal checkpoint has none), else a fresh init
-    seeded from 0 (with `vision_cfg`'s tower). A directory that is not a
-    checkpoint of this package (a local HF model, a run directory), a
-    checkpoint of the other model, and a BERSON checkpoint trained with
-    `--multimodal_loss` (whose image-stream head the eval model lacks: the
-    JAX eval's restore refuses it too) raise ValueError."""
+    heat-map sequencer (`heatmap`), a v0 classification sequencer
+    (`pairwise` and `abductive`: 2 labels, `head`: `max_story_length`,
+    `pure_class`: N!) or `BersonOrdering` (`berson`, built with `beam_size`
+    and `pairwise_loss_lam` and without the image-stream pairwise head, as
+    the JAX eval builds it). The checkpoint at `path` when it is a
+    directory (its saved encoder, head version and width, heat-map aux and
+    multimodal fields, and its tower's `vision_config.json`; `vision_cfg`
+    where a multimodal checkpoint has none), else a fresh init seeded from
+    0 (with `vision_cfg`'s tower). A directory that is not a checkpoint of
+    this package (a local HF model, a run directory), a checkpoint of
+    another model or head width than the role's, and a BERSON checkpoint
+    trained with `--multimodal_loss` (whose image-stream head the eval
+    model lacks: the JAX eval's restore refuses it too) raise ValueError."""
     from ..models.berson import BersonOrdering
     from ..models.config import CLIPVisionConfig, MultimodalConfig
     from .checkpoint import VISION_CONFIG_NAME
@@ -848,7 +940,10 @@ def load_model_for_eval(cfg, path: Optional[str], device, vision_cfg=None,
 
     berson = role == "berson"
     role_cfg = copy.deepcopy(cfg)
-    if not berson and role_cfg.hierarchical_version not in HEATMAP_VERSIONS:
+    if role in V0_ROLES:
+        role_cfg.hierarchical_version = "v0"
+        role_cfg.num_labels = num_labels_of(role, cfg.max_story_length)
+    elif not berson and role_cfg.hierarchical_version not in HEATMAP_VERSIONS:
         role_cfg.hierarchical_version = "v1"
 
     def build(vcfg):
@@ -871,9 +966,19 @@ def load_model_for_eval(cfg, path: Optional[str], device, vision_cfg=None,
         if (saved.wrapper_model_type == "berson") != berson:
             raise ValueError(
                 f"{path} is a checkpoint of "
-                f"{'BERSON' if not berson else 'the heat-map sequencer'}; "
+                f"{'BERSON' if not berson else 'the sequencer'}; "
                 f"evaluate it with --sort_method "
                 f"{'heat_map' if berson else 'berson'}")
+        if not berson and (
+                (saved.hierarchical_version == "v0") != (role in V0_ROLES)
+                or (role in V0_ROLES
+                    and saved.num_labels != role_cfg.num_labels)):
+            raise ValueError(
+                f"{path} is a checkpoint of the {saved.hierarchical_version} "
+                f"head with {saved.num_labels} labels; the {role} role "
+                f"takes the "
+                + (f"v0 head with {role_cfg.num_labels} labels"
+                   if role in V0_ROLES else "heat-map head"))
         for name in _SAVED_FIELDS:
             setattr(role_cfg, name, getattr(saved, name))
         vision_path = os.path.join(path, VISION_CONFIG_NAME)

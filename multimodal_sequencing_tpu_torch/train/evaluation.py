@@ -1,5 +1,5 @@
-"""Sort-decode evaluation harness, heat-map and BERSON methods (counterpart
-of `train/evaluation.py`).
+"""Sort-decode evaluation harness (counterpart of `train/evaluation.py`):
+the heat-map, BERSON and v0 baseline methods.
 
 Each batch of stories is packed on the host, run through the model in
 fixed-size micro-batches on the evaluator's device (the tail padded by
@@ -12,7 +12,20 @@ evaluator's device (`ops/order_decode.py`). `berson` packs each story's
 pairs (`StoryPacker.pack_berson_story`, an identity label that the beam
 search does not read), encodes the whole batch at once and runs
 `BersonOrdering.beam_search` on the device; each order is cut to its
-story's length. The other sort methods are later slices.
+story's length.
+
+The v0 baselines score each batch with classification models, one forward
+per micro-batch of packed sequences: `topological` packs every ordered
+step pair of each story (`StoryPacker.pack_all_pairs` at `pair_len` =
+min(max_seq_length, 2 * per_seq_max_length rounded up to 64) tokens) and
+sorts the tournament its argmax edges make (`utils/topo.py`, or with
+`--device_decode` Kahn's decode of the "ordered" probability on the card);
+`head_and_topological` forces the head model's first step;
+`head_and_sequential` chains greedily from it by the raw "ordered" logit,
+`head_and_sequential_abductive` adding 0.1 x the abductive model's logit
+of each (previous, candidate, last) triple; `pure_class` unranks the
+argmax of the story's permutation logits. `pure_decode` comes with a later
+slice (ROADMAP A5d).
 """
 
 from __future__ import annotations
@@ -30,6 +43,8 @@ from ..ops.order_decode import (exhaustive_naive_decode,
                                 topological_decode_batch)
 from ..utils.heatmap import heatmap2order
 from ..utils.metrics import METRICS, compute_metrics
+from ..utils.permutation import permutation_unrank
+from ..utils.topo import Graph
 
 logger = logging.getLogger(__name__)
 
@@ -38,6 +53,22 @@ SORT_METHODS = [
     "head_and_sequential_abductive", "pure_class", "pure_decode",
     "heat_map", "berson",
 ]
+# the sort methods over a v0 pairwise model
+BASELINE_METHODS = ("topological", "head_and_topological",
+                    "head_and_sequential", "head_and_sequential_abductive")
+
+
+def _logsumexp(x, axis=-1, keepdims=False):
+    m = np.max(x, axis=axis, keepdims=True)
+    out = m + np.log(np.sum(np.exp(x - m), axis=axis, keepdims=True))
+    return out if keepdims else np.squeeze(out, axis)
+
+
+def _feed(packs) -> Dict[str, np.ndarray]:
+    """Stacked (input_ids, attention_mask, token_type_ids) packs."""
+    return {"input_ids": np.stack([p[0] for p in packs]),
+            "attention_mask": np.stack([p[1] for p in packs]),
+            "token_type_ids": np.stack([p[2] for p in packs])}
 
 
 def _batched_apply(apply_fn: Callable[[Dict[str, np.ndarray]], torch.Tensor],
@@ -65,10 +96,10 @@ class SortEvaluator:
 
     `forwards` counts model forwards. For each batch, `forward_seconds`
     holds the host wall time of packing, the forwards and the copy back,
-    and `decode_seconds` that of decoding the heat maps (on the host, or
-    on the device with `cfg.device_decode`); for `berson`, of packing and
-    encoding the pairs, and of the beam search with the orders' copy
-    back."""
+    and `decode_seconds` that of decoding (the heat maps, the pair logits
+    or the permutation logits; on the host, or on the device with
+    `cfg.device_decode`); for `berson`, of packing and encoding the pairs,
+    and of the beam search with the orders' copy back."""
 
     def __init__(self, cfg, packer, device: torch.device,
                  micro_batch: int = 64):
@@ -80,20 +111,10 @@ class SortEvaluator:
         self.forward_seconds: List[float] = []
         self.decode_seconds: List[float] = []
 
-    def story_logits(self, model, stories: List[List[str]],
-                     images: Optional[np.ndarray] = None) -> np.ndarray:
-        """Whole-story forward; returns each story's (N, N) heat map.
-        `images`: the stories' step images, (B, N, H, W, 3) uint8 or (B, N,
-        3, H, W) f32, for a multimodal model."""
-        packs = [self.packer.pack_story(t, self.cfg.max_seq_length)
-                 for t in stories]
-        feed = {
-            "input_ids": np.stack([p[0] for p in packs]),
-            "attention_mask": np.stack([p[1] for p in packs]),
-            "token_type_ids": np.stack([p[2] for p in packs]),
-        }
-        if images is not None:
-            feed["images"] = images
+    def _apply(self, model, feed: Dict[str, np.ndarray], want: str
+               ) -> np.ndarray:
+        """`model(...)[want]` over the packed rows of `feed` (and their
+        `images`), in micro-batches on the evaluator's device."""
 
         def fn(chunk):
             t = {k: torch.from_numpy(v).to(self.device, torch.long)
@@ -105,9 +126,122 @@ class SortEvaluator:
                 out = model(t["input_ids"], t["attention_mask"],
                             t["token_type_ids"], images=imgs)
             self.forwards += 1
-            return out["heatmap"]
+            return out[want]
 
         return _batched_apply(fn, feed, self.micro_batch)
+
+    def story_logits(self, model, stories: List[List[str]],
+                     images: Optional[np.ndarray] = None,
+                     want: str = "logits") -> np.ndarray:
+        """Whole-story forward; returns each story's `want` output (a v0
+        model's `logits`, a heat-map model's (N, N) `heatmap`). `images`:
+        the stories' step images, (B, N, H, W, 3) uint8 or (B, N, 3, H, W)
+        f32, for a multimodal model."""
+        feed = _feed([self.packer.pack_story(t, self.cfg.max_seq_length)
+                      for t in stories])
+        if images is not None:
+            feed["images"] = images
+        return self._apply(model, feed, want)
+
+    def pair_logit_matrix(self, model, stories: List[List[str]],
+                          images: Optional[np.ndarray] = None):
+        """A v0 model's logits of every ordered step pair (i, j), i != j, of
+        each story: ((B, N, N) raw 'ordered' logits, (B, N, N, 2) the first
+        two logits), the diagonals 0. Each pair is packed alone to
+        `pair_len` tokens (with its two steps' images)."""
+        cfg = self.cfg
+        n = cfg.max_story_length
+        # a pair needs at most 2 * per_seq_max_length tokens
+        pair_len = min(cfg.max_seq_length,
+                       -(-2 * cfg.per_seq_max_length // 64) * 64)
+        packs, img_feed = [], []
+        for b, texts in enumerate(stories):
+            ii, am, tt, pair_idx = self.packer.pack_all_pairs(texts,
+                                                              pair_len)
+            packs.append((ii, am, tt))
+            if images is not None:
+                img_feed.append(images[b][pair_idx])  # (P, 2, ...)
+        feed = {k: np.concatenate([p[i] for p in packs]) for i, k in
+                enumerate(("input_ids", "attention_mask", "token_type_ids"))}
+        if images is not None:
+            feed["images"] = np.concatenate(img_feed)
+        logits = self._apply(model, feed, "logits").reshape(
+            len(stories), len(pair_idx), -1)
+        mat = np.zeros((len(stories), n, n), np.float32)
+        cls2 = np.zeros((len(stories), n, n, 2), np.float32)
+        for p, (i, j) in enumerate(pair_idx):
+            mat[:, i, j] = logits[:, p, 1]
+            cls2[:, i, j] = logits[:, p, :2]
+        return mat, cls2
+
+    def abductive_logit_cube(self, model, stories: List[List[str]]
+                             ) -> np.ndarray:
+        """(B, N, N, N) 'ordered' logits of every (h1, h2, h3) triple of
+        distinct steps, each packed to `max_seq_length` (text only, as in
+        the JAX package)."""
+        n = self.cfg.max_story_length
+        triples = [(a, b, c) for a in range(n) for b in range(n)
+                   for c in range(n) if len({a, b, c}) == 3]
+        packs = []
+        for texts in stories:
+            ids = self.packer.encode_steps(texts)
+            packs += [self.packer.pack([ids[a], ids[b], ids[c]],
+                                       self.cfg.max_seq_length)
+                      for a, b, c in triples]
+        logits = self._apply(model, _feed(packs), "logits").reshape(
+            len(stories), len(triples), -1)
+        cube = np.zeros((len(stories), n, n, n), np.float32)
+        for t, (a, b, c) in enumerate(triples):
+            cube[:, a, b, c] = logits[:, t, 1]
+        return cube
+
+    @staticmethod
+    def decode_topological(pair_logits_2c: np.ndarray,
+                           head_idx: Optional[np.ndarray] = None
+                           ) -> List[List[int]]:
+        """The edge i -> j of each i < j where the pair's logits argmax to
+        'ordered', else j -> i, then the DFS topological sort (with
+        `head_idx`, each story's forced first step)."""
+        b, n = pair_logits_2c.shape[:2]
+        preds = []
+        for s in range(b):
+            g = Graph(n)
+            for i in range(n):
+                for j in range(i + 1, n):
+                    if np.argmax(pair_logits_2c[s, i, j]) == 1:
+                        g.addEdge(i, j)
+                    else:
+                        g.addEdge(j, i)
+            preds.append(g.topologicalSort(
+                assert_head=None if head_idx is None else int(head_idx[s])))
+        return preds
+
+    @staticmethod
+    def decode_sequential(pair_logits: np.ndarray, head_idx: np.ndarray,
+                          abd_cube: Optional[np.ndarray] = None
+                          ) -> List[List[int]]:
+        """From each story's head, greedily the next step of the largest raw
+        'ordered' logit after the last one (plus 0.1 x the abductive logit
+        of (previous, candidate, last) with `abd_cube`, from the third step
+        on); ties to the lowest remaining step."""
+        b, n = pair_logits.shape[:2]
+        preds = []
+        for s in range(b):
+            pred = [int(head_idx[s])]
+            left = [i for i in range(n) if i != pred[0]]
+            while left:
+                prev = pred[-1]
+                scores = []
+                for cand in left:
+                    sc = pair_logits[s, prev, cand]
+                    if abd_cube is not None and len(pred) >= 2:
+                        sc = sc + 0.1 * abd_cube[s, pred[-2], cand, prev]
+                    scores.append(sc)
+                nxt = left[int(np.argmax(scores))]
+                pred.append(nxt)
+                left.remove(nxt)
+            preds.append(pred)
+        return preds
 
     # the exhaustive n! decode is exact and cheap up to this story length
     # (7! = 5040 candidate orders a story)
@@ -160,8 +294,10 @@ class SortEvaluator:
                  args_ns=None,
                  every_n: Optional[int] = None) -> Dict[str, float]:
         """Run decode + metrics over a SortDataset loader. `models` maps
-        role -> model (`heatmap` for the heat-map method). `every_n`
-        subsamples the loader to every Nth batch."""
+        role -> model: `heatmap`, `berson`, `pure_class`, or for the
+        pairwise methods `pairwise`, `head` (head_and_*) and `abductive`
+        (optional, head_and_sequential_abductive). `every_n` subsamples the
+        loader to every Nth batch."""
         metrics = list(metrics or METRICS)
         all_preds, all_labels, all_guids = [], [], []
         decoded = 0
@@ -225,17 +361,58 @@ class SortEvaluator:
     def _decode_batch(self, sort_method, models, stories, images=None):
         if sort_method == "berson":
             return self.berson_orders(models["berson"], stories, images)
+        t0 = time.perf_counter()
         if sort_method == "heat_map":
-            t0 = time.perf_counter()
-            hms = self.story_logits(models["heatmap"], stories, images)
+            hms = self.story_logits(models["heatmap"], stories, images,
+                                    want="heatmap")
             t1 = time.perf_counter()
             preds = self.decode_heatmap(hms)
-            self.forward_seconds.append(t1 - t0)
-            self.decode_seconds.append(time.perf_counter() - t1)
-            return preds
-        raise NotImplementedError(
-            f"sort_method {sort_method}: the port decodes heat maps and "
-            f"BERSON so far; the other methods come with later slices")
+        elif sort_method == "pure_class":
+            logits = self.story_logits(models["pure_class"], stories, images)
+            t1 = time.perf_counter()
+            n = self.cfg.max_story_length
+            preds = [permutation_unrank(int(np.argmax(lg)), n)
+                     for lg in logits]
+        elif sort_method in BASELINE_METHODS:
+            logits = self._baseline_logits(sort_method, models, stories,
+                                           images)
+            t1 = time.perf_counter()
+            preds = self._baseline_orders(sort_method, *logits)
+        else:
+            raise NotImplementedError(
+                f"sort_method {sort_method}: pure_decode comes with a later "
+                f"slice of the port (ROADMAP A5d)")
+        self.forward_seconds.append(t1 - t0)
+        self.decode_seconds.append(time.perf_counter() - t1)
+        return preds
+
+    def _baseline_logits(self, sort_method, models, stories, images):
+        """The forwards of a pairwise method: (the head model's first steps
+        or None, the pairs' 'ordered' logits, their first two logits, the
+        abductive cube or None)."""
+        head_idx = abd = None
+        if sort_method.startswith("head_and"):
+            head_idx = np.argmax(self.story_logits(models["head"], stories,
+                                                   images), axis=-1)
+        pair_logits, pair_2c = self.pair_logit_matrix(models["pairwise"],
+                                                      stories, images)
+        if (sort_method == "head_and_sequential_abductive"
+                and "abductive" in models):
+            abd = self.abductive_logit_cube(models["abductive"], stories)
+        return head_idx, pair_logits, pair_2c, abd
+
+    def _baseline_orders(self, sort_method, head_idx, pair_logits, pair_2c,
+                         abd) -> List[List[int]]:
+        if sort_method == "topological" and self.cfg.device_decode:
+            # Kahn's decode of P(ordered) on the card: the host DFS order
+            # whenever the argmax tournament is acyclic
+            e = pair_2c - _logsumexp(pair_2c, axis=-1, keepdims=True)
+            return topological_decode_batch(
+                self._on_device(np.exp(e[..., 1])), pair_2c.shape[1],
+                thres=0.5).cpu().tolist()
+        if sort_method in ("topological", "head_and_topological"):
+            return self.decode_topological(pair_2c, head_idx)
+        return self.decode_sequential(pair_logits, head_idx, abd)
 
     def _write_outputs(self, output_dir, split, guids, preds, labels, res):
         os.makedirs(output_dir, exist_ok=True)

@@ -191,8 +191,11 @@ def run_pretraining(cfg, model, train_dataset, args, device, tokenizer=None,
         total_steps = args.max_steps
         epochs = total_steps // steps_per_epoch + 1
     else:
+        # below one epoch, total_steps is 0 and the one epoch run still
+        # takes its first step (at learning rate 0), as the JAX loop does
         epochs = int(args.num_train_epochs)
         total_steps = steps_per_epoch * epochs
+        epochs = max(1, epochs)
     objectives, use_mlm = resolve_objectives(
         cfg.multimodal_pretrain_objectives)
     if "visual_mlm" in (cfg.multimodal_pretrain_objectives or []):

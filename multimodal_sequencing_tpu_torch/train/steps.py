@@ -1,5 +1,6 @@
-"""Loss and train steps (counterpart of `train/steps.py`: the heat-map
-heads' step, BERSON's and the pretrainer's).
+"""Loss and train steps (counterpart of `train/steps.py`: the sequencer's
+step (v0 classification and the heat-map heads), BERSON's and the
+pretrainer's).
 
 `train_step` is one eager step: forward in train mode, the task loss,
 backward, the gradient norm, and the optimizer update (`train/state.py`).
@@ -36,16 +37,30 @@ def masked_mean(values: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
 
 def compute_loss(cfg, outputs: dict, batch: dict):
-    """Task loss by hierarchical_version. Returns (loss, metrics)."""
+    """Task loss by hierarchical_version. Returns (loss, metrics). v0: the
+    cross entropy of the logits against the integer labels and the
+    accuracy, each a mean over the valid rows; v1-v3: the heat map's BCE
+    (plus the pairwise ranking aux)."""
     v = cfg.hierarchical_version
+    valid = batch.get("valid")
+    if v == "v0":
+        logits = outputs["logits"].float()
+        labels = batch["labels"].long()
+        ce = torch.nn.functional.cross_entropy(logits, labels,
+                                               reduction="none")
+        acc = (logits.argmax(-1) == labels).float()
+        if valid is None:
+            loss, acc = ce.mean(), acc.mean()
+        else:
+            loss, acc = masked_mean(ce, valid), masked_mean(acc, valid)
+        return loss, {"loss": loss, "acc": acc}
     if v not in ("v1", "v2", "v3"):
         raise NotImplementedError(
-            f"hierarchical_version {v!r}: the port trains the heat-map heads "
-            f"so far")
+            f"hierarchical_version {v!r}: the port trains the classification "
+            f"and heat-map heads so far (the pointer heads: ROADMAP A5d)")
     order_labels = batch["labels"].long()
     target = render_heatmap_targets(order_labels, cfg.max_story_length)
     present = outputs["present"]
-    valid = batch.get("valid")
     if valid is not None:
         present = present & valid[:, None]
     loss = HeatmapHead.loss(outputs["heatmap"], target, present)

@@ -350,7 +350,7 @@ def test_params_from_jax_rejects_a_mismatched_tree(fault):
         params_from_jax(params, tc)
 
 
-@pytest.mark.parametrize("change", [dict(hierarchical_version="v0"),
+@pytest.mark.parametrize("change", [dict(hierarchical_version="p0"),
                                     dict(hierarchical_version="p1"),
                                     dict(multimodal=True,
                                          multimodal_model_type="visualbert"),

@@ -218,12 +218,15 @@ def test_image_only_pretrain_feeds_the_finetune_tower(wikihow_dir, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--data_dirs", "{data}", "--data_names", "recipeqa"],
+    ["--data_dirs", "{recipeqa}", "--data_names", "recipeqa", "--multimodal",
+     "--multimodal_model_type", "visualbert"],
     ["--multimodal", "--multimodal_model_type", "visualbert"],
     ["--multimodal", "--multimodal_model_type", "naive"]],
     ids=["recipeqa", "visualbert", "naive"])
-def test_later_slices_raise(wikihow_dir, tmp_path, flags):
-    flags = [f.replace("{data}", wikihow_dir) for f in flags]
+def test_later_slices_raise(wikihow_dir, recipeqa_dir, tmp_path, flags):
+    # RecipeQA stories pretrain (tests/test_torch_recipeqa.py); under the
+    # VisualBERT encoder they raise as WikiHow's do
+    flags = [f.replace("{recipeqa}", recipeqa_dir) for f in flags]
     with pytest.raises(NotImplementedError, match="A5"):
         tcli.main_pretrain(_argv(tmp_path, "--data_dir", wikihow_dir,
                                  "--max_steps", "1", *flags))
@@ -236,3 +239,78 @@ def test_no_card_no_fallback(wikihow_dir, tmp_path):
             if a not in ("--device", "cpu")]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tcli.main_pretrain(argv)
+
+
+def _adam_moments(opt_state):
+    """The (mu, nu) trees of the JAX optimizer state's Adam."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state.mu, opt_state.nu
+    if hasattr(opt_state, "inner_opt_state"):
+        return _adam_moments(opt_state.inner_opt_state)
+    if isinstance(opt_state, (tuple, list)):
+        for s in opt_state:
+            found = _adam_moments(s)
+            if found is not None:
+                return found
+    return None
+
+
+def test_fractional_epoch_takes_one_step_as_jax(monkeypatch, tmp_path):
+    # --num_train_epochs 0.5 without --max_steps: 0 epochs and 0 total
+    # steps by the count, yet both loops take one step (at learning rate 0:
+    # the weights stay put, the Adam moments and the count move) and save
+    # checkpoint-1; from the same weights, the same moments
+    import numpy as np
+    from multimodal_sequencing_tpu.models import pretrainer as jpre
+    from multimodal_sequencing_tpu.parallel.mesh import make_mesh
+    from multimodal_sequencing_tpu.train import loop as jloop
+    from multimodal_sequencing_tpu_torch.models import pretrainer as tpre
+    from multimodal_sequencing_tpu_torch.models.convert import (
+        params_from_jax, tree_to_state_dict)
+    from multimodal_sequencing_tpu_torch.train import loop as tloop
+    import test_torch_pretrain as tp
+
+    objectives = ["margin_loss"]
+    jc, tc = tp._cfgs("text", multimodal_pretrain_objectives=objectives)
+    ds = tp._dataset("text", 4, 40)  # 4 stories at batch 2: 2 steps a pass
+    given = tp._random_tree(tp._jax_shapes(jpre.SequencingPretrainer(jc),
+                                           "text", objectives), 5)
+
+    class GivenInit(jpre.SequencingPretrainer):
+        def init(self, *args, **kwargs):
+            return given
+
+    kw = dict(num_train_epochs=0.5, max_steps=-1, save_steps=0)
+    jstate, jsteps = jloop.run_pretraining(
+        jc, GivenInit(jc), ds, tp._loop_args(tmp_path / "jax", **kw),
+        tokenizer=None, mesh=make_mesh(n_data=1, devices=jax.devices()[:1]))
+    sd = params_from_jax(given["params"], tc)
+    monkeypatch.setattr(tloop, "init_weights",
+                        lambda m, seed: (m.load_state_dict(sd), m)[1])
+    res = tloop.run_pretraining(tc, tpre.SequencingPretrainer(tc), ds,
+                                tp._loop_args(tmp_path / "port", **kw), "cpu")
+    assert jsteps == res.global_step == 1
+    assert int(jstate.step) == res.optimizer.count == 1
+    for out in ("jax", "port"):
+        names = [n for n in os.listdir(tmp_path / out)
+                 if n.startswith("checkpoint-")]
+        assert names == ["checkpoint-1"], out
+    # the learning rate of the first update is 0: the weights stay put
+    got = res.model.state_dict()
+    for key, val in sd.items():
+        assert torch.equal(got[key], val), key
+    state = res.optimizer.state_dict()
+    mu, nu = _adam_moments(jstate.opt_state)
+    for name, want in (("mu", tree_to_state_dict(jax.tree.map(np.asarray,
+                                                              mu))),
+                       ("nu", tree_to_state_dict(jax.tree.map(np.asarray,
+                                                              nu)))):
+        assert set(state[name]) == set(want)
+        norm = max(float(w.abs().max()) for w in want.values())
+        for key, w in want.items():
+            # f32 gradients summed in another order; mu is stored in bf16
+            # (2^-8 relative a rounding), nu in f32
+            np.testing.assert_allclose(
+                state[name][key].float().numpy(), w.numpy(),
+                rtol=1e-2 if name == "mu" else 1e-4, atol=1e-5 * norm,
+                err_msg=f"{name} {key}")

@@ -457,9 +457,10 @@ def test_simple_tokenizer_files_match_jax(tmp_path, vocab_size):
 
 
 def test_train_needs_a_heatmap_task(wikihow_dir, tmp_path):
+    # the heat-map head trains on whole stories (hl_v1, pure_class); step
+    # pairs train the v0 head (tests/test_torch_baselines.py)
     argv = _train_argv(wikihow_dir, tmp_path, "--max_steps", "1")
     argv[argv.index("wikihow_hl_v1")] = "wikihow_pairwise"
-    argv[argv.index("v1")] = "v0"
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="does not train the v1 head"):
         tcli.main_train(argv)
     assert isinstance(tcli.build_parser(), argparse.ArgumentParser)
