@@ -26,7 +26,13 @@ BERSON (text inner, and CLIP-RN50 inner with a frozen tower) on the card
 against the CPU (encode intermediates, pointer logits, loss, beam orders
 and four train steps), and `berson_path` trains and beam-evaluates the
 full-width text BERSON and the reference launcher's CLIP-RN50 BERSON
-through the CLIs and profiles a step and an eval batch. Every output line
+through the CLIs and profiles a step and an eval batch. The other ordering
+heads: `heads_reference` holds 2-layer full-width p0 and p1 sequencers
+with their auxiliary heads and the pure_decode encoder-decoder on the card
+against the CPU (logits, loss terms, gradients, the greedy decode and the
+generated tokens), and `heads_path` trains p0, p1, the CLIP-RN50 heat map
+with `itm` and the pure_decode model through `main_train` at RoBERTa-large
+and evaluates the pointer substitution and the beam-5 generate. Every output line
 before the last is one JSON object (plus the raw `nvidia-smi` line and the
 paper-format eval rows); the last line is the contract line
 `{"ok": true, "device": {...}}`, printed only when every phase passed. Without a CUDA device, or without the
@@ -370,7 +376,15 @@ PATH_KERNELS.update(hf_train=PATH_KERNELS["train"],
                     **{f"v0_{m}": PATH_KERNELS["eval"] for m in (
                         "topological", "topological_device",
                         "head_and_topological", "head_and_sequential",
-                        "head_and_sequential_abductive", "pure_class")})
+                        "head_and_sequential_abductive", "pure_class")},
+                    # the heads runs (`phase_heads_path`) and their evals
+                    heads_p0=PATH_KERNELS["train"],
+                    heads_p0_eval=PATH_KERNELS["eval"],
+                    heads_p1=PATH_KERNELS["train"],
+                    heads_p1_eval=PATH_KERNELS["eval"],
+                    heads_mm_itm=PATH_KERNELS["train"],
+                    heads_decode=PATH_KERNELS["train"],
+                    heads_decode_eval=PATH_KERNELS["eval"])
 # the launch counter behind each row of the `kernels` line, where it is
 # not the row's own name
 COUNTER = {"flash_bwd": "flash_bwd_main", "flash_bwd_dq": "flash_bwd_main",
@@ -4468,12 +4482,437 @@ def phase_baselines_reference(seed: int):
         raise AssertionError("card and CPU disagree on the 2-layer v0 model")
 
 
+# the ordering heads of the fine-tune CLI that are not heat maps: a
+# 2-layer full-width reference of each (card against CPU, f32), then four
+# RoBERTa-large runs through the CLIs
+HEADS_STEPS = 4          # each run: steps of 8 stories
+HEADS_EVAL_STORIES = 16  # each eval: 2 batches of 8 at micro-batch 32
+HEADS_BEAMS, HEADS_DECODER_LN = 5, 3  # pure_decode: beam 5, 3 LayerNorms a
+# decoder call (5 calls a generate: one a story step)
+# the reference's models: (version, auxiliary objectives)
+HEADS_REF_MODELS = (("p0", ("head", "binary", "itm", "mlm")),
+                    ("p1", ("head", "pairwise", "mlm")),
+                    ("decode", ()))
+# below it a head's logit is one of its -1e9 masks
+HEADS_MASKED = -1e8
+# per-term limits of the 2-layer references (card against CPU, f32): the
+# logits relative to their largest unmasked entry, each loss term
+# relative, each parameter's gradient relative to the global gradient
+# norm; ~2.5x the largest reading over seeds 0-3 (logits 3.11e-6, greedy
+# 4.11e-6, head 2.36e-6, binary 3.04e-6, itm 2.32e-6, mlm 2.35e-6,
+# decoder 1.02e-6; NLL 1.97e-7, aux terms 5.83e-7 / 5.46e-7 / 3.27e-7 /
+# 2.14e-7, loss 3.06e-7; gradients 9.91e-7)
+HEADS_REF_TOL = {"pointer_logits": 8e-6, "pointer_logits_greedy": 1e-5,
+                 "head_logits": 6e-6, "bin_logits": 8e-6, "itm_logits": 6e-6,
+                 "mlm_logits": 6e-6, "dec_logits": 2.5e-6,
+                 "pointer_nll": 5e-7, "aux_head": 1.5e-6, "aux_binary": 1.4e-6,
+                 "aux_itm": 8e-7, "aux_mlm": 5.5e-7, "loss": 8e-7,
+                 "grad_rel_to_norm": 2.5e-6}
+
+
+def _heads_ref_model(version, objectives, seed, vocab):
+    from multimodal_sequencing_tpu_torch.models.config import (
+        EncoderConfig, MultimodalConfig)
+    from multimodal_sequencing_tpu_torch.models.pure_decode import (
+        EncoderIndexDecoder)
+    from multimodal_sequencing_tpu_torch.models.sequencer import (
+        SequencingModel, init_weights)
+    cfg = MultimodalConfig(
+        encoder=EncoderConfig.roberta_large(
+            type_vocab_size=5, vocab_size=vocab, num_hidden_layers=2,
+            dtype="float32", hidden_dropout_prob=0.0,
+            attention_probs_dropout_prob=0.0),
+        hierarchical_version=version, max_seq_length=320,
+        hl_include_objectives=list(objectives))
+    model = (EncoderIndexDecoder(cfg) if version == "decode"
+             else SequencingModel(cfg))
+    return cfg, init_weights(model, seed)
+
+
+def _heads_ref_run(cfg, model, inputs, batch):
+    """One device's readings: the outputs of a teacher-forced forward, its
+    loss terms and gradients; the greedy pointer logits and their decode,
+    or the generated tokens."""
+    import torch
+    from multimodal_sequencing_tpu_torch.models.heads import PointerHead
+    from multimodal_sequencing_tpu_torch.train.steps import compute_loss
+    model.eval()
+    out = model(*inputs, order_labels=batch["labels"])
+    loss, terms = compute_loss(cfg, out, batch)
+    loss.backward()
+    got = {k: out[k].detach().cpu() for k in (
+        "pointer_logits", "head_logits", "bin_logits", "itm_logits",
+        "mlm_logits", "dec_logits") if k in out}
+    got.update({k: v.item() for k, v in terms.items()})
+    with torch.no_grad():
+        if cfg.hierarchical_version == "decode":
+            got["tokens"] = model.generate(*inputs).cpu()
+        else:
+            got["pointer_nll"] = PointerHead.loss(
+                out["pointer_logits"], batch["labels"],
+                out["present"]).item()
+            greedy = model(*inputs)
+            got["pointer_logits_greedy"] = greedy["pointer_logits"].cpu()
+            got["decode"] = PointerHead.decode(greedy["pointer_logits"],
+                                               greedy["present"]).cpu()
+    grads = {n: p.grad.detach().double().cpu()
+             for n, p in model.named_parameters() if p.grad is not None}
+    return got, grads
+
+
+def phase_heads_reference(seed: int):
+    """The p0 and p1 pointer sequencers with their auxiliary heads and the
+    pure_decode encoder-decoder at full RoBERTa-large width, 2 layers, f32,
+    dropout 0, deterministic (the aux heads' own dropout 0.5 off): card
+    (kernels) against the CPU (plain versions) on the same weights and 4
+    stories at S = 320 (masked for the MLM aux, with ITM targets): the
+    teacher-forced pointer logits, the greedy ones and their decode, each
+    aux head's logits, every loss term, every parameter's gradient; the
+    decoder's logits, loss, token accuracy and gradients, and `generate`'s
+    tokens, which must be equal."""
+    import copy
+    import numpy as np
+    import torch
+    from multimodal_sequencing_tpu_torch.data.packing import StoryPacker
+    from multimodal_sequencing_tpu_torch.data.tokenization import (
+        SimpleWordTokenizer)
+    from multimodal_sequencing_tpu_torch.train.mlm import (
+        mask_tokens_sentence)
+    tok = SimpleWordTokenizer()
+    packer = StoryPacker(tok, 320, 60)
+    rng = np.random.default_rng(seed)
+    stories = [[" ".join(rng.choice(WORDS, size=int(rng.integers(10, 70))))
+                for _ in range(5)] for _ in range(4)]
+    packs = [packer.pack_story(t) for t in stories]
+    ids, am, tt = (np.stack([p[i] for p in packs]) for i in range(3))
+    readings, ok = {}, True
+    for version, objectives in HEADS_REF_MODELS:
+        cfg, cpu = _heads_ref_model(version, objectives, seed, len(tok))
+        masked, mlm_labels = mask_tokens_sentence(
+            ids, mlm_probability=0.15, pad_id=cfg.pad_id, cls_id=cfg.cls_id,
+            mask_id=cfg.mask_id, vocab_size=len(tok), rng=rng)
+        batch = {"labels": np.stack([rng.permutation(5) for _ in range(4)]),
+                 "mlm_labels": mlm_labels,
+                 "itm_targets": rng.integers(0, 2, 4),
+                 "valid": np.ones(4, bool)}
+        card = copy.deepcopy(cpu).cuda()
+        runs = {}
+        for name, model, dev in (("cpu", cpu, "cpu"), ("cuda", card, "cuda")):
+            inputs = [torch.from_numpy(x).long().to(dev)
+                      for x in (masked if "mlm" in objectives else ids, am,
+                                tt)]
+            db = {k: torch.from_numpy(v).to(dev, torch.bool if k == "valid"
+                                            else torch.long)
+                  for k, v in batch.items()}
+            runs[name] = _heads_ref_run(cfg, model, inputs, db)
+        (want, gw), (got, gg) = runs["cpu"], runs["cuda"]
+        norm = math.sqrt(sum(g.norm().item() ** 2 for g in gw.values()))
+        grad_rel = sorted((((gg[n] - g).norm().item() / norm, n)
+                           for n, g in gw.items()), reverse=True)
+        reading = {"grad_rel_to_norm": grad_rel[0][0]}
+        for k, w in want.items():
+            if k in ("tokens", "decode", "token_acc"):
+                continue
+            g = got[k]
+            if not torch.is_tensor(w):
+                reading[k] = abs(g - w) / abs(w)
+                continue
+            # the masked entries (-1e9: dead or already pointed steps)
+            # must match; the others are read against their largest
+            live = w > HEADS_MASKED
+            reading[k] = (((g - w)[live].abs().max()
+                           / w[live].abs().max()).item()
+                          if torch.equal(live, g > HEADS_MASKED)
+                          else math.inf)
+        exact = {k: bool(torch.equal(got[k], want[k])) if torch.is_tensor(
+            want[k]) else got[k] == want[k]
+                 for k in ("tokens", "decode", "token_acc") if k in want}
+        readings[version] = {**reading, "exact": exact,
+                             "objectives": list(objectives),
+                             "loss_value": want["loss"],
+                             "worst_grads": grad_rel[:3],
+                             "grads_compared": len(gw),
+                             **({"tokens": want["tokens"].tolist()}
+                                if "tokens" in want else {})}
+        ok = ok and set(gg) == set(gw) and all(exact.values()) and all(
+            v <= HEADS_REF_TOL[k] for k, v in reading.items())
+        del card, cpu
+        torch.cuda.empty_cache()
+    emit({"phase": "heads_reference", "layers": 2, "dtype": "float32",
+          "seed": seed, "rows": 4, "seq": 320, "readings": readings,
+          "tol": HEADS_REF_TOL, "ok": ok})
+    if not ok:
+        raise AssertionError("card and CPU disagree on the 2-layer heads")
+
+
+def _heads_argv(data_dir, out_dir, seed, task, version, *extra):
+    return ["--model_name_or_path", "simple", "--model_size", "large",
+            "--replace_token_type_embeddings", "--do_train",
+            "--task_name", f"wikihow_{task}", "--hierarchical_version",
+            version, "--data_dir", data_dir, "--max_seq_length", "320",
+            "--per_seq_max_length", "60", "--per_gpu_train_batch_size", "8",
+            "--learning_rate", "1e-5", "--warmup_steps", "2",
+            "--max_steps", str(HEADS_STEPS), "--logging_steps", "1",
+            "--save_steps", "0", "--seed", str(seed),
+            "--output_dir", out_dir, "--overwrite_output_dir",
+            "--eval_splits", "test", "--per_gpu_eval_batch_size", "8",
+            "--device", "cuda", *extra]
+
+
+# the four runs of `heads_path`: (label, task, version, flags, the extra
+# LayerNorms of a train step, of an eval forward, the aux terms logged)
+HEADS_RUNS = (
+    ("heads_p0", "hl_v1", "p0",
+     ("--hl_include_objectives", "head", "binary", "--do_eval",
+      "--eval_save_all_results"), 2, 2, ("aux_head", "aux_binary")),
+    ("heads_p1", "hl_v1", "p1",
+     ("--hl_include_objectives", "head", "mlm", "--do_eval",
+      "--eval_save_all_results"), 1, 0, ("aux_head", "aux_mlm")),
+    ("heads_mm_itm", "hl_v1", "v1",
+     ("--multimodal", "--multimodal_model_type", "clip",
+      "--clip_model_name", "RN50", "--hl_include_objectives", "itm",
+      "mlm_wo_loss"), 0, 0, ("aux_itm",)),
+    ("heads_decode", "pure_decode", "v0", (), HEADS_DECODER_LN,
+     5 * HEADS_DECODER_LN, ("token_acc",)))
+
+
+def _itm_draws_ok(records, cfg, seed):
+    """The loop's host surgery of each batch against the draws replayed
+    from `default_rng(seed + 7)`: the MLM masking of the ids, then for
+    each story a swap with p = 0.5 of one step image (drawn) for the next
+    story's; the swapped rows' images moved, the others' did not, and
+    `itm_targets` is 0 exactly on the swapped rows."""
+    import numpy as np
+    from multimodal_sequencing_tpu_torch.train.mlm import (
+        mask_tokens_sentence)
+    rng = np.random.default_rng(seed + 7)
+    for before, after in records:
+        ids, labels = mask_tokens_sentence(
+            before["input_ids"], mlm_probability=cfg.mlm_probability,
+            pad_id=cfg.pad_id, cls_id=cfg.cls_id, mask_id=cfg.mask_id,
+            vocab_size=cfg.encoder.vocab_size,
+            ignore_index=cfg.mlm_ignore_index, rng=rng)
+        if not (np.array_equal(ids, after["input_ids"])
+                and np.array_equal(labels, after["mlm_labels"])):
+            return False
+        imgs, b = before["images"], len(before["images"])
+        want, targets = imgs.copy(), np.ones(b, np.int32)
+        for i in range(b):
+            if rng.random() > 0.5 and b > 1:
+                s = int(rng.integers(imgs.shape[1]))
+                want[i, s], targets[i] = imgs[(i + 1) % b, s], 0
+        moved = (after["images"] != imgs).reshape(b, -1).any(-1)
+        if not (np.array_equal(after["images"], want)
+                and np.array_equal(after["itm_targets"], targets)
+                and np.array_equal(moved, targets == 0)):
+            return False
+    return bool(records)
+
+
+def phase_heads_path(seed: int, work: str):
+    """The ordering heads of the fine-tune CLI that are not heat maps,
+    through `main_train` and `run_eval` at RoBERTa-large (24 layers, bf16,
+    dropout 0.1, the `simple` tokenizer) on synthetic WikiHow stories, 4
+    steps of 8 each: p0 with the `head` and `binary` aux heads and p1 with
+    `head` and `mlm` (`--do_eval`: the pointer substitution of
+    `pure_decode` over 16 test stories, on the model in memory, its saves
+    recorded and not written); the CLIP-RN50 v1 heat map with `itm` and
+    `mlm_wo_loss` (S = 566, 5 PNG step images a story; the host surgery
+    replayed: masks, swaps and targets); the pure_decode encoder-decoder,
+    whose one save `run_eval --sort_method pure_decode` reads (16 stories
+    at batch 8, beam 5). Each: exact launch counts of the train steps and
+    of the eval apart, finite losses and aux terms, the median step, the
+    eval's forward and decode times, peak memory and bytes written."""
+    import numpy as np
+    import torch
+    from multimodal_sequencing_tpu_torch.train import cli, loop
+    data_dir = os.path.join(work, "heads_data")
+    mm_dir = os.path.join(work, "heads_mm_data")
+    os.makedirs(data_dir)
+    os.makedirs(mm_dir)
+    write_wikihow(data_dir, "train", 8 * HEADS_STEPS, seed + 41)
+    write_wikihow(data_dir, "test", HEADS_EVAL_STORIES, seed + 42)
+    write_wikihow(mm_dir, "train", 8 * HEADS_STEPS, seed + 43, images=True)
+    counts, evaluators, records = _EvalCounts(), [], []
+    make_eval, make_evaluator = cli._make_dev_eval_fn, cli._evaluator
+    surgery = loop.aux_surgery
+
+    def counted_eval(*a, **kw):
+        fn = make_eval(*a, **kw)
+        return None if fn is None else counts.wrap(fn)
+
+    def recorded_evaluator(*a, **kw):
+        evaluators.append(make_evaluator(*a, **kw))
+        return evaluators[-1]
+
+    def recorded_surgery(cfg, s):
+        prepare = surgery(cfg, s)
+        if prepare is None:
+            return None
+
+        def recorded(batch):
+            if "images" not in batch:
+                return prepare(batch)
+            before = {k: np.array(batch[k]) for k in ("input_ids", "images")}
+            after = prepare(batch)
+            records.append((before, {k: np.array(after[k]) for k in (
+                "input_ids", "mlm_labels", "images", "itm_targets")}))
+            return after
+        return recorded
+
+    launches = {}
+    cli._make_dev_eval_fn, cli._evaluator = counted_eval, recorded_evaluator
+    loop.aux_surgery = recorded_surgery
+    try:
+        for label, task, version, flags, train_ln, eval_ln, terms in \
+                HEADS_RUNS:
+            out_dir = os.path.join(work, label)
+            mm = "--multimodal" in flags
+            argv = _heads_argv(mm_dir if mm else data_dir, out_dir, seed,
+                               task, version, *flags)
+            counts.reset()
+            evaluators.clear()
+            records.clear()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            saves = []
+            with (contextlib.nullcontext() if task == "pure_decode"
+                  else _saves_not_written(saves)):
+                res = cli.main_train(argv)
+            train, evals = counts.split()
+            per = (MM_PER_FORWARD if mm
+                   else per_forward(NUM_LAYERS, extra_ln=train_ln))
+            want = _expected(per, HEADS_STEPS, HEADS_STEPS,
+                             PATH_KERNELS["train"])
+            step_s = _berson_steps(res)
+            history = res.history
+            summary = {"phase": "heads_path", "part": label,
+                       "steps": res.global_step, "rows_a_step": 8,
+                       "launches": train, "launches_predicted": want,
+                       "losses": [h["loss"] for h in history],
+                       "aux_terms": {t: [h.get(t) for h in history]
+                                     for t in terms},
+                       "step_s": step_s,
+                       "median_step_s_after_first":
+                           _median_after_first(step_s),
+                       "peak_memory_gib":
+                           torch.cuda.max_memory_allocated() / 2**30,
+                       "saves_recorded": saves,
+                       "bytes_written_so_far": bytes_written()}
+            ok = (res.global_step == HEADS_STEPS
+                  and all(math.isfinite(h["loss"]) and all(
+                      h.get(t) is not None and math.isfinite(h[t])
+                      for t in terms) for h in history)
+                  and all(train[k] == v for k, v in want.items())
+                  and all(train[k] == 0 for k in F32_BWD))
+            launches[label] = train
+            if task == "pure_decode":
+                ckpt = os.path.join(out_dir, f"checkpoint-{HEADS_STEPS}")
+                with open(os.path.join(ckpt, "config.json")) as f:
+                    saved = json.load(f)["hierarchical_version"]
+                summary["saved_version"] = saved
+                ok = ok and saved == "decode"
+            else:
+                ok = ok and saves == [(os.path.abspath(out_dir),
+                                       HEADS_STEPS, None)]
+            if mm:
+                summary["itm_batches"] = len(records)
+                summary["itm_targets"] = [r[1]["itm_targets"].tolist()
+                                          for r in records]
+                ok = ok and _itm_draws_ok(records, res.model.cfg, seed)
+            if "--do_eval" in flags:
+                ev = evaluators[0]
+                launches[f"{label}_eval"] = evals
+                summary.update(_heads_eval_summary(
+                    ev, evals, eval_ln, res.eval_results, out_dir))
+                ok = ok and summary.pop("eval_ok")
+            emit(summary)
+            if not ok:
+                raise AssertionError(f"{label} check failed: {summary}")
+            del res
+            torch.cuda.empty_cache()
+            if task == "pure_decode":
+                launches.update(_heads_decode_eval(data_dir, work, seed,
+                                                   ckpt))
+    finally:
+        cli._make_dev_eval_fn, cli._evaluator = make_eval, make_evaluator
+        loop.aux_surgery = surgery
+    return launches
+
+
+def _heads_eval_summary(ev, counts, eval_ln, results, out_dir):
+    """A `--do_eval` pointer substitution's readings and checks: 2
+    forwards (16 stories at micro-batch 32), exact launches, orders that
+    are permutations, one result, on the model in memory."""
+    forwards = math.ceil(HEADS_EVAL_STORIES / 8)
+    want = _expected(per_forward(NUM_LAYERS, extra_ln=eval_ln), forwards, 0,
+                     PATH_KERNELS["eval"])
+    fwd, dec = ev.forward_seconds, ev.decode_seconds
+    perms = _check_eval_outputs(out_dir, HEADS_EVAL_STORIES)
+    return {"eval_forwards": ev.forwards, "eval_launches": counts,
+            "eval_launches_predicted": want, "eval_all_permutations": perms,
+            "eval_median_batch_s": _median_after_first(
+                [f + d for f, d in zip(fwd, dec)]),
+            "eval_median_forward_s": _median_after_first(fwd),
+            "eval_median_decode_s": _median_after_first(dec),
+            "eval_metrics": results,
+            "eval_ok": (ev.forwards == forwards and perms
+                        and list(results) == [f"checkpoint-{HEADS_STEPS}"]
+                        and all(counts[k] == v for k, v in want.items())
+                        and all(counts[k] == 0 for k in PATH_KERNELS["train"]
+                                if k not in PATH_KERNELS["eval"]))}
+
+
+def _heads_decode_eval(data_dir, work, seed, ckpt):
+    """`run_eval --sort_method pure_decode` of the pure_decode checkpoint
+    over 16 test stories at batch 8 (micro-batch 32, beam 5): 2 encoder
+    forwards and 10 decoder calls, exact launches, N tokens a story in the
+    index vocabulary (a sequence need not be a permutation)."""
+    import torch
+    from multimodal_sequencing_tpu_torch.train.cli import run_eval
+    ev_dir = os.path.join(work, "heads_decode_eval")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    results, ev = run_eval(_eval_argv(data_dir, ev_dir, seed, "--sort_method",
+                                      "pure_decode", model=ckpt))
+    counts = _read_counts()
+    forwards = math.ceil(HEADS_EVAL_STORIES / 8)
+    want = _expected(per_forward(NUM_LAYERS, extra_ln=5 * HEADS_DECODER_LN),
+                     forwards, 0, PATH_KERNELS["eval"])
+    with open(os.path.join(ev_dir, "output_order.txt")) as f:
+        tokens = [[int(x) for x in line.split()] for line in f]
+    fwd, dec = ev.forward_seconds, ev.decode_seconds
+    summary = {"phase": "heads_path", "part": "heads_decode_eval",
+               "stories": HEADS_EVAL_STORIES, "batch": 8,
+               "beams": HEADS_BEAMS, "forwards": ev.forwards,
+               "launches": counts, "launches_predicted": want,
+               "permutations": sum(sorted(t) == list(range(5))
+                                   for t in tokens),
+               "first_batch_s": fwd[0] + dec[0],
+               "median_batch_s": _median_after_first(
+                   [f + d for f, d in zip(fwd, dec)]),
+               "median_encode_s": _median_after_first(fwd),
+               "median_beam_s": _median_after_first(dec),
+               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "metrics": results["test"],
+               "bytes_written_so_far": bytes_written()}
+    emit(summary)
+    if not (ev.forwards == forwards and len(tokens) == HEADS_EVAL_STORIES
+            and all(len(t) == 5 and 0 <= min(t) and max(t) < 7
+                    for t in tokens)
+            and math.isfinite(results["test"]["partial_match"])
+            and all(counts[k] == v for k, v in want.items())):
+        raise AssertionError(f"pure_decode eval check failed: {summary}")
+    return {"heads_decode_eval": counts}
+
+
 PHASES = ("kernel_check", "bits_check", "timing", "main_path", "breakdown",
           "reference", "train_path", "train_breakdown", "train_reference",
           "hf_path", "remat", "mm_check", "mm_reference", "mm_path",
           "mm_breakdown", "berson_reference", "berson_path",
           "pretrain_reference", "pretrain_path", "recipeqa_path",
-          "baselines_reference", "baselines_path")
+          "baselines_reference", "baselines_path", "heads_reference",
+          "heads_path")
 
 
 def main(argv=None) -> int:
@@ -4532,6 +4971,9 @@ def main(argv=None) -> int:
                 args.seed),
             "baselines_path": lambda: launches.update(
                 phase_baselines_path(args.seed, work)),
+            "heads_reference": lambda: phase_heads_reference(args.seed),
+            "heads_path": lambda: launches.update(
+                phase_heads_path(args.seed, work)),
         }
         for name in args.phases:
             t0 = time.perf_counter()

@@ -34,7 +34,6 @@ the beam loop syncs with the host.
 
 from __future__ import annotations
 
-import math
 from typing import Dict, Optional
 
 import numpy as np
@@ -46,7 +45,8 @@ from ..data.packing import berson_pairs
 from .config import CLIPVisionConfig, MultimodalConfig
 from .encoder import (Dense, DropoutRng, LayerNorm, TextEncoder, check_rng,
                       dropout)
-from .heads import HeatmapHead
+from .heads import (HeatmapHead, LSTMCell, MultiHeadAttention,
+                    log_softmax)
 from .multimodal_encoder import MultimodalEncoder
 from .sequencer import render_heatmap_targets
 
@@ -68,42 +68,8 @@ def _sentence_membership(n: int):
     return pairs, pair_idx, side_idx
 
 
-def _log_softmax(x: torch.Tensor) -> torch.Tensor:
-    """log_softmax in the JAX package's formula:
-    (x - max) - log(sum(exp(x - max)))."""
-    shifted = x - x.amax(-1, keepdim=True).detach()
-    return shifted - torch.log(torch.exp(shifted).sum(-1, keepdim=True))
-
-
 def _const(x: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.asarray(x, np.int64))
-
-
-class MultiHeadAttention(nn.Module):
-    """Flax `nn.MultiHeadDotProductAttention` (no dropout) over a key mask,
-    in f32: q / sqrt(head_dim), masked scores set to finfo(f32).min."""
-
-    def __init__(self, features: int, heads: int):
-        super().__init__()
-        self.heads = heads
-        self.query = Dense(features, features)
-        self.key = Dense(features, features)
-        self.value = Dense(features, features)
-        self.out = Dense(features, features)
-
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        b, n, f = x.shape
-        d = f // self.heads
-
-        def split(t):
-            return t.view(b, n, self.heads, d)
-
-        q = split(self.query(x)) / math.sqrt(d)
-        s = torch.einsum("bqhd,bkhd->bhqk", q, split(self.key(x)))
-        s = torch.where(mask[:, None, None, :], s, torch.finfo(s.dtype).min)
-        w = torch.softmax(s, dim=-1)
-        ctx = torch.einsum("bhqk,bkhd->bqhd", w, split(self.value(x)))
-        return self.out(ctx.reshape(b, n, f))
 
 
 class InterEncoderLayer(nn.Module):
@@ -208,38 +174,6 @@ class HierarchicalAttention(nn.Module):
         doc = doc * mask_cls[:, :, None]
         return (doc, to_matrix(cls_pooled), cls_score, to_matrix(cls_score),
                 to_matrix(cls_his1), to_matrix(cls_his2))
-
-
-class LSTMCell(nn.Module):
-    """Flax `nn.OptimizedLSTMCell`: the input Denses `ii if ig io` (no
-    bias) and the recurrent `hi hf hg ho`; gates i, f, o sigmoid, g tanh.
-    `fused` concatenates the eight weights once a call of the model;
-    `step` then takes two products a step."""
-
-    GATES = "ifgo"
-
-    def __init__(self, in_features: int, features: int):
-        super().__init__()
-        for g in self.GATES:
-            self.add_module(f"i{g}", Dense(in_features, features, bias=False))
-            rec = Dense(features, features)
-            rec.recurrent = True  # init_weights: orthogonal, as Flax's
-            self.add_module(f"h{g}", rec)
-
-    def fused(self):
-        def cat(kind, leaf):
-            return torch.cat([getattr(getattr(self, f"{kind}{g}"), leaf)
-                              for g in self.GATES])
-        return cat("i", "weight"), cat("h", "weight"), cat("h", "bias")
-
-    @staticmethod
-    def step(fused, c, h, x):
-        """One step from carry (c, h) on input x; returns (c, h)."""
-        w_i, w_h, b_h = fused
-        z = F.linear(h, w_h, b_h) + F.linear(x, w_i)
-        i, f, g, o = z.chunk(4, dim=-1)
-        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        return c, torch.sigmoid(o) * torch.tanh(c)
 
 
 class BersonOrdering(nn.Module):
@@ -430,7 +364,7 @@ class BersonOrdering(nn.Module):
             logits.append(e)
         logits = torch.stack(logits, dim=1)                    # (B, N, N)
 
-        nll = -_log_softmax(logits).gather(2, target[:, :, None])[..., 0]
+        nll = -log_softmax(logits).gather(2, target[:, :, None])[..., 0]
         nll = nll * mask_cls.gather(1, target)
         pointer_loss = nll.sum(1) / torch.clamp(mask_cls.sum(1) - 1,
                                                 min=1e-20)
@@ -439,7 +373,7 @@ class BersonOrdering(nn.Module):
         vp = mask_cls[:, self.pairs[:, 0]] * mask_cls[:, self.pairs[:, 1]]
 
         def pair_ce(scores):
-            nll = -_log_softmax(scores).gather(2, plabels)[..., 0]
+            nll = -log_softmax(scores).gather(2, plabels)[..., 0]
             return (nll * vp).sum(1) / torch.clamp(vp.sum(1), min=1e-20)
 
         valid = batch.get("valid")
@@ -528,7 +462,7 @@ class BersonOrdering(nn.Module):
             h2, c2, e = self._pointer_logits_step(
                 lstm, h, c, dec_inp, keyW, rela, rela_mask, rela, l1_row,
                 l2_row, pointed, maskW)
-            total = (scores[:, None] + _log_softmax(e)).reshape(b, W * n)
+            total = (scores[:, None] + log_softmax(e)).reshape(b, W * n)
             # the top W, ties to the lower index (`lax.top_k`'s order)
             top_scores, top_ix = torch.sort(total, dim=1, descending=True,
                                             stable=True)

@@ -12,12 +12,15 @@ same dotted state-dict key with its leaf renamed:
   Conv `kernel` (kh, kw, in, out) -> Conv2d `weight` (out, in, kh, kw)
   Embed `embedding`               -> Embedding `weight`
   LayerNorm/BatchNorm `scale`     -> `weight`; `bias` -> `bias`
-  raw `positional_embedding`, `class_embedding`, `proj` -> the same name
+  raw `positional_embedding`, `class_embedding`, `proj`, `pos_emb` -> the
+    same name
 and the `batch_stats` tree's BatchNorm `mean` / `var` -> the buffers
 `running_mean` / `running_var`; e.g. `encoder/layer_3/attention/query/
 kernel` -> `encoder.layer_3.attention.query.weight`. The LSTM of BERSON's
 pointer keeps Flax's eight Denses (`decoder/ii`, ..., `decoder/ho`), so it
-needs no rule of its own.
+needs no rule of its own, nor do p1's `pointer_head/lstm_pointer/cell`
+and the attention layers of p0 and pure_decode (`self_attn`, `cross_attn`:
+the DenseGeneral rule).
 
 HF text weights (`--model_name_or_path <dir with pytorch_model.bin>`) map
 by name onto the same keys of either encoder layout (the multimodal
@@ -54,7 +57,8 @@ HF_WEIGHTS_NAMES = ("pytorch_model.bin", "model.safetensors")
 
 _LEAVES = {"kernel": "weight", "embedding": "weight", "scale": "weight",
            "bias": "bias", "positional_embedding": "positional_embedding",
-           "class_embedding": "class_embedding", "proj": "proj"}
+           "class_embedding": "class_embedding", "proj": "proj",
+           "pos_emb": "pos_emb"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -95,16 +99,19 @@ def params_from_jax(params: Mapping, cfg: MultimodalConfig,
                     batch_stats: Optional[Mapping] = None,
                     vision_cfg: Optional[CLIPVisionConfig] = None
                     ) -> Dict[str, torch.Tensor]:
-    """JAX `SequencingModel`, `BersonOrdering` or `SequencingPretrainer`
-    params (nested dicts of numpy arrays, with or without the outer `params`
-    collection) and, for a model with BatchNorms, its `batch_stats` tree ->
-    a state dict for the port's model of the same class, which the tree
-    picks: `BersonOrdering(cfg, vision_cfg)` when it has BERSON's `inner`
-    encoder (with its image-stream pairwise head when it has
-    `img_projection`), `SequencingModel(cfg, vision_cfg)` when it has a
-    sequencer head (`heatmap_head`, or the v0 `cls_head`, whose Dense
-    kernels `dense` and `out_proj` transpose as every Dense does; `cfg`
-    gives the version and `num_labels`), else
+    """JAX `SequencingModel`, `EncoderIndexDecoder`, `BersonOrdering` or
+    `SequencingPretrainer` params (nested dicts of numpy arrays, with or
+    without the outer `params` collection) and, for a model with
+    BatchNorms, its `batch_stats` tree -> a state dict for the port's model
+    of the same class, which the tree picks: `BersonOrdering(cfg,
+    vision_cfg)` when it has BERSON's `inner` encoder (with its image-stream
+    pairwise head when it has `img_projection`), `EncoderIndexDecoder(cfg)`
+    when it has pure_decode's `lm_head`, `SequencingModel(cfg, vision_cfg)`
+    when it has a sequencer head (`heatmap_head`, `pointer_head`, or the v0
+    `cls_head`, whose Dense kernels `dense` and `out_proj` transpose as
+    every Dense does; `cfg` gives the version, `num_labels` and the
+    `hl_include_objectives` whose `aux_heads` and `aux_mlm_head` the tree
+    holds), else
     `SequencingPretrainer(cfg, vision_cfg)`, its cfg's objectives those
     whose heads the tree holds (`mlm_head`, `{objective}_mlp`,
     `margin_loss_mlp`, `mrm_*`). Raises if the trees do not match the
@@ -133,10 +140,13 @@ def _model_of_tree(params: Mapping, cfg: MultimodalConfig,
     """The port's model whose parameters a JAX tree holds."""
     from .berson import BersonOrdering
     from .pretrainer import SequencingPretrainer
+    from .pure_decode import EncoderIndexDecoder
     if "inner" in params:
         return BersonOrdering(cfg, vision_cfg,
                               multimodal_loss="img_projection" in params)
-    if "heatmap_head" in params or "cls_head" in params:
+    if "lm_head" in params:
+        return EncoderIndexDecoder(cfg)
+    if {"heatmap_head", "pointer_head", "cls_head"} & set(params):
         return SequencingModel(cfg, vision_cfg)
     objectives = [("margin_loss" if k == "margin_loss_mlp" else k[:-4])
                   for k in params if k.endswith("_mlp")]

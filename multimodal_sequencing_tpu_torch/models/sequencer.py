@@ -1,17 +1,24 @@
 """SequencingModel: text or CLIP multimodal encoder + ordering head
-(counterpart of `models/sequencer.py`, versions v0 and v1/v2/v3), the
-heat-map targets and the fresh init.
+(counterpart of `models/sequencer.py`), the heat-map targets and the fresh
+init.
 
   v0            pooled CLS -> `ClassificationHead` (`cls_head`): pairwise,
                 head, abductive or pure_class logits (`cfg.num_labels`)
   v1 | v2 | v3  per-step CLS -> `HeatmapHead` (`heatmap_head`)
+  p0 | p1       per-step CLS -> `PointerHead` (`pointer_head`), given the
+                order labels in training (p1 teacher-forced)
+
+Under the per-step heads, `cfg.hl_include_objectives` adds
+`AuxObjectiveHeads` (`aux_heads`: head, binary / pairwise, itm) and, for
+`mlm`, `aux_mlm_head`, the pretrainer's `MLMHead` tied to the word
+embedding; v0 gets neither, as the JAX init creates neither there (Flax
+makes a `setup` submodule's parameters only where it is called).
 
 With `cfg.multimodal` the encoder is the single-stream joint encoder
 (`models/multimodal_encoder.py`: CLIP tower + folded visual tokens + the
 shared transformer layers), built from `vision_cfg` (default: RN50 or
-ViT-B/32 by `cfg.clip_model_name`). The p0/p1 pointer heads (ROADMAP A5d),
-the auxiliary objective heads (A5c) and the VisualBERT and naive multimodal
-encoders (A5e) are later slices of the port and raise
+ViT-B/32 by `cfg.clip_model_name`). The VisualBERT and naive multimodal
+encoders (ROADMAP A5e) are a later slice of the port and raise
 `NotImplementedError` here.
 """
 
@@ -27,11 +34,15 @@ from .clip_visual import (AttentionPool2d, BatchNorm, Conv,
                           VisualTransformer)
 from .config import CLIPVisionConfig, MultimodalConfig
 from .encoder import DropoutRng, Embed, LayerNorm, TextEncoder
-from .heads import ClassificationHead, HeatmapHead, gather_step_cls
+from .heads import (AUX_HEAD_OBJECTIVES, AuxObjectiveHeads,
+                    ClassificationHead, HeatmapHead, PointerHead,
+                    gather_step_cls)
 from .multimodal_encoder import MultimodalEncoder
+from .pretrainer import MLMHead
 
 HEATMAP_VERSIONS = ("v1", "v2", "v3")
-VERSIONS = ("v0",) + HEATMAP_VERSIONS
+POINTER_VERSIONS = ("p0", "p1")
+VERSIONS = ("v0",) + HEATMAP_VERSIONS + POINTER_VERSIONS
 
 
 class SequencingModel(nn.Module):
@@ -46,35 +57,36 @@ class SequencingModel(nn.Module):
                 f"models/fpn.py) come with a later slice of the port "
                 f"(ROADMAP A5); the port runs the CLIP encoder")
         if cfg.hierarchical_version not in VERSIONS:
-            raise NotImplementedError(
-                f"hierarchical_version {cfg.hierarchical_version!r}: the port "
-                f"has the classification and heat-map heads {VERSIONS} so "
-                f"far; the p0/p1 pointer heads come with a later slice "
-                f"(ROADMAP A5d)")
+            raise ValueError(
+                f"unknown hierarchical_version {cfg.hierarchical_version!r}")
         if (cfg.multimodal and cfg.multimodal_img_part
                 and cfg.hierarchical_version != "v0"):
             # the JAX package's gather returns NaN there: NaN heat maps
             raise ValueError(
                 "multimodal_img_part cuts the language to its first CLS "
-                "token, so the heat-map heads find no step CLS tokens to "
+                "token, so the per-step heads find no step CLS tokens to "
                 "gather")
-        if cfg.hl_include_objectives and set(cfg.hl_include_objectives) != {
-                "heatmap_pairwise_ranking"}:
-            raise NotImplementedError(
-                "auxiliary objective heads (head/binary/itm/mlm) come with a "
-                "later slice of the port")
         self.cfg = cfg
         # "clip" (and the reference's unreachable vilbert/vlbert/uniter,
         # which the JAX package also builds as the CLIP encoder)
         self.encoder = (MultimodalEncoder(cfg, vision_cfg) if cfg.multimodal
                         else TextEncoder(cfg.encoder))
+        enc = cfg.encoder
         if cfg.hierarchical_version == "v0":
-            enc = cfg.encoder
             self.cls_head = ClassificationHead(
                 cfg.num_labels, enc.hidden_size, enc.hidden_dropout_prob,
                 enc.compute_dtype)
+            return
+        if cfg.hierarchical_version in POINTER_VERSIONS:
+            self.pointer_head = PointerHead(cfg)
         else:
             self.heatmap_head = HeatmapHead(cfg)
+        objs = set(cfg.hl_include_objectives or [])
+        if objs & set(AUX_HEAD_OBJECTIVES):
+            self.aux_heads = AuxObjectiveHeads(cfg)
+        if "mlm" in objs:
+            self.aux_mlm_head = MLMHead(enc.hidden_size, enc.vocab_size,
+                                        enc.compute_dtype)
 
     @property
     def vision_cfg(self) -> Optional[CLIPVisionConfig]:
@@ -96,11 +108,18 @@ class SequencingModel(nn.Module):
                 token_type_ids: Optional[torch.Tensor] = None,
                 images: Optional[torch.Tensor] = None,
                 deterministic: bool = True,
-                rng: Optional[DropoutRng] = None) -> Dict[str, torch.Tensor]:
+                rng: Optional[DropoutRng] = None,
+                order_labels: Optional[torch.Tensor] = None,
+                aux: bool = True) -> Dict[str, torch.Tensor]:
         """`images`: a story's step images for the multimodal encoder,
         (B, N, H, W, 3) uint8 or (B, N, 3, H, W) float. v0 returns the
-        classification head's f32 `logits` of the pooled CLS; the heat-map
-        versions the step representations and the `heatmap`.
+        classification head's f32 `logits` of the pooled CLS; the per-step
+        versions the step representations and the `heatmap` (v1-v3) or the
+        f32 `pointer_logits` (p0/p1, p1 teacher-forced by `order_labels`
+        when given), and the aux heads' `head_logits`, `bin_logits`,
+        `itm_logits` and `mlm_logits` (`aux=False` skips those heads: the
+        evaluator reads one output, where the JAX eval's jit prunes the
+        rest).
         `deterministic=False` (training) needs `rng`, the step's dropout
         streams; it also normalizes the BatchNorms by the batch and updates
         their running averages."""
@@ -114,10 +133,23 @@ class SequencingModel(nn.Module):
                     "pooled_output": pooled, "logits": logits.float()}
         reprs, present = gather_step_cls(seq, input_ids, cfg.cls_id,
                                          cfg.max_story_length)
-        return {"sequence_output": seq, "visual_output": visn,
-                "pooled_output": pooled, "step_reprs": reprs,
-                "present": present,
-                "heatmap": self.heatmap_head(reprs, present)}
+        out = {"sequence_output": seq, "visual_output": visn,
+               "pooled_output": pooled, "step_reprs": reprs,
+               "present": present}
+        if cfg.hierarchical_version in POINTER_VERSIONS:
+            out["pointer_logits"] = self.pointer_head(
+                reprs, present, order_labels).float()
+        else:
+            out["heatmap"] = self.heatmap_head(reprs, present)
+        if not aux:
+            return out
+        if hasattr(self, "aux_heads"):
+            out.update(self.aux_heads(reprs, present, pooled,
+                                      None if deterministic else rng))
+        if hasattr(self, "aux_mlm_head"):
+            out["mlm_logits"] = self.aux_mlm_head(
+                seq, self.encoder.embeddings.word_embeddings.weight)
+        return out
 
 
 def render_heatmap_targets(order_labels: torch.Tensor, n: int,
@@ -173,7 +205,9 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
     scales, BatchNorm running mean 0 and variance 1; the CLIP towers' raw
     parameters as their modules declare them (attention-pool positions
     normal with std c^-0.5; ViT class embedding, positions and projection
-    normal with std width^-0.5). The bits differ from JAX's."""
+    normal with std width^-0.5), and a module's `normal_init` parameters
+    (name -> std: the pointer and index decoders' position tables) normal.
+    The bits differ from JAX's."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
     with torch.no_grad():
         for mod in model.modules():
@@ -207,4 +241,7 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
                 for p in (mod.class_embedding, mod.positional_embedding,
                           mod.proj):
                     p.copy_(_normal(p.shape, std, gen))
+            for name, std in getattr(mod, "normal_init", {}).items():
+                p = getattr(mod, name)
+                p.copy_(_normal(p.shape, std, gen))
     return model

@@ -63,6 +63,18 @@ whose path is not a directory gets a fresh model. RecipeQA reads
 `new_splits/{split}-{version}.json`; `--caption_transformations` edit the
 step texts (`data/caption_transforms.py`).
 
+`--hierarchical_version p0|p1` trains a pointer head on `{data}_hl_v1` or
+`_pure_class` stories, and `--task_name {data}_pure_decode` the
+pure_decode encoder-decoder (`models/pure_decode.py`; its checkpoint's
+`config.json` has `hierarchical_version` "decode");
+`--hl_include_objectives` adds the auxiliary objectives (`head`, `binary`
+/ `pairwise`, `itm`, `mlm`, `mlm_wo_loss`, and for the heat-map heads
+`heatmap_pairwise_ranking`). Their `--do_eval` runs `pure_decode`: the
+beam-5 generate of a pure_decode model, or a pointer model's exhaustive
+permutation argmax; `trainers.eval --sort_method pure_decode` evaluates a
+pure_decode checkpoint, or with `--hierarchical_version p0|p1` a pointer
+checkpoint.
+
 `--eval_all_checkpoints` / `--iters_to_eval` sweep the checkpoints under a
 run directory. A fresh eval model is seeded from 0, as
 the JAX eval's `PRNGKey(0)`, and a fresh train model from `--seed`.
@@ -85,6 +97,7 @@ import torch
 
 from .. import resolve_device
 from ..models.convert import HF_WEIGHTS_NAMES
+from ..models.sequencer import HEATMAP_VERSIONS, POINTER_VERSIONS
 from .checkpoint import CONFIG_NAME, WEIGHTS_NAME, save_model  # noqa: F401
 from .evaluation import SORT_METHODS
 
@@ -263,11 +276,6 @@ def parse_args(kind: str, argv=None):
         if getattr(args, dest) != parser.get_default(dest):
             raise NotImplementedError(
                 f"--{dest}: {what} come(s) with a later slice of the port")
-    if args.hl_include_objectives and set(args.hl_include_objectives) != {
-            "heatmap_pairwise_ranking"}:
-        raise NotImplementedError(
-            "--hl_include_objectives: the port trains heatmap_pairwise_ranking "
-            "so far; the head/binary/itm/mlm heads come with a later slice")
     extra = set(args.additional_wrapper_level_objectives or []) - {
         "time_contrastive"}
     if extra:
@@ -520,10 +528,11 @@ def dataset_kwargs(args) -> dict:
                                  else "imagenet"))
 
 
-# the tasks each head trains on
+# the tasks each head trains on ("decode": the pure_decode encoder-decoder)
 TRAIN_TASKS = {"v0": ("pairwise", "head", "abductive", "pure_class"),
-               "v1": ("hl_v1", "pure_class")}
-TRAIN_TASKS["v2"] = TRAIN_TASKS["v3"] = TRAIN_TASKS["v1"]
+               "v1": ("hl_v1", "pure_class"), "decode": ("pure_decode",)}
+for _v in ("v2", "v3", "p0", "p1"):
+    TRAIN_TASKS[_v] = TRAIN_TASKS["v1"]
 
 
 def num_labels_of(task_type: str, max_story_length: int) -> int:
@@ -543,7 +552,7 @@ def make_dataset(args, tokenizer, task_type, examples, version="v0"):
     """The training set of `task_type` for the head `version`: step pairs,
     scrambled stories labelled by their first step, step triples, or
     scrambled stories labelled by permutation id (v0) or by order (the
-    heat-map heads)."""
+    heat-map and pointer heads, the pure_decode decoder)."""
     from ..data.datasets import (AbductiveDataset, HeadPredDataset,
                                  PairwiseDataset, PureClassDataset)
     if task_type not in TRAIN_TASKS.get(version, ()):
@@ -593,11 +602,14 @@ def _evaluator(args, cfg, tokenizer, device):
 
 
 def main_train(argv=None):
-    """Fine-tune the sequencer (a v0 classification head on its task, or a
-    heat-map head), or with `--wrapper_model_type berson` the BERSON
-    wrapper; with `--do_eval` evaluate the checkpoints afterwards. Returns
-    the loop's `TrainResult` (its `eval_results` maps checkpoint name ->
-    metrics, for BERSON checkpoint name -> split -> metrics)."""
+    """Fine-tune the sequencer (a v0 classification head on its task, a
+    heat-map or pointer head, with the auxiliary objectives), the
+    pure_decode encoder-decoder (task `pure_decode`), or with
+    `--wrapper_model_type berson` the BERSON wrapper; with `--do_eval`
+    evaluate the checkpoints afterwards (the model in memory when there is
+    none). Returns the loop's `TrainResult` (its `eval_results` maps
+    checkpoint name -> metrics, for BERSON checkpoint name -> split ->
+    metrics)."""
     args = parse_args("train", argv)
     logging.basicConfig(level=logging.INFO)
     if args.multimodal_loss and args.wrapper_model_type != "berson":
@@ -615,13 +627,12 @@ def main_train(argv=None):
     if args.wrapper_model_type == "berson":
         return _train_berson(args, cfg, tokenizer, data_name, task_type,
                              device)
-    if task_type == "pure_decode" or cfg.hierarchical_version in ("p0", "p1"):
-        raise NotImplementedError(
-            f"task {task_type!r} with --hierarchical_version "
-            f"{cfg.hierarchical_version}: the pure_decode encoder-decoder and "
-            f"the pointer heads come with a later slice (ROADMAP A5d)")
+    if task_type == "pure_decode":
+        # the encoder-decoder over index tokens
+        cfg.hierarchical_version = "decode"
     if cfg.hierarchical_version == "v0":
         cfg.num_labels = num_labels_of(task_type, args.max_story_length)
+    from ..models.pure_decode import EncoderIndexDecoder
     from ..models.sequencer import SequencingModel
     from .checkpoint import find_checkpoints, restore_checkpoint
     from .loop import run_finetune
@@ -630,7 +641,8 @@ def main_train(argv=None):
         args, tokenizer, task_type,
         load_examples(args, data_name, task_type, args.train_split),
         cfg.hierarchical_version)
-    model = SequencingModel(cfg, vision_config(cfg, args))
+    model = (EncoderIndexDecoder(cfg) if cfg.hierarchical_version == "decode"
+             else SequencingModel(cfg, vision_config(cfg, args)))
     eval_fn = None
     if args.evaluate_during_training or args.do_eval:
         eval_fn = _make_dev_eval_fn(args, cfg, tokenizer, data_name, device)
@@ -643,6 +655,10 @@ def main_train(argv=None):
         ckpts = find_checkpoints(
             args.output_dir,
             None if args.eval_all_checkpoints else args.iters_to_eval)
+        if not ckpts:
+            res = eval_fn(result.model)
+            result.eval_results[f"checkpoint-{result.global_step}"] = res
+            logger.info("final-state eval: %s", res)
         for ck in ckpts:
             restore_checkpoint(ck, result.model)
             res = eval_fn(result.model)
@@ -736,9 +752,10 @@ def _make_berson_eval_fn(args, tokenizer, data_name, split, device):
 
 def _make_dev_eval_fn(args, cfg, tokenizer, data_name, device):
     """Decode metrics on the first eval split during and after training:
-    `heat_map` for a heat-map head, `topological` with the model as the
-    pairwise role for v0 (whatever its task, as in the JAX package); the
-    loop keys the best checkpoint on partial + exact match."""
+    `heat_map` for a heat-map head, `pure_decode` for a pointer head (the
+    `pointer` role) or the encoder-decoder, `topological` with the model as
+    the pairwise role for v0 (whatever its task, as in the JAX package);
+    the loop keys the best checkpoint on partial + exact match."""
     split = args.eval_splits[0]
     try:
         load_examples(args, data_name, "sort", split)
@@ -746,9 +763,7 @@ def _make_dev_eval_fn(args, cfg, tokenizer, data_name, device):
         logger.warning("no dev split for eval-during-training: %s", e)
         return None
     evaluator = _evaluator(args, cfg, tokenizer, device)
-    method, role = (("topological", "pairwise")
-                    if cfg.hierarchical_version == "v0"
-                    else ("heat_map", "heatmap"))
+    method, role = EVAL_OF_VERSION[cfg.hierarchical_version]
 
     def eval_fn(model):
         return evaluator.evaluate(
@@ -838,18 +853,19 @@ def run_eval(argv=None):
     named) evaluates each checkpoint under `--model_name_or_path_1` (else
     `--model_name_or_path`) when that is a directory, else under
     `--output_dir`. With more than one, the results are keyed by checkpoint
-    name and each split is written as `{split}_{name}`."""
+    name and each split is written as `{split}_{name}`. `pure_decode` takes
+    a pure_decode model, or with `--hierarchical_version p0|p1` a pointer
+    model (the `pointer` role)."""
     args = parse_args("eval", argv)
     logging.basicConfig(level=logging.INFO)
     device = resolve_device(args.device)
     args.output_dir = resolve_output_dir(args)
     cfg, tokenizer = build_config(args)
     data_name, _ = _parse_task(args)
-    if args.sort_method == "pure_decode":
-        raise NotImplementedError(
-            "--sort_method pure_decode: the encoder-decoder and the pointer "
-            "heads come with a later slice of the port (ROADMAP A5d)")
     roles = ROLES_BY_METHOD[args.sort_method]
+    if (args.sort_method == "pure_decode"
+            and args.hierarchical_version in POINTER_VERSIONS):
+        roles = ["pointer"]
     evaluator = _evaluator(args, cfg, tokenizer, device)
     base_path = args.model_name_or_path_1 or args.model_name_or_path
     paths = [base_path]
@@ -900,11 +916,31 @@ ROLES_BY_METHOD = {
     "head_and_sequential": ["head", "pairwise"],
     "head_and_sequential_abductive": ["head", "pairwise", "abductive"],
     "pure_class": ["pure_class"],
+    "pure_decode": ["pure_decode"],
     "heat_map": ["heatmap"],
     "berson": ["berson"],
 }
 # the v0 roles, each with the head width of its task (`num_labels_of`)
 V0_ROLES = ("pairwise", "abductive", "head", "pure_class")
+# the head versions a checkpoint of each sequencer role may have
+ROLE_VERSIONS = {"heatmap": HEATMAP_VERSIONS, "pointer": POINTER_VERSIONS,
+                 "pure_decode": ("decode",)}
+ROLE_VERSIONS.update(dict.fromkeys(V0_ROLES, ("v0",)))
+# the (sort method, role) that evaluate a model of each head version: the
+# dev eval's, and the method a checkpoint in another role is sent to
+EVAL_OF_VERSION = {"v0": ("topological", "pairwise"),
+                   "p0": ("pure_decode", "pointer"),
+                   "p1": ("pure_decode", "pointer"),
+                   "decode": ("pure_decode", "pure_decode")}
+EVAL_OF_VERSION.update(dict.fromkeys(HEATMAP_VERSIONS,
+                                     ("heat_map", "heatmap")))
+
+
+def _method_of(version: str) -> str:
+    """The eval flags for a checkpoint of head `version`."""
+    method, role = EVAL_OF_VERSION[version]
+    return method + (f" --hierarchical_version {version}"
+                     if role == "pointer" else "")
 
 # the saved config's fields that decide a checkpoint's parameters
 _SAVED_FIELDS = ("encoder", "hierarchical_version", "num_labels",
@@ -912,44 +948,51 @@ _SAVED_FIELDS = ("encoder", "hierarchical_version", "num_labels",
                  "multimodal_model_type", "clip_model_name",
                  "multimodal_text_part", "multimodal_img_part",
                  "use_positional_embedding", "use_token_type_embedding",
-                 "image_size", "wrapper_model_with_heatmap")
+                 "image_size", "wrapper_model_with_heatmap",
+                 "hl_include_objectives")
 
 
 def load_model_for_eval(cfg, path: Optional[str], device, vision_cfg=None,
                         role: str = "heatmap", beam_size: int = 16,
                         pairwise_loss_lam: float = 0.6):
     """The model of an eval `role` on `device`, ready for inference: the
-    heat-map sequencer (`heatmap`), a v0 classification sequencer
-    (`pairwise` and `abductive`: 2 labels, `head`: `max_story_length`,
-    `pure_class`: N!) or `BersonOrdering` (`berson`, built with `beam_size`
-    and `pairwise_loss_lam` and without the image-stream pairwise head, as
-    the JAX eval builds it). The checkpoint at `path` when it is a
-    directory (its saved encoder, head version and width, heat-map aux and
-    multimodal fields, and its tower's `vision_config.json`; `vision_cfg`
-    where a multimodal checkpoint has none), else a fresh init seeded from
-    0 (with `vision_cfg`'s tower). A directory that is not a checkpoint of
-    this package (a local HF model, a run directory), a checkpoint of
-    another model or head width than the role's, and a BERSON checkpoint
-    trained with `--multimodal_loss` (whose image-stream head the eval
-    model lacks: the JAX eval's restore refuses it too) raise ValueError."""
+    heat-map sequencer (`heatmap`), a p0/p1 pointer sequencer (`pointer`),
+    the pure_decode encoder-decoder (`pure_decode`), a v0 classification
+    sequencer (`pairwise` and `abductive`: 2 labels, `head`:
+    `max_story_length`, `pure_class`: N!) or `BersonOrdering` (`berson`,
+    built with `beam_size` and `pairwise_loss_lam` and without the
+    image-stream pairwise head, as the JAX eval builds it). The checkpoint
+    at `path` when it is a directory (its saved encoder, head version and
+    width, heat-map aux, auxiliary objectives and multimodal fields, and
+    its tower's `vision_config.json`; `vision_cfg` where a multimodal
+    checkpoint has none), else a fresh init seeded from 0 (with
+    `vision_cfg`'s tower). A directory that is not a checkpoint of this
+    package (a local HF model, a run directory), a checkpoint of another
+    model, head version or head width than the role's (the error names
+    the sort method for it), and a BERSON checkpoint trained with
+    `--multimodal_loss` (whose image-stream head the eval model lacks: the
+    JAX eval's restore refuses it too) raise ValueError."""
     from ..models.berson import BersonOrdering
     from ..models.config import CLIPVisionConfig, MultimodalConfig
+    from ..models.pure_decode import EncoderIndexDecoder
     from .checkpoint import VISION_CONFIG_NAME
-    from ..models.sequencer import (HEATMAP_VERSIONS, SequencingModel,
-                                    cast_for_inference, init_weights)
+    from ..models.sequencer import (SequencingModel, cast_for_inference,
+                                    init_weights)
 
     berson = role == "berson"
     role_cfg = copy.deepcopy(cfg)
     if role in V0_ROLES:
-        role_cfg.hierarchical_version = "v0"
         role_cfg.num_labels = num_labels_of(role, cfg.max_story_length)
-    elif not berson and role_cfg.hierarchical_version not in HEATMAP_VERSIONS:
-        role_cfg.hierarchical_version = "v1"
+    if not berson and role_cfg.hierarchical_version not in \
+            ROLE_VERSIONS[role]:
+        role_cfg.hierarchical_version = ROLE_VERSIONS[role][0]
 
     def build(vcfg):
         if berson:
             return BersonOrdering(role_cfg, vcfg, beam_size=beam_size,
                                   pairwise_loss_lam=pairwise_loss_lam)
+        if role == "pure_decode":
+            return EncoderIndexDecoder(role_cfg)
         return SequencingModel(role_cfg, vcfg)
 
     if path and os.path.isdir(path):
@@ -963,22 +1006,25 @@ def load_model_for_eval(cfg, path: Optional[str], device, vision_cfg=None,
                    f"first" if hf else ""))
         with open(os.path.join(path, CONFIG_NAME)) as f:
             saved = MultimodalConfig.from_json(f.read())
+        version = saved.hierarchical_version
         if (saved.wrapper_model_type == "berson") != berson:
             raise ValueError(
                 f"{path} is a checkpoint of "
                 f"{'BERSON' if not berson else 'the sequencer'}; "
                 f"evaluate it with --sort_method "
-                f"{'heat_map' if berson else 'berson'}")
+                f"{_method_of(version) if berson else 'berson'}")
         if not berson and (
-                (saved.hierarchical_version == "v0") != (role in V0_ROLES)
+                version not in ROLE_VERSIONS[role]
                 or (role in V0_ROLES
                     and saved.num_labels != role_cfg.num_labels)):
             raise ValueError(
-                f"{path} is a checkpoint of the {saved.hierarchical_version} "
-                f"head with {saved.num_labels} labels; the {role} role "
-                f"takes the "
+                f"{path} is a checkpoint of the {version} head with "
+                f"{saved.num_labels} labels; the {role} role takes the "
                 + (f"v0 head with {role_cfg.num_labels} labels"
-                   if role in V0_ROLES else "heat-map head"))
+                   if role in V0_ROLES else
+                   f"{'/'.join(ROLE_VERSIONS[role])} head")
+                + f" (evaluate it with --sort_method "
+                  f"{_method_of(version)})")
         for name in _SAVED_FIELDS:
             setattr(role_cfg, name, getattr(saved, name))
         vision_path = os.path.join(path, VISION_CONFIG_NAME)

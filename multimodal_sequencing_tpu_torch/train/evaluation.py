@@ -24,13 +24,22 @@ sorts the tournament its argmax edges make (`utils/topo.py`, or with
 `head_and_sequential` chains greedily from it by the raw "ordered" logit,
 `head_and_sequential_abductive` adding 0.1 x the abductive model's logit
 of each (previous, candidate, last) triple; `pure_class` unranks the
-argmax of the story's permutation logits. `pure_decode` comes with a later
-slice (ROADMAP A5d).
+argmax of the story's permutation logits.
+
+`pure_decode` beam-generates each story's index tokens with a pure_decode
+model (`EncoderIndexDecoder.generate`, beam 5, bigram ban; the encoder
+once a micro-batch, the beam loop on the device), or, given a p0/p1
+pointer model (role `pointer`), takes the permutation of the largest sum
+of the pointer's log-softmax over positions, exhaustively (n! <= 120 a
+story at n = 5). A generated sequence need not be a permutation: a metric
+that raises `ValueError` on such a prediction reports `nan`, as in the
+JAX package.
 """
 
 from __future__ import annotations
 
 import csv
+import itertools
 import logging
 import os
 import time
@@ -99,7 +108,9 @@ class SortEvaluator:
     and `decode_seconds` that of decoding (the heat maps, the pair logits
     or the permutation logits; on the host, or on the device with
     `cfg.device_decode`); for `berson`, of packing and encoding the pairs,
-    and of the beam search with the orders' copy back."""
+    and of the beam search with the orders' copy back; for `pure_decode`
+    with a pure_decode model, of packing and the encodes, and of the beam
+    loops."""
 
     def __init__(self, cfg, packer, device: torch.device,
                  micro_batch: int = 64):
@@ -124,7 +135,7 @@ class SortEvaluator:
                 imgs = torch.from_numpy(imgs).to(self.device)
             with torch.inference_mode():
                 out = model(t["input_ids"], t["attention_mask"],
-                            t["token_type_ids"], images=imgs)
+                            t["token_type_ids"], images=imgs, aux=False)
             self.forwards += 1
             return out[want]
 
@@ -142,6 +153,54 @@ class SortEvaluator:
         if images is not None:
             feed["images"] = images
         return self._apply(model, feed, want)
+
+    def story_generate(self, model, stories: List[List[str]]):
+        """Beam-5 index-token generate over the packed whole stories of a
+        pure_decode model, in micro-batches (the tail padded): the encoder
+        once a micro-batch, then the beam loop. Returns (each story's N
+        tokens, the seconds of the beam loops)."""
+        feed = _feed([self.packer.pack_story(t, self.cfg.max_seq_length)
+                      for t in stories])
+        beam_s = [0.0]
+
+        def sync():
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+        def fn(chunk):
+            t = {k: torch.from_numpy(v).to(self.device, torch.long)
+                 for k, v in chunk.items()}
+            with torch.inference_mode():
+                enc = model.encode(t["input_ids"], t["attention_mask"],
+                                   t["token_type_ids"])
+                self.forwards += 1
+                sync()
+                t0 = time.perf_counter()
+                out = model.generate(None, enc=enc)
+                sync()
+            beam_s[0] += time.perf_counter() - t0
+            return out
+
+        out = _batched_apply(fn, feed, self.micro_batch)
+        return [[int(x) for x in row] for row in out], beam_s[0]
+
+    @staticmethod
+    def pointer_argmax(logits: np.ndarray) -> List[List[int]]:
+        """The pointer substitution of `pure_decode`: for each story's
+        (N, N) p0/p1 logits, the permutation with the largest sum over
+        positions t of the log-softmax at (t, perm[t]), exhaustively; on a
+        tie the first in lexicographic order."""
+        logp = logits - _logsumexp(logits, axis=-1, keepdims=True)
+        n = logits.shape[-1]
+        preds = []
+        for lp in logp:
+            best, best_s = None, -np.inf
+            for perm in itertools.permutations(range(n)):
+                s = sum(lp[t, perm[t]] for t in range(n))
+                if s > best_s:
+                    best, best_s = list(perm), s
+            preds.append(best)
+        return preds
 
     def pair_logit_matrix(self, model, stories: List[List[str]],
                           images: Optional[np.ndarray] = None):
@@ -294,10 +353,13 @@ class SortEvaluator:
                  args_ns=None,
                  every_n: Optional[int] = None) -> Dict[str, float]:
         """Run decode + metrics over a SortDataset loader. `models` maps
-        role -> model: `heatmap`, `berson`, `pure_class`, or for the
-        pairwise methods `pairwise`, `head` (head_and_*) and `abductive`
-        (optional, head_and_sequential_abductive). `every_n` subsamples the
-        loader to every Nth batch."""
+        role -> model: `heatmap`, `berson`, `pure_class`, `pure_decode` or
+        `pointer` (for pure_decode), or for the pairwise methods
+        `pairwise`, `head` (head_and_*) and `abductive` (optional,
+        head_and_sequential_abductive). `every_n` subsamples the loader to
+        every Nth batch. A metric that raises `ValueError` (one that needs
+        permutations, given a generated sequence that is not one) is
+        `nan`."""
         metrics = list(metrics or METRICS)
         all_preds, all_labels, all_guids = [], [], []
         decoded = 0
@@ -324,8 +386,11 @@ class SortEvaluator:
 
         res = {}
         for m in metrics:
-            res[m] = compute_metrics(args_ns or self.cfg, m, all_preds,
-                                     all_labels)
+            try:
+                res[m] = compute_metrics(args_ns or self.cfg, m, all_preds,
+                                         all_labels)
+            except ValueError:
+                res[m] = float("nan")
         if output_dir:
             self._write_outputs(output_dir, data_split, all_guids, all_preds,
                                 all_labels, res)
@@ -373,15 +438,23 @@ class SortEvaluator:
             n = self.cfg.max_story_length
             preds = [permutation_unrank(int(np.argmax(lg)), n)
                      for lg in logits]
+        elif sort_method == "pure_decode" and "pure_decode" in models:
+            preds, beam_s = self.story_generate(models["pure_decode"],
+                                                stories)
+            # forward: the packing and the encodes; decode: the beam loops
+            t1 = time.perf_counter() - beam_s
+        elif sort_method == "pure_decode":
+            logits = self.story_logits(models["pointer"], stories, images,
+                                       want="pointer_logits")
+            t1 = time.perf_counter()
+            preds = self.pointer_argmax(logits)
         elif sort_method in BASELINE_METHODS:
             logits = self._baseline_logits(sort_method, models, stories,
                                            images)
             t1 = time.perf_counter()
             preds = self._baseline_orders(sort_method, *logits)
         else:
-            raise NotImplementedError(
-                f"sort_method {sort_method}: pure_decode comes with a later "
-                f"slice of the port (ROADMAP A5d)")
+            raise NotImplementedError(f"sort_method {sort_method}")
         self.forward_seconds.append(t1 - t0)
         self.decode_seconds.append(time.perf_counter() - t1)
         return preds

@@ -8,8 +8,11 @@ The step count and epochs, the shuffled per-epoch loader, the scalar log
 `--overwrite_output_dir`, and `--evaluate_during_training` with the best
 checkpoint (`checkpoint-best`) kept on partial + exact match, as the JAX
 loop does. One eager `train_step` per batch; the host prepares the next
-batches on a thread meanwhile. The mlm/itm host surgery of the auxiliary
-objectives comes with those heads.
+batches on a thread meanwhile. With the auxiliary objectives `mlm` or
+`mlm_wo_loss` the host masks each batch (`mask_tokens_sentence`, which
+adds `mlm_labels`), then with `itm` and step images swaps one story's
+image (`plan_itm_swap`, which adds `itm_targets`), both from one
+`default_rng(seed + 7)` in batch order, as the JAX loop draws them.
 
 `run_berson_training` is the BERSON wrapper's loop, as the JAX package runs
 it on one device: the same steps and epochs but for fractional
@@ -41,7 +44,7 @@ from ..models.pretrainer import resolve_objectives
 from .checkpoint import (find_checkpoints, parse_step_from_name,
                          restore_checkpoint, save_checkpoint)
 from .mlm import mask_tokens_sentence
-from .objectives import choose_objective, plan_objective
+from .objectives import choose_objective, plan_itm_swap, plan_objective
 from .state import AdamW
 from .steps import berson_train_step, device_batch, pretrain_step, train_step
 
@@ -129,7 +132,37 @@ def run_finetune(cfg, model, train_dataset, args, device,
 
     return _train_loop(cfg, model, optimizer, train_dataset, args, epochs,
                        total_steps, train_step, eval_fn=eval_fn,
-                       tokenizer=tokenizer, start_step=start_step)
+                       tokenizer=tokenizer, start_step=start_step,
+                       prepare=aux_surgery(cfg, args.seed))
+
+
+def aux_surgery(cfg, seed: int) -> Optional[Callable]:
+    """The host side of the auxiliary objectives, a `prepare` of the step
+    loop (None when no objective needs one): for `mlm` and `mlm_wo_loss`,
+    the batch's `input_ids` masked at `cfg.mlm_probability` and its
+    `mlm_labels`; then for `itm`, when the batch has step images, the
+    swapped `images` and their `itm_targets`. The draws come from one
+    `default_rng(seed + 7)`, in the JAX loop's order."""
+    objs = set(cfg.hl_include_objectives or [])
+    mlm, itm = bool(objs & {"mlm", "mlm_wo_loss"}), "itm" in objs
+    if not (mlm or itm):
+        return None
+    rng = np.random.default_rng(seed + 7)
+
+    def prepare(batch):
+        if mlm:
+            batch["input_ids"], batch["mlm_labels"] = mask_tokens_sentence(
+                np.asarray(batch["input_ids"]),
+                mlm_probability=cfg.mlm_probability, pad_id=cfg.pad_id,
+                cls_id=cfg.cls_id, mask_id=cfg.mask_id,
+                vocab_size=cfg.encoder.vocab_size,
+                ignore_index=cfg.mlm_ignore_index, rng=rng)
+        if itm and "images" in batch:
+            batch["images"], batch["itm_targets"] = plan_itm_swap(
+                np.asarray(batch["images"]), rng)
+        return batch
+
+    return prepare
 
 
 def run_berson_training(cfg, model, train_dataset, args, device,

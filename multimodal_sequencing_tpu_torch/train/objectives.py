@@ -1,6 +1,7 @@
 """Pretraining objective planners on the host (copy of
 `train/objectives.py`: `plan_objective`, `_repack_language`,
-`choose_objective`).
+`choose_objective`), and the fine-tune loop's `plan_itm_swap` (the `itm`
+auxiliary objective).
 
 One objective runs per batch, drawn uniformly by `choose_objective`. Its
 random decisions and index surgery run here in numpy on the packed batch;
@@ -337,3 +338,20 @@ def plan_objective(objective: str, batch: Dict[str, np.ndarray], cfg,
 def choose_objective(objectives, rng: np.random.Generator) -> str:
     """One objective a batch, uniformly."""
     return str(rng.choice(list(objectives)))
+
+
+def plan_itm_swap(images: np.ndarray, rng: np.random.Generator):
+    """Swapping-based ITM of the fine-tune loop: each story, with p = 0.5
+    (and a batch of more than one), has one step image replaced by the
+    same step's image of the next story in the batch; target 1 = intact,
+    0 = swapped. Returns (new_images, targets int32)."""
+    b, n = images.shape[:2]
+    out = images.copy()
+    targets = np.ones(b, np.int32)
+    for i in range(b):
+        if rng.random() > 0.5 and b > 1:
+            neighbor = (i + 1) % b
+            s = int(rng.integers(n))
+            out[i, s] = images[neighbor, s]
+            targets[i] = 0
+    return out, targets

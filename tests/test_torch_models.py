@@ -356,9 +356,18 @@ def test_params_from_jax_rejects_a_mismatched_tree(fault):
                                          multimodal_model_type="visualbert"),
                                     dict(hl_include_objectives=["head"])])
 def test_later_slices_raise(change):
+    # the pointer heads and the auxiliary heads are ported and build; the
+    # VisualBERT encoder (ROADMAP A5e) still raises
     _, tc = _cfgs()
-    with pytest.raises(NotImplementedError):
-        SequencingModel(dataclasses.replace(tc, **change))
+    cfg = dataclasses.replace(tc, **change)
+    if cfg.multimodal:
+        with pytest.raises(NotImplementedError):
+            SequencingModel(cfg)
+        return
+    model = SequencingModel(cfg)
+    assert hasattr(model, "pointer_head") == (
+        cfg.hierarchical_version in ("p0", "p1"))
+    assert hasattr(model, "aux_heads") == bool(cfg.hl_include_objectives)
 
 
 def test_init_weights_is_seeded():

@@ -292,7 +292,7 @@ def test_parser_options_match_jax(kind):
                                    "4"], ["--fsdp"],
                                   ["--profile_dir", "profile"],
                                   ["--pipeline_parallel_size", "2"],
-                                  ["--hl_include_objectives", "head"],
+                                  ["--sequence_parallel"],
                                   ["--model_parallel_size", "2"]])
 def test_options_of_later_slices_raise(wikihow_dir, tmp_path, flag):
     with pytest.raises(NotImplementedError):
