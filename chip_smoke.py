@@ -32,7 +32,13 @@ with their auxiliary heads and the pure_decode encoder-decoder on the card
 against the CPU (logits, loss terms, gradients, the greedy decode and the
 generated tokens), and `heads_path` trains p0, p1, the CLIP-RN50 heat map
 with `itm` and the pure_decode model through `main_train` at RoBERTa-large
-and evaluates the pointer substitution and the beam-5 generate. Every output line
+and evaluates the pointer substitution and the beam-5 generate. The
+VisualBERT and naive encoders: `visual_reference` holds 2-layer
+full-width VisualBERT (sidecars; an FPN tower on the sidecar sentinel),
+naive, BERSON-over-VisualBERT and inline-ROI pretraining models on the
+card against the CPU (outputs, loss terms, gradients, BatchNorm
+statistics, decodes), and `visual_path` runs them at RoBERTa-large through
+`main_train` and `main_pretrain` with exact launch counts. Every output line
 before the last is one JSON object (plus the raw `nvidia-smi` line and the
 paper-format eval rows); the last line is the contract line
 `{"ok": true, "device": {...}}`, printed only when every phase passed. Without a CUDA device, or without the
@@ -148,6 +154,30 @@ RQ_FT_STEPS = 4          # the finetune launcher: steps of 1 recipe,
 RQ_FT_SAVE = 3           # a save with its beam eval at step 3, then step 4
 RQ_PRE_STEPS = 4         # each pretraining launcher: steps of 4 recipes
 RQ_PER_FORWARD = per_forward(RQ_LAYERS, extra_ln=5, extra_attn=1)
+# VisualBERT and the naive model (models/visualbert.py, naive_model.py): a
+# token an image, after VisualBERT's K = 10 regional tokens an image from
+# the ROI sidecars (S = 320 + 5 x 11) or, in pretraining over the FPN tower
+# at 256 px, from inline ROI (300 + 5 x 11); the naive model's tokens, and
+# VisualBERT's over an FPN sequencer whose sidecars are missing (the
+# sentinel), one an image (320 + 5); BERSON's pairs of 120 text tokens and
+# their 2 image tokens
+VB_K = 10
+VB_S = 320 + 5 * (1 + VB_K)            # 375
+NAIVE_S = 320 + 5                      # 325
+VB_BERSON_S = BERSON_L + 2             # 122
+VB_PRETRAIN_S = 300 + 5 * (1 + VB_K)   # 355
+FPN_IMAGE = 256
+VB_STEPS = 4             # (a)-(c): main_train steps of 8 stories
+VB_EVAL_STORIES = 16     # (a): --do_eval of 16 stories, micro-batch 32
+VB_BERSON_STEPS = 2      # (d): steps of 1 story (20 pairs)
+VB_PRETRAIN_STEPS = 2    # (e): steps of 4 stories
+# a forward's launches: the text path's and the visual embeddings'
+# LayerNorm (f32); BERSON's with its paragraph encoder's four; the
+# pretrainer's with the MLM head's
+VB_PER_FORWARD = per_forward(NUM_LAYERS, extra_ln=1)
+NAIVE_PER_FORWARD = per_forward(NUM_LAYERS)
+VB_BERSON_PER_FORWARD = per_forward(NUM_LAYERS, extra_ln=5)
+VB_PRETRAIN_PER_FORWARD = per_forward(NUM_LAYERS, extra_ln=2)
 # the v0 baselines (RoBERTa-large): steps of 8 pairs / stories at S = 320,
 # and an eval of 8 stories (one batch): 160 ordered step pairs packed to
 # pair_len = 128 and 480 step triples packed to 320, at micro-batch 32
@@ -293,6 +323,27 @@ KERNELS = {
         LN_KERNEL, "multimodal_sequencing_tpu/models/encoder.py:146"),
     "layer_norm_bwd@bert_base": (
         LN_KERNEL, "multimodal_sequencing_tpu/models/encoder.py:146"),
+    # VisualBERT and the naive model: the sidecar train step (S = 375) and
+    # its eval micro-batch, the one-token-an-image stream (S = 325),
+    # BERSON's pairs (S = 122), the inline-ROI pretraining stream (S = 355);
+    # the GELU and LayerNorm on the sidecar step's rows, the LayerNorm also
+    # in f32 (the first layer's attention_ln takes the f32 joint stream,
+    # the visual embeddings' LayerNorm runs in f32)
+    **{f"flash_fwd@{name}": (
+        "multimodal_sequencing_tpu_torch/ops/csrc/flash_fwd.cu",
+        "multimodal_sequencing_tpu/ops/attention.py:126")
+       for name in ("vb_train", "vb_eval", "naive_train", "vb_berson",
+                    "vb_pretrain")},
+    **{f"flash_bwd@{name}": (
+        BWD_KERNEL, "multimodal_sequencing_tpu/ops/attention.py:343")
+       for name in ("vb_train", "naive_train", "vb_berson", "vb_pretrain")},
+    "gelu_logit_erf_fwd@vb": (GELU_KERNEL,
+                              "multimodal_sequencing_tpu/ops/gelu.py:163"),
+    "gelu_logit_erf_bwd@vb": (GELU_KERNEL,
+                              "multimodal_sequencing_tpu/ops/gelu.py:175"),
+    **{f"layer_norm_{d}@{tag}": (
+        LN_KERNEL, "multimodal_sequencing_tpu/models/encoder.py:146")
+       for d in ("fwd", "bwd") for tag in ("vb", "vb_f32")},
 }
 # (B, H, S, D) of the multimodal rows: joint train (batch 8), joint eval
 # (micro-batch 32), attention pool of a train batch (8 stories)
@@ -331,18 +382,27 @@ MM_SHAPES = {"joint": (8, 16, MM_JOINT_S, 64),
              # recipe, the subsampled pretraining stream, its dev eval
              "rq_pair_joint": (BERSON_P, 12, BERSON_MM_S, 64),
              "rq_pretrain_joint": (4, 12, PRETRAIN_L + PRETRAIN_VISUAL, 64),
-             "rq_pretrain_eval": (1, 12, 300 + MM_VISUAL_TOKENS, 64)}
+             "rq_pretrain_eval": (1, 12, 300 + MM_VISUAL_TOKENS, 64),
+             # VisualBERT and the naive model: the sidecar train step and
+             # its eval micro-batch, the one-token-an-image stream, BERSON's
+             # pairs, the inline-ROI pretraining stream
+             "vb_train": (8, 16, VB_S, 64),
+             "vb_eval": (32, 16, VB_S, 64),
+             "naive_train": (8, 16, NAIVE_S, 64),
+             "vb_berson": (BERSON_P, 16, VB_BERSON_S, 64),
+             "vb_pretrain": (4, 16, VB_PRETRAIN_S, 64)}
 # the live steps of each story in `pair_eval`
 PAIR_EVAL_STEPS = tuple(5 if a % 3 else 3 + a % 2 for a in range(16))
 # the calls of an eval forward: forward only
 EVAL_ONLY = ("joint_eval", "pair_eval", "pretrain_eval", "pretrain_eval_pool",
              "pretrain_text_eval", "pretrain_img_eval", "v0_pair_eval",
-             "v0_cube_eval", "rq_pretrain_eval")
+             "v0_cube_eval", "rq_pretrain_eval", "vb_eval")
 # the calls a train step makes with attention dropout
 PATH_DROPOUT = ("joint", "pair", "pair_joint", "pretrain_joint",
                 "pretrain_img", "pretrain_text", "pretrain_margin",
                 "pretrain_ft", "v0_pair_train", "rq_pair_joint",
-                "rq_pretrain_joint")
+                "rq_pretrain_joint", "vb_train", "naive_train", "vb_berson",
+                "vb_pretrain")
 # the kernels each main path must launch
 PATH_KERNELS = {"eval": ("flash_fwd", "gelu_logit_erf_fwd", "layer_norm_fwd"),
                 "train": ("flash_fwd", "flash_bwd_prep", "flash_bwd_main",
@@ -384,7 +444,15 @@ PATH_KERNELS.update(hf_train=PATH_KERNELS["train"],
                     heads_p1_eval=PATH_KERNELS["eval"],
                     heads_mm_itm=PATH_KERNELS["train"],
                     heads_decode=PATH_KERNELS["train"],
-                    heads_decode_eval=PATH_KERNELS["eval"])
+                    heads_decode_eval=PATH_KERNELS["eval"],
+                    # the visual runs (`phase_visual_path`) and their evals
+                    vb_train=PATH_KERNELS["train"],
+                    vb_eval=PATH_KERNELS["eval"],
+                    vb_fpn_train=PATH_KERNELS["train"],
+                    naive_train=PATH_KERNELS["train"],
+                    vb_berson_train=PATH_KERNELS["train"],
+                    vb_berson_eval=PATH_KERNELS["eval"],
+                    vb_pretrain=PATH_KERNELS["train"])
 # the launch counter behind each row of the `kernels` line, where it is
 # not the row's own name
 COUNTER = {"flash_bwd": "flash_bwd_main", "flash_bwd_dq": "flash_bwd_main",
@@ -404,7 +472,8 @@ COUNTER = {"flash_bwd": "flash_bwd_main", "flash_bwd_dq": "flash_bwd_main",
            "flash_bwd@pair_pool": "flash_bwd_main",
            **{name: name.split("@")[0].replace("flash_bwd", "flash_bwd_main")
               for name in KERNELS if "@pretrain_" in name or "@v0_" in name
-              or "@rq_" in name or "@bert_base" in name}}
+              or "@rq_" in name or "@bert_base" in name or "@vb" in name
+              or "@naive" in name}}
 # the path whose launches the multimodal rows of the `kernels` line show
 # (the wrappers count launches of every shape together)
 ROW_PATH = {"flash_fwd@joint": "mm_train", "flash_fwd@joint_eval": "mm_eval",
@@ -445,7 +514,19 @@ ROW_PATH = {"flash_fwd@joint": "mm_train", "flash_fwd@joint_eval": "mm_eval",
             "flash_fwd@rq_pretrain_eval": "rq_pretrain_eval",
             **{f"{k}@bert_base": "rq_finetune" for k in (
                 "gelu_logit_erf_fwd", "gelu_logit_erf_bwd", "layer_norm_fwd",
-                "layer_norm_bwd")}}
+                "layer_norm_bwd")},
+            "flash_fwd@vb_train": "vb_train", "flash_bwd@vb_train": "vb_train",
+            "flash_fwd@vb_eval": "vb_eval",
+            "flash_fwd@naive_train": "naive_train",
+            "flash_bwd@naive_train": "naive_train",
+            "flash_fwd@vb_berson": "vb_berson_train",
+            "flash_bwd@vb_berson": "vb_berson_train",
+            "flash_fwd@vb_pretrain": "vb_pretrain",
+            "flash_bwd@vb_pretrain": "vb_pretrain",
+            **{f"{k}@{tag}": "vb_train" for k in (
+                "gelu_logit_erf_fwd", "gelu_logit_erf_bwd", "layer_norm_fwd",
+                "layer_norm_bwd") for tag in ("vb", "vb_f32")
+               if tag == "vb" or k.startswith("layer_norm")}}
 # the f32 backward kernels: the check path, never launched by the bf16
 # train path
 F32_BWD = ("flash_bwd_dq_f32", "flash_bwd_dkv_f32")
@@ -456,6 +537,7 @@ F32_BWD = ("flash_bwd_dq_f32", "flash_bwd_dkv_f32")
 RQ_ROWS = BERSON_P * BERSON_MM_S
 LN_SHAPES = [(32 * 320, 1024, 0.0), (8 * 320, 1024, 0.0), (8 * 320, 1024, 3.0),
              (7, 64, 0.0), (37, 1000, 0.0),  # 1000: not whole 16-byte vectors
+             (8 * VB_S, 1024, 0.0),  # VisualBERT's train step (f32 too)
              (4 * BERSON_MM_S, 768, 0.0), (RQ_ROWS, 768, 0.0)]
 # |got - want| <= atol + rtol * |want| (dw, db: atol relative to the largest
 # entry). f32: the same formula, f32 sums in another order; bf16: one bf16
@@ -474,7 +556,7 @@ LN_EDGE_CASES = [(8 * 320, 1024, 0.0, 1, False), (8 * 320, 1024, 3.0, 0, True)]
 # share bit for bit (see _layer_norm_shared_stats)
 LN_STATS_ROWS = (0, 4321, 32 * 320 - 1)
 # the MLP activation entering the GELU: (tokens, intermediate size)
-GELU_SHAPES = [(32 * 320, 4096), (8 * 320, 4096), (5, 7),
+GELU_SHAPES = [(32 * 320, 4096), (8 * 320, 4096), (5, 7), (8 * VB_S, 4096),
                (4 * BERSON_MM_S, 3072), (RQ_ROWS, 3072)]
 # |got - want| <= atol + rtol * |want|. f32: the kernel and the plain
 # version round the same f32 formula in other places (fused multiply-adds
@@ -630,7 +712,7 @@ def make_path_attention_inputs(name: str, dtype, seed: int):
         text = torch.randint(20, 61, (b, 2), generator=gen).sum(1)[:, None]
         mask = ((pos < text) | (pos >= PRETRAIN_L)).to(torch.int32)
     elif name in ("pretrain_text", "pretrain_text_eval", "pretrain_eval",
-                  "rq_pretrain_eval"):
+                  "rq_pretrain_eval", "vb_pretrain"):
         # five steps of 20..60 text tokens (and the eval's 246 visual)
         text = torch.randint(20, 61, (b, 5), generator=gen).sum(1)[:, None]
         mask = ((pos < text) | (pos >= 300)).to(torch.int32)
@@ -642,8 +724,9 @@ def make_path_attention_inputs(name: str, dtype, seed: int):
     elif name in ("pair", "pair_eval"):
         live = (5, 3) if name == "pair" else PAIR_EVAL_STEPS
         mask = (pos < _pair_lengths(live, gen)[:, None]).to(torch.int32)
-    elif name in ("pair_joint", "rq_pair_joint"):
-        # the launcher's story of 4 live steps; a recipe's 5
+    elif name in ("pair_joint", "rq_pair_joint", "vb_berson"):
+        # the launcher's story of 4 live steps; a recipe's 5; VisualBERT's
+        # BERSON story of 5 (its 2 image keys after the 120 text keys)
         text = _pair_lengths((4,) if name == "pair_joint" else (5,),
                              gen)[:, None]
         mask = ((pos < text) | (pos >= BERSON_L)).to(torch.int32)
@@ -670,7 +753,10 @@ MM_KERNEL_CASES = [("joint", DROPOUT_P), ("joint", 0.0),
                    ("v0_pair_train", DROPOUT_P), ("v0_pair_eval", 0.0),
                    ("v0_cube_eval", 0.0), ("rq_pair_joint", DROPOUT_P),
                    ("rq_pair_joint", 0.0), ("rq_pretrain_joint", DROPOUT_P),
-                   ("rq_pretrain_eval", 0.0)]
+                   ("rq_pretrain_eval", 0.0), ("vb_train", DROPOUT_P),
+                   ("vb_train", 0.0), ("vb_eval", 0.0),
+                   ("naive_train", DROPOUT_P), ("vb_berson", DROPOUT_P),
+                   ("vb_berson", 0.0), ("vb_pretrain", DROPOUT_P)]
 
 
 def _attention_check(att, q, k, v, mask, p, seed, labels, backward=True):
@@ -893,6 +979,10 @@ def _layer_norm_check(seed: int, errs: dict):
             if not row["dx_dw_db_bit_equal_on_rerun"]:
                 failed.append(("layer_norm_bwd_determinism", rows, n, name))
             emit(row)
+            if not (offset or constant or mean) and rows == 8 * VB_S:
+                tag = "vb" if name == "bfloat16" else "vb_f32"
+                errs[f"layer_norm_fwd@{tag}"] = row["max_abs_err_y"]
+                errs[f"layer_norm_bwd@{tag}"] = row["max_abs_err_dx"]
             if offset or constant or mean != 0.0 or name != "bfloat16":
                 continue
             if rows == LN_SHAPES[1][0]:
@@ -980,6 +1070,8 @@ def _gelu_check(seed: int, errs: dict):
                     errs[f"gelu_logit_erf_{kname}"] = err.max().item()
                 if name == "bfloat16" and shape == GELU_SHAPES[-1]:
                     errs[f"gelu_logit_erf_{kname}@bert_base"] = err.max().item()
+                if name == "bfloat16" and shape == (8 * VB_S, 4096):
+                    errs[f"gelu_logit_erf_{kname}@vb"] = err.max().item()
                 if name == "bfloat16" and shape == GELU_SHAPES[0] and kname == "fwd":
                     errs["gelu_logit_erf_fwd@eval"] = err.max().item()
             emit(row)
@@ -1163,7 +1255,8 @@ def _gelu_timing(gen) -> dict:
 
     for name, shape in (("gelu_logit_erf_fwd", GELU_SHAPES[1]),
                         ("gelu_logit_erf_fwd@eval", GELU_SHAPES[0]),
-                        ("gelu_logit_erf_fwd@bert_base", GELU_SHAPES[-1])):
+                        ("gelu_logit_erf_fwd@bert_base", GELU_SHAPES[-1]),
+                        ("gelu_logit_erf_fwd@vb", (8 * VB_S, 4096))):
         x = torch.randn(shape, generator=gen).to("cuda", torch.bfloat16) * 3
         rows[name] = {"shape": list(shape), **row(
             "fwd", x.numel(), 2, lambda: gl.gelu_logit_erf_fwd(x),
@@ -1370,6 +1463,11 @@ def phase_timing(seed: int):
             [True, True, True])),
         **bound(3 * xb.numel() * 2 + 3 * n_ * 4, 0)}
 
+    # both directions on VisualBERT's train-step rows, in bf16 and in f32
+    # (the first layer's attention_ln over the promoted f32 stream)
+    for tag, dt in (("vb", torch.bfloat16), ("vb_f32", torch.float32)):
+        rows.update(_ln_timing_rows(tag, 8 * VB_S, 1024, dt, gen))
+
     # the multimodal path's calls (`make_path_attention_inputs`; their
     # errors are held in kernel_check); an eval micro-batch has no dropout
     for name, shape in MM_SHAPES.items():
@@ -1401,6 +1499,43 @@ def phase_timing(seed: int):
     for name, row in rows.items():
         emit({"phase": "timing", "kernel": name, **row})
     return rows
+
+
+def _ln_timing_rows(tag, rows_, n, dtype, gen) -> dict:
+    """The LayerNorm kernels' forward and backward rows at (rows_, n) in
+    `dtype`: kernel, plain (autograd of the plain version for the
+    backward) and PyTorch's LayerNorm on the same inputs, and the bound
+    (each of x, dy, w, b read once, y or dx, dw, db written once)."""
+    import torch
+    from multimodal_sequencing_tpu_torch.ops import layer_norm as ln
+    x = torch.randn(rows_, n, generator=gen).to("cuda", dtype)
+    dy = torch.randn(rows_, n, generator=gen).to("cuda", dtype)
+    w, b = torch.ones(n, device="cuda"), torch.zeros(n, device="cuda")
+    wl, bl = w.to(dtype), b.to(dtype)
+    _, mu, rstd = torch.ops.aten.native_layer_norm(x, (n,), wl, bl, 1e-5)
+    size = x.element_size()
+
+    def plain_bwd():
+        xp = x.detach().requires_grad_()
+        wp, bp = w.detach().requires_grad_(), b.detach().requires_grad_()
+        ln.layer_norm_reference(xp, wp, bp, 1e-5, dtype).backward(dy)
+
+    return {f"layer_norm_fwd@{tag}": {
+        "shape": [rows_, n], "dtype": str(dtype).split(".")[-1],
+        "ms": kernel_ms(lambda: ln.layer_norm_fwd(x, w, b, 1e-5)),
+        "plain_ms": kernel_ms(lambda: ln.layer_norm_reference(
+            x, w, b, 1e-5, dtype)),
+        "library_ms": kernel_ms(lambda: torch.nn.functional.layer_norm(
+            x, (n,), wl, bl)),
+        **bound(2 * x.numel() * size + 2 * n * 4, 0)},
+        f"layer_norm_bwd@{tag}": {
+        "shape": [rows_, n], "dtype": str(dtype).split(".")[-1],
+        "ms": kernel_ms(lambda: ln.layer_norm_bwd(x, dy, w, 1e-5)),
+        "plain_ms": kernel_ms(plain_bwd),
+        "library_ms": kernel_ms(
+            lambda: torch.ops.aten.native_layer_norm_backward(
+                dy, x, (n,), mu, rstd, wl, bl, [True, True, True])),
+        **bound(3 * x.numel() * size + 3 * n * 4, 0)}}
 
 
 def write_png(path: str, rgb) -> None:
@@ -4906,13 +5041,541 @@ def _heads_decode_eval(data_dir, work, seed, ckpt):
     return {"heads_decode_eval": counts}
 
 
+# ----- VisualBERT, the naive model and their towers (ROADMAP A5e) ------------
+
+# per-reading limits of `visual_reference` (card against CPU, f32, 2
+# layers at full width, resnet18 / R-18 FPN towers at 64 px): outputs
+# relative to their largest entry, each loss term relative, each
+# parameter's gradient over the global gradient norm, each BatchNorm
+# statistic relative to its largest entry; ~2.5x the largest reading over
+# seeds 0-3 (chip_smoke.py --phases visual_reference --seed N: outputs
+# 7.11e-6, loss terms 4.92e-7, gradients 1.94e-6, statistics 1.49e-6)
+VISUAL_REF_TOL = {"output": 1.8e-5, "loss": 1.25e-6,
+                  "grad_rel_to_norm": 5e-6, "bn_stats": 4e-6}
+VISUAL_REF_IMAGE = 64
+VISUAL_REF_K = 3
+
+
+def _visual_ref_cases():
+    """(name, model kind, config changes): the VisualBERT sequencer with
+    sidecars (as run (a)), the FPN sequencer on the sentinel (b), the naive
+    sequencer (c), BERSON over VisualBERT (d) and the pretrainer over the
+    inline-ROI FPN tower (e)."""
+    k = VISUAL_REF_K
+    return (("vb_sidecar", "seq", dict(multimodal_model_type="visualbert",
+                                       vision_model="resnet18",
+                                       num_img_regional_features=k)),
+            ("vb_fpn_sentinel", "seq", dict(
+                multimodal_model_type="visualbert",
+                vision_model="detectron2_R_18_FPN",
+                num_img_regional_features=k,
+                include_full_img_features=False)),
+            ("naive", "seq", dict(multimodal_model_type="naive",
+                                  vision_model="resnet18")),
+            ("vb_berson", "berson", dict(multimodal_model_type="visualbert",
+                                         vision_model="resnet18",
+                                         wrapper_model_type="berson")),
+            ("vb_fpn_pretrain", "pretrain", dict(
+                multimodal_model_type="visualbert",
+                vision_model="detectron2_R_18_FPN",
+                num_img_regional_features=k,
+                include_full_img_features=False,
+                multimodal_pretrain_objectives=["swapping_based_nsp"])))
+
+
+def _visual_ref_inputs(kind, cfg, seed, b=4):
+    """A batch of `b` packed 5-step stories (steps of 5..30 words) with
+    their 64 px step images and, for the sidecar case, (b, 5, K, 2048)
+    sidecars; BERSON's pair packing; the pretrainer's masked batch planned
+    for swapping_based_nsp (and its aux)."""
+    import numpy as np
+    from multimodal_sequencing_tpu_torch.data.packing import StoryPacker
+    from multimodal_sequencing_tpu_torch.data.tokenization import (
+        SimpleWordTokenizer)
+    from multimodal_sequencing_tpu_torch.train.mlm import mask_tokens_sentence
+    from multimodal_sequencing_tpu_torch.train.objectives import plan_objective
+    rng = np.random.default_rng(seed)
+    packer = StoryPacker(SimpleWordTokenizer(), cfg.max_seq_length,
+                         cfg.per_seq_max_length)
+    stories = [[" ".join(rng.choice(WORDS, size=int(rng.integers(5, 31))))
+                for _ in range(5)] for _ in range(b)]
+    res = VISUAL_REF_IMAGE
+    images = rng.integers(0, 256, (b, 5, res, res, 3), dtype=np.uint8)
+    if kind == "berson":
+        items = [packer.pack_berson_story(t, rng.permutation(5).tolist(),
+                                          max_story_length=5)
+                 for t in stories]
+        batch = {k: np.stack([np.asarray(it[k]) for it in items])
+                 for k in items[0]}
+        batch.update(images=images, valid=np.ones(b, bool))
+        return batch, None
+    rows = [packer.pack_story(t) for t in stories]
+    batch = {k: np.stack([r[i] for r in rows]) for i, k in enumerate(
+        ("input_ids", "attention_mask", "token_type_ids"))}
+    batch["images"] = images
+    if kind == "pretrain":
+        batch["input_ids"], batch["mlm_labels"] = mask_tokens_sentence(
+            batch["input_ids"], mlm_probability=0.15, pad_id=cfg.pad_id,
+            cls_id=cfg.cls_id, mask_id=cfg.mask_id,
+            vocab_size=cfg.encoder.vocab_size,
+            ignore_index=cfg.mlm_ignore_index, rng=rng)
+        nb, aux = plan_objective("swapping_based_nsp", batch, cfg, rng)
+        return nb, {k: v for k, v in aux.items()
+                    if isinstance(v, np.ndarray) and v.ndim > 0}
+    batch["labels"] = np.stack([rng.permutation(5) for _ in range(b)]
+                               ).astype(np.int32)
+    batch["valid"] = np.ones(b, bool)
+    if cfg.num_img_regional_features:
+        if cfg.vision_model.startswith("detectron2"):
+            batch["img_regional_features"] = np.zeros((b, 1), np.float32)
+        else:
+            batch["img_regional_features"] = rng.standard_normal(
+                (b, 5, cfg.num_img_regional_features, cfg.visual_feat_dim)
+            ).astype(np.float32)
+    return batch, None
+
+
+def _visual_ref_run(kind, cfg, model, batch, aux, dev):
+    """One device's readings: a train-mode forward (dropout 0, the towers'
+    batch statistics, which it updates) with its outputs, loss terms and
+    gradients; then the eval-mode decode (the heat map's order, BERSON's
+    beam)."""
+    import torch
+    from multimodal_sequencing_tpu_torch.models.encoder import DropoutRng
+    from multimodal_sequencing_tpu_torch.train.steps import (
+        compute_loss, device_batch)
+    from multimodal_sequencing_tpu_torch.utils.heatmap import heatmap2order
+    db = device_batch(batch, dev)
+    rng = DropoutRng(1, 0, dev)
+    model.train()
+    outs, decode = {}, None
+    if kind == "seq":
+        kw = ({"img_regional_features": db["img_regional_features"]}
+              if "img_regional_features" in db else {})
+        out = model(db["input_ids"], db["attention_mask"],
+                    db["token_type_ids"], images=db["images"],
+                    deterministic=False, rng=rng, **kw)
+        loss, terms = compute_loss(cfg, out, db)
+        outs = {"heatmap": out["heatmap"], "visual_output":
+                out["visual_output"]}
+        terms = {"loss": loss, **terms}
+    elif kind == "berson":  # (its pointer logits hold -1e9 masks)
+        out = model(db, deterministic=False, rng=rng)
+        loss = out["loss"]
+        terms = {k: v for k, v in out.items()
+                 if k.endswith("loss") and v.dim() == 0}
+    else:
+        out = model(db, "swapping_based_nsp", device_batch(aux, dev),
+                    deterministic=False, rng=rng)
+        loss, terms = out["loss"], out
+    loss.backward()
+    grads = {n: p.grad.detach().double().cpu()
+             for n, p in model.named_parameters() if p.grad is not None}
+    got = {k: v.detach().double().cpu() for k, v in outs.items()}
+    got.update({k: float(v) for k, v in terms.items()})
+    stats = _bn_stats(model)
+    model.eval()
+    with torch.no_grad():
+        if kind == "seq":
+            hm = model(db["input_ids"], db["attention_mask"],
+                       db["token_type_ids"], images=db["images"], **kw
+                       )["heatmap"].float().cpu().numpy()
+            decode = (hm, [heatmap2order(h) for h in hm])
+        elif kind == "berson":
+            decode = (None, model.beam_search(db).cpu().tolist())
+    return got, grads, stats, decode
+
+
+def phase_visual_reference(seed: int):
+    """The models of `visual_path` at full RoBERTa-large width with 2
+    layers, f32, dropout 0 (BERSON's paragraph encoder's too), towers
+    frozen (their train-mode f32 gradients
+    are ill-conditioned; the CPU tests hold them to an f64 run): resnet18
+    and R-18 FPN towers at 64 px, K = 3. Card (kernels) against the CPU
+    (plain versions) on the same weights and inputs: the outputs, every
+    loss term, every gradient over the global norm, the BatchNorm
+    statistics a train-mode forward updates, and the decodes (the heat
+    maps' orders, up to ties of DECODE_TIE_REL; BERSON's beam) equal."""
+    import copy
+    import torch
+    from multimodal_sequencing_tpu_torch.data.tokenization import (
+        SimpleWordTokenizer)
+    from multimodal_sequencing_tpu_torch.models.berson import BersonOrdering
+    from multimodal_sequencing_tpu_torch.models.config import (
+        EncoderConfig, MultimodalConfig)
+    from multimodal_sequencing_tpu_torch.models.pretrainer import (
+        SequencingPretrainer)
+    from multimodal_sequencing_tpu_torch.models.sequencer import (
+        SequencingModel, init_weights)
+    tok = SimpleWordTokenizer()
+    readings, ok = {}, True
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, kind, change in _visual_ref_cases():
+            cfg = MultimodalConfig(
+                encoder=EncoderConfig.roberta_large(
+                    type_vocab_size=5, vocab_size=len(tok),
+                    num_hidden_layers=2, dtype="float32",
+                    hidden_dropout_prob=0.0,
+                    attention_probs_dropout_prob=0.0),
+                hierarchical_version="v1", max_seq_length=160,
+                per_seq_max_length=32, multimodal=True,
+                image_size=(VISUAL_REF_IMAGE,) * 2, freeze_vision_model=True,
+                cls_id=tok.cls_token_id, pad_id=tok.pad_token_id,
+                mask_id=tok.mask_token_id, **change)
+            build = {"seq": SequencingModel, "berson": BersonOrdering,
+                     "pretrain": SequencingPretrainer}[kind]
+            cpu = init_weights(build(cfg), seed)
+            if kind == "berson":
+                cpu.para_encoder.dropout = 0.0  # its own 0.1 otherwise
+            card = copy.deepcopy(cpu).cuda()
+            batch, aux = _visual_ref_inputs(kind, cfg, seed)
+            (want, gw, sw, dw), (got, gg, sg, dg) = (
+                _visual_ref_run(kind, cfg, m, batch, aux, dev)
+                for m, dev in ((cpu, "cpu"), (card, "cuda")))
+            norm = math.sqrt(sum(g.norm().item() ** 2 for g in gw.values()))
+            reading = {
+                "output": max([_rel_to_max(got[k], w) for k, w in want.items()
+                               if torch.is_tensor(w)] or [0.0]),
+                "loss": max(abs(got[k] - w) / max(abs(w), 1e-30)
+                            for k, w in want.items() if not torch.is_tensor(w)),
+                "grad_rel_to_norm": max((gg[n] - g).norm().item() / norm
+                                        for n, g in gw.items()),
+                "bn_stats": max(_rel_to_max(sg[n], s) for n, s in sw.items())}
+            decode_ok = True
+            if dw is not None:
+                hm, orders = dw
+                for i, (a, c) in enumerate(zip(orders, dg[1])):
+                    if a == c:
+                        continue
+                    if hm is None:  # BERSON's beam: equal orders
+                        decode_ok = False
+                        continue
+                    sa = _decode_score(hm[i], a, "naive_v2_sum")
+                    sc = _decode_score(hm[i], c, "naive_v2_sum")
+                    decode_ok = decode_ok and (
+                        abs(sa - sc) <= DECODE_TIE_REL * abs(sa))
+            readings[name] = {**reading, "decodes_equal": decode_ok,
+                              "loss_terms": {k: w for k, w in want.items()
+                                             if not torch.is_tensor(w)},
+                              "grads_compared": len(gw),
+                              "bn_stats_compared": len(sw)}
+            ok = (ok and decode_ok and set(gg) == set(gw) and sw
+                  and all(v <= VISUAL_REF_TOL[k] for k, v in reading.items()))
+            del cpu, card
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    emit({"phase": "visual_reference", "layers": 2, "dtype": "float32",
+          "seed": seed, "image": VISUAL_REF_IMAGE, "k": VISUAL_REF_K,
+          "readings": readings, "tol": VISUAL_REF_TOL, "ok": bool(ok)})
+    if not ok:
+        raise AssertionError("card and CPU disagree on the visual models")
+
+
+def write_sidecars(images: dict, k: int, width: int, seed: int) -> None:
+    """A `{img}_maskrcnn.npy` beside each image: a pickled dict with
+    `features` of (k, width) f32, as `data/images.py::load_maskrcnn_sidecar`
+    reads it."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    for path in sorted(images):
+        feats = rng.standard_normal((k, width)).astype(np.float32)
+        np.save(os.path.splitext(path)[0] + "_maskrcnn.npy",
+                {"features": feats}, allow_pickle=True)
+
+
+def _vb_argv(data_dir, out_dir, seed, *extra):
+    return ["--model_name_or_path", "simple", "--model_size", "large",
+            "--replace_token_type_embeddings", "--do_train",
+            "--task_name", "wikihow_hl_v1", "--hierarchical_version", "v1",
+            "--data_dir", data_dir, "--max_seq_length", "320",
+            "--per_seq_max_length", "60", "--per_gpu_train_batch_size", "8",
+            "--learning_rate", "1e-5", "--warmup_steps", "2",
+            "--max_steps", str(VB_STEPS), "--logging_steps", "1",
+            "--save_steps", "0", "--seed", str(seed),
+            "--output_dir", out_dir, "--overwrite_output_dir",
+            "--eval_splits", "test", "--per_gpu_eval_batch_size", "8",
+            "--multimodal", "--device", "cuda", *extra]
+
+
+# the fine-tune runs of `visual_path`: (label, flags, data with sidecars,
+# launches a forward, visual tokens a story)
+VB_RUNS = (
+    ("vb_train", ("--multimodal_model_type", "visualbert", "--vision_model",
+                  "resnet50", "--include_num_img_regional_features",
+                  str(VB_K), "--do_eval", "--eval_save_all_results"),
+     True, VB_PER_FORWARD, VB_S - 320),
+    ("vb_fpn_train", ("--multimodal_model_type", "visualbert",
+                      "--vision_model", "detectron2_R_50_FPN",
+                      "--vision_image_size", str(FPN_IMAGE),
+                      "--include_num_img_regional_features", str(VB_K)),
+     False, VB_PER_FORWARD, NAIVE_S - 320),
+    ("naive_train", ("--multimodal_model_type", "naive", "--vision_model",
+                     "resnet50"), False, NAIVE_PER_FORWARD, NAIVE_S - 320))
+
+
+def _visual_lengths(lengths: list):
+    """Record the visual stream's length of every VisualBERT forward and
+    of every naive forward (the tokens after the text) in `lengths`;
+    returns the undo."""
+    from multimodal_sequencing_tpu_torch.models import naive_model, visualbert
+    enc = visualbert.VisualBERTEncoder.encode_visual
+    naive = naive_model.NaiveMultimodalModel.forward
+
+    def encode_visual(self, *a, **kw):
+        out = enc(self, *a, **kw)
+        lengths.append(out.shape[1])
+        return out
+
+    def forward(self, input_ids, *a, **kw):
+        out = naive(self, input_ids, *a, **kw)
+        lengths.append(out["sequence_output"].shape[1] - input_ids.shape[1])
+        return out
+
+    visualbert.VisualBERTEncoder.encode_visual = encode_visual
+    naive_model.NaiveMultimodalModel.forward = forward
+
+    def undo():
+        visualbert.VisualBERTEncoder.encode_visual = enc
+        naive_model.NaiveMultimodalModel.forward = naive
+    return undo
+
+
+def _visual_run_summary(label, res, train, want, saves, lengths, tokens):
+    import torch
+    step_s = _berson_steps(res)
+    return {"phase": "visual_path", "part": label,
+            "steps": res.global_step, "launches": train,
+            "launches_predicted": want,
+            "losses": [h["loss"] for h in res.history], "step_s": step_s,
+            "median_step_s_after_first": _median_after_first(step_s),
+            "visual_tokens": sorted(set(lengths)),
+            "visual_tokens_predicted": tokens,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "saves_recorded": saves,
+            "bytes_written_so_far": bytes_written()}
+
+
+def _counts_exact(counts, want):
+    return (all(counts[k] == v for k, v in want.items())
+            and all(counts[k] == 0 for k in F32_BWD))
+
+
+def phase_visual_path(seed: int, work: str):
+    """VisualBERT and the naive model through the CLIs at RoBERTa-large
+    (24 layers, bf16, dropout 0.1, random weights from `--seed`) on
+    synthetic WikiHow stories with PNG step images: (a) `main_train` of
+    VisualBERT over RN50 at 224 px with K = 10 regional tokens a step from
+    the `{img}_maskrcnn.npy` sidecars this phase writes ((10, 2048) f32),
+    4 steps of 8 stories (S = 375), then `--do_eval` of 16 stories
+    (heat-map sort, micro-batch 32); (b) the same over the R-50 FPN tower
+    at 256 px with no sidecars on disk: the datasets' sentinel, so one
+    token an image (S = 325) and no inline ROI, as in the JAX package;
+    (c) the naive model over RN50 (S = 325); (d) BERSON over VisualBERT at
+    the launcher's configuration (1 story of 20 pairs a step, S = 122), 2
+    steps and a beam-16 eval of 1 story; (e) `main_pretrain` of VisualBERT
+    over the R-50 FPN tower at 256 px with inline ROI (K + 1 = 11
+    proposals an image, S = 355), swapping_based_nsp with MLM, 2 steps of
+    4 stories. Each: exact launches (train and eval apart), the visual
+    tokens of every forward, finite losses, the median step, peak memory;
+    no save is written (each is recorded)."""
+    import torch
+    from multimodal_sequencing_tpu_torch.train import cli
+    data = os.path.join(work, "vb_data")
+    bare = os.path.join(work, "vb_bare")
+    for d in (data, bare):
+        os.makedirs(d)
+    images = write_wikihow(data, "train", 8 * VB_STEPS, seed + 51,
+                           images=True)
+    images.update(write_wikihow(data, "test", VB_EVAL_STORIES, seed + 52,
+                                images=True))
+    write_sidecars(images, VB_K, 2048, seed + 53)
+    write_wikihow(bare, "train", 8 * VB_STEPS, seed + 54, images=True)
+    counts, evaluators, lengths = _EvalCounts(), [], []
+    make_eval, make_evaluator = cli._make_dev_eval_fn, cli._evaluator
+    make_berson_eval = cli._make_berson_eval_fn
+
+    def counted_eval(*a, **kw):
+        fn = make_eval(*a, **kw)
+        return None if fn is None else counts.wrap(fn)
+
+    def counted_berson_eval(*a, **kw):
+        fn = make_berson_eval(*a, **kw)
+        return None if fn is None else counts.wrap(fn)
+
+    def recorded_evaluator(*a, **kw):
+        evaluators.append(make_evaluator(*a, **kw))
+        return evaluators[-1]
+
+    launches = {}
+    undo = _visual_lengths(lengths)
+    cli._make_dev_eval_fn, cli._evaluator = counted_eval, recorded_evaluator
+    cli._make_berson_eval_fn = counted_berson_eval
+    try:
+        for label, flags, sidecars, per, tokens in VB_RUNS:
+            out_dir = os.path.join(work, label)
+            counts.reset()
+            evaluators.clear()
+            lengths.clear()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            saves = []
+            with _saves_not_written(saves):
+                res = cli.main_train(_vb_argv(data if sidecars else bare,
+                                              out_dir, seed, *flags))
+            train, evals = counts.split()
+            want = _expected(per, VB_STEPS, VB_STEPS, PATH_KERNELS["train"])
+            train_lengths = lengths[:VB_STEPS]
+            summary = _visual_run_summary(label, res, train, want, saves,
+                                          train_lengths, tokens)
+            ok = (res.global_step == VB_STEPS
+                  and all(math.isfinite(h["loss"]) for h in res.history)
+                  and _counts_exact(train, want)
+                  and train_lengths == [tokens] * VB_STEPS
+                  and saves == [(os.path.abspath(out_dir), VB_STEPS, None)])
+            launches[label] = train
+            if "--do_eval" in flags:
+                ev = evaluators[0]
+                forwards = math.ceil(VB_EVAL_STORIES / 8)
+                want_eval = _expected(per, forwards, 0, PATH_KERNELS["eval"])
+                fwd, dec = ev.forward_seconds, ev.decode_seconds
+                perms = _check_eval_outputs(out_dir, VB_EVAL_STORIES)
+                summary.update(
+                    eval_forwards=ev.forwards, eval_launches=evals,
+                    eval_launches_predicted=want_eval,
+                    eval_visual_tokens=sorted(set(lengths[VB_STEPS:])),
+                    eval_all_permutations=perms,
+                    eval_median_batch_s=_median_after_first(
+                        [f + d for f, d in zip(fwd, dec)]),
+                    eval_median_forward_s=_median_after_first(fwd),
+                    eval_metrics=res.eval_results)
+                ok = (ok and ev.forwards == forwards and perms
+                      and lengths[VB_STEPS:] == [tokens] * forwards
+                      and all(evals[k] == v for k, v in want_eval.items())
+                      and list(res.eval_results)
+                      == [f"checkpoint-{VB_STEPS}"])
+                launches["vb_eval"] = evals
+            emit(summary)
+            if not ok:
+                raise AssertionError(f"{label} check failed: {summary}")
+            del res
+            torch.cuda.empty_cache()
+        launches.update(_visual_berson(seed, work, counts, lengths))
+        launches.update(_visual_pretrain(seed, work, lengths))
+    finally:
+        undo()
+        cli._make_dev_eval_fn, cli._evaluator = make_eval, make_evaluator
+        cli._make_berson_eval_fn = make_berson_eval
+    return launches
+
+
+def _visual_berson(seed, work, counts, lengths):
+    """(d): BERSON over VisualBERT (RN50, 224 px) at the launcher's
+    configuration, 2 steps of one 5-step story (20 pairs of 120 text tokens
+    and 2 image tokens), then `--do_eval`'s beam-16 eval of one test story
+    on the model in memory."""
+    import torch
+    from multimodal_sequencing_tpu_torch.train.cli import main_train
+    data = os.path.join(work, "vb_berson_data")
+    os.makedirs(data)
+    write_wikihow(data, "train", VB_BERSON_STEPS, seed + 55, images=True)
+    write_wikihow(data, "test", 1, seed + 56, images=True)
+    out_dir = os.path.join(work, "vb_berson")
+    counts.reset()
+    lengths.clear()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    saves = []
+    with _saves_not_written(saves):
+        res = main_train(_berson_train_argv(
+            data, out_dir, seed, "--multimodal", "--multimodal_model_type",
+            "visualbert", "--vision_model", "resnet50",
+            "--per_gpu_train_batch_size", "1", "--per_gpu_eval_batch_size",
+            "1", "--learning_rate", "5e-6", "--order_criteria", "loose",
+            "--max_steps", str(VB_BERSON_STEPS), "--save_steps", "0",
+            "--do_eval", "--eval_splits", "test", "--beam_size", "16"))
+    train, evals = counts.split()
+    want = _expected(VB_BERSON_PER_FORWARD, VB_BERSON_STEPS,
+                     VB_BERSON_STEPS, PATH_KERNELS["train"])
+    want_eval = _expected(VB_BERSON_PER_FORWARD, 1, 0, PATH_KERNELS["eval"])
+    tokens = 2
+    summary = _visual_run_summary("vb_berson_train", res, train, want, saves,
+                                  lengths, tokens)
+    results = res.eval_results.get(f"checkpoint-{VB_BERSON_STEPS}", {})
+    metrics_ok = list(results) == ["test"] and all(
+        math.isfinite(v) for v in results["test"].values())
+    summary.update(eval_launches=evals, eval_launches_predicted=want_eval,
+                   eval_results=results)
+    emit(summary)
+    ok = (res.global_step == VB_BERSON_STEPS
+          and all(math.isfinite(h["loss"]) for h in res.history)
+          and _counts_exact(train, want)
+          and all(evals[k] == v for k, v in want_eval.items())
+          and lengths == [tokens] * (VB_BERSON_STEPS + 1)
+          and saves == [(os.path.abspath(out_dir), VB_BERSON_STEPS, None)]
+          and metrics_ok)
+    if not ok:
+        raise AssertionError(f"vb_berson check failed: {summary}")
+    return {"vb_berson_train": train, "vb_berson_eval": evals}
+
+
+def _visual_pretrain(seed, work, lengths):
+    """(e): `main_pretrain` of VisualBERT over the R-50 FPN tower at 256
+    px with inline ROI (K = 10; the pretrainer passes no sidecars), the
+    swapping_based_nsp objective with MLM, 2 steps of 4 stories."""
+    import torch
+    from multimodal_sequencing_tpu_torch.train.cli import main_pretrain
+    data = os.path.join(work, "vb_pretrain_data")
+    os.makedirs(data)
+    write_wikihow(data, "train", 4 * VB_PRETRAIN_STEPS, seed + 57,
+                  images=True)
+    out_dir = os.path.join(work, "vb_pretrain")
+    lengths.clear()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    saves = []
+    with _saves_not_written(saves):
+        res = main_pretrain([
+            "--model_name_or_path", "simple", "--model_size", "large",
+            "--do_train", "--data_dirs", data, "--data_names", "wikihow",
+            "--max_seq_length", "300", "--per_seq_max_length", "60",
+            "--per_gpu_train_batch_size", "4", "--learning_rate", "1e-5",
+            "--warmup_steps", "1", "--max_steps", str(VB_PRETRAIN_STEPS),
+            "--logging_steps", "1", "--save_steps", "0", "--seed", str(seed),
+            "--multimodal", "--multimodal_model_type", "visualbert",
+            "--vision_model", "detectron2_R_50_FPN", "--vision_image_size",
+            str(FPN_IMAGE), "--include_num_img_regional_features", str(VB_K),
+            "--multimodal_pretrain_objectives", "swapping_based_nsp",
+            "--output_dir", out_dir, "--overwrite_output_dir",
+            "--device", "cuda"])
+    counts = _read_counts()
+    want = _expected(VB_PRETRAIN_PER_FORWARD, VB_PRETRAIN_STEPS,
+                     VB_PRETRAIN_STEPS, PATH_KERNELS["train"])
+    tokens = VB_PRETRAIN_S - 300
+    summary = _visual_run_summary("vb_pretrain", res, counts, want, saves,
+                                  lengths, tokens)
+    summary["loss_terms"] = [{k: h.get(k) for k in ("mlm",
+                                                    "swapping_based_nsp")}
+                             for h in res.history]
+    emit(summary)
+    ok = (res.global_step == VB_PRETRAIN_STEPS
+          and all(math.isfinite(h["loss"]) for h in res.history)
+          and _counts_exact(counts, want)
+          and lengths == [tokens] * VB_PRETRAIN_STEPS
+          and saves == [(os.path.abspath(out_dir), VB_PRETRAIN_STEPS, None)])
+    if not ok:
+        raise AssertionError(f"vb_pretrain check failed: {summary}")
+    return {"vb_pretrain": counts}
+
+
 PHASES = ("kernel_check", "bits_check", "timing", "main_path", "breakdown",
           "reference", "train_path", "train_breakdown", "train_reference",
           "hf_path", "remat", "mm_check", "mm_reference", "mm_path",
           "mm_breakdown", "berson_reference", "berson_path",
           "pretrain_reference", "pretrain_path", "recipeqa_path",
           "baselines_reference", "baselines_path", "heads_reference",
-          "heads_path")
+          "heads_path", "visual_reference", "visual_path")
 
 
 def main(argv=None) -> int:
@@ -4974,6 +5637,9 @@ def main(argv=None) -> int:
             "heads_reference": lambda: phase_heads_reference(args.seed),
             "heads_path": lambda: launches.update(
                 phase_heads_path(args.seed, work)),
+            "visual_reference": lambda: phase_visual_reference(args.seed),
+            "visual_path": lambda: launches.update(
+                phase_visual_path(args.seed, work)),
         }
         for name in args.phases:
             t0 = time.perf_counter()

@@ -15,7 +15,9 @@ With `multimodal`, each story carries its step images, the missing steps
 up to `max_story_length` as zeros: (N, H, W, 3) uint8 for the device tail
 (`uint8_images`, what the CLIs ship by default) or (N, 3, H, W) f32 from
 the host pipeline, in the `imagenet` or `detectron2` transform
-(`data/images.py`).
+(`data/images.py`); with `num_img_regional_features` the whole-story sets
+and the pairs also carry the steps' ROI sidecars (`img_regional_features`,
+or `zeros(1)` when one is missing).
 """
 
 from __future__ import annotations
@@ -41,8 +43,10 @@ class _StoryDatasetBase:
     def __init__(self, examples, tokenizer, max_length=None,
                  per_seq_max_length=32, max_story_length=5, scramble=True,
                  seed=None, multimodal=False, image_size=(224, 224),
-                 uint8_images=False, image_transform="imagenet"):
+                 uint8_images=False, image_transform="imagenet",
+                 num_img_regional_features=None):
         self.examples = examples
+        self.num_img_regional_features = num_img_regional_features
         self.scramble = scramble
         self.seed = seed
         self.multimodal = multimodal
@@ -86,12 +90,27 @@ class _StoryDatasetBase:
 
     def _images(self, img_paths, n_steps) -> Dict[str, Any]:
         """{"images": (max_story_length, ...) stack, zero-padded}, or {}
-        without `multimodal`."""
+        without `multimodal`; with `num_img_regional_features`, also
+        `img_regional_features`: the steps' sidecars (N, R, C), or the
+        sentinel zeros(1) when a step (a padded one too) has none."""
         if not self.multimodal:
             return {}
         paths = list(img_paths or [None] * n_steps)
         paths += [None] * (self.max_story_length - len(paths))
-        return {"images": self._load_images(paths)}
+        return {"images": self._load_images(paths), **self._regional(paths)}
+
+    def _regional(self, paths) -> Dict[str, Any]:
+        if not self.num_img_regional_features:
+            return {}
+        from .images import load_maskrcnn_sidecar
+        feats = []
+        for p in paths:
+            f = (load_maskrcnn_sidecar(p, self.num_img_regional_features)
+                 if p else None)
+            if f is None:
+                return {"img_regional_features": np.zeros(1, np.float32)}
+            feats.append(f)
+        return {"img_regional_features": np.stack(feats)}
 
 
 # the class of a pair's or a triple's label
@@ -113,7 +132,9 @@ class PairwiseDataset(_StoryDatasetBase):
         item["labels"] = np.int32(ORDER_LABELS[ex.label])
         item["guid"] = ex.guid
         if self.multimodal:
-            item["images"] = self._load_images([ex.img_path_a, ex.img_path_b])
+            paths = [ex.img_path_a, ex.img_path_b]
+            item.update(images=self._load_images(paths),
+                        **self._regional(paths))
         return item
 
 
@@ -300,7 +321,7 @@ def _decode_labels(ex, idx_seq, max_story_length):
 
 
 _ARRAY_KEYS = ("input_ids", "attention_mask", "token_type_ids", "labels",
-               "images", "sep_positions", "pairs_list", "pairwise_labels",
+               "images", "img_regional_features", "sep_positions", "pairs_list", "pairwise_labels",
                "ground_truth", "mask_cls", "passage_length", "pairs_num")
 
 

@@ -1,6 +1,6 @@
 """Image IO and the host preprocessing pipelines (copy of `data/images.py`,
-without the regional-feature sidecars and the random crop, which no ported
-path reads).
+without the random crop, which no ported path reads), and the
+`{img}_maskrcnn.npy` regional-feature sidecars (`load_maskrcnn_sidecar`).
 
 read -> grayscale to RGB -> strip alpha -> resize to (224, 224) -> [0, 1] ->
 CHW -> ImageNet mean/std, or, for the device tail (`ops/preprocess.py`),
@@ -207,3 +207,16 @@ def load_image_stack_uint8_bgr(filenames: Sequence[Optional[str]],
             logger.warning("Failed reading image %s (%s); using zeros", f, e)
             out.append(np.zeros((size[0], size[1], 3), np.uint8))
     return np.stack(out)
+
+
+def load_maskrcnn_sidecar(img_path: str, num_features: int
+                          ) -> Optional[np.ndarray]:
+    """The first `num_features` rows of `{img}_maskrcnn.npy` beside an
+    image (a pickled dict whose `features` are (R, C) regional features)
+    as f32, or None when there is no sidecar."""
+    import os
+    path = os.path.splitext(img_path)[0] + "_maskrcnn.npy"
+    if not os.path.exists(path):
+        return None
+    d = np.load(path, allow_pickle=True).item()
+    return np.asarray(d["features"][:num_features], dtype=np.float32)

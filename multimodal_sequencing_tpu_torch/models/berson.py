@@ -8,8 +8,11 @@ batched beam search.
     -> TransformerInterEncoder -> key, (h, c) of the LSTM
     -> pointer: N steps (training) / a W-beam search (inference)
 
-The inner encoder is the text encoder, or the CLIP multimodal encoder over
-each pair's two step images (`images[:, pairs]` -> (B * P, 2, ...)); its
+The inner encoder is the text encoder, or a multimodal encoder over each
+pair's two step images (`images[:, pairs]` -> (B * P, 2, ...)): the CLIP
+joint encoder (the image stream's CLS its first visual token), VisualBERT
+(its first image token) or the naive model (the first appended image
+token); vilbert raises, as in the JAX package. Its
 attention, GELU and LayerNorm run as the hand-written kernels on the card.
 Everything after it computes in f32, as the JAX head does (none of its Flax
 modules is given a dtype, so a bf16 trunk's output is promoted): the
@@ -48,6 +51,8 @@ from .encoder import (Dense, DropoutRng, LayerNorm, TextEncoder, check_rng,
 from .heads import (HeatmapHead, LSTMCell, MultiHeadAttention,
                     log_softmax)
 from .multimodal_encoder import MultimodalEncoder
+from .naive_model import NaiveMultimodalModel
+from .visualbert import VisualBERTEncoder
 from .sequencer import render_heatmap_targets
 
 NEG = -1e9
@@ -202,11 +207,10 @@ class BersonOrdering(nn.Module):
             self.inner = TextEncoder(cfg.encoder)
         elif cfg.multimodal_model_type == "clip":
             self.inner = MultimodalEncoder(cfg, vision_cfg)
-        elif cfg.multimodal_model_type in ("visualbert", "naive"):
-            raise NotImplementedError(
-                f"berson inner model type {cfg.multimodal_model_type!r}: the "
-                f"VisualBERT and naive encoders come with a later slice of "
-                f"the port (ROADMAP A5)")
+        elif cfg.multimodal_model_type == "visualbert":
+            self.inner = VisualBERTEncoder(cfg)
+        elif cfg.multimodal_model_type == "naive":
+            self.inner = NaiveMultimodalModel(cfg, cfg.vision_model)
         else:
             raise NotImplementedError(
                 f"berson inner model type {cfg.multimodal_model_type} (the "
@@ -232,7 +236,8 @@ class BersonOrdering(nn.Module):
 
     @property
     def vision_cfg(self) -> Optional[CLIPVisionConfig]:
-        return self.inner.vcfg if self.cfg.multimodal else None
+        """The CLIP inner's tower config (None for the other inners)."""
+        return getattr(self.inner, "vcfg", None)
 
     # ----- encoding ----------------------------------------------------------
 
@@ -257,13 +262,19 @@ class BersonOrdering(nn.Module):
         if (cfg.multimodal and not cfg.multimodal_text_part
                 and images is not None):
             # each pair's two step images: (B, P, 2, ...) -> (B * P, 2, ...)
-            lang, visn, _ = self.inner(
-                *args, images=flat(images[:, self.pairs]),
-                deterministic=deterministic, rng=rng)
+            out = self.inner(*args, images=flat(images[:, self.pairs]),
+                             deterministic=deterministic, rng=rng)
+            if cfg.multimodal_model_type == "naive":
+                # the image tokens follow the text; the first is the CLS
+                seq = out["sequence_output"]
+                lang, visn = seq[:, :L], seq[:, L:]
+            else:
+                lang, visn, _ = out
             if visn is not None:  # the image stream's CLS
                 visn_cls = visn[:, 0].reshape(b, p, -1)
         else:
-            lang = self.inner(*args, deterministic=deterministic, rng=rng)[0]
+            out = self.inner(*args, deterministic=deterministic, rng=rng)
+            lang = out["sequence_output"] if isinstance(out, dict) else out[0]
         top_vec = lang.reshape(b, p, L, -1)
         mask_cls = batch["mask_cls"].float()
         doc, cls_out_m, cls_score, cls_score_m, his1_m, his2_m = \

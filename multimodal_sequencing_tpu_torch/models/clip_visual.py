@@ -54,19 +54,22 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 class Conv(nn.Conv2d):
-    """Flax `nn.Conv(use_bias=False, dtype=...)` on NCHW: an f32 (out, in,
-    kh, kw) weight; input and weight cast to the compute dtype."""
+    """Flax `nn.Conv(use_bias=..., dtype=...)` on NCHW: an f32 (out, in,
+    kh, kw) weight (and bias); input, weight and bias cast to the compute
+    dtype."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
-                 padding: int = 0, dtype: torch.dtype = torch.float32):
+                 padding: int = 0, dtype: torch.dtype = torch.float32,
+                 bias: bool = False):
         super().__init__(cin, cout, k, stride=stride, padding=padding,
-                         bias=False)
+                         bias=bias)
         self.compute_dtype = dtype
 
     def forward(self, x):
         dt = self.compute_dtype
-        return F.conv2d(x.to(dt), self.weight.to(dt), None, self.stride,
-                        self.padding)
+        return F.conv2d(x.to(dt), self.weight.to(dt),
+                        None if self.bias is None else self.bias.to(dt),
+                        self.stride, self.padding)
 
 
 class BatchNorm(nn.Module):

@@ -1,6 +1,7 @@
-"""Weights into the port (counterpart of `models/convert.py`, text and
-CLIP branches): from the JAX package's variable trees, from HF BERT/RoBERTa
-checkpoints, and from OpenAI CLIP visual weights.
+"""Weights into the port (counterpart of `models/convert.py`): from the JAX
+package's variable trees, from HF BERT/RoBERTa checkpoints, from OpenAI
+CLIP visual weights, and from torchvision ResNet and detectron2 ResNet-FPN
+files.
 
 The port's modules carry the Flax module names, so a Flax path maps to the
 same dotted state-dict key with its leaf renamed:
@@ -12,8 +13,8 @@ same dotted state-dict key with its leaf renamed:
   Conv `kernel` (kh, kw, in, out) -> Conv2d `weight` (out, in, kh, kw)
   Embed `embedding`               -> Embedding `weight`
   LayerNorm/BatchNorm `scale`     -> `weight`; `bias` -> `bias`
-  raw `positional_embedding`, `class_embedding`, `proj`, `pos_emb` -> the
-    same name
+  raw `positional_embedding`, `class_embedding`, `proj`, `pos_emb`,
+    `position_embeddings` (VisualBERT's visual positions) -> the same name
 and the `batch_stats` tree's BatchNorm `mean` / `var` -> the buffers
 `running_mean` / `running_var`; e.g. `encoder/layer_3/attention/query/
 kernel` -> `encoder.layer_3.attention.query.weight`. The LSTM of BERSON's
@@ -33,6 +34,16 @@ OpenAI CLIP visual weights (`--clip_visual_model_weights <file>`, the
 being the port's own (`convert_clip_rn50`, `convert_clip_vit`). A
 directory given there is a checkpoint of this package, whose tower
 weights and BatchNorm statistics are read.
+
+`--vision_model_checkpoint <file>` loads the VisualBERT or naive encoder's
+`vision_model`: a torchvision ResNet state dict
+(`resnet.py::convert_torchvision_resnet`), or for a `detectron2_*` tower a
+detectron2 model-zoo file, `.pkl` or `.pth` (`load_detectron2_state_dict`,
+`convert_detectron2_fpn`), of which only the parts the built tower has are
+grafted (the objectness and box heads exist in regional mode alone); a
+part whose shapes differ from the tower's raises ValueError. BatchNorm
+statistics go into the buffers. A path that does not exist is ignored, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -58,7 +69,8 @@ HF_WEIGHTS_NAMES = ("pytorch_model.bin", "model.safetensors")
 _LEAVES = {"kernel": "weight", "embedding": "weight", "scale": "weight",
            "bias": "bias", "positional_embedding": "positional_embedding",
            "class_embedding": "class_embedding", "proj": "proj",
-           "pos_emb": "pos_emb"}
+           "pos_emb": "pos_emb",
+           "position_embeddings": "position_embeddings"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -307,6 +319,118 @@ def convert_clip_rn50(state_dict: Dict, layers=(3, 4, 6, 3)
     return out
 
 
+# ----- detectron2 ResNet-FPN towers ------------------------------------------
+
+
+def load_detectron2_state_dict(path: str) -> Dict[str, np.ndarray]:
+    """A detectron2 checkpoint as numpy arrays: `model_final_*.pkl` files
+    are pickles of a `model` dict of numpy arrays, `.pth` files torch
+    checkpoints (read with `weights_only=True`); either may hold the state
+    dict under `model`."""
+    if path.endswith(".pkl"):
+        import pickle
+        with open(path, "rb") as f:
+            payload = pickle.load(f, encoding="latin1")
+    else:
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(payload, dict) and "model" in payload:
+        payload = payload["model"]
+    return {k: (v.detach().cpu().numpy() if torch.is_tensor(v)
+                else np.asarray(v)) for k, v in payload.items()}
+
+
+def convert_detectron2_fpn(state_dict: Dict, backbone_name: str = "resnet50",
+                           roi_size: int = 7) -> Dict[str, torch.Tensor]:
+    """Detectron2 model-zoo ResNet-FPN weights -> `FPNVisionTower`
+    state-dict entries: `backbone.bottom_up.*` (stem and res2..res5, the
+    FrozenBN statistics as running statistics) -> `bottom_up`,
+    `backbone.fpn_lateral{2..5}` / `fpn_output{2..5}` -> `fpn`, the RPN's
+    shared conv -> `obj_conv` and its square (ratio 1.0, the middle) anchor
+    channel of `objectness_logits` -> `obj_logit`, `roi_heads.box_head.fc1`
+    / `fc2` -> `box_fc1` / `box_fc2`, fc1's input columns permuted from
+    detectron2's (C, s, s) ROI flattening to the tower's (s, s, C). The RPN
+    deltas and the box predictor have no counterpart and are dropped. The
+    torch layouts are the tower's own, so no kernel is transposed."""
+    from .resnet import _SPECS, BasicBlock
+    sd = state_dict
+    out: Dict[str, torch.Tensor] = {}
+
+    def conv(dst, src, bias=False):
+        out[f"{dst}.weight"] = _t(sd[f"{src}.weight"])
+        if bias:
+            out[f"{dst}.bias"] = _t(sd[f"{src}.bias"])
+
+    def frozen_bn(dst, src):
+        for leaf in ("weight", "bias", "running_mean", "running_var"):
+            out[f"{dst}.{leaf}"] = _t(sd[f"{src}.{leaf}"])
+
+    bu = "backbone.bottom_up"
+    block_cls, layers, _ = _SPECS[backbone_name]
+    n_convs = 2 if block_cls is BasicBlock else 3
+    conv("bottom_up.conv1", f"{bu}.stem.conv1")
+    frozen_bn("bottom_up.bn1", f"{bu}.stem.conv1.norm")
+    for stage, blocks in enumerate(layers):
+        for b in range(blocks):
+            src = f"{bu}.res{stage + 2}.{b}"
+            dst = f"bottom_up.layer{stage + 1}_{b}"
+            for c in range(1, n_convs + 1):
+                conv(f"{dst}.conv{c}", f"{src}.conv{c}")
+                frozen_bn(f"{dst}.bn{c}", f"{src}.conv{c}.norm")
+            if f"{src}.shortcut.weight" in sd:
+                conv(f"{dst}.downsample_conv", f"{src}.shortcut")
+                frozen_bn(f"{dst}.downsample_bn", f"{src}.shortcut.norm")
+    for lvl in (2, 3, 4, 5):
+        conv(f"fpn.lateral_c{lvl}", f"backbone.fpn_lateral{lvl}", bias=True)
+        conv(f"fpn.output_p{lvl}", f"backbone.fpn_output{lvl}", bias=True)
+    rpn = "proposal_generator.rpn_head"
+    if f"{rpn}.conv.weight" in sd:
+        conv("obj_conv", f"{rpn}.conv", bias=True)
+        w = _t(sd[f"{rpn}.objectness_logits.weight"])  # (A, C, 1, 1)
+        mid = w.shape[0] // 2  # ratios (0.5, 1.0, 2.0) -> 1.0
+        out["obj_logit.weight"] = w[mid:mid + 1].clone()
+        out["obj_logit.bias"] = _t(
+            sd[f"{rpn}.objectness_logits.bias"])[mid:mid + 1].clone()
+    bh = "roi_heads.box_head"
+    if f"{bh}.fc1.weight" in sd:
+        w1 = _t(sd[f"{bh}.fc1.weight"])  # (D, C * s * s)
+        d = w1.shape[0]
+        w1 = w1.reshape(d, -1, roi_size, roi_size).permute(0, 2, 3, 1)
+        out["box_fc1.weight"] = w1.reshape(d, -1).contiguous()
+        out["box_fc1.bias"] = _t(sd[f"{bh}.fc1.bias"])
+        conv("box_fc2", f"{bh}.fc2", bias=True)
+    return out
+
+
+def _load_vision_model_checkpoint(model, path: str) -> None:
+    """`--vision_model_checkpoint`: a torchvision ResNet file, or for a
+    detectron2 tower a detectron2 file whose parts the tower has, into the
+    encoder's `vision_model` (see the module docstring)."""
+    from .fpn import backbone_from_name, is_detectron2
+    from .resnet import convert_torchvision_resnet
+    cfg = model.cfg
+    tower = encoder_of(model).vision_model
+    if not is_detectron2(cfg.vision_model):
+        tower.load_state_dict(convert_torchvision_resnet(
+            load_torch_state_dict(path), cfg.vision_model))
+        return
+    weights = convert_detectron2_fpn(load_detectron2_state_dict(path),
+                                     backbone_from_name(cfg.vision_model))
+    have = tower.state_dict()
+    grafted = {}
+    for key, val in weights.items():
+        part = key.split(".")[0]
+        if not any(k.split(".")[0] == part for k in have):
+            continue  # a head the tower does not have
+        if key not in have or tuple(have[key].shape) != tuple(val.shape):
+            raise ValueError(
+                f"detectron2 weights for {part!r} do not match the built "
+                f"tower ({key}: {tuple(val.shape)}, the tower has "
+                f"{tuple(have[key].shape) if key in have else 'none'}; set "
+                f"--vision_feature_dim to the checkpoint's box-head width)")
+        grafted[key] = val
+    tower.load_state_dict(grafted, strict=False)
+
+
 def encoder_of(model) -> torch.nn.Module:
     """The text or multimodal encoder of a model: `inner` of BERSON,
     `encoder` of the sequencer."""
@@ -350,10 +474,21 @@ def load_pretrained_weights(model, args) -> bool:
     directory whose weights file is `model.safetensors` loads none, as in
     the JAX package. `--clip_visual_model_weights <file or dir>` (an
     existing path; the JAX package ignores a missing one): the CLIP tower's
-    weights (`_load_clip_visual_weights`)."""
+    weights (`_load_clip_visual_weights`). `--vision_model_checkpoint
+    <file>` (an existing path): the VisualBERT or naive encoder's
+    `vision_model` (`_load_vision_model_checkpoint`)."""
     loaded = _load_hf_text_weights(model, args)
+    vc = getattr(args, "vision_model_checkpoint", None)
+    if vc and hasattr(encoder_of(model), "vision_model"):
+        if os.path.exists(vc):
+            _load_vision_model_checkpoint(model, vc)
+            logger.info("loaded vision backbone weights from %s", vc)
+            loaded = True
+        else:
+            logger.warning("--vision_model_checkpoint %s does not exist; "
+                           "ignored, as in the JAX package", vc)
     cw = getattr(args, "clip_visual_model_weights", None)
-    if cw and model.cfg.multimodal and not model.cfg.multimodal_text_part:
+    if cw and hasattr(encoder_of(model), "visual_model"):
         if os.path.exists(cw):
             _load_clip_visual_weights(model, cw)
             logger.info("loaded CLIP visual weights from %s", cw)

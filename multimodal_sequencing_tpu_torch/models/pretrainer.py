@@ -15,6 +15,12 @@ and the plan's auxiliary arrays:
     features by a bilinear MLP (`mrm_dense`, `mrm_ln`, `mrm_out`), cross
     entropy over the candidates, scaled by 0.2.
 
+The encoder is the text encoder or, by `multimodal_model_type`, the
+VisualBERT encoder (`visualbert`), the naive model (`naive`) or the CLIP
+joint encoder (any other type, `naive_model` included, as the JAX
+pretrainer builds it). The patch objectives corrupt the CLIP encoder's
+folded stream and raise ValueError under the other two.
+
 The heads are built as Flax creates their parameters: only for the
 configured objectives (`cfg.multimodal_pretrain_objectives`), since the JAX package initializes the
 model by tracing each of them. `mlm_head` exists unless
@@ -44,6 +50,8 @@ from torch import nn
 from .config import CLIPVisionConfig, MultimodalConfig
 from .encoder import Dense, DropoutRng, LayerNorm, TextEncoder, check_rng
 from .multimodal_encoder import MultimodalEncoder
+from .naive_model import NaiveMultimodalModel, naive_encode_parts
+from .visualbert import VisualBERTEncoder
 
 BINARY_OBJECTIVES = (
     "image_swapping", "image_sequence_predictions",
@@ -92,19 +100,19 @@ class SequencingPretrainer(nn.Module):
         """Builds the heads of `cfg.multimodal_pretrain_objectives`
         (`resolve_objectives`)."""
         super().__init__()
-        if cfg.multimodal and cfg.multimodal_model_type in (
-                "visualbert", "naive", "naive_model"):
-            raise NotImplementedError(
-                f"multimodal_model_type {cfg.multimodal_model_type!r}: the "
-                f"VisualBERT and naive pretraining encoders come with a "
-                f"later slice of the port (ROADMAP A5); the port pretrains "
-                f"the text and CLIP encoders")
         self.cfg = cfg
         self.objectives, _ = resolve_objectives(
             cfg.multimodal_pretrain_objectives)
         h = cfg.encoder.hidden_size
-        self.encoder = (MultimodalEncoder(cfg, vision_cfg) if cfg.multimodal
-                        else TextEncoder(cfg.encoder))
+        mt = cfg.multimodal_model_type
+        if not cfg.multimodal:
+            self.encoder = TextEncoder(cfg.encoder)
+        elif mt == "visualbert":
+            self.encoder = VisualBERTEncoder(cfg)
+        elif mt == "naive":
+            self.encoder = NaiveMultimodalModel(cfg, cfg.vision_model)
+        else:  # clip, and naive_model: the JAX pretrainer builds CLIP there
+            self.encoder = MultimodalEncoder(cfg, vision_cfg)
         if not cfg.multimodal_img_part:
             self.mlm_head = MLMHead(h, cfg.encoder.vocab_size,
                                     cfg.encoder.compute_dtype)
@@ -121,7 +129,8 @@ class SequencingPretrainer(nn.Module):
 
     @property
     def vision_cfg(self) -> Optional[CLIPVisionConfig]:
-        return self.encoder.vcfg if self.cfg.multimodal else None
+        """The CLIP tower's config (None for the other encoders)."""
+        return getattr(self.encoder, "vcfg", None)
 
     def _head(self, name: str) -> nn.Module:
         head = getattr(self, name, None)
@@ -156,6 +165,20 @@ class SequencingPretrainer(nn.Module):
         if not cfg.multimodal:
             seq, pooled = self.encoder(ids, attn, types, deterministic, rng)
             return seq, None, pooled, None
+        mt = cfg.multimodal_model_type
+        if mt in ("visualbert", "naive"):
+            # per-step visual tokens: no folded patch stream to corrupt
+            if surgery:
+                raise ValueError(
+                    f"patch-based pretraining objectives need the folded "
+                    f"CLIP visual stream; model type {mt} has per-step "
+                    f"visual tokens")
+            if mt == "visualbert":
+                return (*self.encoder(ids, attn, types, images,
+                                      deterministic=deterministic, rng=rng),
+                        None)
+            return (*naive_encode_parts(cfg, self.encoder, ids, attn, types,
+                                        images, deterministic, rng), None)
         enc = self.encoder
         lang, attn2 = enc.embed_language(ids, attn, types, rng)
         visn = mrm_gt = None

@@ -1,4 +1,4 @@
-"""SequencingModel: text or CLIP multimodal encoder + ordering head
+"""SequencingModel: text or multimodal encoder + ordering head
 (counterpart of `models/sequencer.py`), the heat-map targets and the fresh
 init.
 
@@ -14,12 +14,16 @@ Under the per-step heads, `cfg.hl_include_objectives` adds
 embedding; v0 gets neither, as the JAX init creates neither there (Flax
 makes a `setup` submodule's parameters only where it is called).
 
-With `cfg.multimodal` the encoder is the single-stream joint encoder
+With `cfg.multimodal` the encoder is chosen by `multimodal_model_type`:
+`clip` (and the reference's unreachable vilbert/vlbert/uniter, which the
+JAX package also builds so) the single-stream joint encoder
 (`models/multimodal_encoder.py`: CLIP tower + folded visual tokens + the
 shared transformer layers), built from `vision_cfg` (default: RN50 or
-ViT-B/32 by `cfg.clip_model_name`). The VisualBERT and naive multimodal
-encoders (ROADMAP A5e) are a later slice of the port and raise
-`NotImplementedError` here.
+ViT-B/32 by `cfg.clip_model_name`); `visualbert` the VisualBERT encoder
+(`models/visualbert.py`: a ResNet or FPN tower, one token a step image and
+the regional tokens, which `img_regional_features` feeds); `naive` or
+`naive_model` the naive model (`models/naive_model.py`), split into its
+language and image parts by `naive_encode_parts`.
 """
 
 from __future__ import annotations
@@ -38,7 +42,9 @@ from .heads import (AUX_HEAD_OBJECTIVES, AuxObjectiveHeads,
                     ClassificationHead, HeatmapHead, PointerHead,
                     gather_step_cls)
 from .multimodal_encoder import MultimodalEncoder
+from .naive_model import NaiveMultimodalModel, naive_encode_parts
 from .pretrainer import MLMHead
+from .visualbert import VisualBERTEncoder
 
 HEATMAP_VERSIONS = ("v1", "v2", "v3")
 POINTER_VERSIONS = ("p0", "p1")
@@ -49,13 +55,6 @@ class SequencingModel(nn.Module):
     def __init__(self, cfg: MultimodalConfig,
                  vision_cfg: Optional[CLIPVisionConfig] = None):
         super().__init__()
-        if cfg.multimodal and cfg.multimodal_model_type in (
-                "visualbert", "naive", "naive_model"):
-            raise NotImplementedError(
-                f"multimodal_model_type {cfg.multimodal_model_type!r}: the "
-                f"VisualBERT and naive encoders (with models/resnet.py and "
-                f"models/fpn.py) come with a later slice of the port "
-                f"(ROADMAP A5); the port runs the CLIP encoder")
         if cfg.hierarchical_version not in VERSIONS:
             raise ValueError(
                 f"unknown hierarchical_version {cfg.hierarchical_version!r}")
@@ -67,10 +66,7 @@ class SequencingModel(nn.Module):
                 "token, so the per-step heads find no step CLS tokens to "
                 "gather")
         self.cfg = cfg
-        # "clip" (and the reference's unreachable vilbert/vlbert/uniter,
-        # which the JAX package also builds as the CLIP encoder)
-        self.encoder = (MultimodalEncoder(cfg, vision_cfg) if cfg.multimodal
-                        else TextEncoder(cfg.encoder))
+        self.encoder = build_encoder(cfg, vision_cfg)
         enc = cfg.encoder
         if cfg.hierarchical_version == "v0":
             self.cls_head = ClassificationHead(
@@ -90,13 +86,26 @@ class SequencingModel(nn.Module):
 
     @property
     def vision_cfg(self) -> Optional[CLIPVisionConfig]:
-        return self.encoder.vcfg if self.cfg.multimodal else None
+        """The CLIP tower's config (None for the other encoders)."""
+        return getattr(self.encoder, "vcfg", None)
 
     def encode(self, input_ids, attention_mask=None, token_type_ids=None,
                images=None, deterministic: bool = True,
-               rng: Optional[DropoutRng] = None):
-        """(lang_seq, visn_seq or None, pooled)."""
-        if self.cfg.multimodal:
+               rng: Optional[DropoutRng] = None,
+               img_regional_features: Optional[torch.Tensor] = None):
+        """(lang_seq, visn_seq or None, pooled). `img_regional_features`
+        (the ROI sidecars, (B, N, R, C)) reach the VisualBERT encoder
+        alone, as in the JAX package."""
+        cfg = self.cfg
+        if cfg.multimodal and cfg.multimodal_model_type in NAIVE_TYPES:
+            return naive_encode_parts(cfg, self.encoder, input_ids,
+                                      attention_mask, token_type_ids, images,
+                                      deterministic, rng)
+        if cfg.multimodal and cfg.multimodal_model_type == "visualbert":
+            return self.encoder(input_ids, attention_mask, token_type_ids,
+                                images, img_regional_features, deterministic,
+                                rng)
+        if cfg.multimodal:
             return self.encoder(input_ids, attention_mask, token_type_ids,
                                 images, deterministic, rng)
         seq, pooled = self.encoder(input_ids, attention_mask, token_type_ids,
@@ -110,7 +119,9 @@ class SequencingModel(nn.Module):
                 deterministic: bool = True,
                 rng: Optional[DropoutRng] = None,
                 order_labels: Optional[torch.Tensor] = None,
-                aux: bool = True) -> Dict[str, torch.Tensor]:
+                aux: bool = True,
+                img_regional_features: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
         """`images`: a story's step images for the multimodal encoder,
         (B, N, H, W, 3) uint8 or (B, N, 3, H, W) float. v0 returns the
         classification head's f32 `logits` of the pooled CLS; the per-step
@@ -126,7 +137,7 @@ class SequencingModel(nn.Module):
         cfg = self.cfg
         seq, visn, pooled = self.encode(input_ids, attention_mask,
                                         token_type_ids, images, deterministic,
-                                        rng)
+                                        rng, img_regional_features)
         if cfg.hierarchical_version == "v0":
             logits = self.cls_head(pooled, None if deterministic else rng)
             return {"sequence_output": seq, "visual_output": visn,
@@ -150,6 +161,25 @@ class SequencingModel(nn.Module):
             out["mlm_logits"] = self.aux_mlm_head(
                 seq, self.encoder.embeddings.word_embeddings.weight)
         return out
+
+
+NAIVE_TYPES = ("naive", "naive_model")
+
+
+def build_encoder(cfg: MultimodalConfig,
+                  vision_cfg: Optional[CLIPVisionConfig] = None
+                  ) -> nn.Module:
+    """The sequencer's encoder: the text encoder, or by
+    `multimodal_model_type` the VisualBERT, naive or CLIP joint encoder."""
+    if not cfg.multimodal:
+        return TextEncoder(cfg.encoder)
+    if cfg.multimodal_model_type == "visualbert":
+        # the sequencer's datasets give sidecars or the sentinel, never
+        # none: no inline ROI (models/visualbert.py)
+        return VisualBERTEncoder(cfg, inline_roi=False)
+    if cfg.multimodal_model_type in NAIVE_TYPES:
+        return NaiveMultimodalModel(cfg, cfg.vision_model)
+    return MultimodalEncoder(cfg, vision_cfg)
 
 
 def render_heatmap_targets(order_labels: torch.Tensor, n: int,
@@ -223,6 +253,8 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
                 o, i, kh, kw = mod.weight.shape
                 mod.weight.copy_(_lecun_normal(mod.weight.shape, i * kh * kw,
                                                gen))
+                if mod.bias is not None:
+                    mod.bias.zero_()
             elif isinstance(mod, Embed):
                 mod.weight.copy_(_normal(mod.weight.shape,
                                          1.0 / math.sqrt(mod.embedding_dim),

@@ -9,7 +9,8 @@ weight) + bias with f32 weight and bias, y in the compute dtype.
   * `layer_norm_reference` — plain PyTorch of that formula; autograd gives
     its backward. The CPU path and the oracle the kernels are held to.
   * `layer_norm` — the differentiable entry: for CUDA tensors the forward
-    and backward kernels (or raise), for CPU tensors the plain version.
+    and backward kernels (or raise; f32 in with a bf16 output runs the f32
+    kernels), for CPU tensors the plain version.
     `layer_norm_fwd.launches` and `layer_norm_bwd.launches` count kernel
     launches; the backward is one launch that yields dx, dw and db.
 """
@@ -188,10 +189,16 @@ class LayerNormFunction(torch.autograd.Function):
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                eps: float, dtype: torch.dtype) -> torch.Tensor:
     """Flax-form LayerNorm over the last dim, in `dtype`: the kernels for a
-    CUDA tensor, the plain version for a CPU tensor."""
+    CUDA tensor, the plain version for a CPU tensor. An f32 input with a
+    bf16 output (a bf16 layer over a promoted f32 residual stream, as in
+    VisualBERT's first layer) runs the f32 kernels and rounds y once, as
+    Flax computes in f32 and casts."""
     if x.device.type == "cpu":
         return layer_norm_reference(x, weight, bias, eps, dtype)
     if x.device.type != "cuda":
         raise ValueError(f"layer_norm runs on cuda or cpu, not {x.device}")
+    if x.dtype == torch.float32 and dtype == torch.bfloat16:
+        _check(x, weight, bias, x.dtype)
+        return LayerNormFunction.apply(x, weight, bias, eps).to(dtype)
     _check(x, weight, bias, dtype)
     return LayerNormFunction.apply(x, weight, bias, eps)

@@ -257,8 +257,6 @@ def build_parser(kind: str = "train") -> argparse.ArgumentParser:
 # default raises. Flags that change nothing on the ported path (as in the
 # JAX package) are accepted.
 _NOT_YET = {
-    "include_num_img_regional_features": "the VisualBERT encoder",
-    "vision_model_checkpoint": "the naive and FPN vision towers",
     "model_parallel_size": "the parallelism layer",
     "pipeline_parallel_size": "the parallelism layer",
     "sequence_parallel": "the parallelism layer",
@@ -366,6 +364,7 @@ def build_config(args):
         multimodal_text_part=args.multimodal_text_part,
         multimodal_img_part=args.multimodal_img_part,
         multimodal_fusion_method=args.multimodal_fusion_method,
+        num_img_regional_features=args.include_num_img_regional_features,
         include_full_img_features=bool(args.include_full_img_features),
         image_size=(args.vision_image_size, args.vision_image_size),
         hierarchical_version=args.hierarchical_version,
@@ -525,7 +524,9 @@ def dataset_kwargs(args) -> dict:
                 image_size=(args.vision_image_size, args.vision_image_size),
                 uint8_images=args.device_image_preprocess,
                 image_transform=("detectron2" if _is_detectron2(args)
-                                 else "imagenet"))
+                                 else "imagenet"),
+                num_img_regional_features=(
+                    args.include_num_img_regional_features))
 
 
 # the tasks each head trains on ("decode": the pure_decode encoder-decoder)
@@ -942,14 +943,18 @@ def _method_of(version: str) -> str:
     return method + (f" --hierarchical_version {version}"
                      if role == "pointer" else "")
 
-# the saved config's fields that decide a checkpoint's parameters
+# the saved config's fields that decide a checkpoint's parameters (the
+# VisualBERT and naive towers' among them)
 _SAVED_FIELDS = ("encoder", "hierarchical_version", "num_labels",
                  "multimodal",
                  "multimodal_model_type", "clip_model_name",
                  "multimodal_text_part", "multimodal_img_part",
                  "use_positional_embedding", "use_token_type_embedding",
                  "image_size", "wrapper_model_with_heatmap",
-                 "hl_include_objectives")
+                 "hl_include_objectives", "vision_model",
+                 "vision_feature_dim", "vision_stride_in_1x1",
+                 "num_img_regional_features", "include_full_img_features",
+                 "bypass_transformer", "visual_feat_dim")
 
 
 def load_model_for_eval(cfg, path: Optional[str], device, vision_cfg=None,

@@ -128,14 +128,20 @@ class SortEvaluator:
         `images`), in micro-batches on the evaluator's device."""
 
         def fn(chunk):
-            t = {k: torch.from_numpy(v).to(self.device, torch.long)
-                 for k, v in chunk.items() if k != "images"}
+            t = {k: torch.from_numpy(chunk[k]).to(self.device, torch.long)
+                 for k in ("input_ids", "attention_mask", "token_type_ids")}
             imgs = chunk.get("images")
             if imgs is not None:
                 imgs = torch.from_numpy(imgs).to(self.device)
+            kw = {}
+            if "img_regional_features" in chunk:
+                kw["img_regional_features"] = torch.from_numpy(
+                    chunk["img_regional_features"]).to(self.device,
+                                                       torch.float32)
             with torch.inference_mode():
                 out = model(t["input_ids"], t["attention_mask"],
-                            t["token_type_ids"], images=imgs, aux=False)
+                            t["token_type_ids"], images=imgs, aux=False,
+                            **kw)
             self.forwards += 1
             return out[want]
 
@@ -143,15 +149,19 @@ class SortEvaluator:
 
     def story_logits(self, model, stories: List[List[str]],
                      images: Optional[np.ndarray] = None,
-                     want: str = "logits") -> np.ndarray:
+                     want: str = "logits",
+                     regional: Optional[np.ndarray] = None) -> np.ndarray:
         """Whole-story forward; returns each story's `want` output (a v0
         model's `logits`, a heat-map model's (N, N) `heatmap`). `images`:
         the stories' step images, (B, N, H, W, 3) uint8 or (B, N, 3, H, W)
-        f32, for a multimodal model."""
+        f32, for a multimodal model; `regional` their ROI sidecar batch
+        (B, N, R, C), or the (B, 1) sentinel, for a VisualBERT model."""
         feed = _feed([self.packer.pack_story(t, self.cfg.max_seq_length)
                       for t in stories])
         if images is not None:
             feed["images"] = images
+        if regional is not None:
+            feed["img_regional_features"] = regional
         return self._apply(model, feed, want)
 
     def story_generate(self, model, stories: List[List[str]]):
@@ -203,27 +213,33 @@ class SortEvaluator:
         return preds
 
     def pair_logit_matrix(self, model, stories: List[List[str]],
-                          images: Optional[np.ndarray] = None):
+                          images: Optional[np.ndarray] = None,
+                          regional: Optional[np.ndarray] = None):
         """A v0 model's logits of every ordered step pair (i, j), i != j, of
         each story: ((B, N, N) raw 'ordered' logits, (B, N, N, 2) the first
         two logits), the diagonals 0. Each pair is packed alone to
-        `pair_len` tokens (with its two steps' images)."""
+        `pair_len` tokens (with its two steps' images, and their two rows
+        of `regional`, the (B, N, R, C) sidecars)."""
         cfg = self.cfg
         n = cfg.max_story_length
         # a pair needs at most 2 * per_seq_max_length tokens
         pair_len = min(cfg.max_seq_length,
                        -(-2 * cfg.per_seq_max_length // 64) * 64)
-        packs, img_feed = [], []
+        packs, img_feed, reg_feed = [], [], []
         for b, texts in enumerate(stories):
             ii, am, tt, pair_idx = self.packer.pack_all_pairs(texts,
                                                               pair_len)
             packs.append((ii, am, tt))
             if images is not None:
                 img_feed.append(images[b][pair_idx])  # (P, 2, ...)
+            if regional is not None:
+                reg_feed.append(regional[b][pair_idx])  # (P, 2, R, C)
         feed = {k: np.concatenate([p[i] for p in packs]) for i, k in
                 enumerate(("input_ids", "attention_mask", "token_type_ids"))}
         if images is not None:
             feed["images"] = np.concatenate(img_feed)
+        if regional is not None:
+            feed["img_regional_features"] = np.concatenate(reg_feed)
         logits = self._apply(model, feed, "logits").reshape(
             len(stories), len(pair_idx), -1)
         mat = np.zeros((len(stories), n, n), np.float32)
@@ -379,7 +395,11 @@ class SortEvaluator:
             images = batch.get("images")
             if images is not None and valid is not None:
                 images = np.asarray(images)[np.asarray(valid)]
-            preds = self._decode_batch(sort_method, models, stories, images)
+            regional = batch.get("img_regional_features")
+            if regional is not None and valid is not None:
+                regional = np.asarray(regional)[np.asarray(valid)]
+            preds = self._decode_batch(sort_method, models, stories, images,
+                                       regional)
             all_preds.extend(preds)
             all_labels.extend([np.asarray(l) for l in labels])
             all_guids.extend(guids)
@@ -423,17 +443,19 @@ class SortEvaluator:
         return [[int(x) for x in p[:len(texts)]]
                 for p, texts in zip(pred, stories)]
 
-    def _decode_batch(self, sort_method, models, stories, images=None):
+    def _decode_batch(self, sort_method, models, stories, images=None,
+                      regional=None):
         if sort_method == "berson":
             return self.berson_orders(models["berson"], stories, images)
         t0 = time.perf_counter()
         if sort_method == "heat_map":
             hms = self.story_logits(models["heatmap"], stories, images,
-                                    want="heatmap")
+                                    want="heatmap", regional=regional)
             t1 = time.perf_counter()
             preds = self.decode_heatmap(hms)
         elif sort_method == "pure_class":
-            logits = self.story_logits(models["pure_class"], stories, images)
+            logits = self.story_logits(models["pure_class"], stories, images,
+                                       regional=regional)
             t1 = time.perf_counter()
             n = self.cfg.max_story_length
             preds = [permutation_unrank(int(np.argmax(lg)), n)
@@ -445,12 +467,13 @@ class SortEvaluator:
             t1 = time.perf_counter() - beam_s
         elif sort_method == "pure_decode":
             logits = self.story_logits(models["pointer"], stories, images,
-                                       want="pointer_logits")
+                                       want="pointer_logits",
+                                       regional=regional)
             t1 = time.perf_counter()
             preds = self.pointer_argmax(logits)
         elif sort_method in BASELINE_METHODS:
             logits = self._baseline_logits(sort_method, models, stories,
-                                           images)
+                                           images, regional)
             t1 = time.perf_counter()
             preds = self._baseline_orders(sort_method, *logits)
         else:
@@ -459,16 +482,17 @@ class SortEvaluator:
         self.decode_seconds.append(time.perf_counter() - t1)
         return preds
 
-    def _baseline_logits(self, sort_method, models, stories, images):
+    def _baseline_logits(self, sort_method, models, stories, images,
+                         regional=None):
         """The forwards of a pairwise method: (the head model's first steps
         or None, the pairs' 'ordered' logits, their first two logits, the
         abductive cube or None)."""
         head_idx = abd = None
         if sort_method.startswith("head_and"):
-            head_idx = np.argmax(self.story_logits(models["head"], stories,
-                                                   images), axis=-1)
-        pair_logits, pair_2c = self.pair_logit_matrix(models["pairwise"],
-                                                      stories, images)
+            head_idx = np.argmax(self.story_logits(
+                models["head"], stories, images, regional=regional), axis=-1)
+        pair_logits, pair_2c = self.pair_logit_matrix(
+            models["pairwise"], stories, images, regional=regional)
         if (sort_method == "head_and_sequential_abductive"
                 and "abductive" in models):
             abd = self.abductive_logit_cube(models["abductive"], stories)

@@ -11,7 +11,8 @@ own loss, and `pretrain_step` around the pretrainer, whose forward returns
 the loss dict of one planned objective.
 Its dropout streams derive from (seed + 1, step), as the JAX step folds the
 step into `PRNGKey(seed + 1)`. A multimodal batch's `images` go to the
-model as shipped (uint8 or f32); the train-mode forward updates the vision
+model as shipped (uint8 or f32), its ROI sidecars
+(`img_regional_features`) as f32; the train-mode forward updates the vision
 tower's BatchNorm statistics, once a step, before the gradient, as the JAX
 step's `mutable=["batch_stats"]` apply does.
 """
@@ -137,7 +138,7 @@ def _aux_losses(cfg, outputs, batch, order_labels, metrics):
 def device_batch(batch: dict, device) -> Dict[str, torch.Tensor]:
     """The array entries of a collated numpy batch as tensors on `device`
     (ids and labels as int64, `valid` as bool, `images` in their own
-    dtype: uint8 or f32)."""
+    dtype: uint8 or f32, `img_regional_features` as f32)."""
     out = {}
     for k, val in batch.items():
         if k in _HOST_KEYS or not isinstance(val, np.ndarray):
@@ -145,6 +146,8 @@ def device_batch(batch: dict, device) -> Dict[str, torch.Tensor]:
         t = torch.from_numpy(val)
         if k == "images":
             out[k] = t.to(device)
+        elif k == "img_regional_features":
+            out[k] = t.to(device, torch.float32)
         else:
             out[k] = t.to(device, torch.bool if k == "valid" else torch.long)
     return out
@@ -173,7 +176,9 @@ def train_step(model, optimizer, batch: dict, step: int, seed: int
                     deterministic=False,
                     rng=DropoutRng(seed + 1, step, device),
                     order_labels=db["labels"] if model.cfg.hierarchical_version
-                    in ORDER_LABELLED else None)
+                    in ORDER_LABELLED else None,
+                    **({"img_regional_features": db["img_regional_features"]}
+                       if "img_regional_features" in db else {}))
     loss, metrics = compute_loss(model.cfg, outputs, db)
     out = _update(optimizer, loss)
     return {**{k: m.detach() for k, m in metrics.items()}, **out}

@@ -356,13 +356,17 @@ def test_params_from_jax_rejects_a_mismatched_tree(fault):
                                          multimodal_model_type="visualbert"),
                                     dict(hl_include_objectives=["head"])])
 def test_later_slices_raise(change):
-    # the pointer heads and the auxiliary heads are ported and build; the
-    # VisualBERT encoder (ROADMAP A5e) still raises
+    # the pointer heads, the auxiliary heads and (ROADMAP A5e) the
+    # VisualBERT encoder are ported and build
     _, tc = _cfgs()
     cfg = dataclasses.replace(tc, **change)
     if cfg.multimodal:
-        with pytest.raises(NotImplementedError):
-            SequencingModel(cfg)
+        from multimodal_sequencing_tpu_torch.models.visualbert import (
+            VisualBERTEncoder)
+        model = SequencingModel(cfg)
+        assert isinstance(model.encoder, VisualBERTEncoder)
+        assert hasattr(model.encoder, "vision_model")
+        assert model.vision_cfg is None
         return
     model = SequencingModel(cfg)
     assert hasattr(model, "pointer_head") == (

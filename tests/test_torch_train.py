@@ -295,6 +295,17 @@ def test_parser_options_match_jax(kind):
                                   ["--sequence_parallel"],
                                   ["--model_parallel_size", "2"]])
 def test_options_of_later_slices_raise(wikihow_dir, tmp_path, flag):
+    if flag[0] == "--include_num_img_regional_features":
+        # ported (ROADMAP A5e): accepted, into the config and the VisualBERT
+        # encoder's regional projection (no sidecars on disk: the sentinel)
+        res = tcli.main_train(_train_argv(
+            wikihow_dir, tmp_path, "--max_steps", "1", "--multimodal",
+            "--multimodal_model_type", "visualbert", "--vision_model",
+            "resnet18", "--vision_image_size", "32", *flag))
+        assert res.global_step == 1
+        assert res.model.cfg.num_img_regional_features == int(flag[1])
+        assert hasattr(res.model.encoder, "regional_proj")
+        return
     with pytest.raises(NotImplementedError):
         tcli.main_train(_train_argv(wikihow_dir, tmp_path, "--max_steps", "1",
                                     *flag))
