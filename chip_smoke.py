@@ -38,7 +38,18 @@ full-width VisualBERT (sidecars; an FPN tower on the sidecar sentinel),
 naive, BERSON-over-VisualBERT and inline-ROI pretraining models on the
 card against the CPU (outputs, loss terms, gradients, BatchNorm
 statistics, decodes), and `visual_path` runs them at RoBERTa-large through
-`main_train` and `main_pretrain` with exact launch counts. Every output line
+`main_train` and `main_pretrain` with exact launch counts. The parallel
+layer: `parallel_path` runs fine-tune steps at RoBERTa-large under
+`torchrun` (one rank, NCCL) with `--fsdp` and with DDP, held against the
+same steps in one process (losses, gradient norms, launches a step);
+`kernel_check` holds the flash kernels at a tensor-parallel rank's local
+shapes (8 of 16 heads) with the keep bits of a global (batch, head) index,
+and the LayerNorm at a sequence-parallel rank's rows. `tools_path` runs
+both feature extractors on the card (the CLIP RN50 tower at 224 px, the
+ResNet-50-FPN ROI tower at 256 px with K = 10 sidecars), holds a few
+images against the CPU, reads the sidecars back, and checks that a
+`--profile_dir` trace of a train run holds the hand-written kernels by
+name. Every output line
 before the last is one JSON object (plus the raw `nvidia-smi` line and the
 paper-format eval rows); the last line is the contract line
 `{"ok": true, "device": {...}}`, printed only when every phase passed. Without a CUDA device, or without the
@@ -344,6 +355,18 @@ KERNELS = {
     **{f"layer_norm_{d}@{tag}": (
         LN_KERNEL, "multimodal_sequencing_tpu/models/encoder.py:146")
        for d in ("fwd", "bwd") for tag in ("vb", "vb_f32")},
+    # a tensor-parallel rank's attention (TP 2: 8 of the 16 heads) in a
+    # train step of 8 stories and an eval micro-batch, and a
+    # sequence-parallel rank's LayerNorm rows (SP 2: 8 x 160)
+    "flash_fwd@tp_train": ("multimodal_sequencing_tpu_torch/ops/csrc/flash_fwd.cu",
+                           "multimodal_sequencing_tpu/ops/attention.py:126"),
+    "flash_bwd@tp_train": (BWD_KERNEL,
+                           "multimodal_sequencing_tpu/ops/attention.py:343"),
+    "flash_fwd@tp_eval": ("multimodal_sequencing_tpu_torch/ops/csrc/flash_fwd.cu",
+                          "multimodal_sequencing_tpu/ops/attention.py:126"),
+    **{f"layer_norm_{d}@sp": (
+        LN_KERNEL, "multimodal_sequencing_tpu/models/encoder.py:146")
+       for d in ("fwd", "bwd")},
 }
 # (B, H, S, D) of the multimodal rows: joint train (batch 8), joint eval
 # (micro-batch 32), attention pool of a train batch (8 stories)
@@ -390,19 +413,26 @@ MM_SHAPES = {"joint": (8, 16, MM_JOINT_S, 64),
              "vb_eval": (32, 16, VB_S, 64),
              "naive_train": (8, 16, NAIVE_S, 64),
              "vb_berson": (BERSON_P, 16, VB_BERSON_S, 64),
-             "vb_pretrain": (4, 16, VB_PRETRAIN_S, 64)}
+             "vb_pretrain": (4, 16, VB_PRETRAIN_S, 64),
+             # a tensor-parallel rank (TP 2) of the text path: its 8 heads
+             # of a train step and of an eval micro-batch
+             "tp_train": (8, 8, 320, 64),
+             "tp_eval": (32, 8, 320, 64)}
+# the global (batch offset, head offset, heads) of the tensor-parallel
+# calls' keep bits: data rank 1 and model rank 1 of a 2 x 2 layout
+MM_INDEX = {"tp_train": (8, 8, 16), "tp_eval": (32, 8, 16)}
 # the live steps of each story in `pair_eval`
 PAIR_EVAL_STEPS = tuple(5 if a % 3 else 3 + a % 2 for a in range(16))
 # the calls of an eval forward: forward only
 EVAL_ONLY = ("joint_eval", "pair_eval", "pretrain_eval", "pretrain_eval_pool",
              "pretrain_text_eval", "pretrain_img_eval", "v0_pair_eval",
-             "v0_cube_eval", "rq_pretrain_eval", "vb_eval")
+             "v0_cube_eval", "rq_pretrain_eval", "vb_eval", "tp_eval")
 # the calls a train step makes with attention dropout
 PATH_DROPOUT = ("joint", "pair", "pair_joint", "pretrain_joint",
                 "pretrain_img", "pretrain_text", "pretrain_margin",
                 "pretrain_ft", "v0_pair_train", "rq_pair_joint",
                 "rq_pretrain_joint", "vb_train", "naive_train", "vb_berson",
-                "vb_pretrain")
+                "vb_pretrain", "tp_train")
 # the kernels each main path must launch
 PATH_KERNELS = {"eval": ("flash_fwd", "gelu_logit_erf_fwd", "layer_norm_fwd"),
                 "train": ("flash_fwd", "flash_bwd_prep", "flash_bwd_main",
@@ -452,7 +482,13 @@ PATH_KERNELS.update(hf_train=PATH_KERNELS["train"],
                     naive_train=PATH_KERNELS["train"],
                     vb_berson_train=PATH_KERNELS["train"],
                     vb_berson_eval=PATH_KERNELS["eval"],
-                    vb_pretrain=PATH_KERNELS["train"])
+                    vb_pretrain=PATH_KERNELS["train"],
+                    # the parallel runs (`phase_parallel_path`) and the
+                    # profiled run (`phase_tools_path`)
+                    parallel_one=PATH_KERNELS["train"],
+                    parallel_ddp=PATH_KERNELS["train"],
+                    parallel_fsdp=PATH_KERNELS["train"],
+                    tools_profile=PATH_KERNELS["train"])
 # the launch counter behind each row of the `kernels` line, where it is
 # not the row's own name
 COUNTER = {"flash_bwd": "flash_bwd_main", "flash_bwd_dq": "flash_bwd_main",
@@ -470,6 +506,10 @@ COUNTER = {"flash_bwd": "flash_bwd_main", "flash_bwd_dq": "flash_bwd_main",
            "flash_bwd@pair": "flash_bwd_main",
            "flash_bwd@pair_joint": "flash_bwd_main",
            "flash_bwd@pair_pool": "flash_bwd_main",
+           "flash_fwd@tp_train": "flash_fwd", "flash_fwd@tp_eval": "flash_fwd",
+           "flash_bwd@tp_train": "flash_bwd_main",
+           "layer_norm_fwd@sp": "layer_norm_fwd",
+           "layer_norm_bwd@sp": "layer_norm_bwd",
            **{name: name.split("@")[0].replace("flash_bwd", "flash_bwd_main")
               for name in KERNELS if "@pretrain_" in name or "@v0_" in name
               or "@rq_" in name or "@bert_base" in name or "@vb" in name
@@ -523,6 +563,12 @@ ROW_PATH = {"flash_fwd@joint": "mm_train", "flash_fwd@joint_eval": "mm_eval",
             "flash_bwd@vb_berson": "vb_berson_train",
             "flash_fwd@vb_pretrain": "vb_pretrain",
             "flash_bwd@vb_pretrain": "vb_pretrain",
+            # the card runs one rank: its FSDP steps launch the kernels at
+            # the single process's shapes (every shape counted together)
+            **{k: "parallel_fsdp" for k in (
+                "flash_fwd@tp_train", "flash_bwd@tp_train",
+                "flash_fwd@tp_eval", "layer_norm_fwd@sp",
+                "layer_norm_bwd@sp")},
             **{f"{k}@{tag}": "vb_train" for k in (
                 "gelu_logit_erf_fwd", "gelu_logit_erf_bwd", "layer_norm_fwd",
                 "layer_norm_bwd") for tag in ("vb", "vb_f32")
@@ -535,10 +581,12 @@ F32_BWD = ("flash_bwd_dq_f32", "flash_bwd_dkv_f32")
 # pretraining one's (4 x 219), then the finetune one's (20 pairs x 219),
 # whose rows the kernels line shows
 RQ_ROWS = BERSON_P * BERSON_MM_S
+SP_ROWS = 8 * 320 // 2  # a train step's rows on one of two SP ranks
 LN_SHAPES = [(32 * 320, 1024, 0.0), (8 * 320, 1024, 0.0), (8 * 320, 1024, 3.0),
              (7, 64, 0.0), (37, 1000, 0.0),  # 1000: not whole 16-byte vectors
              (8 * VB_S, 1024, 0.0),  # VisualBERT's train step (f32 too)
-             (4 * BERSON_MM_S, 768, 0.0), (RQ_ROWS, 768, 0.0)]
+             (4 * BERSON_MM_S, 768, 0.0), (RQ_ROWS, 768, 0.0),
+             (SP_ROWS, 1024, 0.0)]  # a sequence-parallel rank (SP 2)
 # |got - want| <= atol + rtol * |want| (dw, db: atol relative to the largest
 # entry). f32: the same formula, f32 sums in another order; bf16: one bf16
 # ulp of the output, and dx is rounded from f32 in both.
@@ -756,20 +804,28 @@ MM_KERNEL_CASES = [("joint", DROPOUT_P), ("joint", 0.0),
                    ("rq_pretrain_eval", 0.0), ("vb_train", DROPOUT_P),
                    ("vb_train", 0.0), ("vb_eval", 0.0),
                    ("naive_train", DROPOUT_P), ("vb_berson", DROPOUT_P),
-                   ("vb_berson", 0.0), ("vb_pretrain", DROPOUT_P)]
+                   ("vb_berson", 0.0), ("vb_pretrain", DROPOUT_P),
+                   ("tp_train", DROPOUT_P), ("tp_train", 0.0),
+                   ("tp_eval", 0.0)]
 
 
-def _attention_check(att, q, k, v, mask, p, seed, labels, backward=True):
+def _attention_check(att, q, k, v, mask, p, seed, labels, backward=True,
+                     index=None):
     """One forward (and backward) of the flash kernels against the plain
     versions under TOLERANCE and BWD_TOLERANCE; bwd inputs are the kernel
-    forward's O and lse and a random dO laid out as q. Returns the forward
-    row, the backward row (None without `backward`) and the failures."""
+    forward's O and lse and a random dO laid out as q. `index`: the heads'
+    global (batch offset, head offset, heads) of the keep bits. Returns the
+    forward row, the backward row (None without `backward`) and the
+    failures."""
     import torch
     name = str(q.dtype).split(".")[-1]
     failed = []
-    o, lse = att.flash_attention(q, k, v, mask, p, seed + 17)
+    if index is not None:
+        labels = {**labels, "global_bh_index": list(index)}
+    o, lse = att.flash_attention(q, k, v, mask, p, seed + 17, index)
     torch.cuda.synchronize()
-    o_ref, lse_ref = att.attention_reference_lse(q, k, v, mask, p, seed + 17)
+    o_ref, lse_ref = att.attention_reference_lse(q, k, v, mask, p, seed + 17,
+                                                 index)
     atol, rtol = TOLERANCE[name]
     ok = all(bool(((got.float() - want.float()).abs()
                    <= atol + r * want.float().abs()).all())
@@ -796,10 +852,11 @@ def _attention_check(att, q, k, v, mask, p, seed, labels, backward=True):
 
     gen = torch.Generator(device="cpu").manual_seed(seed + 1)
     do = torch.empty_like(q).copy_(torch.randn(q.shape, generator=gen))
-    got = att.flash_attention_bwd(q, k, v, mask, o, lse, do, p, seed + 17)
+    got = att.flash_attention_bwd(q, k, v, mask, o, lse, do, p, seed + 17,
+                                  index)
     torch.cuda.synchronize()
     want = att.attention_bwd_reference(q, k, v, mask, o, lse, do, p,
-                                       seed + 17)
+                                       seed + 17, index)
     btol, brtol = BWD_TOLERANCE[name]
     bwd = {"phase": "kernel_check", "kernel": "flash_bwd", **labels,
            "shape_bhsd": list(q.shape), "dtype": name, "dropout_p": p,
@@ -821,7 +878,7 @@ def _attention_check(att, q, k, v, mask, p, seed, labels, backward=True):
             ("masked_row", labels, tuple(q.shape), name, p)]
     if name == "bfloat16":
         bwd.update(_bwd_bf16_checks(att, q, k, v, mask, o, lse, do, p,
-                                    seed + 17, got))
+                                    seed + 17, got, index))
         failed += [] if bwd["dk_dv_bit_equal_on_rerun"] else [
             ("bwd_determinism", labels, tuple(q.shape), p)]
         failed += [] if bwd["ok_prep"] and bwd["ok_post"] else [
@@ -857,7 +914,7 @@ def phase_kernel_check(seed: int, errs: dict):
             q, k, v, mask = make_path_attention_inputs(name, dtype, seed)
             fwd, bwd, bad = _attention_check(
                 att, q, k, v, mask, p, seed, {"path_call": name},
-                backward=name not in EVAL_ONLY)
+                backward=name not in EVAL_ONLY, index=MM_INDEX.get(name))
             failed += bad
             # the kernels line's rows: each call's bf16 case at its own
             # dropout rate (the calls of a train step: 0.1)
@@ -881,7 +938,8 @@ def phase_kernel_check(seed: int, errs: dict):
 PREP_TOLERANCE = 1e-5
 
 
-def _bwd_bf16_checks(att, q, k, v, mask, o, lse, do, p, seed, got):
+def _bwd_bf16_checks(att, q, k, v, mask, o, lse, do, p, seed, got,
+                     index=None):
     """The bf16 backward's pre-pass and post-pass against their plain
     versions, and a rerun on equal inputs: dk and dv must be bit-equal (a
     fixed order of sums); dq may differ at f32 rounding before its bf16
@@ -897,7 +955,8 @@ def _bwd_bf16_checks(att, q, k, v, mask, o, lse, do, p, seed, got):
     acc.normal_()
     dq = att.flash_bwd_post(acc, q)
     want_dq = att.attention_bwd_post_reference(acc, q)
-    again = att.flash_attention_bwd(q, k, v, mask, o, lse, do, p, seed)
+    again = att.flash_attention_bwd(q, k, v, mask, o, lse, do, p, seed,
+                                    index)
     return {"max_abs_err_delta": err_delta.max().item(), "ok_prep": ok_prep,
             "max_abs_err_post": _max_err(dq, want_dq),
             "ok_post": torch.equal(dq, want_dq),
@@ -988,9 +1047,12 @@ def _layer_norm_check(seed: int, errs: dict):
             if rows == LN_SHAPES[1][0]:
                 errs["layer_norm_fwd"] = row["max_abs_err_y"]
                 errs["layer_norm_bwd"] = row["max_abs_err_dx"]
-            if (rows, n) == LN_SHAPES[-1][:2]:
+            if (rows, n) == (RQ_ROWS, 768):
                 errs["layer_norm_fwd@bert_base"] = row["max_abs_err_y"]
                 errs["layer_norm_bwd@bert_base"] = row["max_abs_err_dx"]
+            if (rows, n) == (SP_ROWS, 1024):
+                errs["layer_norm_fwd@sp"] = row["max_abs_err_y"]
+                errs["layer_norm_bwd@sp"] = row["max_abs_err_dx"]
             if rows == LN_SHAPES[0][0]:
                 errs["layer_norm_fwd@eval"] = row["max_abs_err_y"]
     failed += _layer_norm_shared_stats(seed)
@@ -1163,6 +1225,24 @@ def phase_bits_check(seed: int, errs: dict):
         if not ok:
             raise AssertionError(f"keep bits at {(bs, hs, ss)}")
         errs["keep_bits_dump" if ss == s else "keep_bits_dump@verify"] = float(mism)
+    # a data- and tensor-parallel rank's slice: the heads at a non-zero
+    # batch and head offset draw the whole batch's bits of those heads
+    for bs, hs, index in ((4, 8, (4, 8, 16)), (3, 2, (5, 1, 3))):
+        fwd = att.dump_keep_bits("fwd", seed, bs, hs, s, DROPOUT_P,
+                                 index=index)
+        dkv = att.dump_keep_bits("dkv", seed, bs, hs, s, DROPOUT_P,
+                                 index=index)
+        plain = att.keep_bits(seed, bs, hs, s, DROPOUT_P, "cuda", index)
+        b_off, h_off, h_tot = index
+        whole = att.keep_bits(seed, b_off + bs, h_tot, s, DROPOUT_P, "cuda")[
+            b_off:, h_off:h_off + hs]
+        mism = int((fwd != plain).sum().item() + (dkv != plain).sum().item()
+                   + (plain != whole).sum().item())
+        emit({"phase": "bits_check", "shape_bhs": [bs, hs, s],
+              "global_bh_index": list(index), "mismatches": mism,
+              "ok": mism == 0})
+        if mism:
+            raise AssertionError(f"keep bits at global index {index}")
     res = verify_dropout_bits.verify(device="cuda")
     emit({"phase": "bits_check", "verify_dropout_bits": res})
 
@@ -1434,7 +1514,7 @@ def phase_timing(seed: int):
     rows["layer_norm_bwd"]["library_ratio"] = (
         rows["layer_norm_bwd"]["ms"] / rows["layer_norm_bwd"]["library_ms"])
     # both directions at bert-base width on the RecipeQA launcher's rows
-    rows_, n_ = LN_SHAPES[-1][:2]
+    rows_, n_ = RQ_ROWS, 768
     xb = torch.randn(rows_, n_, generator=gen).to("cuda", torch.bfloat16)
     dyb = torch.randn(rows_, n_, generator=gen).to("cuda", torch.bfloat16)
     wn, bn_ = torch.ones(n_, device="cuda"), torch.zeros(n_, device="cuda")
@@ -1467,6 +1547,8 @@ def phase_timing(seed: int):
     # (the first layer's attention_ln over the promoted f32 stream)
     for tag, dt in (("vb", torch.bfloat16), ("vb_f32", torch.float32)):
         rows.update(_ln_timing_rows(tag, 8 * VB_S, 1024, dt, gen))
+    # both directions on a sequence-parallel rank's rows
+    rows.update(_ln_timing_rows("sp", SP_ROWS, 1024, torch.bfloat16, gen))
 
     # the multimodal path's calls (`make_path_attention_inputs`; their
     # errors are held in kernel_check); an eval micro-batch has no dropout
@@ -5569,25 +5651,299 @@ def _visual_pretrain(seed, work, lengths):
     return {"vb_pretrain": counts}
 
 
+# ----- the parallel layer and the tools ---------------------------------------
+
+PARALLEL_STEPS = 3   # parallel_path: main_train steps of 8 stories
+# the wrapped runs against the single process: the same bf16 arithmetic on
+# one rank, but a step is not bit-reproducible (the atomic adds of the
+# embedding gradient and of the flash backward's dq), so each wrapped run's
+# largest relative difference must be within PARALLEL_SPREAD_X times that
+# of two unwrapped runs, or within PARALLEL_FLOOR, ~1.5x and ~3x the
+# largest such spreads seen (1.3e-3 in the third loss, 1.7e-4 in a
+# gradient norm; two runs' spread alone is a noisy estimate, as low as
+# 5.9e-5); the first two losses, before any weight moves (the first
+# update's learning rate is 0), must be equal
+PARALLEL_SPREAD_X = 4.0
+PARALLEL_FLOOR = {"loss_rel": 2e-3, "grad_norm_rel": 5e-4}
+PARALLEL_TIMEOUT_S = 600
+TOOLS_STORIES = 4    # tools_path: 4 stories of 5 step images
+TOOLS_K = 10         # ROI sidecars an image
+TOOLS_CPU_IMAGES = 2  # held against the CPU port in f32
+TOOLS_CPU_TOL = 1e-4  # of the largest feature (MM_TOWER_TOL's limit)
+PROFILE_STEPS = 5    # the --profile_dir run: its window is steps 2-4
+# the kernels a --profile_dir trace must hold by name (KERNEL_CLASSES)
+PROFILE_KERNELS = ("flash_fwd", "flash_bwd_", "layer_norm_fwd",
+                   "layer_norm_bwd", "gelu_kernel")
+
+
+def _parallel_argv(data_dir, out_dir, seed, *extra):
+    return ["--model_name_or_path", "simple", "--model_size", "large",
+            "--replace_token_type_embeddings", "--do_train",
+            "--task_name", "wikihow_hl_v1", "--hierarchical_version", "v1",
+            "--data_dir", data_dir, "--max_seq_length", "320",
+            "--per_seq_max_length", "60", "--per_gpu_train_batch_size", "8",
+            "--learning_rate", "1e-5", "--warmup_steps", "1",
+            "--max_steps", str(PARALLEL_STEPS), "--logging_steps", "1",
+            "--save_steps", "0", "--seed", str(seed),
+            "--output_dir", out_dir, "--overwrite_output_dir",
+            "--device", "cuda", *extra]
+
+
+def _parallel_run(argv):
+    """One main_train run whose saves are recorded, not written: its
+    losses, gradient norms, kernel launches, median step after the first
+    and peak memory."""
+    import torch
+    from multimodal_sequencing_tpu_torch.train.cli import main_train
+    calls = []
+    torch.cuda.reset_peak_memory_stats()
+    with _saves_not_written(calls):
+        _reset_counts()
+        res = main_train(argv)
+        counts = _read_counts()
+    times = [res.start_time] + [h["time"] for h in res.history]
+    return res, {"losses": [h["loss"] for h in res.history],
+                 "grad_norms": [h["grad_norm"] for h in res.history],
+                 "steps": res.global_step, "launches": counts,
+                 "median_step_s": _median_after_first(
+                     [b - a for a, b in zip(times, times[1:])]),
+                 "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+                 "saves_recorded": len(calls)}
+
+
+def parallel_worker(data_dir: str, out: str, seed: int) -> int:
+    """The `torchrun` side of `parallel_path`: the same fine-tune run with
+    DDP and with --fsdp on this rank's card, written to `out` as JSON."""
+    import torch
+    import torch.distributed as dist
+    from multimodal_sequencing_tpu_torch.parallel.sharding_rules import (
+        parallel_of)
+    results = {}
+    for mode, extra in (("ddp", ()), ("fsdp", ("--fsdp",))):
+        res, row = _parallel_run(_parallel_argv(
+            data_dir, os.path.join(os.path.dirname(out), mode), seed,
+            *extra))
+        par = parallel_of(res.model)
+        row.update(
+            backend=dist.get_backend(), world_size=dist.get_world_size(),
+            train_module=type(par.train_module).__name__,
+            params_sharded=sum(1 for _, p in res.model.named_parameters()
+                               if hasattr(p, "_local_tensor")),
+            params_ignored=len(par.ignored))
+        results[mode] = row
+        del res, par
+        torch.cuda.empty_cache()
+    if dist.get_rank() == 0:
+        with open(out, "w") as f:
+            json.dump(results, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _rel(got, want):
+    return max(abs(g - w) / max(abs(w), 1e-30) for g, w in zip(got, want))
+
+
+def phase_parallel_path(seed: int, work: str):
+    """Fine-tune steps at RoBERTa-large under `torchrun --nproc_per_node 1`
+    on NCCL, with DDP and with FSDP2 (`--fsdp`), against the same steps in
+    this process, unwrapped (run twice for its own spread): the first two
+    losses equal, the rest and the gradient norms within the limits of
+    PARALLEL_SPREAD_X and PARALLEL_FLOOR, and the same kernel launches a
+    step."""
+    data_dir = os.path.join(work, "parallel_data")
+    os.makedirs(data_dir, exist_ok=True)
+    write_wikihow(data_dir, "train", 8 * PARALLEL_STEPS, seed)
+    _, one = _parallel_run(_parallel_argv(
+        data_dir, os.path.join(work, "parallel_one"), seed))
+    _, again = _parallel_run(_parallel_argv(
+        data_dir, os.path.join(work, "parallel_again"), seed))
+    spread = {"loss_rel": _rel(again["losses"], one["losses"]),
+              "grad_norm_rel": _rel(again["grad_norms"], one["grad_norms"])}
+    limit = {k: max(PARALLEL_SPREAD_X * v, PARALLEL_FLOOR[k])
+             for k, v in spread.items()}
+    out = os.path.join(work, "parallel.json")
+    import torch
+    torch.cuda.empty_cache()  # the card's memory for the torchrun rank
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", os.path.abspath(__file__),
+           "--parallel_worker", data_dir, out, str(seed)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=PARALLEL_TIMEOUT_S)
+    torchrun_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)
+        raise AssertionError(f"torchrun exited with {proc.returncode}")
+    with open(out) as f:
+        runs = json.load(f)
+    summary = {"phase": "parallel_path", "unwrapped": one,
+               "unwrapped_again": again, "spread": spread, "limit": limit,
+               "torchrun_s": torchrun_s}
+    ok = (one["steps"] == PARALLEL_STEPS
+          and all(math.isfinite(x) for x in one["losses"]))
+    for mode, row in runs.items():
+        row["loss_rel_err"] = _rel(row["losses"], one["losses"])
+        row["grad_norm_rel_err"] = _rel(row["grad_norms"], one["grad_norms"])
+        row["launches_per_step_equal"] = all(
+            row["launches"][k] * one["steps"] == one["launches"][k]
+            * row["steps"] for k in one["launches"])
+        ok = ok and (row["steps"] == PARALLEL_STEPS
+                     and row["backend"] == "nccl"
+                     and row["losses"][:2] == one["losses"][:2]
+                     and row["loss_rel_err"] <= limit["loss_rel"]
+                     and row["grad_norm_rel_err"] <= limit["grad_norm_rel"]
+                     and row["launches_per_step_equal"])
+        summary[mode] = row
+    ok = ok and (runs["ddp"]["train_module"] == "DistributedDataParallel"
+                 and runs["fsdp"]["params_sharded"] > 0)
+    summary["ok"] = ok
+    emit(summary)
+    if not ok:
+        raise AssertionError(f"parallel path check failed: {summary}")
+    return {"parallel_one": one["launches"],
+            **{f"parallel_{m}": r["launches"] for m, r in runs.items()}}
+
+
+def _trace_kernel_names(path: str) -> set:
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+
+
+def phase_tools_path(seed: int, work: str):
+    """The feature extractors on the card over a synthetic WikiHow split
+    (the CLIP RN50 tower at 224 px; the ResNet-50-FPN ROI tower at 256 px,
+    K = 10), a few images against the CPU port in f32, the sidecars read
+    back by `load_maskrcnn_sidecar`; then a `--profile_dir` train run whose
+    trace must hold the hand-written kernels by name."""
+    import numpy as np
+    import torch
+    from multimodal_sequencing_tpu_torch.data.images import (
+        load_maskrcnn_sidecar)
+    from multimodal_sequencing_tpu_torch.tools import (
+        extract_img_features as img_tool, extract_roi_features as roi_tool)
+    from multimodal_sequencing_tpu_torch.utils.profiling import TRACE_NAME
+    data_dir = os.path.join(work, "tools_data")
+    os.makedirs(data_dir, exist_ok=True)
+    write_wikihow(data_dir, "train", TOOLS_STORIES, seed, images=True)
+    paths = img_tool.collect_story_image_paths(data_dir, "wikihow", "train")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = img_tool.extract_features(paths, "RN50", (224, 224), 32,
+                                      device="cuda", seed=seed)
+    torch.cuda.synchronize()
+    feat_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n = roi_tool.extract_roi_sidecars(paths, TOOLS_K, "resnet50", (256, 256),
+                                      16, seed, device="cuda")
+    torch.cuda.synchronize()
+    roi_s = time.perf_counter() - t0
+    sidecars = {p: np.load(os.path.splitext(p)[0] + "_maskrcnn.npy",
+                           allow_pickle=True).item() for p in paths}
+    read_back = all(
+        load_maskrcnn_sidecar(p, TOOLS_K).shape == (TOOLS_K, 2048)
+        and np.array_equal(load_maskrcnn_sidecar(p, TOOLS_K),
+                           sidecars[p]["features"][:TOOLS_K])
+        for p in paths)
+    finite = all(np.isfinite(f).all() for f in feats.values()) and all(
+        np.isfinite(v).all() for d in sidecars.values() for v in d.values())
+    # a few images on the CPU in f32, the same weights (drawn from the seed
+    # on the CPU)
+    few = paths[:TOOLS_CPU_IMAGES]
+    cpu_feats = img_tool.extract_features(few, "RN50", (224, 224), 32,
+                                          device="cpu", seed=seed)
+    feat_err = max(_rel_to_max_np(feats[p], cpu_feats[p]) for p in few)
+    tower = roi_tool.build_roi_extractor(TOOLS_K, "resnet50", (256, 256),
+                                         seed)
+    cpu_dir = os.path.join(work, "tools_cpu")
+    os.makedirs(cpu_dir, exist_ok=True)
+    cpu_paths = []
+    for p in few:
+        q = os.path.join(cpu_dir, os.path.basename(p))
+        with open(p, "rb") as src, open(q, "wb") as dst:
+            dst.write(src.read())
+        cpu_paths.append(q)
+    roi_tool.extract_roi_sidecars(cpu_paths, TOOLS_K, "resnet50", (256, 256),
+                                  16, seed, tower=tower)
+    score_err, roi_err, rows_same_box = 0.0, 0.0, 0
+    for p, q in zip(few, cpu_paths):
+        card = sidecars[p]
+        cpu = np.load(os.path.splitext(q)[0] + "_maskrcnn.npy",
+                      allow_pickle=True).item()
+        score_err = max(score_err, _rel_to_max_np(card["scores"],
+                                                  cpu["scores"]))
+        # the features of the proposals both chose (a near-tie of scores
+        # may pick another box)
+        same = np.all(card["boxes"] == cpu["boxes"], axis=-1)
+        rows_same_box += int(same.sum())
+        if same.any():
+            roi_err = max(roi_err, _rel_to_max_np(card["features"][same],
+                                                  cpu["features"][same]))
+    # --profile_dir through the train CLI at RoBERTa-large
+    trace_dir = os.path.join(work, "trace")
+    _, prof = _parallel_run([
+        *_parallel_argv(data_dir, os.path.join(work, "profile_out"), seed),
+        "--max_steps", str(PROFILE_STEPS), "--profile_dir", trace_dir])
+    names = _trace_kernel_names(os.path.join(trace_dir, TRACE_NAME))
+    found = {k: sum(1 for nm in names if k in nm) for k in PROFILE_KERNELS}
+    summary = {"phase": "tools_path", "images": len(paths),
+               "feature_dim": int(next(iter(feats.values())).shape[0]),
+               "extract_s": feat_s, "roi_s": roi_s, "sidecars": n,
+               "sidecars_read_back": read_back, "finite": finite,
+               "cpu_images": len(few),
+               "feature_err_of_max_vs_cpu": feat_err,
+               "roi_score_err_of_max_vs_cpu": score_err,
+               "roi_feature_err_of_max_vs_cpu": roi_err,
+               "roi_rows_same_box": rows_same_box,
+               "tolerance_of_max": TOOLS_CPU_TOL,
+               "profile_steps": prof["steps"],
+               "trace_kernel_names": len(names),
+               "trace_kernels_found": found}
+    ok = (n == len(paths) and read_back and finite
+          and feat_err <= TOOLS_CPU_TOL and score_err <= TOOLS_CPU_TOL
+          and roi_err <= TOOLS_CPU_TOL and rows_same_box > 0
+          and prof["steps"] == PROFILE_STEPS
+          and all(found.values()))
+    summary["ok"] = ok
+    emit(summary)
+    if not ok:
+        raise AssertionError(f"tools path check failed: {summary}")
+    return {"tools_profile": prof["launches"]}
+
+
+def _rel_to_max_np(got, want) -> float:
+    import numpy as np
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
 PHASES = ("kernel_check", "bits_check", "timing", "main_path", "breakdown",
           "reference", "train_path", "train_breakdown", "train_reference",
           "hf_path", "remat", "mm_check", "mm_reference", "mm_path",
           "mm_breakdown", "berson_reference", "berson_path",
           "pretrain_reference", "pretrain_path", "recipeqa_path",
           "baselines_reference", "baselines_path", "heads_reference",
-          "heads_path", "visual_reference", "visual_path")
+          "heads_path", "visual_reference", "visual_path", "parallel_path",
+          "tools_path")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", nargs="+", choices=PHASES, default=list(PHASES))
+    ap.add_argument("--parallel_worker", nargs=3,
+                    metavar=("DATA_DIR", "OUT", "SEED"),
+                    help="the torchrun side of parallel_path")
     args = ap.parse_args(argv)
 
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.parallel_worker:
+        data_dir, out, seed = args.parallel_worker
+        return parallel_worker(data_dir, out, int(seed))
     from multimodal_sequencing_tpu_torch.ops import _build
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5640,6 +5996,10 @@ def main(argv=None) -> int:
             "visual_reference": lambda: phase_visual_reference(args.seed),
             "visual_path": lambda: launches.update(
                 phase_visual_path(args.seed, work)),
+            "parallel_path": lambda: launches.update(
+                phase_parallel_path(args.seed, work)),
+            "tools_path": lambda: launches.update(
+                phase_tools_path(args.seed, work)),
         }
         for name in args.phases:
             t0 = time.perf_counter()

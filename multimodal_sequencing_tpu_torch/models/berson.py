@@ -45,6 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..data.packing import berson_pairs
+from ..parallel.mesh import global_count, global_mean
 from .config import CLIPVisionConfig, MultimodalConfig
 from .encoder import (Dense, DropoutRng, LayerNorm, TextEncoder, check_rng,
                       dropout)
@@ -389,11 +390,11 @@ class BersonOrdering(nn.Module):
 
         valid = batch.get("valid")
 
-        def mean(x):
+        def mean(x):  # in a data-parallel step, this rank's share
             if valid is None:
-                return x.mean()
+                return global_mean(x)
             v = valid.float()
-            return (x * v).sum() / torch.clamp(v.sum(), min=1)
+            return (x * v).sum() / torch.clamp(global_count(v.sum()), min=1)
 
         pointer_loss, pairwise_loss = mean(pointer_loss), mean(
             pair_ce(enc["cls_score"]))

@@ -45,6 +45,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import data_all_reduce, data_size
 from .config import CLIPVisionConfig
 from .encoder import Dense, LayerNorm
 from ..ops.attention import multihead_attention
@@ -77,7 +78,9 @@ class BatchNorm(nn.Module):
     channels of an NCHW tensor (`weight`/`bias` are Flax's `scale`/`bias`,
     `running_mean`/`running_var` its `batch_stats` `mean`/`var`).
     `deterministic=False` normalizes by the batch statistics and updates
-    the running averages once per call."""
+    the running averages once per call; in a data-parallel step the
+    statistics are the global batch's (the sum and the sum of squares
+    all-reduced over the data group, differentiably)."""
 
     def __init__(self, features: int, dtype: torch.dtype = torch.float32,
                  momentum: float = 0.9, eps: float = 1e-5):
@@ -97,9 +100,16 @@ class BatchNorm(nn.Module):
         if deterministic:
             mean, var = self.running_mean, self.running_var
         else:
-            mean = xf.mean((0, 2, 3))
-            var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean,
-                              min=0.0)
+            if data_size() == 1:
+                mean = xf.mean((0, 2, 3))
+                var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean,
+                                  min=0.0)
+            else:
+                n = xf.numel() // xf.shape[1] * data_size()
+                sums = data_all_reduce(torch.stack(
+                    [xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3))]))
+                mean = sums[0] / n
+                var = torch.clamp(sums[1] / n - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean

@@ -22,6 +22,19 @@ difference to the JAX package: at S < 512 the JAX encoder trains through its
 XLA probs path with JAX's random bits, the port through its kernels with the
 hash bits at every S, so the masks never match; parity runs at dropout 0.
 
+Under tensor parallelism (`parallel/sharding_rules.py::parallelize`) a
+layer holds its rank's heads and MLP columns and its `tp` (a
+`parallel/mesh.py::ModelGroup`): the attention runs at the local head
+count, the row-split products are reduced over the model group, and with
+`sequence_parallel` the residual, dropout and LayerNorm regions after
+`attention_ln` and `output_ln` run on the rank's S / model_size tokens, as
+the JAX layer places its `seq_shard` constraints. A layer takes and
+returns the whole sequence, so any stack of them runs unchanged. Every
+dropout mask and attention keep bit is the one the single-process step
+over the global batch draws for that element (`dropout`, the attention's
+global head index), so tensor-parallel replicas agree and data-parallel
+ranks differ.
+
 `EncoderConfig.remat` recomputes each layer in the backward
 (`torch.utils.checkpoint`) instead of keeping its activations. The
 recompute replays the layer's randomness: it draws from a copy of the
@@ -44,6 +57,7 @@ from .config import EncoderConfig
 from ..ops.attention import multihead_attention
 from ..ops.gelu import gelu
 from ..ops.layer_norm import layer_norm
+from ..parallel.mesh import row_slice
 
 
 class DropoutRng:
@@ -91,13 +105,29 @@ def fold_in(seed: int, step: int) -> int:
     return (x ^ (x >> 31)) >> 1
 
 
-def dropout(x: torch.Tensor, p: float, rng: Optional[DropoutRng]):
+def dropout(x: torch.Tensor, p: float, rng: Optional[DropoutRng],
+            seq: Optional[Tuple[int, int]] = None):
     """Flax `nn.Dropout`: where(keep, x / (1 - p), 0), mask from `rng`;
-    the identity when `rng` is None (deterministic) or p == 0."""
+    the identity when `rng` is None (deterministic) or p == 0. In a
+    data-parallel step, or on a sequence-parallel chunk (`seq` = (rank,
+    size) of dim 1), the mask is drawn at the global shape and sliced, so
+    each element is kept as in the single-process step."""
     if rng is None or p == 0.0:
         return x
-    keep = torch.empty_like(x).bernoulli_(1.0 - p,
-                                          generator=rng.device).bool()
+    off, rows = row_slice(x.shape[0])
+    if rows == x.shape[0] and seq is None:
+        keep = torch.empty_like(x)
+    else:
+        shape = list(x.shape)
+        shape[0] = rows
+        if seq is not None:
+            shape[1] *= seq[1]
+        keep = x.new_empty(shape)
+    keep = keep.bernoulli_(1.0 - p, generator=rng.device).bool()
+    if keep.shape != x.shape:
+        keep = keep[off:off + x.shape[0]]
+        if seq is not None:
+            keep = keep.narrow(1, seq[0] * x.shape[1], x.shape[1])
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
                                                         device=x.device))
 
@@ -155,6 +185,7 @@ class SelfAttention(nn.Module):
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
         self.cfg = cfg
+        self.tp = None  # a ModelGroup under tensor parallelism
         hs, dt = cfg.hidden_size, cfg.compute_dtype
         self.query = Dense(hs, hs, dt)
         self.key = Dense(hs, hs, dt)
@@ -162,30 +193,58 @@ class SelfAttention(nn.Module):
         self.out = Dense(hs, hs, dt)
 
     def forward(self, hidden: torch.Tensor, mask: torch.Tensor,
-                rng: Optional[DropoutRng] = None) -> torch.Tensor:
-        cfg = self.cfg
+                rng: Optional[DropoutRng] = None,
+                seq_parallel: bool = False) -> torch.Tensor:
+        """The attention block's output before the residual; under
+        `seq_parallel` this rank's sequence chunk of it."""
+        cfg, tp = self.cfg, self.tp
         b, s, _ = hidden.shape
-        h, d = cfg.num_attention_heads, cfg.head_dim
+        x = hidden if tp is None else tp.copy_in(hidden)
+        q, k, v = self.query(x), self.key(x), self.value(x)
+        # the local projection's heads: all of them, or this rank's
+        d = cfg.head_dim
+        h = q.shape[-1] // d
 
-        def split(x):
-            return x.view(b, s, h, d).transpose(1, 2)
+        def split(t):
+            return t.view(b, s, h, d).transpose(1, 2)
 
         p = cfg.attention_probs_dropout_prob
         if rng is None or cfg.attention_dropout_mode != "probs" or p == 0.0:
             p, seed = 0.0, None
         else:
             seed = rng.attention_seed()
-        ctx = multihead_attention(split(self.query(hidden)),
-                                  split(self.key(hidden)),
-                                  split(self.value(hidden)), mask, p, seed)
-        ctx = ctx.transpose(1, 2).reshape(b, s, cfg.hidden_size)
-        return dropout(self.out(ctx), cfg.hidden_dropout_prob, rng)
+        b_off, _ = row_slice(b)
+        index = None
+        if b_off or tp is not None:
+            n_model, m_rank = (1, 0) if tp is None else (tp.size, tp.rank)
+            index = (b_off, m_rank * h, h * n_model)
+        ctx = multihead_attention(split(q), split(k), split(v), mask, p, seed,
+                                  index)
+        ctx = ctx.transpose(1, 2).reshape(b, s, h * d)
+        if tp is None:
+            return dropout(self.out(ctx), cfg.hidden_dropout_prob, rng)
+        out, seq = row_parallel(self.out, ctx, tp, seq_parallel)
+        return dropout(out, cfg.hidden_dropout_prob, rng, seq)
+
+
+def row_parallel(dense: Dense, x: torch.Tensor, tp, seq_parallel: bool):
+    """A row-split product on the model group: this rank's partial product,
+    summed over the group (reduce-scattered over the sequence under
+    `seq_parallel`), plus the bias, which then joins the model group's
+    gradient sum. Returns (output, the `seq` of `dropout`)."""
+    dt = dense.compute_dtype
+    y = F.linear(x.to(dt), dense.weight.to(dt))
+    if seq_parallel:
+        return (tp.reduce_scatter_seq(y) + tp.copy_in(dense.bias).to(dt),
+                (tp.rank, tp.size))
+    return tp.reduce_out(y) + dense.bias.to(dt), None
 
 
 class TransformerLayer(nn.Module):
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
         self.cfg = cfg
+        self.tp = None  # a ModelGroup under tensor parallelism
         hs, eps, dt = cfg.hidden_size, cfg.layer_norm_eps, cfg.compute_dtype
         self.attention = SelfAttention(cfg)
         self.attention_ln = LayerNorm(hs, eps, dt)
@@ -195,10 +254,35 @@ class TransformerLayer(nn.Module):
 
     def forward(self, hidden: torch.Tensor, mask: torch.Tensor,
                 rng: Optional[DropoutRng] = None) -> torch.Tensor:
+        if self.tp is not None:
+            return self._forward_tp(hidden, mask, rng)
         hidden = self.attention_ln(hidden + self.attention(hidden, mask, rng))
         mlp = gelu(self.intermediate(hidden), self.cfg.resolved_gelu_impl)
         mlp = dropout(self.output(mlp), self.cfg.hidden_dropout_prob, rng)
         return self.output_ln(hidden + mlp)
+
+    def _forward_tp(self, hidden, mask, rng):
+        """The layer on the model group (module docstring); the same
+        arithmetic as `forward`."""
+        tp, cfg = self.tp, self.cfg
+        sp = tp.shards_sequence(hidden.shape[1])
+        attn = self.attention(hidden, mask, rng, sp)
+        res = tp.scatter_seq(hidden) if sp else hidden
+        hidden = self._ln(self.attention_ln, res + attn, sp)
+        x = tp.gather_seq(hidden, partial=True) if sp else tp.copy_in(hidden)
+        mlp = gelu(self.intermediate(x), cfg.resolved_gelu_impl)
+        mlp, seq = row_parallel(self.output, mlp, tp, sp)
+        mlp = dropout(mlp, cfg.hidden_dropout_prob, rng, seq)
+        out = self._ln(self.output_ln, hidden + mlp, sp)
+        return tp.gather_seq(out, partial=False) if sp else out
+
+    def _ln(self, ln: LayerNorm, x, sp: bool):
+        """`ln(x)`; on a sequence chunk its parameters' gradients are
+        partial sums, summed over the model group."""
+        if not sp:
+            return ln(x)
+        return layer_norm(x, self.tp.copy_in(ln.weight),
+                          self.tp.copy_in(ln.bias), ln.eps, ln.compute_dtype)
 
 
 class Embeddings(nn.Module):

@@ -49,6 +49,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import NEG_INF
+from ..parallel.mesh import global_count
 from .config import MultimodalConfig
 from .encoder import Dense, DropoutRng, LayerNorm, dropout
 
@@ -138,7 +139,7 @@ class HeatmapHead(nn.Module):
         bce = -(target * torch.log(p) + (1 - target) * torch.log(1 - p))
         pair_valid = present[:, :, None] & present[:, None, :]
         bce = torch.where(pair_valid, bce, torch.zeros_like(bce))
-        return bce.sum() / torch.clamp(pair_valid.sum(), min=1)
+        return bce.sum() / torch.clamp(global_count(pair_valid.sum()), min=1)
 
     @staticmethod
     def pairwise_ranking_loss(heatmap: torch.Tensor, order_labels: torch.Tensor,
@@ -155,7 +156,7 @@ class HeatmapHead(nn.Module):
         valid = (torch.gather(present, 1, src) & torch.gather(present, 1, dst))
         loss = torch.clamp(margin - (pos - neg), min=0.0)
         loss = torch.where(valid, loss, torch.zeros_like(loss))
-        return loss.sum() / torch.clamp(valid.sum(), min=1)
+        return loss.sum() / torch.clamp(global_count(valid.sum()), min=1)
 
 
 class SimpleClassifier(nn.Module):
@@ -376,7 +377,7 @@ class PointerHead(nn.Module):
         nll = -log_softmax(logits).gather(2, order_labels[:, :, None])[..., 0]
         valid = torch.gather(present, 1, order_labels)
         nll = torch.where(valid, nll, torch.zeros_like(nll))
-        return nll.sum() / torch.clamp(valid.sum(), min=1)
+        return nll.sum() / torch.clamp(global_count(valid.sum()), min=1)
 
     @staticmethod
     def decode(logits: torch.Tensor, present: torch.Tensor) -> torch.Tensor:

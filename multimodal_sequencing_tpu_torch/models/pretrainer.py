@@ -47,6 +47,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import (data_all_gather, data_size, global_count,
+                             global_mean)
 from .config import CLIPVisionConfig, MultimodalConfig
 from .encoder import Dense, DropoutRng, LayerNorm, TextEncoder, check_rng
 from .multimodal_encoder import MultimodalEncoder
@@ -194,8 +196,11 @@ class SequencingPretrainer(nn.Module):
                     f"{visn.shape[1]} (grid {enc.vcfg.grid})")
             bidx = torch.arange(visn.shape[0], device=visn.device)[:, None]
             if patch_perm is not None:
-                src = bidx if patch_src is None else patch_src.long()
-                visn = visn[src, patch_perm.long()]
+                # the donors are rows of the global batch: in a
+                # data-parallel step, of every rank's streams
+                src = visn if patch_src is None else data_all_gather(visn)
+                visn = src[bidx if patch_src is None else patch_src.long(),
+                           patch_perm.long()]
             if mask_idx is not None:
                 idx = (bidx.expand(mask_idx.shape), mask_idx.long())
                 mrm_gt = visn[idx]
@@ -226,17 +231,20 @@ class SequencingPretrainer(nn.Module):
             logits = self._head(f"{objective}_mlp")(pooled)
             labels = aux["objective_labels"].long()
             ce = -F.log_softmax(logits, -1).gather(1, labels[:, None])[:, 0]
-            losses[objective] = ce.mean()
+            losses[objective] = global_mean(ce)
             total = total + losses[objective]
 
         elif objective in MARGIN_OBJECTIVES:
-            logit = self._head("margin_loss_mlp")(pooled)[:, 0]
+            # the pairs are rows i and B/2 + i of the global batch: in a
+            # data-parallel step every rank takes the loss over the gathered
+            # logits, its share being 1 / n_data of it
+            logit = data_all_gather(self._head("margin_loss_mlp")(pooled)[:, 0])
             half = logit.shape[0] // 2
             x1, x2 = logit[:half], logit[half:]
-            target = aux["margin_target"].float()
+            target = data_all_gather(aux["margin_target"].float())
             # MarginRankingLoss(margin=1): max(0, -y (x1 - x2) + 1)
             losses[objective] = torch.clamp(-target * (x1 - x2) + 1.0,
-                                            min=0.0).mean()
+                                            min=0.0).mean() / data_size()
             total = total + losses[objective]
 
         elif objective == "time_contrastive":
@@ -257,8 +265,8 @@ class SequencingPretrainer(nn.Module):
             g = step_cls[bidx, aux["negative_idx"].long()]
             d_ap = torch.linalg.vector_norm(a - p, dim=-1)
             d_an = torch.linalg.vector_norm(a - g, dim=-1)
-            losses[objective] = torch.clamp(d_ap - d_an + 1.0,
-                                            min=0.0).mean()
+            losses[objective] = global_mean(torch.clamp(d_ap - d_an + 1.0,
+                                                        min=0.0))
             total = total + losses[objective]
 
         elif objective == MRM_OBJECTIVE:
@@ -278,14 +286,14 @@ class SequencingPretrainer(nn.Module):
             labels = torch.argsort(perm, dim=1)  # position of j in shuffle
             ce = -F.log_softmax(scores, -1).gather(
                 2, labels[:, :, None])[..., 0]
-            losses[objective] = 0.2 * ce.mean()
+            losses[objective] = 0.2 * global_mean(ce)
             total = total + losses[objective]
 
         if use_mlm and "mlm_labels" in batch and not cfg.multimodal_img_part:
             logits = self.mlm_head(
                 lang_out, self.encoder.embeddings.word_embeddings.weight)
             labels = batch["mlm_labels"].long()
-            n_valid = (labels != cfg.mlm_ignore_index).sum()
+            n_valid = global_count((labels != cfg.mlm_ignore_index).sum())
             ce = F.cross_entropy(logits.flatten(0, 1), labels.flatten(),
                                  ignore_index=cfg.mlm_ignore_index,
                                  reduction="sum")

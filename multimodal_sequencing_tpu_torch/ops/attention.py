@@ -4,7 +4,12 @@ plain versions (counterpart of `ops/attention.py`).
   * `_mix32`, `_keep_bits`, `_seed_for_bh` — the murmur3 counter keep bits
     of the HF "probs" dropout, bit for bit as the JAX package's, in 32-bit
     wrapping arithmetic carried in int64 tensors. `csrc/keep_bits.cuh`
-    computes the same function on the card.
+    computes the same function on the card. Each (batch, head) draws the
+    bits of its global index: `index` = (b_off, h_off, h_tot) places a
+    call's (B, H) heads in a larger batch and head count (a data- or
+    tensor-parallel rank's slice of the step), local head h of row b
+    drawing those of (b_off + b) * h_tot + h_off + h; the default (0, 0, H)
+    is the call's own b * H + h.
   * `attention_reference_lse` / `attention_reference` — plain PyTorch
     forward: f32 logits, key mask applied by `where` (masked keys score
     `NEG_INF`), softmax, optional dropout of the probabilities by the keep
@@ -88,11 +93,22 @@ def keep_threshold(dropout_p: float) -> int:
     return int((1.0 - dropout_p) * 2147483647)
 
 
+def global_bh(b: int, h: int, index=None, device="cpu") -> torch.Tensor:
+    """The global index of each of a call's (B, H) heads, (B*H,) int64:
+    (b_off + b) * h_tot + h_off + h for `index` = (b_off, h_off, h_tot),
+    b * H + h by default."""
+    b_off, h_off, h_tot = index or (0, 0, h)
+    rows = torch.arange(b, dtype=torch.int64, device=device) + b_off
+    heads = torch.arange(h, dtype=torch.int64, device=device) + h_off
+    return (rows[:, None] * h_tot + heads[None]).reshape(-1)
+
+
 def keep_bits(seed: int, b: int, h: int, s: int, dropout_p: float,
-              device="cpu") -> torch.Tensor:
-    """Plain keep bits of every (batch, head, row, col): (B, H, S, S) bool."""
+              device="cpu", index=None) -> torch.Tensor:
+    """Plain keep bits of every (batch, head, row, col): (B, H, S, S) bool,
+    each head drawing those of its global index (`global_bh`)."""
     ar = torch.arange(s, dtype=torch.int64, device=device)
-    bh = torch.arange(b * h, dtype=torch.int64, device=device)
+    bh = global_bh(b, h, index, device)
     seeds = _seed_for_bh(seed, bh)[:, None, None]
     return _keep_bits(seeds, ar, ar, s, keep_threshold(dropout_p)).view(
         b, h, s, s)
@@ -109,13 +125,13 @@ def _key_keep(mask, b, s, device):
 
 def attention_reference_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             mask: Optional[torch.Tensor] = None,
-                            dropout_p: float = 0.0, seed: int = 0
-                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+                            dropout_p: float = 0.0, seed: int = 0,
+                            index=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the forward kernel. q, k, v: (B, H, S, D); mask:
     (B, S) key keep-mask. Returns (o (B, H, S, D) in the input dtype, lse
     (B*H, S) f32). With dropout_p > 0 the probabilities are dropped by the
-    keep bits of `seed` and rescaled by 1 / (1 - dropout_p); lse stays that
-    of the undropped softmax."""
+    keep bits of `seed` at the heads' global `index` and rescaled by
+    1 / (1 - dropout_p); lse stays that of the undropped softmax."""
     b, h, s, d = q.shape
     logits = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) * (
         1.0 / math.sqrt(d))
@@ -123,15 +139,16 @@ def attention_reference_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.logsumexp(logits, dim=-1)
     probs = torch.softmax(logits, dim=-1)
     if dropout_p > 0.0:
-        bits = keep_bits(seed, b, h, s, dropout_p, q.device)
+        bits = keep_bits(seed, b, h, s, dropout_p, q.device, index)
         probs = torch.where(bits, probs / (1.0 - dropout_p), 0.0)
     o = torch.einsum("bhst,bhtd->bhsd", probs.to(q.dtype), v)
     return o, lse.reshape(b * h, s)
 
 
-def attention_reference(q, k, v, mask=None, dropout_p=0.0, seed=0):
+def attention_reference(q, k, v, mask=None, dropout_p=0.0, seed=0,
+                        index=None):
     """Plain attention context, (B, H, S, D)."""
-    return attention_reference_lse(q, k, v, mask, dropout_p, seed)[0]
+    return attention_reference_lse(q, k, v, mask, dropout_p, seed, index)[0]
 
 
 def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -187,7 +204,7 @@ def attention_bwd_post_reference(acc: torch.Tensor, like: torch.Tensor
 
 
 def attention_bwd_reference(q, k, v, mask, o, lse, do, dropout_p: float = 0.0,
-                            seed: int = 0):
+                            seed: int = 0, index=None):
     """Plain version of the backward kernels: (dq, dk, dv), each (B, H, S, D)
     in the input dtype. p = where(key kept, exp(s - lse), 0), dp = dO V^T
     dropped by the same bits, ds = p (dp - delta), dq = scale ds K,
@@ -202,7 +219,7 @@ def attention_bwd_reference(q, k, v, mask, o, lse, do, dropout_p: float = 0.0,
     dp = torch.einsum("bhsd,bhtd->bhst", dof, vf)
     p_ctx = p
     if dropout_p > 0.0:
-        bits = keep_bits(seed, b, h, s, dropout_p, q.device)
+        bits = keep_bits(seed, b, h, s, dropout_p, q.device, index)
         dp = torch.where(bits, dp / (1.0 - dropout_p), 0.0)
         p_ctx = torch.where(bits, p / (1.0 - dropout_p), 0.0)
     ds = p * (dp - delta)
@@ -217,32 +234,41 @@ def attention_bwd_reference(q, k, v, mask, o, lse, do, dropout_p: float = 0.0,
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
+_INDEX = ctypes.POINTER(ctypes.c_uint32)
 _SIGNATURES = {
     # dtype, head_dim, q, k, v, mask, o, lse, B, H, S, strides, scale,
-    # seed, thresh, inv_keep, stream
+    # seed, thresh, inv_keep, global head index, stream
     ("flash_fwd", "flash_fwd"): [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                 _STRIDES, _F, _U, _U, _F, _P],
+                                 _STRIDES, _F, _U, _U, _F, _INDEX, _P],
     # head_dim, q, k, v, do, mask, lse, delta, dq, B, H, S, strides, scale,
-    # seed, thresh, inv_keep, stream (f32)
+    # seed, thresh, inv_keep, global head index, stream (f32)
     ("flash_bwd", "flash_bwd_dq"): [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                    _I, _I, _STRIDES, _F, _U, _U, _F, _P],
+                                    _I, _I, _STRIDES, _F, _U, _U, _F, _INDEX,
+                                    _P],
     # ..., dk, dv, ...
     ("flash_bwd", "flash_bwd_dkv"): [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                     _I, _I, _I, _STRIDES, _F, _U, _U, _F, _P],
+                                     _I, _I, _I, _STRIDES, _F, _U, _U, _F,
+                                     _INDEX, _P],
     # head_dim, o, do, lse, delta, lse2, acc, B, H, S, S_pad, strides, stream
     ("flash_bwd", "flash_bwd_prep"): [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                       _I, _STRIDES, _P],
     # head_dim, q, k, v, do, mask, lse2, delta, acc, dk, dv, B, H, S, S_pad,
-    # strides, scale, seed, thresh, inv_keep, stream
+    # strides, scale, seed, thresh, inv_keep, global head index, stream
     ("flash_bwd", "flash_bwd_main"): [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                       _P, _I, _I, _I, _I, _STRIDES, _F, _U,
-                                      _U, _F, _P],
+                                      _U, _F, _INDEX, _P],
     # head_dim, acc, dq, B, H, S, S_pad, strides, scale, stream
     ("flash_bwd", "flash_bwd_post"): [_I, _P, _P, _I, _I, _I, _I, _STRIDES,
                                       _F, _P],
-    # order, out, B*H, S, seed, thresh, stream
-    ("keep_bits_dump", "keep_bits_dump"): [_I, _P, _I, _I, _U, _U, _P],
+    # order, out, B, H, S, seed, thresh, global head index, stream
+    ("keep_bits_dump", "keep_bits_dump"): [_I, _P, _I, _I, _I, _U, _U,
+                                           _INDEX, _P],
 }
+
+
+def _index_arg(h: int, index=None):
+    """The kernels' (b_off, h_off, h_tot) array: `index`, else (0, 0, H)."""
+    return (ctypes.c_uint32 * 3)(*(index or (0, 0, h)))
 
 
 def _fn(lib_name: str, fn_name: str):
@@ -336,7 +362,7 @@ def _bshd(like: torch.Tensor) -> torch.Tensor:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask: Optional[torch.Tensor] = None,
-                    dropout_p: float = 0.0, seed: int = 0
+                    dropout_p: float = 0.0, seed: int = 0, index=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flash attention forward: (o (B, H, S, D), lse (B*H, S) f32).
 
@@ -345,14 +371,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and the other strides multiples of 8 elements (a head-split view of a
     (B, S, H*D) projection is taken as is; anything else raises). mask:
     (B, S) key keep-mask. dropout_p > 0 drops the probabilities by the keep
-    bits of `seed` (int32). The returned o is laid out (B, S, H, D) in
+    bits of `seed` (int32) at the heads' global `index` (b_off, h_off,
+    h_tot; default (0, 0, H)). The returned o is laid out (B, S, H, D) in
     memory. bf16 CUDA tensors go through the TMA/wgmma kernel, f32 CUDA
     tensors through the f32 kernel, CPU tensors through
     `attention_reference_lse`. `flash_attention.launches` counts kernel
     launches."""
     seed_u, thresh, inv_keep = _dropout_args(dropout_p, seed)
     if not _on_cuda("flash_attention", q):
-        return attention_reference_lse(q, k, v, mask, dropout_p, seed)
+        return attention_reference_lse(q, k, v, mask, dropout_p, seed, index)
     _check(q, k, v, mask)
     b, h, s, d = q.shape
     mask = _mask_i32(mask, b, s, q.device)
@@ -362,7 +389,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         DTYPE_CODE[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         mask.data_ptr(), o.data_ptr(), lse.data_ptr(), b, h, s,
         _strides(q, k, v, o), 1.0 / math.sqrt(d), seed_u, thresh, inv_keep,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _index_arg(h, index), torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_fwd launch failed (code {rc})")
     flash_attention.launches += 1
@@ -380,7 +407,7 @@ def _check_bwd(q, k, v, o, do, mask):
 
 
 def flash_attention_bwd_dq(q, k, v, mask, lse, delta, do,
-                           dropout_p: float = 0.0, seed: int = 0
+                           dropout_p: float = 0.0, seed: int = 0, index=None
                            ) -> torch.Tensor:
     """dq of the f32 flash backward (`_flash_bwd_dq_kernel`), (B, H, S, D)
     laid out (B, S, H, D). lse, delta: (B*H, S) f32. float32 CUDA tensors
@@ -399,7 +426,7 @@ def flash_attention_bwd_dq(q, k, v, mask, lse, delta, do,
         d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), mask.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), b, h, s, _strides(q, k, v, do, dq),
-        1.0 / math.sqrt(d), seed_u, thresh, inv_keep,
+        1.0 / math.sqrt(d), seed_u, thresh, inv_keep, _index_arg(h, index),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_bwd_dq launch failed (code {rc})")
@@ -411,7 +438,7 @@ flash_attention_bwd_dq.launches = 0
 
 
 def flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do,
-                            dropout_p: float = 0.0, seed: int = 0
+                            dropout_p: float = 0.0, seed: int = 0, index=None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) of the f32 flash backward (`_flash_bwd_dkv_kernel`), each
     (B, H, S, D) laid out (B, S, H, D). float32 CUDA tensors only."""
@@ -429,7 +456,8 @@ def flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do,
         do.data_ptr(), mask.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), b, h, s,
         _strides(q, k, v, do, dk, dv), 1.0 / math.sqrt(d), seed_u, thresh,
-        inv_keep, torch.cuda.current_stream(q.device).cuda_stream)
+        inv_keep, _index_arg(h, index),
+        torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_bwd_dkv launch failed (code {rc})")
     flash_attention_bwd_dkv.launches += 1
@@ -484,7 +512,7 @@ flash_bwd_prep.launches = 0
 
 
 def flash_bwd_main(q, k, v, mask, lse2, delta, acc, do,
-                   dropout_p: float = 0.0, seed: int = 0
+                   dropout_p: float = 0.0, seed: int = 0, index=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The bf16 backward's main kernel (`flash_bwd_main_kernel`, TPU
     `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel` in one pass): (dk,
@@ -509,7 +537,8 @@ def flash_bwd_main(q, k, v, mask, lse2, delta, acc, do,
         mask.data_ptr(), lse2.data_ptr(), delta.data_ptr(), acc.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), b, h, s, s_pad,
         _strides(q, k, v, do, dk, dv), 1.0 / math.sqrt(d), seed_u, thresh,
-        inv_keep, torch.cuda.current_stream(q.device).cuda_stream)
+        inv_keep, _index_arg(h, index),
+        torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_bwd_main launch failed (code {rc})")
     flash_bwd_main.launches += 1
@@ -547,7 +576,7 @@ flash_bwd_post.launches = 0
 
 
 def flash_attention_bwd(q, k, v, mask, o, lse, do, dropout_p: float = 0.0,
-                        seed: int = 0):
+                        seed: int = 0, index=None):
     """Flash backward (`flash_attention_bwd`): (dq, dk, dv) from the saved
     forward output `o` and lse. bf16 CUDA tensors: the pre-pass, the main
     kernel and the post-pass; f32 CUDA tensors: delta as one PyTorch
@@ -557,20 +586,20 @@ def flash_attention_bwd(q, k, v, mask, o, lse, do, dropout_p: float = 0.0,
     other layout the kernels cannot take raises."""
     if not _on_cuda("flash_attention_bwd", q):
         return attention_bwd_reference(q, k, v, mask, o, lse, do, dropout_p,
-                                       seed)
+                                       seed, index)
     if do.stride(-1) != 1 or any(st % 8 for st in do.stride()[:3]):
         do = do.contiguous()
     _check_bwd(q, k, v, o, do, mask)
     if q.dtype == torch.float32:
         delta = attention_delta(o, do)
         dq = flash_attention_bwd_dq(q, k, v, mask, lse, delta, do, dropout_p,
-                                    seed)
+                                    seed, index)
         dk, dv = flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do,
-                                         dropout_p, seed)
+                                         dropout_p, seed, index)
         return dq, dk, dv
     delta, lse2, acc = flash_bwd_prep(o, do, lse)
     dk, dv = flash_bwd_main(q, k, v, mask, lse2, delta, acc, do, dropout_p,
-                            seed)
+                            seed, index)
     return flash_bwd_post(acc, q), dk, dv
 
 
@@ -578,21 +607,22 @@ _DUMP_ORDERS = {"fwd": 0, "dkv": 1}
 
 
 def dump_keep_bits(order: str, seed: int, b: int, h: int, s: int,
-                   dropout_p: float, device="cuda") -> torch.Tensor:
+                   dropout_p: float, device="cuda", index=None
+                   ) -> torch.Tensor:
     """The keep bits the attention kernels regenerate, (B, H, S, S) bool,
     written by `csrc/keep_bits_dump.cu` in the forward's tile order ("fwd":
     per 64-row q-tile, over the k-tiles) or the dk/dv kernel's ("dkv": per
-    64-key tile, over the q-tiles). On the CPU both orders are the plain
-    `keep_bits`."""
+    64-key tile, over the q-tiles), each head at its global `index`. On the
+    CPU both orders are the plain `keep_bits`."""
     if order not in _DUMP_ORDERS:
         raise ValueError(f"order must be one of {tuple(_DUMP_ORDERS)}")
     device = torch.device(device)
     if not _on_cuda("dump_keep_bits", torch.empty(0, device=device)):
-        return keep_bits(seed, b, h, s, dropout_p, device)
+        return keep_bits(seed, b, h, s, dropout_p, device, index)
     out = torch.empty((b, h, s, s), dtype=torch.bool, device=device)
     rc = _fn("keep_bits_dump", "keep_bits_dump")(
-        _DUMP_ORDERS[order], out.data_ptr(), b * h, s, seed & _M32,
-        keep_threshold(dropout_p),
+        _DUMP_ORDERS[order], out.data_ptr(), b, h, s, seed & _M32,
+        keep_threshold(dropout_p), _index_arg(h, index),
         torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"keep_bits_dump launch failed (code {rc})")
@@ -608,30 +638,31 @@ dump_keep_bits.launches = 0
 
 class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention (`_flash_attention_ad`): the forward
-    saves q, k, v, mask, seed, O and lse; the backward is
-    `flash_attention_bwd`, whose kernels regenerate the forward's keep bits
-    from the seed."""
+    saves q, k, v, mask, seed, the heads' global index, O and lse; the
+    backward is `flash_attention_bwd`, whose kernels regenerate the
+    forward's keep bits from the seed."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask, seed: int, dropout_p: float):
-        o, lse = flash_attention(q, k, v, mask, dropout_p, seed)
+    def forward(ctx, q, k, v, mask, seed: int, dropout_p: float, index=None):
+        o, lse = flash_attention(q, k, v, mask, dropout_p, seed, index)
         ctx.save_for_backward(q, k, v, mask, o, lse)
-        ctx.seed, ctx.dropout_p = seed, dropout_p
+        ctx.seed, ctx.dropout_p, ctx.index = seed, dropout_p, index
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, mask, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, mask, o, lse, do,
-                                         ctx.dropout_p, ctx.seed)
-        return dq, dk, dv, None, None, None
+                                         ctx.dropout_p, ctx.seed, ctx.index)
+        return dq, dk, dv, None, None, None, None
 
 
 def multihead_attention(q, k, v, mask=None, dropout_p: float = 0.0,
-                        seed: Optional[int] = None):
+                        seed: Optional[int] = None, index=None):
     """Attention context (B, H, S, D): the flash kernels for CUDA tensors,
     the plain versions for CPU tensors. dropout_p > 0 (training, HF
-    "probs" mode) needs an int32 `seed` for the keep bits."""
+    "probs" mode) needs an int32 `seed` for the keep bits, drawn at the
+    heads' global `index` (b_off, h_off, h_tot; default (0, 0, H))."""
     if dropout_p > 0.0 and seed is None:
         raise ValueError("dropout_p > 0 needs a seed")
     seed = 0 if seed is None else seed
@@ -639,5 +670,5 @@ def multihead_attention(q, k, v, mask=None, dropout_p: float = 0.0,
         if mask is None:
             mask = torch.ones(q.shape[:1] + q.shape[2:3], dtype=torch.int32,
                               device=q.device)
-        return FlashAttention.apply(q, k, v, mask, seed, dropout_p)
-    return flash_attention(q, k, v, mask, dropout_p, seed)[0]
+        return FlashAttention.apply(q, k, v, mask, seed, dropout_p, index)
+    return flash_attention(q, k, v, mask, dropout_p, seed, index)[0]

@@ -106,6 +106,7 @@ struct Params {
   uint32_t seed;     // dropout seed (int32 bits)
   uint32_t thresh;   // keep threshold on the 31-bit hash; 0 = no dropout
   float inv_keep;    // 1 / (1 - p_drop)
+  BhIndex gbh;       // the heads' global index (keep_bits.cuh)
 };
 
 template <typename T>
@@ -135,7 +136,7 @@ flash_bwd_dq_f32_kernel(const Params p) {
   const float* V = head<float>(p.v, p.v_sb, p.v_sh, b, h);
   const float* dO = head<float>(p.dO, p.do_sb, p.do_sh, b, h);
   const int* M = p.mask + (long long)b * S;
-  const uint32_t seed_bh = seed_for_bh(p.seed, bh);
+  const uint32_t seed_bh = seed_for_head(p.seed, p.gbh, b, h);
   const bool in = row < S;
 
   float q[D], g[D], acc[D];
@@ -200,7 +201,7 @@ flash_bwd_dkv_f32_kernel(const Params p) {
   const float* K = head<float>(p.k, p.k_sb, p.k_sh, b, h);
   const float* V = head<float>(p.v, p.v_sb, p.v_sh, b, h);
   const float* dO = head<float>(p.dO, p.do_sb, p.do_sh, b, h);
-  const uint32_t seed_bh = seed_for_bh(p.seed, bh);
+  const uint32_t seed_bh = seed_for_head(p.seed, p.gbh, b, h);
   const bool in = key < S;
   const bool kept = in && p.mask[(long long)b * S + key] != 0;
 
@@ -329,6 +330,7 @@ struct MainParams {
   float scale, scale_log2;
   uint32_t seed, thresh;
   float inv_keep;
+  BhIndex gbh;
 };
 
 // The dq accumulator holds rows of D f32 with their 16-byte chunks
@@ -417,7 +419,7 @@ flash_bwd_main_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
   for (int i = 0; i < 2; ++i)
     kept[i] = key0 + 8 * i < S && p.mask[(long long)b * S + key0 + 8 * i] != 0;
-  const uint32_t seed_bh = seed_for_bh(p.seed, bh);
+  const uint32_t seed_bh = seed_for_head(p.seed, p.gbh, b, h);
 
   float dk[DH], dv[DH];
 #pragma unroll
@@ -596,12 +598,13 @@ void launch_f32(bool dkv, const Params& p, dim3 grid, cudaStream_t st) {
 
 int run_f32(bool dkv, int head_dim, Params& p, int batch, int heads,
             int seq_len, float scale, uint32_t seed, uint32_t thresh,
-            float inv_keep, void* stream) {
+            float inv_keep, const uint32_t* gbh, void* stream) {
   if (batch <= 0 || heads <= 0 || seq_len <= 0 ||
       (long long)batch * heads > 65535)
     return -1;
   p.H = heads; p.S = seq_len; p.scale = scale;
   p.seed = seed; p.thresh = thresh; p.inv_keep = inv_keep;
+  p.gbh = bh_index(gbh);
   const dim3 grid((seq_len + BLOCK - 1) / BLOCK, batch * heads);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
@@ -663,7 +666,7 @@ extern "C" int flash_bwd_dq(int head_dim, const void* q, const void* k,
                             int batch, int heads, int seq_len,
                             const long long* strides, float scale,
                             uint32_t seed, uint32_t thresh, float inv_keep,
-                            void* stream) {
+                            const uint32_t* gbh, void* stream) {
   Params p = {};
   p.q = q; p.k = k; p.v = v; p.dO = dO; p.mask = mask; p.lse = lse;
   p.delta = delta; p.dq = dq;
@@ -673,7 +676,7 @@ extern "C" int flash_bwd_dq(int head_dim, const void* q, const void* k,
   set_strides(p.do_sb, p.do_sh, p.do_ss, strides + 9);
   set_strides(p.dq_sb, p.dq_sh, p.dq_ss, strides + 12);
   return run_f32(false, head_dim, p, batch, heads, seq_len, scale, seed,
-                 thresh, inv_keep, stream);
+                 thresh, inv_keep, gbh, stream);
 }
 
 // The f32 dk/dv kernels: as flash_bwd_dq, with the strides of q, k, v, dO,
@@ -684,7 +687,7 @@ extern "C" int flash_bwd_dkv(int head_dim, const void* q, const void* k,
                              void* dv, int batch, int heads, int seq_len,
                              const long long* strides, float scale,
                              uint32_t seed, uint32_t thresh, float inv_keep,
-                             void* stream) {
+                             const uint32_t* gbh, void* stream) {
   Params p = {};
   p.q = q; p.k = k; p.v = v; p.dO = dO; p.mask = mask; p.lse = lse;
   p.delta = delta; p.dk = dk; p.dv = dv;
@@ -695,7 +698,7 @@ extern "C" int flash_bwd_dkv(int head_dim, const void* q, const void* k,
   set_strides(p.dk_sb, p.dk_sh, p.dk_ss, strides + 12);
   set_strides(p.dv_sb, p.dv_sh, p.dv_ss, strides + 15);
   return run_f32(true, head_dim, p, batch, heads, seq_len, scale, seed,
-                 thresh, inv_keep, stream);
+                 thresh, inv_keep, gbh, stream);
 }
 
 // bf16 pre-pass. o, dO: bf16 with (batch, head, row) element strides
@@ -735,7 +738,8 @@ extern "C" int flash_bwd_main(int head_dim, const void* q, const void* k,
                               void* dk, void* dv, int batch, int heads,
                               int seq_len, int s_pad, const long long* strides,
                               float scale, uint32_t seed, uint32_t thresh,
-                              float inv_keep, void* stream) {
+                              float inv_keep, const uint32_t* gbh,
+                              void* stream) {
   if (!bf16_shape_ok(head_dim, batch, heads, seq_len, s_pad)) return -1;
   CUtensorMap maps[4];
   const void* srcs[4] = {q, k, v, dO};
@@ -752,6 +756,7 @@ extern "C" int flash_bwd_main(int head_dim, const void* q, const void* k,
   p.H = heads; p.S = seq_len; p.S_pad = s_pad;
   p.scale = scale; p.scale_log2 = scale * LOG2E;
   p.seed = seed; p.thresh = thresh; p.inv_keep = inv_keep;
+  p.gbh = bh_index(gbh);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int bh = batch * heads;
   switch (head_dim) {

@@ -88,6 +88,7 @@ struct Params {
   uint32_t seed;     // dropout seed (int32 bits)
   uint32_t thresh;   // keep threshold on the 31-bit hash; 0 = no dropout
   float inv_keep;    // 1 / (1 - p_drop), 1 without dropout
+  BhIndex gbh;       // the heads' global index (keep_bits.cuh)
 };
 
 // Score of one key column after the mask: 1 = keep, 0 = masked real key,
@@ -105,6 +106,7 @@ struct Bf16Params {
   float scale_log2;  // scale * log2(e)
   uint32_t seed, thresh;
   float inv_keep;
+  BhIndex gbh;
 };
 
 template <int D>
@@ -165,7 +167,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
   }
   __syncthreads();
 
-  const uint32_t seed_bh = seed_for_bh(p.seed, bh);
+  const uint32_t seed_bh = seed_for_head(p.seed, p.gbh, b, h);
   // this thread's accumulator rows: q rows r0 and r0 + 8
   const int row_in_tile = warp * 16 + g, r0 = q0 + row_in_tile;
   float o[DH];
@@ -302,7 +304,7 @@ flash_fwd_f32_kernel(const Params p) {
   const float* V = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
   float* O = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
   const int* M = p.mask + (long long)b * S;
-  const uint32_t seed_bh = seed_for_bh(p.seed, bh);
+  const uint32_t seed_bh = seed_for_head(p.seed, p.gbh, b, h);
 
   float q[D], acc[D], sc[BLOCK_N];
 #pragma unroll
@@ -390,7 +392,8 @@ extern "C" int flash_fwd(int dtype, int head_dim, const void* q, const void* k,
                          const void* v, const int* mask, void* o, float* lse,
                          int batch, int heads, int seq_len,
                          const long long* strides, float scale, uint32_t seed,
-                         uint32_t thresh, float inv_keep, void* stream) {
+                         uint32_t thresh, float inv_keep,
+                         const uint32_t* gbh, void* stream) {
   if ((dtype != 0 && dtype != 1) || batch <= 0 || heads <= 0 || seq_len <= 0 ||
       (long long)batch * heads > 65535 ||
       (head_dim != 16 && head_dim != 32 && head_dim != 64))
@@ -409,6 +412,7 @@ extern "C" int flash_fwd(int dtype, int head_dim, const void* q, const void* k,
     p.H = heads; p.S = seq_len; p.n_kt = (seq_len + BLOCK_N - 1) / BLOCK_N;
     p.scale_log2 = scale * LOG2E;
     p.seed = seed; p.thresh = thresh; p.inv_keep = inv_keep;
+    p.gbh = bh_index(gbh);
     switch (head_dim) {
       case 16: return launch_bf16<16>(maps, p, bh, st);
       case 32: return launch_bf16<32>(maps, p, bh, st);
@@ -423,6 +427,7 @@ extern "C" int flash_fwd(int dtype, int head_dim, const void* q, const void* k,
   p.o_sb = strides[9]; p.o_sh = strides[10]; p.o_ss = strides[11];
   p.H = heads; p.S = seq_len; p.scale = scale;
   p.seed = seed; p.thresh = thresh; p.inv_keep = inv_keep;
+  p.gbh = bh_index(gbh);
   const dim3 grid((seq_len + BLOCK_M - 1) / BLOCK_M, bh);
   switch (head_dim) {
     case 16: flash_fwd_f32_kernel<16><<<grid, BLOCK_M, 0, st>>>(p); break;

@@ -25,6 +25,22 @@ __device__ __forceinline__ uint32_t seed_for_bh(uint32_t seed, uint32_t bh) {
   return mix32(seed + (bh + 1u) * 668265263u);
 }
 
+// Where a call's (B, H) heads sit in a larger batch and head count (a data-
+// or tensor-parallel rank's slice): local head h of batch row b draws the
+// bits of the global index (b_off + b) * h_tot + h_off + h. {0, 0, H} is
+// the call's own index b * H + h.
+struct BhIndex {
+  uint32_t b_off, h_off, h_tot;
+};
+
+// From the host's (b_off, h_off, h_tot) array.
+inline BhIndex bh_index(const uint32_t* a) { return {a[0], a[1], a[2]}; }
+
+__device__ __forceinline__ uint32_t seed_for_head(uint32_t seed, BhIndex g,
+                                                  int b, int h) {
+  return seed_for_bh(seed, (g.b_off + b) * g.h_tot + g.h_off + h);
+}
+
 // True when element (row, col) of a (seq_len x seq_len) score matrix is kept.
 __device__ __forceinline__ bool keep_bit(uint32_t seed_bh, uint32_t row,
                                          uint32_t col, uint32_t seq_len,

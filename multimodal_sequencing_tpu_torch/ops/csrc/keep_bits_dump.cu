@@ -35,10 +35,10 @@ __device__ __forceinline__ void write_tile(uint8_t* out, uint32_t seed_bh,
 }
 
 // grid (q-tiles, B*H): block = one q-tile, loop over the k-tiles
-__global__ void dump_fwd_order(uint8_t* out, int S, uint32_t seed,
-                               uint32_t thresh) {
+__global__ void dump_fwd_order(uint8_t* out, int S, int H, uint32_t seed,
+                               uint32_t thresh, BhIndex gbh) {
   const int bh = blockIdx.y;
-  const uint32_t sb = seed_for_bh(seed, bh);
+  const uint32_t sb = seed_for_head(seed, gbh, bh / H, bh % H);
   uint8_t* o = out + (long long)bh * S * S;
   const int n_t = (S + TILE - 1) / TILE;
   for (int kt = 0; kt < n_t; ++kt)
@@ -46,10 +46,10 @@ __global__ void dump_fwd_order(uint8_t* out, int S, uint32_t seed,
 }
 
 // grid (k-tiles, B*H): block = one k-tile, loop over the q-tiles
-__global__ void dump_dkv_order(uint8_t* out, int S, uint32_t seed,
-                               uint32_t thresh) {
+__global__ void dump_dkv_order(uint8_t* out, int S, int H, uint32_t seed,
+                               uint32_t thresh, BhIndex gbh) {
   const int bh = blockIdx.y;
-  const uint32_t sb = seed_for_bh(seed, bh);
+  const uint32_t sb = seed_for_head(seed, gbh, bh / H, bh % H);
   uint8_t* o = out + (long long)bh * S * S;
   const int n_t = (S + TILE - 1) / TILE;
   for (int qt = 0; qt < n_t; ++qt)
@@ -58,18 +58,23 @@ __global__ void dump_dkv_order(uint8_t* out, int S, uint32_t seed,
 
 }  // namespace
 
-// order: 0 = forward order, 1 = dk/dv order. out: (B*H, S, S) bytes.
+// order: 0 = forward order, 1 = dk/dv order. out: (B*H, S, S) bytes. gbh:
+// the heads' global index (b_off, h_off, h_tot; keep_bits.cuh).
 // Returns 0, a CUDA error code from the launch, or -1 for bad arguments.
-extern "C" int keep_bits_dump(int order, void* out, int bh, int seq_len,
-                              uint32_t seed, uint32_t thresh, void* stream) {
-  if ((order != 0 && order != 1) || bh <= 0 || bh > 65535 || seq_len <= 0)
+extern "C" int keep_bits_dump(int order, void* out, int batch, int heads,
+                              int seq_len, uint32_t seed, uint32_t thresh,
+                              const uint32_t* gbh, void* stream) {
+  const long long bh = (long long)batch * heads;
+  if ((order != 0 && order != 1) || batch <= 0 || heads <= 0 || bh > 65535 ||
+      seq_len <= 0)
     return -1;
+  const BhIndex g = bh_index(gbh);
   const dim3 grid((seq_len + TILE - 1) / TILE, bh);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   uint8_t* o = static_cast<uint8_t*>(out);
   if (order == 0)
-    dump_fwd_order<<<grid, 256, 0, st>>>(o, seq_len, seed, thresh);
+    dump_fwd_order<<<grid, 256, 0, st>>>(o, seq_len, heads, seed, thresh, g);
   else
-    dump_dkv_order<<<grid, 256, 0, st>>>(o, seq_len, seed, thresh);
+    dump_dkv_order<<<grid, 256, 0, st>>>(o, seq_len, heads, seed, thresh, g);
   return static_cast<int>(cudaGetLastError());
 }

@@ -75,6 +75,20 @@ permutation argmax; `trainers.eval --sort_method pure_decode` evaluates a
 pure_decode checkpoint, or with `--hierarchical_version p0|p1` a pointer
 checkpoint.
 
+Parallel training (`main_train`, its BERSON branch and `main_pretrain`):
+under `torchrun` (NCCL, one card a rank) or with `--num_cpu_devices N`
+(N gloo ranks on the CPU, spawned by the CLI itself: the counterpart of the
+JAX package's virtual CPU mesh), `--model_parallel_size M` lays the ranks
+out as (N / M data, M model) with tensor parallelism over the model dim,
+`--sequence_parallel` adds its sequence-parallel regions and `--fsdp`
+shards the parameters and moments over the data dim
+(`parallel/sharding_rules.py`); pretraining is data-parallel only, as in
+the JAX package. One run gives the single process's losses, weights and
+checkpoints on the same global batch (`--per_gpu_train_batch_size` x the
+data ranks). `--profile_dir DIR` writes a torch.profiler Chrome trace of
+train steps 2-4 into DIR (`utils/profiling.py`). `--pipeline_parallel_size`
+is not ported yet.
+
 `--eval_all_checkpoints` / `--iters_to_eval` sweep the checkpoints under a
 run directory. A fresh eval model is seeded from 0, as
 the JAX eval's `PRNGKey(0)`, and a fresh train model from `--seed`.
@@ -91,12 +105,17 @@ import json
 import logging
 import math
 import os
+import socket
+import sys
+import time
 from typing import List, Optional
 
 import torch
 
 from .. import resolve_device
 from ..models.convert import HF_WEIGHTS_NAMES
+from ..parallel.mesh import init_distributed, is_rank0, make_mesh
+from ..parallel.sharding_rules import gathered
 from ..models.sequencer import HEATMAP_VERSIONS, POINTER_VERSIONS
 from .checkpoint import CONFIG_NAME, WEIGHTS_NAME, save_model  # noqa: F401
 from .evaluation import SORT_METHODS
@@ -257,19 +276,47 @@ def build_parser(kind: str = "train") -> argparse.ArgumentParser:
 # default raises. Flags that change nothing on the ported path (as in the
 # JAX package) are accepted.
 _NOT_YET = {
-    "model_parallel_size": "the parallelism layer",
-    "pipeline_parallel_size": "the parallelism layer",
-    "sequence_parallel": "the parallelism layer",
-    "fsdp": "the parallelism layer",
-    "num_cpu_devices": "the parallelism layer",
-    "profile_dir": "tracing (utils/profiling)",
+    "pipeline_parallel_size": "pipeline parallelism (parallel/pipeline)",
     "no_cuda": "--no_cuda (use --device cpu)",
 }
+
+
+def check_pipeline_flags(args, kind: str) -> None:
+    """The JAX package's refusals of `--pipeline_parallel_size` beside the
+    other layouts, with its errors (`train/cli.py:736-752`,
+    `train/loop.py:69-84`, `:310-313`)."""
+    if max(1, args.pipeline_parallel_size) <= 1:
+        return
+    if kind == "pretrain":
+        raise NotImplementedError(
+            "--pipeline_parallel_size pipelines the finetune text "
+            "encoder stack (run_finetune); pretraining trains with dp")
+    tp = max(1, args.model_parallel_size) > 1
+    if args.wrapper_model_type == "berson":
+        if tp:
+            raise NotImplementedError(
+                "--pipeline_parallel_size and --model_parallel_size both "
+                "consume the mesh model axis — pick one for BERSON")
+        if args.sequence_parallel:
+            raise NotImplementedError(
+                "--sequence_parallel is exclusive with the pipelined "
+                "BERSON trunk")
+        if args.multimodal:
+            raise NotImplementedError(
+                "pipelined BERSON covers the text trunk; multimodal "
+                "inner encoders train with dp/tp/fsdp")
+    elif tp or args.sequence_parallel:
+        raise ValueError(
+            "--pipeline_parallel_size is mutually exclusive with "
+            "--model_parallel_size/--sequence_parallel (all "
+            "consume the model axis)")
 
 
 def parse_args(kind: str, argv=None):
     parser = build_parser(kind)
     args = resolve_args(parser.parse_args(argv))
+    if kind != "eval":
+        check_pipeline_flags(args, kind)
     for dest, what in _NOT_YET.items():
         if getattr(args, dest) != parser.get_default(dest):
             raise NotImplementedError(
@@ -345,6 +392,8 @@ def build_config(args):
         enc.gelu_approximate = True
     enc.gelu_impl = args.gelu_impl
     enc.attention_dropout_mode = args.attention_dropout_mode
+    if args.sequence_parallel:
+        enc.sequence_parallel = True
     cfg = MultimodalConfig(
         encoder=enc,
         max_story_length=args.max_story_length,
@@ -612,13 +661,15 @@ def main_train(argv=None):
     checkpoint name -> metrics, for BERSON checkpoint name -> split ->
     metrics)."""
     args = parse_args("train", argv)
+    if args.num_cpu_devices and "WORLD_SIZE" not in os.environ:
+        return spawn_cpu_ranks("main_train", argv, args.num_cpu_devices)
     logging.basicConfig(level=logging.INFO)
     if args.multimodal_loss and args.wrapper_model_type != "berson":
         # the reference reads --multimodal_loss only inside the BERSON
         # wrapper
         logger.warning("--multimodal_loss has no effect without "
                        "--wrapper_model_type berson; ignoring")
-    device = resolve_device(args.device)
+    device, layout = _ranks(args)
     args.output_dir = resolve_output_dir(args)
     os.makedirs(args.output_dir, exist_ok=True)
     cfg, tokenizer = build_config(args)
@@ -627,7 +678,7 @@ def main_train(argv=None):
         args.hierarchical_version = cfg.hierarchical_version = "v1"
     if args.wrapper_model_type == "berson":
         return _train_berson(args, cfg, tokenizer, data_name, task_type,
-                             device)
+                             device, layout)
     if task_type == "pure_decode":
         # the encoder-decoder over index tokens
         cfg.hierarchical_version = "decode"
@@ -649,7 +700,7 @@ def main_train(argv=None):
         eval_fn = _make_dev_eval_fn(args, cfg, tokenizer, data_name, device)
     result = run_finetune(cfg, model, dataset, args, device,
                           eval_fn=eval_fn if args.evaluate_during_training
-                          else None, tokenizer=tokenizer)
+                          else None, tokenizer=tokenizer, layout=layout)
     logger.info("training done at step %d; checkpoints in %s",
                 result.global_step, args.output_dir)
     if args.do_eval and eval_fn is not None:
@@ -657,18 +708,84 @@ def main_train(argv=None):
             args.output_dir,
             None if args.eval_all_checkpoints else args.iters_to_eval)
         if not ckpts:
-            res = eval_fn(result.model)
+            with gathered(result.model):
+                res = eval_fn(result.model)
             result.eval_results[f"checkpoint-{result.global_step}"] = res
             logger.info("final-state eval: %s", res)
         for ck in ckpts:
             restore_checkpoint(ck, result.model)
-            res = eval_fn(result.model)
+            with gathered(result.model):
+                res = eval_fn(result.model)
             result.eval_results[os.path.basename(ck)] = res
             logger.info("eval %s: %s", os.path.basename(ck), res)
     return result
 
 
-def _train_berson(args, cfg, tokenizer, data_name, task_type, device):
+def _ranks(args):
+    """(this rank's device, the layout of the ranks): one process, or the
+    process group of `torchrun` / `--num_cpu_devices` as a (data, model)
+    mesh of `--model_parallel_size` model ranks."""
+    device = init_distributed("cpu" if args.num_cpu_devices
+                              else args.device)
+    n_model = max(1, args.model_parallel_size)
+    return device, make_mesh(n_model=n_model, device_type=device.type)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn_cpu_ranks(entry: str, argv, n: int):
+    """`--num_cpu_devices N`: run entry point `entry` of this module on N
+    gloo ranks on the CPU, each a process of its own; returns rank 0's
+    `TrainResult` without its model and optimizer (`model` and `optimizer`
+    None). A rank that fails stops the others and raises RuntimeError."""
+    import torch.multiprocessing as mp
+    argv = list(sys.argv[1:] if argv is None else argv)
+    ctx = mp.get_context("spawn")
+    results = ctx.SimpleQueue()
+    port = _free_port()
+    procs = [ctx.Process(target=_cpu_rank,
+                         args=(entry, argv, rank, n, port, results))
+             for rank in range(n)]
+    for p in procs:
+        p.start()
+    result = None
+    try:
+        while any(p.is_alive() for p in procs) or not results.empty():
+            if not results.empty():
+                result = results.get()
+            failed = [p for p in procs if p.exitcode not in (None, 0)]
+            if failed:
+                raise RuntimeError(f"--num_cpu_devices: rank "
+                                   f"{procs.index(failed[0])} exited with "
+                                   f"code {failed[0].exitcode}")
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+            p.join()
+    return result
+
+
+def _cpu_rank(entry: str, argv, rank: int, n: int, port: int, results):
+    os.environ.update(WORLD_SIZE=str(n), RANK=str(rank),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
+    import torch.distributed as dist
+    result = globals()[entry](argv)
+    if rank == 0:
+        result.model = result.optimizer = None
+        results.put(result)
+    dist.destroy_process_group()
+
+
+def _train_berson(args, cfg, tokenizer, data_name, task_type, device,
+                  layout):
     """`main_train`'s BERSON branch: train, then with `--do_eval` run the
     beam-search eval of every checkpoint (or the final model) over every
     eval split, each result written to
@@ -685,7 +802,8 @@ def _train_berson(args, cfg, tokenizer, data_name, task_type, device):
         eval_fn = _make_berson_eval_fn(args, tokenizer, data_name,
                                        args.eval_splits[0], device)
     result = run_berson_training(cfg, build_berson(cfg, args), dataset, args,
-                                 device, eval_fn=eval_fn, tokenizer=tokenizer)
+                                 device, eval_fn=eval_fn, tokenizer=tokenizer,
+                                 layout=layout)
     logger.info("training done at step %d; checkpoints in %s",
                 result.global_step, args.output_dir)
     if not args.do_eval:
@@ -701,11 +819,14 @@ def _train_berson(args, cfg, tokenizer, data_name, task_type, device):
         for ck in ckpts or [None]:
             if ck:
                 restore_checkpoint(ck, result.model)
-            res = eval_fn(result.model)
+            with gathered(result.model):
+                res = eval_fn(result.model)
             tag = (os.path.basename(ck.rstrip("/")) if ck
                    else f"checkpoint-{result.global_step}")
             logger.info("berson eval %s split %s: %s", tag, split, res)
             result.eval_results.setdefault(tag, {})[split] = res
+            if not is_rank0():
+                continue
             with open(os.path.join(
                     args.output_dir,
                     f"eval_results_split_{split}_{tag}.txt"), "w") as f:
@@ -795,8 +916,15 @@ def main_pretrain(argv=None):
     from .loop import evaluate_pretraining, run_pretraining
 
     args = parse_args("pretrain", argv)
+    if args.num_cpu_devices and "WORLD_SIZE" not in os.environ:
+        return spawn_cpu_ranks("main_pretrain", argv, args.num_cpu_devices)
     logging.basicConfig(level=logging.INFO)
-    device = resolve_device(args.device)
+    if max(1, args.model_parallel_size) > 1:
+        logger.warning("--model_parallel_size: pretraining is "
+                       "data-parallel only, as in the JAX package; every "
+                       "rank is a data rank")
+    device = init_distributed("cpu" if args.num_cpu_devices else args.device)
+    layout = make_mesh(device_type=device.type)
     args.output_dir = resolve_output_dir(args)
     os.makedirs(args.output_dir, exist_ok=True)
     if args.task_type is None:
@@ -822,18 +950,22 @@ def main_pretrain(argv=None):
         except (FileNotFoundError, ValueError) as e:
             logger.warning("no pretrain dev split (%s); eval disabled", e)
     result = run_pretraining(cfg, model, dataset, args, device,
-                             tokenizer=tokenizer, dev_dataset=dev_dataset)
+                             tokenizer=tokenizer, dev_dataset=dev_dataset,
+                             layout=layout)
     logger.info("pretraining done at step %d", result.global_step)
     if args.do_eval and dev_dataset is not None:
-        res = evaluate_pretraining(
-            cfg, result.model, args, dev_dataset,
-            use_mlm=resolve_objectives(cfg.multimodal_pretrain_objectives)[1],
-            max_eval_steps=args.max_eval_steps)
+        with gathered(result.model):
+            res = evaluate_pretraining(
+                cfg, result.model, args, dev_dataset,
+                use_mlm=resolve_objectives(
+                    cfg.multimodal_pretrain_objectives)[1],
+                max_eval_steps=args.max_eval_steps)
         logger.info("pretrain eval: %s", res)
-        with open(os.path.join(args.output_dir,
-                               "eval_results_pretrain.txt"), "w") as f:
-            for k, v in res.items():
-                f.write(f"{k} = {v}\n")
+        if is_rank0():
+            with open(os.path.join(args.output_dir,
+                                   "eval_results_pretrain.txt"), "w") as f:
+                for k, v in res.items():
+                    f.write(f"{k} = {v}\n")
         result.eval_results = res
     return result
 

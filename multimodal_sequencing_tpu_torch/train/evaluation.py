@@ -26,6 +26,10 @@ sorts the tournament its argmax edges make (`utils/topo.py`, or with
 of each (previous, candidate, last) triple; `pure_class` unranks the
 argmax of the story's permutation logits.
 
+Under a parallel run (`parallel/sharding_rules.py`) every rank evaluates
+the whole loader, as the model's forwards are collective, and rank 0
+writes the files; the predictions equal the single process's.
+
 `pure_decode` beam-generates each story's index tokens with a pure_decode
 model (`EncoderIndexDecoder.generate`, beam 5, bigram ban; the encoder
 once a micro-batch, the beam loop on the device), or, given a p0/p1
@@ -50,6 +54,7 @@ import torch
 
 from ..ops.order_decode import (exhaustive_naive_decode,
                                 topological_decode_batch)
+from ..parallel.mesh import is_rank0
 from ..utils.heatmap import heatmap2order
 from ..utils.metrics import METRICS, compute_metrics
 from ..utils.permutation import permutation_unrank
@@ -411,7 +416,7 @@ class SortEvaluator:
                                          all_labels)
             except ValueError:
                 res[m] = float("nan")
-        if output_dir:
+        if output_dir and is_rank0():
             self._write_outputs(output_dir, data_split, all_guids, all_preds,
                                 all_labels, res)
         return res

@@ -23,6 +23,20 @@ and the beam-search eval at each save with the best checkpoint.
 `run_pretraining` drives the same loop with the pretraining step: the host
 masks each batch and plans one objective for it (`prepare`), and the dev
 MLM evaluation (`evaluate_pretraining`) runs at each save.
+
+Each loop takes its rank layout (`parallel/mesh.py::Layout`, one process
+by default): the global batch is `per_gpu_train_batch_size` x n_data, as
+the JAX loops compute it, and the steps per epoch follow from it. Every
+rank loads the same global batches and draws the same host plans (MLM
+masks, `plan_itm_swap`, the objective plans, BERSON's time-contrastive
+plan) before the step takes its rows; the model is sharded by
+`parallel/sharding_rules.py::parallelize` (`--model_parallel_size`,
+`--sequence_parallel`, `--fsdp`). Pretraining is data-parallel only, as in
+the JAX package. Checkpoints gather whole tensors on every rank and rank 0
+writes them; the evals run on every rank (their forwards are collective
+under tensor parallelism and FSDP) and rank 0 writes their files and the
+logs. `--profile_dir` traces steps 2-4 of the loop
+(`utils/profiling.py::StepTraceWindow`).
 """
 
 from __future__ import annotations
@@ -41,6 +55,9 @@ from ..data.datasets import data_loader, prefetch
 from ..models.convert import load_pretrained_weights
 from ..models.sequencer import init_weights
 from ..models.pretrainer import resolve_objectives
+from ..parallel.mesh import Layout, is_rank0
+from ..parallel.sharding_rules import gathered, parallelize
+from ..utils.profiling import StepTraceWindow
 from .checkpoint import (find_checkpoints, parse_step_from_name,
                          restore_checkpoint, save_checkpoint)
 from .mlm import mask_tokens_sentence
@@ -52,9 +69,13 @@ logger = logging.getLogger(__name__)
 
 
 class MetricWriter:
-    """Scalar logger: JSONL always; TensorBoard if available."""
+    """Scalar logger: JSONL always; TensorBoard if available. Off on every
+    rank but rank 0."""
 
     def __init__(self, log_dir: str):
+        self._f = self._tb = None
+        if not is_rank0():
+            return
         os.makedirs(log_dir, exist_ok=True)
         self._f = open(os.path.join(log_dir, "scalars.jsonl"), "a")
         self._tb = None
@@ -65,6 +86,8 @@ class MetricWriter:
             pass
 
     def scalar(self, tag: str, value: float, step: int):
+        if self._f is None:
+            return
         self._f.write(json.dumps(
             {"tag": tag, "value": float(value), "step": int(step)}) + "\n")
         self._f.flush()
@@ -72,7 +95,8 @@ class MetricWriter:
             self._tb.add_scalar(tag, value, step)
 
     def close(self):
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
         if self._tb is not None:
             self._tb.close()
 
@@ -92,7 +116,8 @@ class TrainResult:
 
 def run_finetune(cfg, model, train_dataset, args, device,
                  eval_fn: Optional[Callable] = None,
-                 tokenizer=None) -> TrainResult:
+                 tokenizer=None, layout: Optional[Layout] = None
+                 ) -> TrainResult:
     """Fresh init from `args.seed`, the HF text weights of a
     `--model_name_or_path` directory (`models/convert.py`), optional
     resume, then the step loop.
@@ -103,9 +128,9 @@ def run_finetune(cfg, model, train_dataset, args, device,
     output_dir, overwrite_output_dir, do_not_load_optimizer.
     `eval_fn(model)` runs at each save (the CLI passes it with
     `--evaluate_during_training`). `tokenizer`, when given, is saved into
-    every checkpoint."""
-    steps_per_epoch = max(1, len(train_dataset)
-                          // args.per_gpu_train_batch_size)
+    every checkpoint. `layout`: the ranks' mesh (one process by default)."""
+    layout = layout or Layout()
+    steps_per_epoch = max(1, len(train_dataset) // _global_batch(args, layout))
     if args.max_steps > 0:
         total_steps = args.max_steps
         epochs = max(1, total_steps // steps_per_epoch + 1)
@@ -113,7 +138,8 @@ def run_finetune(cfg, model, train_dataset, args, device,
         epochs = int(args.num_train_epochs)
         total_steps = steps_per_epoch * epochs
 
-    model, optimizer = _model_and_optimizer(model, args, device, total_steps)
+    model, optimizer = _model_and_optimizer(model, args, device, total_steps,
+                                            layout)
 
     start_step = 0
     if not args.overwrite_output_dir:
@@ -133,7 +159,7 @@ def run_finetune(cfg, model, train_dataset, args, device,
     return _train_loop(cfg, model, optimizer, train_dataset, args, epochs,
                        total_steps, train_step, eval_fn=eval_fn,
                        tokenizer=tokenizer, start_step=start_step,
-                       prepare=aux_surgery(cfg, args.seed))
+                       prepare=aux_surgery(cfg, args.seed), layout=layout)
 
 
 def aux_surgery(cfg, seed: int) -> Optional[Callable]:
@@ -167,22 +193,26 @@ def aux_surgery(cfg, seed: int) -> Optional[Callable]:
 
 def run_berson_training(cfg, model, train_dataset, args, device,
                         eval_fn: Optional[Callable] = None,
-                        tokenizer=None) -> TrainResult:
+                        tokenizer=None, layout: Optional[Layout] = None
+                        ) -> TrainResult:
     """Train `BersonOrdering` on a `BersonDataset`: fresh init from
     `args.seed`, the HF text weights of a `--model_name_or_path` directory
     into its `inner` encoder, then the step loop. `eval_fn(model)` (the
     beam-search eval) runs at each save, and the best partial + exact
     match is kept as `checkpoint-best`. args as `run_finetune`'s, plus
-    additional_wrapper_level_objectives."""
-    steps_per_epoch = max(1, len(train_dataset)
-                          // args.per_gpu_train_batch_size)
+    additional_wrapper_level_objectives. The rows of a BERSON batch are
+    stories (each with its pairs), so a rank's slice holds whole stories,
+    as JAX's `shard_batch` splits the collated leading axis."""
+    layout = layout or Layout()
+    steps_per_epoch = max(1, len(train_dataset) // _global_batch(args, layout))
     if args.max_steps > 0:
         total_steps = args.max_steps
         epochs = total_steps // steps_per_epoch + 1
     else:  # a fractional --num_train_epochs counts
         epochs = max(1, int(args.num_train_epochs))
         total_steps = int(steps_per_epoch * args.num_train_epochs)
-    model, optimizer = _model_and_optimizer(model, args, device, total_steps)
+    model, optimizer = _model_and_optimizer(model, args, device, total_steps,
+                                            layout)
     prepare = None
     if "time_contrastive" in (args.additional_wrapper_level_objectives
                               or []):
@@ -199,11 +229,12 @@ def run_berson_training(cfg, model, train_dataset, args, device,
 
     return _train_loop(cfg, model, optimizer, train_dataset, args, epochs,
                        total_steps, berson_train_step, eval_fn=eval_fn,
-                       tokenizer=tokenizer, prepare=prepare)
+                       tokenizer=tokenizer, prepare=prepare, layout=layout)
 
 
 def run_pretraining(cfg, model, train_dataset, args, device, tokenizer=None,
-                    dev_dataset=None) -> TrainResult:
+                    dev_dataset=None, layout: Optional[Layout] = None
+                    ) -> TrainResult:
     """Pretrain `SequencingPretrainer` on a `PretrainDataset`: fresh init
     from `args.seed` and the pretrained weights of the flags, then the step
     loop, each batch masked on the host and planned for one objective drawn
@@ -217,8 +248,13 @@ def run_pretraining(cfg, model, train_dataset, args, device, tokenizer=None,
     `--evaluate_during_training` and a `dev_dataset`, `evaluate_pretraining`
     (no best checkpoint, no resume, as in the JAX package). args as
     `run_finetune`'s, plus mlm_probability, evaluate_during_training,
-    per_gpu_eval_batch_size and max_eval_steps."""
-    batch_size = args.per_gpu_train_batch_size
+    per_gpu_eval_batch_size and max_eval_steps. `layout`: data-parallel
+    only (n_model 1), as the JAX package pretrains."""
+    layout = layout or Layout()
+    if layout.n_model > 1:
+        raise ValueError("pretraining is data-parallel only: its layout "
+                         "must have one model rank")
+    batch_size = _global_batch(args, layout)
     steps_per_epoch = max(1, len(train_dataset) // batch_size)
     if args.max_steps > 0:
         total_steps = args.max_steps
@@ -236,7 +272,8 @@ def run_pretraining(cfg, model, train_dataset, args, device, tokenizer=None,
             "--multimodal_pretrain_objectives visual_mlm is a dead flag in "
             "the reference (config-only, never read by any model); it is "
             "accepted but has no effect here either")
-    model, optimizer = _model_and_optimizer(model, args, device, total_steps)
+    model, optimizer = _model_and_optimizer(model, args, device, total_steps,
+                                            layout)
     host_rng = np.random.default_rng(args.seed)
 
     def plan(batch, objective):
@@ -270,7 +307,8 @@ def run_pretraining(cfg, model, train_dataset, args, device, tokenizer=None,
 
     return _train_loop(cfg, model, optimizer, train_dataset, args, epochs,
                        total_steps, step_fn, eval_fn=eval_fn,
-                       tokenizer=tokenizer, prepare=prepare, tag="pretrain")
+                       tokenizer=tokenizer, prepare=prepare, tag="pretrain",
+                       layout=layout)
 
 
 # the entries of a collated batch that pretraining reads
@@ -327,27 +365,35 @@ def _train_loop(cfg, model, optimizer, train_dataset, args, epochs: int,
                 eval_fn: Optional[Callable] = None, tokenizer=None,
                 start_step: int = 0,
                 prepare: Optional[Callable] = None,
-                tag: str = "train") -> TrainResult:
-    """The step loop of the trainers: `epochs` shuffled passes, cut at
-    `total_steps`; `batch = prepare(batch)` on the host, then
-    `step_fn(model, optimizer, batch, step, seed)`, whose returned tensors
-    are logged as `{tag}/{name}`; saves with `eval_fn` (its results as
-    `eval/{name}`, or `{tag}/{name}` under another tag, and the best
+                tag: str = "train",
+                layout: Optional[Layout] = None) -> TrainResult:
+    """The step loop of the trainers: `epochs` shuffled passes of global
+    batches, cut at `total_steps`; `batch = prepare(batch)` on the host,
+    then `step_fn(model, optimizer, batch, step, seed)`, whose returned
+    tensors are logged as `{tag}/{name}`; saves with `eval_fn` (its results
+    as `eval/{name}`, or `{tag}/{name}` under another tag, and the best
     checkpoint) and the final save (once: not again after a save at the
-    last step)."""
+    last step); the `--profile_dir` window around steps 2-4."""
+    layout = layout or Layout()
     writer = MetricWriter(os.path.join(args.output_dir, "logs"))
+    device = next(model.parameters()).device
+    tracer = StepTraceWindow(getattr(args, "profile_dir", None),
+                             cuda=device.type == "cuda")
     result = TrainResult(model, optimizer, start_step, time.perf_counter())
     best_score = float("-inf")
     global_step = saved_at = start_step
     eval_tag = "eval" if tag == "train" else tag
     for epoch in range(epochs):
         for batch in prefetch(data_loader(train_dataset,
-                                          args.per_gpu_train_batch_size,
+                                          _global_batch(args, layout),
                                           shuffle=True, seed=args.seed,
                                           epoch=epoch)):
             if prepare is not None:
                 batch = prepare(batch)
+            tracer.before_step(global_step - start_step)
             out = step_fn(model, optimizer, batch, global_step, args.seed)
+            if tracer.after_step(global_step - start_step):
+                logger.info("profiler trace written to %s", args.profile_dir)
             global_step += 1
             if global_step % args.logging_steps == 0:
                 _log_step(writer, result, out, global_step, start_step, tag)
@@ -360,6 +406,7 @@ def _train_loop(cfg, model, optimizer, train_dataset, args, epochs: int,
                 break
         if global_step >= total_steps:
             break
+    tracer.close()  # the run ended inside the profiling window
     if saved_at != global_step or global_step == start_step:
         # the final save, unless the last step's save wrote this checkpoint
         # (the JAX loop writes it a second time, unchanged)
@@ -370,12 +417,20 @@ def _train_loop(cfg, model, optimizer, train_dataset, args, epochs: int,
     return result
 
 
-def _model_and_optimizer(model, args, device, total_steps: int):
+def _global_batch(args, layout: Layout) -> int:
+    return args.per_gpu_train_batch_size * layout.n_data
+
+
+def _model_and_optimizer(model, args, device, total_steps: int,
+                         layout: Layout):
     """The model's fresh init from `args.seed` and pretrained weights, on
-    `device`, and its AdamW."""
+    `device`, sharded over `layout`, and its AdamW."""
     model = init_weights(model, args.seed)
     load_pretrained_weights(model, args)
-    model = model.to(device)
+    model = parallelize(model.to(device), layout,
+                        sequence_parallel=bool(getattr(
+                            args, "sequence_parallel", False)),
+                        fsdp=bool(getattr(args, "fsdp", False)))
     optimizer = AdamW(
         model, learning_rate=args.learning_rate,
         warmup_steps=args.warmup_steps, total_steps=total_steps,
@@ -411,7 +466,8 @@ def _save_and_eval(args, cfg, model, optimizer, step: int, tokenizer, writer,
                     tokenizer=tokenizer)
     if eval_fn is None:
         return best_score
-    res = eval_fn(model)
+    with gathered(model):
+        res = eval_fn(model)
     for k, v in res.items():
         writer.scalar(f"{eval_tag}/{k}", v, step)
     logger.info("eval @%d: %s", step, res)

@@ -22,7 +22,12 @@ in `optax.MultiSteps` for accumulation:
   * with accumulation k the update sees the running mean of k gradients
     and the counts advance only on real updates.
 Parameters and gradients stay f32 on the model's device; the updates run as
-PyTorch `_foreach` ops without host syncs.
+PyTorch `_foreach` ops without host syncs. On a parallelized model
+(`parallel/sharding_rules.py`) every update is elementwise on the rank's own
+tensors (a tensor-parallel slice, an FSDP2 shard), the clipping norm is the
+whole gradient's, each element counted once over the ranks, and
+`state_dict` / `load_state_dict` hold whole moments (collectives on every
+rank).
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from torch import nn
 
 from ..models.clip_visual import BatchNorm
 from ..models.encoder import LayerNorm
+from ..parallel.sharding_rules import local, parallel_of
 from .steps import global_norm
 
 # the moment decay rates, fixed as the JAX package's make_optimizer fixes them
@@ -80,8 +86,14 @@ class AdamW:
                  mu_dtype: torch.dtype = torch.bfloat16):
         flags = _decay_flags(model)
         self.names = [n for n, _, _ in flags]
-        self.params = [p for _, p, _ in flags]
-        self.decay = [p for _, p, d in flags if d]
+        self.par = parallel_of(model)
+        # the parameters (their .grad), and the tensors the updates write
+        self.owners = [p for _, p, _ in flags]
+        self.params = (self.owners if self.par is None
+                       else [local(p) for p in self.owners])
+        self.decay = [t for t, (_, _, d) in zip(self.params, flags) if d]
+        self.replicas = (None if self.par is None else
+                         [self.par.replicas(n) for n in self.names])
         self.schedule = linear_warmup_decay(learning_rate, warmup_steps,
                                             total_steps)
         self.weight_decay = weight_decay
@@ -97,19 +109,22 @@ class AdamW:
         self.mini_step = 0   # accumulated micro-steps since the last update
 
     def zero_grad(self) -> None:
-        for p in self.params:
+        for p in self.owners:
             p.grad = None
 
     def grads(self) -> List[torch.Tensor]:
-        """Each parameter's gradient; zeros where the loss did not reach it
-        (as JAX's gradient tree has them)."""
-        return [p.grad if p.grad is not None else torch.zeros_like(p)
-                for p in self.params]
+        """Each parameter's gradient (this rank's tensor of it); zeros where
+        the loss did not reach it (as JAX's gradient tree has them)."""
+        return [local(p.grad) if p.grad is not None else torch.zeros_like(t)
+                for p, t in zip(self.owners, self.params)]
+
+    def _norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        return global_norm(grads, self.replicas)
 
     @torch.no_grad()
     def step(self, grads: List[torch.Tensor]) -> torch.Tensor:
         """Takes one micro-step's gradients; returns their global norm."""
-        g_norm = global_norm(grads)
+        g_norm = self._norm(grads)
         if self.k == 1:
             self._update(grads, g_norm)
             return g_norm
@@ -118,7 +133,7 @@ class AdamW:
         torch._foreach_div_(diff, float(self.mini_step + 1))
         torch._foreach_add_(self.acc, diff)
         if self.mini_step == self.k - 1:
-            self._update(self.acc, global_norm(self.acc))
+            self._update(self.acc, self._norm(self.acc))
             for a in self.acc:
                 a.zero_()
             self.mini_step = 0
@@ -157,14 +172,20 @@ class AdamW:
         self.count = count
 
     def state_dict(self) -> Dict:
-        """Counts and moments, the moments keyed by parameter name."""
+        """Counts and moments, the moments keyed by parameter name (whole
+        tensors: on a parallelized model a collective on every rank)."""
+        def whole(ts):
+            if self.par is None:
+                return dict(zip(self.names, ts))
+            return {n: self.par.full(n, t) for n, t in zip(self.names, ts)}
+
         state = {"count": self.count, "mini_step": self.mini_step,
-                 "mu": dict(zip(self.names, self.mu)),
-                 "nu": dict(zip(self.names, self.nu))}
+                 "mu": whole(self.mu), "nu": whole(self.nu)}
         if self.acc is not None:
-            state["acc"] = dict(zip(self.names, self.acc))
+            state["acc"] = whole(self.acc)
         return state
 
+    @torch.no_grad()
     def load_state_dict(self, state: Dict) -> None:
         self.count, self.mini_step = state["count"], state["mini_step"]
         for key in ("mu", "nu", "acc"):
@@ -172,4 +193,7 @@ class AdamW:
             if mine is None:
                 continue
             for name, t in zip(self.names, mine):
-                t.copy_(state[key][name])
+                full = state[key][name]
+                if self.par is not None:
+                    full = self.par.part(name, full.to(t.device))
+                t.copy_(full)

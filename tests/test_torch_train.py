@@ -306,6 +306,18 @@ def test_options_of_later_slices_raise(wikihow_dir, tmp_path, flag):
         assert res.model.cfg.num_img_regional_features == int(flag[1])
         assert hasattr(res.model.encoder, "regional_proj")
         return
+    if flag[0] != "--pipeline_parallel_size":
+        # ported (ROADMAP A6, A7a): accepted; tensor parallelism across
+        # two gloo ranks of the CLI's own (one process cannot hold a model
+        # dim of 2), the rest in this process, where they change nothing
+        # in a run of one step (the profiling window opens at step 2)
+        if flag[0] == "--model_parallel_size":
+            flag = [*flag, "--num_cpu_devices", "2"]
+        res = tcli.main_train(_train_argv(wikihow_dir, tmp_path,
+                                          "--max_steps", "1", *flag))
+        assert res.global_step == 1
+        assert (tmp_path / "checkpoint-1" / "model.pt").exists()
+        return
     with pytest.raises(NotImplementedError):
         tcli.main_train(_train_argv(wikihow_dir, tmp_path, "--max_steps", "1",
                                     *flag))
