@@ -49,7 +49,18 @@ both feature extractors on the card (the CLIP RN50 tower at 224 px, the
 ResNet-50-FPN ROI tower at 256 px with K = 10 sidecars), holds a few
 images against the CPU, reads the sidecars back, and checks that a
 `--profile_dir` trace of a train run holds the hand-written kernels by
-name. Every output line
+name. `pipeline_path` runs the GPipe steps with every stage in this
+process (RoBERTa-large fine-tune steps at 2 x 2 and 4 x 4, BERSON's text
+trunk at 2 x 2) against the unpipelined steps on the same weights and
+batches (the first two losses within 1e-6, the rest and the gradient
+norms within the spread's limits, n_micro times the layers' launches),
+and ring attention over a 4096-token sequence (bf16 on 4 positions, f32
+on 2) against the whole sequence's flash kernels and f64, the output's
+limit scaled to its largest value and shown to catch a dropped key block,
+with exact launches;
+`kernel_check` holds the flash kernels at a pipelined microbatch's calls
+and at a ring block with the main backward kernel under the global lse.
+Every output line
 before the last is one JSON object (plus the raw `nvidia-smi` line and the
 paper-format eval rows); the last line is the contract line
 `{"ok": true, "device": {...}}`, printed only when every phase passed. Without a CUDA device, or without the
@@ -367,6 +378,21 @@ KERNELS = {
     **{f"layer_norm_{d}@sp": (
         LN_KERNEL, "multimodal_sequencing_tpu/models/encoder.py:146")
        for d in ("fwd", "bwd")},
+    # the pipelined paths (every stage in one process): a fine-tune
+    # microbatch of 2 stages x 2 (4 stories at S = 320) with its MLP rows
+    # (4 x 320) through the GELU, BERSON's (one story's 20 text pairs), and
+    # a ring attention block (2, 16, 1024, 64) of a 4096-token sequence on
+    # 4 positions, its backward the main kernel under the ring's global lse
+    **{f"flash_{d}@{name}": (
+        "multimodal_sequencing_tpu_torch/ops/csrc/flash_fwd.cu" if d == "fwd"
+        else BWD_KERNEL, "multimodal_sequencing_tpu/ops/attention.py:"
+        + ("126" if d == "fwd" else "343"))
+       for d in ("fwd", "bwd") for name in ("pp_train", "pp_pair",
+                                            "ring_block")},
+    "gelu_logit_erf_fwd@pp": (GELU_KERNEL,
+                              "multimodal_sequencing_tpu/ops/gelu.py:163"),
+    "gelu_logit_erf_bwd@pp": (GELU_KERNEL,
+                              "multimodal_sequencing_tpu/ops/gelu.py:175"),
 }
 # (B, H, S, D) of the multimodal rows: joint train (batch 8), joint eval
 # (micro-batch 32), attention pool of a train batch (8 stories)
@@ -417,7 +443,12 @@ MM_SHAPES = {"joint": (8, 16, MM_JOINT_S, 64),
              # a tensor-parallel rank (TP 2) of the text path: its 8 heads
              # of a train step and of an eval micro-batch
              "tp_train": (8, 8, 320, 64),
-             "tp_eval": (32, 8, 320, 64)}
+             "tp_eval": (32, 8, 320, 64),
+             # a pipelined step's microbatch (2 of the batch of 8); one
+             # BERSON story's pairs (2 of the batch of 2 stories, the story
+             # of 3 live steps: 14 pairs fully masked)
+             "pp_train": (4, 16, 320, 64),
+             "pp_pair": (BERSON_P, 16, BERSON_L, 64)}
 # the global (batch offset, head offset, heads) of the tensor-parallel
 # calls' keep bits: data rank 1 and model rank 1 of a 2 x 2 layout
 MM_INDEX = {"tp_train": (8, 8, 16), "tp_eval": (32, 8, 16)}
@@ -432,7 +463,7 @@ PATH_DROPOUT = ("joint", "pair", "pair_joint", "pretrain_joint",
                 "pretrain_img", "pretrain_text", "pretrain_margin",
                 "pretrain_ft", "v0_pair_train", "rq_pair_joint",
                 "rq_pretrain_joint", "vb_train", "naive_train", "vb_berson",
-                "vb_pretrain", "tp_train")
+                "vb_pretrain", "tp_train", "pp_train", "pp_pair")
 # the kernels each main path must launch
 PATH_KERNELS = {"eval": ("flash_fwd", "gelu_logit_erf_fwd", "layer_norm_fwd"),
                 "train": ("flash_fwd", "flash_bwd_prep", "flash_bwd_main",
@@ -488,7 +519,17 @@ PATH_KERNELS.update(hf_train=PATH_KERNELS["train"],
                     parallel_one=PATH_KERNELS["train"],
                     parallel_ddp=PATH_KERNELS["train"],
                     parallel_fsdp=PATH_KERNELS["train"],
-                    tools_profile=PATH_KERNELS["train"])
+                    tools_profile=PATH_KERNELS["train"],
+                    # the pipelined runs and the ring attention
+                    # (`phase_pipeline_path`)
+                    pp_unpipelined=PATH_KERNELS["train"],
+                    pp_finetune_2x2=PATH_KERNELS["train"],
+                    pp_finetune_4x4=PATH_KERNELS["train"],
+                    pp_berson=PATH_KERNELS["train"],
+                    pp_ring=("flash_fwd", "flash_bwd_prep", "flash_bwd_main",
+                             "flash_bwd_post"),
+                    pp_ring_f32=("flash_fwd", "flash_bwd_dq_f32",
+                                 "flash_bwd_dkv_f32"))
 # the launch counter behind each row of the `kernels` line, where it is
 # not the row's own name
 COUNTER = {"flash_bwd": "flash_bwd_main", "flash_bwd_dq": "flash_bwd_main",
@@ -513,7 +554,7 @@ COUNTER = {"flash_bwd": "flash_bwd_main", "flash_bwd_dq": "flash_bwd_main",
            **{name: name.split("@")[0].replace("flash_bwd", "flash_bwd_main")
               for name in KERNELS if "@pretrain_" in name or "@v0_" in name
               or "@rq_" in name or "@bert_base" in name or "@vb" in name
-              or "@naive" in name}}
+              or "@naive" in name or "@pp" in name or "@ring" in name}}
 # the path whose launches the multimodal rows of the `kernels` line show
 # (the wrappers count launches of every shape together)
 ROW_PATH = {"flash_fwd@joint": "mm_train", "flash_fwd@joint_eval": "mm_eval",
@@ -572,7 +613,13 @@ ROW_PATH = {"flash_fwd@joint": "mm_train", "flash_fwd@joint_eval": "mm_eval",
             **{f"{k}@{tag}": "vb_train" for k in (
                 "gelu_logit_erf_fwd", "gelu_logit_erf_bwd", "layer_norm_fwd",
                 "layer_norm_bwd") for tag in ("vb", "vb_f32")
-               if tag == "vb" or k.startswith("layer_norm")}}
+               if tag == "vb" or k.startswith("layer_norm")},
+            **{k: "pp_finetune_2x2" for k in (
+                "flash_fwd@pp_train", "flash_bwd@pp_train",
+                "gelu_logit_erf_fwd@pp", "gelu_logit_erf_bwd@pp")},
+            "flash_fwd@pp_pair": "pp_berson", "flash_bwd@pp_pair": "pp_berson",
+            "flash_fwd@ring_block": "pp_ring",
+            "flash_bwd@ring_block": "pp_ring"}
 # the f32 backward kernels: the check path, never launched by the bf16
 # train path
 F32_BWD = ("flash_bwd_dq_f32", "flash_bwd_dkv_f32")
@@ -604,8 +651,9 @@ LN_EDGE_CASES = [(8 * 320, 1024, 0.0, 1, False), (8 * 320, 1024, 3.0, 0, True)]
 # share bit for bit (see _layer_norm_shared_stats)
 LN_STATS_ROWS = (0, 4321, 32 * 320 - 1)
 # the MLP activation entering the GELU: (tokens, intermediate size)
+PP_ROWS = 4 * 320  # the MLP rows of a pipelined fine-tune microbatch
 GELU_SHAPES = [(32 * 320, 4096), (8 * 320, 4096), (5, 7), (8 * VB_S, 4096),
-               (4 * BERSON_MM_S, 3072), (RQ_ROWS, 3072)]
+               (4 * BERSON_MM_S, 3072), (PP_ROWS, 4096), (RQ_ROWS, 3072)]
 # |got - want| <= atol + rtol * |want|. f32: the kernel and the plain
 # version round the same f32 formula in other places (fused multiply-adds
 # outside the polynomials), an ulp of sigma and u' that the backward's
@@ -769,8 +817,8 @@ def make_path_attention_inputs(name: str, dtype, seed: int):
         steps = 3 if name == "v0_cube_eval" else 2
         text = torch.randint(20, 61, (b, steps), generator=gen).sum(1)
         mask = (pos < text[:, None]).to(torch.int32)
-    elif name in ("pair", "pair_eval"):
-        live = (5, 3) if name == "pair" else PAIR_EVAL_STEPS
+    elif name in ("pair", "pair_eval", "pp_pair"):
+        live = {"pair": (5, 3), "pp_pair": (3,)}.get(name, PAIR_EVAL_STEPS)
         mask = (pos < _pair_lengths(live, gen)[:, None]).to(torch.int32)
     elif name in ("pair_joint", "rq_pair_joint", "vb_berson"):
         # the launcher's story of 4 live steps; a recipe's 5; VisualBERT's
@@ -806,17 +854,19 @@ MM_KERNEL_CASES = [("joint", DROPOUT_P), ("joint", 0.0),
                    ("naive_train", DROPOUT_P), ("vb_berson", DROPOUT_P),
                    ("vb_berson", 0.0), ("vb_pretrain", DROPOUT_P),
                    ("tp_train", DROPOUT_P), ("tp_train", 0.0),
-                   ("tp_eval", 0.0)]
+                   ("tp_eval", 0.0), ("pp_train", DROPOUT_P),
+                   ("pp_train", 0.0), ("pp_pair", DROPOUT_P)]
 
 
 def _attention_check(att, q, k, v, mask, p, seed, labels, backward=True,
-                     index=None):
+                     index=None, o_scaled=False):
     """One forward (and backward) of the flash kernels against the plain
     versions under TOLERANCE and BWD_TOLERANCE; bwd inputs are the kernel
     forward's O and lse and a random dO laid out as q. `index`: the heads'
-    global (batch offset, head offset, heads) of the keep bits. Returns the
-    forward row, the backward row (None without `backward`) and the
-    failures."""
+    global (batch offset, head offset, heads) of the keep bits. With
+    `o_scaled` O's atol is TOLERANCE's times max|O| (for outputs far below
+    1, as BWD_TOLERANCE scales the gradients). Returns the forward row,
+    the backward row (None without `backward`) and the failures."""
     import torch
     name = str(q.dtype).split(".")[-1]
     failed = []
@@ -827,14 +877,16 @@ def _attention_check(att, q, k, v, mask, p, seed, labels, backward=True,
     o_ref, lse_ref = att.attention_reference_lse(q, k, v, mask, p, seed + 17,
                                                  index)
     atol, rtol = TOLERANCE[name]
+    o_atol = atol * o_ref.float().abs().max().item() if o_scaled else atol
     ok = all(bool(((got.float() - want.float()).abs()
-                   <= atol + r * want.float().abs()).all())
-             for got, want, r in ((o, o_ref, rtol), (lse, lse_ref, 0.0)))
+                   <= a + r * want.float().abs()).all())
+             for got, want, a, r in ((o, o_ref, o_atol, rtol),
+                                     (lse, lse_ref, atol, 0.0)))
     fwd = {"phase": "kernel_check", "kernel": "flash_fwd", **labels,
            "shape_bhsd": list(q.shape), "dtype": name, "dropout_p": p,
            "max_abs_err_o": _max_err(o, o_ref),
            "max_abs_err_lse": _max_err(lse, lse_ref),
-           "atol": atol, "rtol": rtol, "ok": ok}
+           "atol": atol, "rtol": rtol, "atol_o": o_atol, "ok": ok}
     fwd["max_abs_err"] = max(fwd["max_abs_err_o"], fwd["max_abs_err_lse"])
     dead = ~mask.bool().any(1)  # fully masked batch rows
     if bool(dead.any()):
@@ -879,7 +931,7 @@ def _attention_check(att, q, k, v, mask, p, seed, labels, backward=True,
     if name == "bfloat16":
         bwd.update(_bwd_bf16_checks(att, q, k, v, mask, o, lse, do, p,
                                     seed + 17, got, index))
-        failed += [] if bwd["dk_dv_bit_equal_on_rerun"] else [
+        failed += [] if bwd["bit_equal_on_rerun"] else [
             ("bwd_determinism", labels, tuple(q.shape), p)]
         failed += [] if bwd["ok_prep"] and bwd["ok_post"] else [
             ("bwd_prep_post", labels, tuple(q.shape), p)]
@@ -923,11 +975,89 @@ def phase_kernel_check(seed: int, errs: dict):
                 errs[f"flash_fwd@{name}"] = fwd["max_abs_err"]
                 if bwd is not None:
                     errs[f"flash_bwd@{name}"] = bwd["max_abs_err"]
+    failed += _ring_block_check(seed, errs)
     failed += _gelu_check(seed, errs)
     failed += _layer_norm_check(seed, errs)
     if failed:
         raise AssertionError(f"kernels disagree with the plain versions: "
                              f"{failed}")
+
+
+def make_ring_inputs(dtype, seed: int, shape=None):
+    """q, k, v (scaled by 0.5) on the card and the (B, S) key mask of the
+    ring attention check (`RING_SHAPE`): every row's last 20 % of keys
+    masked, the last row's last 60 % (at a ring of 4 its last two blocks
+    have no live key), as the CPU tests' inputs."""
+    import torch
+    b, h, s, d = shape or RING_SHAPE
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    q, k, v = ((torch.randn((b, h, s, d), generator=gen) * 0.5).to(
+        "cuda", dtype) for _ in range(3))
+    mask = torch.ones((b, s), dtype=torch.int32)
+    mask[:, int(0.8 * s):] = 0
+    mask[-1, int(0.4 * s):] = 0
+    return q, k, v, mask.cuda()
+
+
+def ring_block(x, j, n):
+    """Block j (of n rows) of a (B, H, S, D) tensor's sequence (a view)."""
+    return x[:, :, j * n:(j + 1) * n]
+
+
+def _ring_block_check(seed: int, errs: dict):
+    """A ring attention block (`RING_SHAPE` on `RING_SIZE` positions,
+    bf16): position 1's queries against block 2's keys and values (the
+    last row's keys there all masked), the forward at the block, and the
+    backward's main kernel under the global (o, lse) of the whole
+    sequence, as ring attention's backward runs it (pre-pass, main kernel,
+    post-pass on one block), against the plain versions; O's atol scaled
+    to max|O| (the inputs' outputs are ~1e-2)."""
+    import torch
+    from multimodal_sequencing_tpu_torch.ops import attention as att
+    q, k, v, mask = make_ring_inputs(torch.bfloat16, seed)
+    b, h, s, _ = q.shape
+    n = s // RING_SIZE
+    i, r = 1, 2
+    qi, kr, vr = ring_block(q, i, n), ring_block(k, r, n), ring_block(v, r, n)
+    mr = mask[:, r * n:(r + 1) * n]
+    labels = {"path_call": "ring_block", "block_q": i, "block_kv": r}
+    fwd, _, failed = _attention_check(att, qi, kr, vr, mr, 0.0, seed, labels,
+                                      backward=False, o_scaled=True)
+    o, lse = att.attention_reference_lse(q, k, v, mask)
+    oi = ring_block(o, i, n).contiguous()
+    lse_i = lse.view(b, h, s)[:, :, i * n:(i + 1) * n].reshape(b * h, n)
+    gen = torch.Generator(device="cpu").manual_seed(seed + 1)
+    do = torch.randn(qi.shape, generator=gen).to("cuda", torch.bfloat16)
+    delta, lse2, acc = att.flash_bwd_prep(oi, do, lse_i.contiguous())
+    dk, dv = att.flash_bwd_main(qi, kr, vr, mr, lse2, delta, acc, do)
+    got = (att.flash_bwd_post(acc, qi), dk, dv)
+    torch.cuda.synchronize()
+    want = att.attention_bwd_reference(qi, kr, vr, mr, oi, lse_i, do)
+    btol, brtol = BWD_TOLERANCE["bfloat16"]
+    row = {"phase": "kernel_check", "kernel": "flash_bwd", **labels,
+           "case": "main kernel under the global lse",
+           "shape_bhsd": list(qi.shape), "dtype": "bfloat16",
+           "atol_of_max": btol, "rtol": brtol}
+    for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+        lim = btol * w.float().abs().max().item()
+        good = bool(((g.float() - w.float()).abs()
+                     <= lim + brtol * w.float().abs()).all())
+        row[f"max_abs_err_{gname}"] = _max_err(g, w)
+        row[f"max_abs_{gname}"] = w.float().abs().max().item()
+        row[f"ok_{gname}"] = good
+        failed += [] if good else [(gname, labels)]
+    # the masked keys of the block get zero dk and dv
+    dead = ~mr.bool()
+    row["masked_keys_grad_zero"] = all(
+        bool((g.transpose(1, 2)[dead] == 0).all()) for g in (dk, dv))
+    failed += [] if row["masked_keys_grad_zero"] else [("masked_keys",
+                                                        labels)]
+    row["max_abs_err"] = max(row[f"max_abs_err_{g}"] for g in ("dq", "dk",
+                                                             "dv"))
+    emit(row)
+    errs["flash_fwd@ring_block"] = fwd["max_abs_err"]
+    errs["flash_bwd@ring_block"] = row["max_abs_err"]
+    return failed
 
 
 # The bf16 backward's pre-pass against `attention_delta`: f32 sums of the
@@ -941,10 +1071,9 @@ PREP_TOLERANCE = 1e-5
 def _bwd_bf16_checks(att, q, k, v, mask, o, lse, do, p, seed, got,
                      index=None):
     """The bf16 backward's pre-pass and post-pass against their plain
-    versions, and a rerun on equal inputs: dk and dv must be bit-equal (a
-    fixed order of sums); dq may differ at f32 rounding before its bf16
-    cast (the order of the reduce-adds into its accumulator varies), so its
-    largest difference is reported."""
+    versions, and a rerun on equal inputs: dq, dk and dv must be bit-equal
+    (fixed orders of sums; dq's partials are reduce-added in turn), and
+    dq's largest difference is reported."""
     import torch
     delta, lse2, acc = att.flash_bwd_prep(o, do, lse)
     want_delta, want_lse2, _ = att.attention_bwd_prep_reference(o, do, lse)
@@ -960,8 +1089,8 @@ def _bwd_bf16_checks(att, q, k, v, mask, o, lse, do, p, seed, got,
     return {"max_abs_err_delta": err_delta.max().item(), "ok_prep": ok_prep,
             "max_abs_err_post": _max_err(dq, want_dq),
             "ok_post": torch.equal(dq, want_dq),
-            "dk_dv_bit_equal_on_rerun": (torch.equal(again[1], got[1])
-                                         and torch.equal(again[2], got[2])),
+            "bit_equal_on_rerun": all(torch.equal(a, g)
+                                      for a, g in zip(again, got)),
             "dq_rerun_max_abs_diff": _max_err(again[0], got[0])}
 
 
@@ -1134,6 +1263,8 @@ def _gelu_check(seed: int, errs: dict):
                     errs[f"gelu_logit_erf_{kname}@bert_base"] = err.max().item()
                 if name == "bfloat16" and shape == (8 * VB_S, 4096):
                     errs[f"gelu_logit_erf_{kname}@vb"] = err.max().item()
+                if name == "bfloat16" and shape == (PP_ROWS, 4096):
+                    errs[f"gelu_logit_erf_{kname}@pp"] = err.max().item()
                 if name == "bfloat16" and shape == GELU_SHAPES[0] and kname == "fwd":
                     errs["gelu_logit_erf_fwd@eval"] = err.max().item()
             emit(row)
@@ -1336,7 +1467,8 @@ def _gelu_timing(gen) -> dict:
     for name, shape in (("gelu_logit_erf_fwd", GELU_SHAPES[1]),
                         ("gelu_logit_erf_fwd@eval", GELU_SHAPES[0]),
                         ("gelu_logit_erf_fwd@bert_base", GELU_SHAPES[-1]),
-                        ("gelu_logit_erf_fwd@vb", (8 * VB_S, 4096))):
+                        ("gelu_logit_erf_fwd@vb", (8 * VB_S, 4096)),
+                        ("gelu_logit_erf_fwd@pp", (PP_ROWS, 4096))):
         x = torch.randn(shape, generator=gen).to("cuda", torch.bfloat16) * 3
         rows[name] = {"shape": list(shape), **row(
             "fwd", x.numel(), 2, lambda: gl.gelu_logit_erf_fwd(x),
@@ -1578,6 +1710,41 @@ def phase_timing(seed: int):
                 q, k, v, mask, o, lse, do, p, sd), iters=5),
             **bound(8 * bhsd * 2 + bhs * 4 + b * s * 4,
                     5 * 2 * b * h * s * s * d)}
+    # the ring attention block: the forward at the block, and the
+    # backward's main kernel under the ring's global lse (the pre-pass once
+    # per position, the post-pass once, are the train rows' kernels)
+    q, k, v, mask = make_ring_inputs(torch.bfloat16, seed)
+    b, h, s, d = q.shape
+    n = s // RING_SIZE
+    qi, kr, vr = (ring_block(x, j, n).contiguous()
+                  for x, j in ((q, 1), (k, 2), (v, 2)))
+    mr = mask[:, 2 * n:3 * n].contiguous()
+    rows["flash_fwd@ring_block"] = {
+        "shape_bhsd": list(qi.shape), "dropout_p": 0.0,
+        **fwd_row(qi, kr, vr, mr, 0.0, sd, plain_iters=5)}
+    o, lse = att.attention_reference_lse(q, k, v, mask)
+    oi = ring_block(o, 1, n).contiguous()
+    lse_i = lse.view(b, h, s)[:, :, n:2 * n].reshape(b * h, n).contiguous()
+    del o, lse
+    do = torch.randn_like(qi)
+    delta, lse2, acc = att.flash_bwd_prep(oi, do, lse_i)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qi, kr, vr))
+    out = F.scaled_dot_product_attention(
+        qg, kg, vg, attn_mask=mr.bool()[:, None, None, :])
+    main_ms = kernel_ms(lambda: att.flash_bwd_main(
+        qi, kr, vr, mr, lse2, delta, acc, do))
+    lib_ms = kernel_ms(lambda: torch.autograd.grad(
+        out, (qg, kg, vg), do, retain_graph=True))
+    bhsd, bhs = b * h * n * d, b * h * n
+    rows["flash_bwd@ring_block"] = {
+        "shape_bhsd": list(qi.shape), "dropout_p": 0.0,
+        "kernel_timed": "flash_bwd_main under the global lse",
+        "ms": main_ms, "library_ms": lib_ms, "library_ratio": main_ms / lib_ms,
+        "plain_ms": kernel_ms(lambda: att.attention_bwd_reference(
+            qi, kr, vr, mr, oi, lse_i, do), iters=5),
+        # reads q, k, v, dO, lse, delta and the mask; writes dq, dk and dv
+        **bound(7 * bhsd * 2 + 2 * bhs * 4 + b * n * 4,
+                5 * 2 * b * h * n * n * d)}
     for name, row in rows.items():
         emit({"phase": "timing", "kernel": name, **row})
     return rows
@@ -5655,14 +5822,14 @@ def _visual_pretrain(seed, work, lengths):
 
 PARALLEL_STEPS = 3   # parallel_path: main_train steps of 8 stories
 # the wrapped runs against the single process: the same bf16 arithmetic on
-# one rank, but a step is not bit-reproducible (the atomic adds of the
-# embedding gradient and of the flash backward's dq), so each wrapped run's
-# largest relative difference must be within PARALLEL_SPREAD_X times that
-# of two unwrapped runs, or within PARALLEL_FLOOR, ~1.5x and ~3x the
-# largest such spreads seen (1.3e-3 in the third loss, 1.7e-4 in a
-# gradient norm; two runs' spread alone is a noisy estimate, as low as
-# 5.9e-5); the first two losses, before any weight moves (the first
-# update's learning rate is 0), must be equal
+# one rank. The two unwrapped runs must be bit-equal (every kernel sums in
+# a fixed order; the flash backward's dq partials are added in turn). Each
+# wrapped run's largest relative difference must be within
+# PARALLEL_SPREAD_X times that of the two unwrapped runs, or within
+# PARALLEL_FLOOR (set when the dq adds came in a varying order, at ~1.5x
+# and ~3x the largest spreads seen then: 1.3e-3 in the third loss, 1.7e-4
+# in a gradient norm); the first two losses, before any weight moves (the
+# first update's learning rate is 0), must be equal
 PARALLEL_SPREAD_X = 4.0
 PARALLEL_FLOOR = {"loss_rel": 2e-3, "grad_norm_rel": 5e-4}
 PARALLEL_TIMEOUT_S = 600
@@ -5750,7 +5917,7 @@ def phase_parallel_path(seed: int, work: str):
     this process, unwrapped (run twice for its own spread): the first two
     losses equal, the rest and the gradient norms within the limits of
     PARALLEL_SPREAD_X and PARALLEL_FLOOR, and the same kernel launches a
-    step."""
+    step; the two unwrapped runs bit-equal."""
     data_dir = os.path.join(work, "parallel_data")
     os.makedirs(data_dir, exist_ok=True)
     write_wikihow(data_dir, "train", 8 * PARALLEL_STEPS, seed)
@@ -5780,8 +5947,12 @@ def phase_parallel_path(seed: int, work: str):
     summary = {"phase": "parallel_path", "unwrapped": one,
                "unwrapped_again": again, "spread": spread, "limit": limit,
                "torchrun_s": torchrun_s}
+    summary["unwrapped_bit_equal"] = (
+        again["losses"] == one["losses"]
+        and again["grad_norms"] == one["grad_norms"])
     ok = (one["steps"] == PARALLEL_STEPS
-          and all(math.isfinite(x) for x in one["losses"]))
+          and all(math.isfinite(x) for x in one["losses"])
+          and summary["unwrapped_bit_equal"])
     for mode, row in runs.items():
         row["loss_rel_err"] = _rel(row["losses"], one["losses"])
         row["grad_norm_rel_err"] = _rel(row["grad_norms"], one["grad_norms"])
@@ -5912,6 +6083,285 @@ def phase_tools_path(seed: int, work: str):
     return {"tools_profile": prof["launches"]}
 
 
+# ----- the pipeline and ring attention -----------------------------------------
+
+PP_STEPS = 3                        # pipeline_path: train steps a run
+PP_FINETUNE = ((2, 2), (4, 4))      # (stages, microbatches) of the fine-tune
+PP_BERSON = (2, 2)                  # ... and of BERSON's text trunk
+PP_BERSON_LENS = (5, 3)             # BERSON's 2 stories' live steps
+RING_SHAPE = (2, 16, 4096, 64)      # (B, H, S, D) of the ring attention
+RING_SIZE = 4                       # its positions in bf16 (blocks of 1024)
+RING_SIZE_F32 = 2                   # ... and in f32
+# the pipelined runs against the unpipelined one: within
+# PARALLEL_SPREAD_X times two unpipelined runs' spread or PP_FLOOR. The
+# third step's gradient norm is the noisiest reading (the atomic adds of
+# the first steps, amplified by an update): two unpipelined runs differed
+# by up to 5.8e-4 and the 4 x 4 pipeline by 9.6e-4 (the 2 x 2 by 5.2e-4)
+# in the first card run, losses by up to 4.5e-4; in the second the 2 x 2's
+# gradient norm was 6.3e-4 off against a spread of 2.2e-4 (4x: 8.6e-4) and
+# the 4 x 4's third loss 6.9e-4 off, so a floor of PARALLEL_FLOOR's 5e-4
+# leaves little room; the floors are ~2x and ~3x the largest readings
+PP_FLOOR = {"loss_rel": 2e-3, "grad_norm_rel": 2e-3}
+# the first PP_EXACT_STEPS losses: the forward of the first step is the
+# unpipelined one row for row, and the second step's weights differ from
+# it only by the rounding of one update, below bf16's resolution at
+# learning rate 1e-5: every card run so far gave them bit-equal, so they
+# are held within PP_EXACT_LOSS_REL (a dropout keying error in these
+# steps moves them far more)
+PP_EXACT_STEPS = 2
+PP_EXACT_LOSS_REL = 1e-6
+# the kernels a layer launches in one forward and backward of one
+# microbatch: a pipelined step launches them n_micro times as often
+LAYER_LAUNCHES = {"flash_fwd": 1, "flash_bwd_prep": 1, "flash_bwd_main": 1,
+                  "flash_bwd_post": 1, "gelu_logit_erf_fwd": 1,
+                  "gelu_logit_erf_bwd": 1, "layer_norm_fwd": 2,
+                  "layer_norm_bwd": 2}
+
+
+def _pp_run(model, state, step_fn, batches, seed):
+    """PP_STEPS train steps of `step_fn` from the weights `state` with a
+    fresh AdamW: each step's loss and gradient norm, the kernel launches,
+    the host time of each step (to the loss on the host) and the peak
+    memory."""
+    import torch
+    from multimodal_sequencing_tpu_torch.train.state import AdamW
+    model.load_state_dict(state)
+    opt = AdamW(model, learning_rate=1e-5, warmup_steps=1,
+                total_steps=PP_STEPS, weight_decay=0.01, max_grad_norm=1.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    losses, norms, times = [], [], []
+    for i, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        out = step_fn(model, opt, batch, i, seed)
+        losses.append(out["loss"].item())
+        times.append(time.perf_counter() - t0)
+        norms.append(out["grad_norm"].item())
+    counts = _read_counts()
+    row = {"losses": losses, "grad_norms": norms, "launches": counts,
+           "step_s": times, "median_step_s": _median_after_first(times),
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del opt
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    return row
+
+
+def _pp_compare(name, runs, n_micro, layers, summary):
+    """A pipelined run against the unpipelined ones: the first
+    PP_EXACT_STEPS losses within PP_EXACT_LOSS_REL, every loss and
+    gradient norm within max(PARALLEL_SPREAD_X x the two unpipelined runs'
+    spread, PP_FLOOR), and exactly n_micro times the layers' kernel
+    launches a step (the rest unchanged). Records the comparison in
+    `summary`."""
+    one, again, got = runs["unpipelined"], runs["unpipelined_again"], \
+        runs[name]
+    spread = {"loss_rel": _rel(again["losses"], one["losses"]),
+              "grad_norm_rel": _rel(again["grad_norms"], one["grad_norms"])}
+    limit = {k: max(PARALLEL_SPREAD_X * v, PP_FLOOR[k])
+             for k, v in spread.items()}
+    want = {k: c + PP_STEPS * (n_micro - 1) * layers
+            * LAYER_LAUNCHES.get(k, 0) for k, c in one["launches"].items()}
+    got.update(loss_rel_err=_rel(got["losses"], one["losses"]),
+               grad_norm_rel_err=_rel(got["grad_norms"], one["grad_norms"]),
+               first_losses_equal=(got["losses"][:PP_EXACT_STEPS]
+                                   == one["losses"][:PP_EXACT_STEPS]),
+               first_losses_rel_err=_rel(got["losses"][:PP_EXACT_STEPS],
+                                         one["losses"][:PP_EXACT_STEPS]),
+               launches_expected=want,
+               launches_exact=got["launches"] == want)
+    summary.setdefault("spread", spread)
+    summary.setdefault("limit", limit)
+    return (all(math.isfinite(x) for x in got["losses"])
+            and got["first_losses_rel_err"] <= PP_EXACT_LOSS_REL
+            and got["loss_rel_err"] <= limit["loss_rel"]
+            and got["grad_norm_rel_err"] <= limit["grad_norm_rel"]
+            and got["launches_exact"])
+
+
+def _attention_f64(q, k, v, mask, do=None):
+    """Attention in f64 (the key mask by where, -1e9), and with `do` its
+    gradients by autograd: the yardstick of the ring attention check."""
+    import torch
+    q64, k64, v64 = (x.double().requires_grad_(do is not None)
+                     for x in (q, k, v))
+    logits = torch.einsum("bhsd,bhtd->bhst", q64, k64) / math.sqrt(
+        q.shape[-1])
+    logits = logits.masked_fill(~mask.bool()[:, None, None, :], -1e9)
+    o = torch.einsum("bhst,bhtd->bhsd", torch.softmax(logits, -1), v64)
+    if do is None:
+        return o
+    grads = torch.autograd.grad(o, (q64, k64, v64), do.double())
+    return o.detach(), grads
+
+
+def _ring_run(dtype, ring_size, seed):
+    """Ring attention at RING_SHAPE on `ring_size` positions in one
+    process, forward and backward, against the whole sequence's flash
+    kernels and the f64 attention: the errors (the output within
+    TOLERANCE's atol times max|O| plus its rtol, as the outputs are ~1e-2;
+    gradients within BWD_TOLERANCE of their largest; both against f64 and
+    against the whole-sequence kernels), a planted fault (the f64 output
+    without the first key block, as a merge that lost a block gives it)
+    that the output's limit must catch, the exact launches, and the times
+    of both (forward + backward, CUDA events)."""
+    import torch
+    from multimodal_sequencing_tpu_torch.ops import attention as att
+    from multimodal_sequencing_tpu_torch.parallel.mesh import Ring
+    from multimodal_sequencing_tpu_torch.parallel.ring_attention import (
+        ring_attention)
+    name = str(dtype).split(".")[-1]
+    q, k, v, mask = make_ring_inputs(dtype, seed)
+    gen = torch.Generator(device="cpu").manual_seed(seed + 1)
+    do = torch.randn(q.shape, generator=gen).to("cuda", dtype)
+    ring = Ring(ring_size)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+
+    def run_ring():
+        o = ring_attention(qg, kg, vg, mask, ring=ring)
+        return o, torch.autograd.grad(o, (qg, kg, vg), do)
+
+    def run_whole():
+        o, lse = att.flash_attention(q, k, v, mask)
+        return o, att.flash_attention_bwd(q, k, v, mask, o, lse, do)
+
+    _reset_counts()
+    o, grads = run_ring()
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    r2 = ring_size * ring_size
+    want_counts = ({"flash_fwd": r2, "flash_bwd_prep": ring_size,
+                    "flash_bwd_main": r2, "flash_bwd_post": ring_size}
+                   if dtype == torch.bfloat16 else
+                   {"flash_fwd": r2, "flash_bwd_dq_f32": r2,
+                    "flash_bwd_dkv_f32": r2})
+    want_counts = {k_: want_counts.get(k_, 0) for k_ in counts}
+    o_w, g_w = run_whole()
+    o64, g64 = _attention_f64(q, k, v, mask, do)
+    atol, rtol = TOLERANCE[name]
+    btol, brtol = BWD_TOLERANCE[name]
+    row = {"dtype": name, "ring": ring_size, "shape_bhsd": list(q.shape),
+           "launches": counts, "launches_exact": counts == want_counts,
+           "atol": atol, "rtol": rtol, "bwd_atol_of_max": btol,
+           "bwd_rtol": brtol}
+    ok = row["launches_exact"]
+
+    def o_limit(ro):
+        ro = ro.double().abs()
+        return atol * ro.max().item() + rtol * ro
+
+    for ref_name, ro, rg in (("f64", o64, g64), ("whole_flash", o_w, g_w)):
+        err = (o.double() - ro.double()).abs()
+        good = bool((err <= o_limit(ro)).all())
+        row[f"max_abs_err_o_vs_{ref_name}"] = err.max().item()
+        row[f"atol_o_vs_{ref_name}"] = atol * ro.double().abs().max().item()
+        row[f"ok_o_vs_{ref_name}"] = good
+        ok = ok and good
+        for gname, g, w in zip(("dq", "dk", "dv"), grads, rg):
+            w = w.double()
+            err = (g.double() - w).abs()
+            lim = btol * w.abs().max().item()
+            good = bool((err <= lim + brtol * w.abs()).all())
+            row[f"max_abs_err_{gname}_vs_{ref_name}"] = err.max().item()
+            row[f"ok_{gname}_vs_{ref_name}"] = good
+            ok = ok and good
+    # the whole-sequence kernels' own distance to f64, for scale
+    row["max_abs_err_o_whole_vs_f64"] = (o_w.double() - o64).abs().max().item()
+    del g64
+    # a planted fault: the first key block dropped from every row
+    n = q.shape[2] // ring_size
+    dropped = mask.clone()
+    dropped[:, :n] = 0
+    fault = (_attention_f64(q, k, v, dropped) - o64).abs()
+    row["planted_fault_max_abs_err_o"] = fault.max().item()
+    row["planted_fault_caught"] = bool((fault > o_limit(o64)).any())
+    ok = ok and row["planted_fault_caught"]
+    del o64, fault
+    torch.cuda.empty_cache()
+    row["ring_ms"] = cuda_ms(run_ring, iters=5, warmup=1)
+    row["whole_flash_ms"] = cuda_ms(run_whole, iters=5, warmup=1)
+    row["ok"] = ok
+    return row
+
+
+def phase_pipeline_path(seed: int):
+    """GPipe and ring attention on the card, every ring position held by
+    this one process (NCCL takes one rank a card). (a) RoBERTa-large v1
+    fine-tune steps (24 layers, S = 320, batch 8, dropout 0.1, bf16),
+    PP_STEPS steps at 2 stages x 2 microbatches and at 4 x 4
+    (`parallel/pipeline.py::make_pipeline_train_step`) against the
+    unpipelined `train_step` on the same weights and batches, run twice
+    for its own spread; (b) BERSON's text trunk (pairs of 120, 2 stories)
+    at 2 x 2 against `berson_train_step`, the same way; (c) ring attention
+    at RING_SHAPE, bf16 on 4 positions and f32 on 2, against the
+    whole-sequence flash kernels and f64. No step writes a save."""
+    import torch
+    from multimodal_sequencing_tpu_torch.parallel.mesh import Ring
+    from multimodal_sequencing_tpu_torch.parallel.pipeline import (
+        make_berson_pipeline_train_step, make_pipeline_train_step)
+    from multimodal_sequencing_tpu_torch.train.steps import (
+        berson_train_step, train_step)
+    b, _, s, _ = TRAIN_SHAPE
+    summary = {"phase": "pipeline_path", "steps": PP_STEPS}
+    ok = True
+    launches = {}
+    # (a) the fine-tune sequencer
+    cfg, model = _full_width_model(seed)
+    model = model.cuda()
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    batches = [_random_batch(cfg, b, s, seed + i) for i in range(PP_STEPS)]
+    layers = cfg.encoder.num_hidden_layers
+    runs = {name: _pp_run(model, state, train_step, batches, seed)
+            for name in ("unpipelined", "unpipelined_again")}
+    fine = {"layers": layers, "batch": b, "seq": s}
+    for n_stages, n_micro in PP_FINETUNE:
+        name = f"pp_{n_stages}x{n_micro}"
+        step, _ = make_pipeline_train_step(cfg, Ring(n_stages),
+                                           n_stages, n_micro)
+        runs[name] = _pp_run(model, state, step, batches, seed)
+        ok = _pp_compare(name, runs, n_micro, layers, fine) and ok
+        launches[f"pp_finetune_{n_stages}x{n_micro}"] = runs[name]["launches"]
+    launches["pp_unpipelined"] = runs["unpipelined"]["launches"]
+    fine["runs"] = runs
+    summary["finetune"] = fine
+    del model, state
+    torch.cuda.empty_cache()
+    # (b) BERSON's text trunk
+    cfg, model = _berson_model(seed)
+    model = model.cuda()
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    batches = [_berson_batch(seed + i, PP_BERSON_LENS)
+               for i in range(PP_STEPS)]
+    runs = {name: _pp_run(model, state, berson_train_step, batches, seed)
+            for name in ("unpipelined", "unpipelined_again")}
+    n_stages, n_micro = PP_BERSON
+    step = make_berson_pipeline_train_step(cfg, Ring(n_stages),
+                                           n_stages, n_micro)
+    runs["pp_berson"] = _pp_run(model, state, step, batches, seed)
+    berson = {"layers": cfg.encoder.num_hidden_layers,
+              "pairs": BERSON_P * len(PP_BERSON_LENS), "seq": BERSON_L,
+              "runs": runs}
+    ok = _pp_compare("pp_berson", runs, n_micro,
+                     cfg.encoder.num_hidden_layers, berson) and ok
+    launches["pp_berson"] = runs["pp_berson"]["launches"]
+    summary["berson"] = berson
+    del model, state
+    torch.cuda.empty_cache()
+    # (c) ring attention
+    ring = {"bf16": _ring_run(torch.bfloat16, RING_SIZE, seed),
+            "f32": _ring_run(torch.float32, RING_SIZE_F32, seed)}
+    launches["pp_ring"] = ring["bf16"]["launches"]
+    launches["pp_ring_f32"] = ring["f32"]["launches"]
+    summary["ring_attention"] = ring
+    ok = ok and all(r["ok"] for r in ring.values())
+    summary["ok"] = ok
+    emit(summary)
+    if not ok:
+        raise AssertionError(f"pipeline path check failed: {summary}")
+    return launches
+
+
 def _rel_to_max_np(got, want) -> float:
     import numpy as np
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
@@ -5925,7 +6375,7 @@ PHASES = ("kernel_check", "bits_check", "timing", "main_path", "breakdown",
           "pretrain_reference", "pretrain_path", "recipeqa_path",
           "baselines_reference", "baselines_path", "heads_reference",
           "heads_path", "visual_reference", "visual_path", "parallel_path",
-          "tools_path")
+          "pipeline_path", "tools_path")
 
 
 def main(argv=None) -> int:
@@ -5998,6 +6448,8 @@ def main(argv=None) -> int:
                 phase_visual_path(args.seed, work)),
             "parallel_path": lambda: launches.update(
                 phase_parallel_path(args.seed, work)),
+            "pipeline_path": lambda: launches.update(
+                phase_pipeline_path(args.seed)),
             "tools_path": lambda: launches.update(
                 phase_tools_path(args.seed, work)),
         }

@@ -244,12 +244,22 @@ class BersonOrdering(nn.Module):
 
     def encode(self, batch: Dict[str, torch.Tensor],
                deterministic: bool = True,
-               rng: Optional[DropoutRng] = None) -> Dict:
+               rng: Optional[DropoutRng] = None,
+               trunk_out: Optional[torch.Tensor] = None) -> Dict:
         """The pairs through the inner encoder, the hierarchical attention
         and the paragraph encoder: doc, key, the LSTM's initial (h, c), the
-        pairwise scores and the relation matrices."""
+        pairwise scores and the relation matrices. `trunk_out`, a
+        precomputed (B * P, L, H) sequence output of the inner text
+        encoder, replaces the inner encoder (the hook of the pipelined step,
+        `parallel/pipeline.py::make_berson_pipeline_train_step`); a
+        multimodal inner, which fuses vision inside the trunk, raises
+        NotImplementedError."""
         cfg = self.cfg
         rng = check_rng(deterministic, rng)
+        if trunk_out is not None and cfg.multimodal:
+            raise NotImplementedError(
+                "trunk_out replaces the plain text trunk; multimodal "
+                "inner encoders cannot be pipelined this way")
         ids = batch["input_ids"]
         b, p, L = ids.shape
 
@@ -273,6 +283,8 @@ class BersonOrdering(nn.Module):
                 lang, visn, _ = out
             if visn is not None:  # the image stream's CLS
                 visn_cls = visn[:, 0].reshape(b, p, -1)
+        elif trunk_out is not None:
+            lang = trunk_out
         else:
             out = self.inner(*args, deterministic=deterministic, rng=rng)
             lang = out["sequence_output"] if isinstance(out, dict) else out[0]
@@ -338,14 +350,16 @@ class BersonOrdering(nn.Module):
 
     def forward(self, batch: Dict[str, torch.Tensor],
                 deterministic: bool = True,
-                rng: Optional[DropoutRng] = None) -> Dict[str, torch.Tensor]:
+                rng: Optional[DropoutRng] = None,
+                trunk_out: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
         """The training losses: pointer NLL over the chain `ground_truth`
         (teacher forced) + pairwise_loss_lam x the pairwise CE over the true
         pairs, plus the optional image-stream pairwise CE, 0.1 x the
         time-contrastive triplet loss and the heat-map BCE; means over the
-        batch entries marked `valid`."""
+        batch entries marked `valid`. `trunk_out`: as `encode`'s."""
         n = self.cfg.max_story_length
-        enc = self.encode(batch, deterministic, rng)
+        enc = self.encode(batch, deterministic, rng, trunk_out)
         doc, key, mask_cls = enc["doc"], enc["key"], enc["mask_cls"]
         target = batch["ground_truth"].long()                  # (B, N)
         b = target.shape[0]

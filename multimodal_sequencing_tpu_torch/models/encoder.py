@@ -17,7 +17,10 @@ Train mode (`deterministic=False`) takes a `DropoutRng`: hidden dropout at
 the embeddings, the attention output and the MLP output, drawn from its
 device generator, and the HF "probs" attention dropout fused into the flash
 kernels, one int32 seed per layer drawn from its host generator
-(`attention_dropout_mode="folded"` skips the probs dropout). A deliberate
+(`attention_dropout_mode="folded"` skips the probs dropout). The text
+stack gives each layer a stream of its own (`DropoutRng.streams`), so a
+pipeline stage draws its layers' masks without replaying the layers of
+the stages before it (`parallel/pipeline.py`). A deliberate
 difference to the JAX package: at S < 512 the JAX encoder trains through its
 XLA probs path with JAX's random bits, the port through its kernels with the
 hash bits at every S, so the masks never match; parity runs at dropout 0.
@@ -46,7 +49,7 @@ without remat.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -73,6 +76,14 @@ class DropoutRng:
 
     def attention_seed(self) -> int:
         return int(torch.randint(-2**31, 2**31 - 1, (), generator=self.host))
+
+    def streams(self, n: int) -> List["DropoutRng"]:
+        """n streams of their own, keyed from one draw of this one's host
+        generator: layer i of a stack draws from stream i, so a pipeline
+        stage starts its layers' draws where the whole stack does, without
+        replaying the layers before them."""
+        base = int(torch.randint(0, 2**31 - 1, (), generator=self.host))
+        return [DropoutRng(base, i, self.device.device) for i in range(n)]
 
     def fork(self) -> "DropoutRng":
         """A copy with generators of its own that draws what this one would
@@ -337,10 +348,13 @@ class TextEncoder(nn.Module):
             attention_mask = torch.ones_like(input_ids)
         mask = attention_mask.to(torch.int32)
         remat = self.cfg.remat and torch.is_grad_enabled()
-        for i in range(self.cfg.num_hidden_layers):
+        n = self.cfg.num_hidden_layers
+        # a stream a layer, as `parallel/pipeline.py::gpipe_layers` keys them
+        rngs = [None] * n if rng is None else rng.streams(n)
+        for i in range(n):
             layer = getattr(self, f"layer_{i}")
-            x = (remat_layer(layer, x, mask, rng) if remat
-                 else layer(x, mask, rng))
+            x = (remat_layer(layer, x, mask, rngs[i]) if remat
+                 else layer(x, mask, rngs[i]))
         pooled = torch.tanh(self.pooler(x[:, 0]))
         return x, pooled
 

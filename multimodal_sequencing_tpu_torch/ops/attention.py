@@ -487,7 +487,10 @@ def _check_bf16(name, x):
 def flash_bwd_prep(o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor):
     """The bf16 backward's pre-pass (`flash_bwd_prep_kernel`): (delta, lse2,
     acc) as `attention_bwd_prep_reference` gives them, in one launch that
-    reads bf16 O and dO once. bfloat16 CUDA tensors only."""
+    reads bf16 O and dO once. acc's storage holds, after it, the main
+    kernel's zeroed int32 turn counters, one a (batch*head, 64-row q tile),
+    which fix the order of its adds into acc. bfloat16 CUDA tensors
+    only."""
     if not _on_cuda("flash_bwd_prep", o):
         raise ValueError(_CPU_BWD)
     _check_qkv("flash_bwd_prep", (o, do), None)
@@ -497,7 +500,9 @@ def flash_bwd_prep(o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor):
     s_pad = _padded_len(s)
     delta = torch.empty((b * h, s_pad), dtype=torch.float32, device=o.device)
     lse2 = torch.empty_like(delta)
-    acc = torch.empty((b * h, s_pad, d), dtype=torch.float32, device=o.device)
+    n_acc = b * h * s_pad * d
+    acc = torch.empty(n_acc + _turn_counters(b, h, s_pad), dtype=torch.float32,
+                      device=o.device)[:n_acc].view(b * h, s_pad, d)
     rc = _fn("flash_bwd", "flash_bwd_prep")(
         d, o.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), lse2.data_ptr(), acc.data_ptr(), b, h, s, s_pad,
@@ -511,15 +516,29 @@ def flash_bwd_prep(o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor):
 flash_bwd_prep.launches = 0
 
 
+def _turn_counters(b: int, h: int, s_pad: int) -> int:
+    """The main kernel's turn counters: one int32 a (batch*head, q tile)."""
+    return b * h * (s_pad // 64)
+
+
+def _check_turns(name, acc, b, h, s_pad):
+    need = (acc.storage_offset() + acc.numel()
+            + _turn_counters(b, h, s_pad)) * acc.element_size()
+    if acc.untyped_storage().nbytes() < need:
+        raise ValueError(f"{name}: acc must come from flash_bwd_prep, whose "
+                         f"storage holds the turn counters after it")
+
+
 def flash_bwd_main(q, k, v, mask, lse2, delta, acc, do,
                    dropout_p: float = 0.0, seed: int = 0, index=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The bf16 backward's main kernel (`flash_bwd_main_kernel`, TPU
     `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel` in one pass): (dk,
     dv), each (B, H, S, D) laid out (B, S, H, D), and dq / scale added into
-    `acc`. lse2, delta, acc: from `flash_bwd_prep`. bfloat16 CUDA tensors
-    only; the CPU takes `attention_bwd_reference` through
-    `flash_attention_bwd`."""
+    `acc` in a fixed order, so that dq's bits do not vary from run to run.
+    lse2, delta, acc: from `flash_bwd_prep` (acc with its turn counters,
+    which the kernel leaves at 0). bfloat16 CUDA tensors only; the CPU takes
+    `attention_bwd_reference` through `flash_attention_bwd`."""
     if not _on_cuda("flash_bwd_main", q):
         raise ValueError(_CPU_BWD)
     _check_qkv("flash_bwd_main", (q, k, v, do), mask)
@@ -529,6 +548,7 @@ def flash_bwd_main(q, k, v, mask, lse2, delta, acc, do,
     _check_f32_rows("flash_bwd_main", q, lse2=(lse2, (b * h, s_pad)),
                     delta=(delta, (b * h, s_pad)),
                     acc=(acc, (b * h, s_pad, d)))
+    _check_turns("flash_bwd_main", acc, b, h, s_pad)
     seed_u, thresh, inv_keep = _dropout_args(dropout_p, seed)
     mask = _mask_i32(mask, b, s, q.device)
     dk, dv = _bshd(k), _bshd(v)

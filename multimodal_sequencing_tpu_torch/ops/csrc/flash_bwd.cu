@@ -17,7 +17,7 @@
 //  * Pre-pass `flash_bwd_prep_kernel`: delta = rowsum(dO * O) in f32 from
 //    bf16 O and dO, lse * log2(e), both padded to S_pad (a multiple of 64;
 //    lse +inf and delta 0 past S), and a zeroed (B*H, S_pad, D) f32 dq
-//    accumulator.
+//    accumulator with its B*H*S_pad/64 int32 turn counters after it.
 //  * Main `flash_bwd_main_kernel`: one warpgroup (128 threads) per
 //    (batch*head, 64-key tile). Its K and V tiles arrive once by TMA; then
 //    it walks over the 64-row q tiles, whose Q, dO, lse and delta TMA brings
@@ -32,7 +32,16 @@
 //    same tiles (no transposed copy); dS^T goes once to shared memory in
 //    bf16 for dQ_partial = dS K, which goes through shared memory into the
 //    f32 accumulator as one TMA bulk reduce-add per q tile
-//    (`cp.reduce.async.bulk .add.f32`), overlapped with the next tile. dK
+//    (`cp.reduce.async.bulk .add.f32`), overlapped with the next tile. The
+//    blocks of one head add their partials to a q tile in a fixed order,
+//    so dq is the same in every run: block kt takes the q tiles in the
+//    order kt, kt+1, ... (mod n), so at step i its partial goes to tile
+//    (kt + i) mod n as that tile's i-th add. It waits until the tile's
+//    turn counter reads i, and once the add is complete (checked at the
+//    next step's dS store, so the wait is hidden) it sets the counter to
+//    i + 1; the tile's last add sets it back to 0 for the next launch. The
+//    add that a block waits for is the one block kt+1 made a step before,
+//    so the blocks of a head do not queue behind each other. dK
 //    and dV stay in registers until the end. S^T and dP^T are taken in two
 //    passes of 32 q columns, which keeps a thread at <= 168 registers with
 //    no spills, so three blocks share an SM and hide part of each other's
@@ -43,9 +52,8 @@
 //    laid out as the caller asks (the accumulator's rows are chunk-swizzled
 //    so that the main kernel's shared-memory stores of its partials are
 //    free of bank conflicts; the post-pass undoes it).
-// Because the dq partials of the key tiles land in an order that changes
-// from run to run, dq may differ between runs at f32 rounding before its
-// bf16 cast; dk and dv are summed in a fixed order and are deterministic.
+// dq, dk and dv are summed in a fixed order, so equal inputs give equal
+// bits in every run.
 //
 // f32 (exact checks): `flash_bwd_dq_f32_kernel` and
 // `flash_bwd_dkv_f32_kernel`, one thread per row, scalar FMA, with delta
@@ -274,6 +282,7 @@ struct PrepParams {
   float* lse2;        // (B*H, S_pad): lse * log2(e), +inf past S
   float* delta;       // (B*H, S_pad): rowsum(dO * O), 0 past S
   float* acc;         // (B*H, S_pad, D), zeroed
+  int* turn;          // (B*H, S_pad / 64), zeroed
   long long o_sb, o_sh, o_ss;
   long long do_sb, do_sh, do_ss;
   int H, S, S_pad;
@@ -313,6 +322,7 @@ flash_bwd_prep_kernel(const PrepParams p) {
   }
   float4* a = reinterpret_cast<float4*>(p.acc + row * D + c * 8);
   a[0] = a[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (c == 0 && s % BLOCK == 0) p.turn[row / BLOCK] = 0;
 }
 
 // ----- bf16: main -----------------------------------------------------------------
@@ -322,6 +332,7 @@ struct MainParams {
   const float* lse2;    // (B*H, S_pad)
   const float* delta;   // (B*H, S_pad)
   float* acc;           // (B*H, S_pad, D): dq / scale, accumulated
+  int* turn;            // (B*H, S_pad / 64): adds made to each q tile
   __nv_bfloat16* dk;
   __nv_bfloat16* dv;
   long long dk_sb, dk_sh, dk_ss;
@@ -385,20 +396,23 @@ flash_bwd_main_kernel(const __grid_constant__ CUtensorMap map_q,
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
 
   const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
-  const int k0 = blockIdx.x * BLOCK, S = p.S;
+  const int kt = blockIdx.x, k0 = kt * BLOCK, S = p.S;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int n_qt = (S + BLOCK - 1) / BLOCK;
+  const int n_qt = (S + BLOCK - 1) / BLOCK;  // = gridDim.x
   const float* lse2 = p.lse2 + (long long)bh * p.S_pad;
   const float* delta = p.delta + (long long)bh * p.S_pad;
+  int* turn = p.turn + (long long)bh * n_qt;
+  // the q tile of step i, whose i-th add this block makes
+  auto q_tile = [&](int i) { return kt + i < n_qt ? kt + i : kt + i - n_qt; };
 
   auto issue_q_tile = [&](int i) {
-    const int st = i % STAGES;
+    const int st = i % STAGES, row0 = q_tile(i) * BLOCK;
     mbar_expect_tx(&sm.full[st], STAGE_TX);
-    load_tile<D>(&map_q, sm.q[st], i * BLOCK, h, b, &sm.full[st]);
-    load_tile<D>(&map_do, sm.dO[st], i * BLOCK, h, b, &sm.full[st]);
-    bulk_load(sm.lse2[st], lse2 + i * BLOCK, BLOCK * 4, &sm.full[st]);
-    bulk_load(sm.delta[st], delta + i * BLOCK, BLOCK * 4, &sm.full[st]);
+    load_tile<D>(&map_q, sm.q[st], row0, h, b, &sm.full[st]);
+    load_tile<D>(&map_do, sm.dO[st], row0, h, b, &sm.full[st]);
+    bulk_load(sm.lse2[st], lse2 + row0, BLOCK * 4, &sm.full[st]);
+    bulk_load(sm.delta[st], delta + row0, BLOCK * 4, &sm.full[st]);
   };
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) mbar_init(&sm.full[s], 1);
@@ -427,7 +441,7 @@ flash_bwd_main_kernel(const __grid_constant__ CUtensorMap map_q,
 
   mbar_wait(&sm.kv, 0);
   for (int it = 0; it < n_qt; ++it) {
-    const int st = it % STAGES, q0 = it * BLOCK;
+    const int st = it % STAGES, q0 = q_tile(it) * BLOCK;
     mbar_wait(&sm.full[st], (it / STAGES) & 1);
 
     // S^T = K Q^T and dP^T = V dO^T (rows = keys, columns = q rows), in
@@ -486,7 +500,13 @@ flash_bwd_main_kernel(const __grid_constant__ CUtensorMap map_q,
             &sm.ds[(j * BLOCK + warp * 16 + g + 8 * i) * 8 + 2 * t]) =
             da[j / 2][(j & 1) * 2 + i];
     fence_proxy_async();
-    if (tid == 0) bulk_wait_read();  // the last dQ partial has left dqs
+    if (tid == 0 && it > 0) {
+      // the last dQ partial has left dqs and is in acc: its tile's next
+      // add may go
+      bulk_wait_all();
+      fence_proxy_async_global();
+      set_flag(turn + q_tile(it - 1), it);
+    }
     __syncthreads();
 
     // dV += P~^T dO, dK += dS^T Q, dQ_partial = dS K
@@ -530,13 +550,21 @@ flash_bwd_main_kernel(const __grid_constant__ CUtensorMap map_q,
         fence_proxy_async();
         issue_q_tile(it + STAGES);
       }
-      // one bulk reduce-add of the 64 x D partial into the accumulator
+      // one bulk reduce-add of the 64 x D partial into the accumulator, as
+      // the tile's it-th add
+      wait_flag(turn + q_tile(it), it);
+      fence_proxy_async_global();
       bulk_reduce_add_f32(p.acc + ((long long)bh * p.S_pad + q0) * D, sm.dqs,
                           BLOCK * D * 4);
       bulk_commit();
     }
   }
-  if (tid == 0) bulk_wait_all();
+  if (tid == 0) {
+    // the tile's last add: its counter back to 0 for the next launch
+    bulk_wait_all();
+    fence_proxy_async_global();
+    set_flag(turn + q_tile(n_qt - 1), 0);
+  }
 
   __nv_bfloat16* DK = p.dk + b * p.dk_sb + h * p.dk_sh;
   __nv_bfloat16* DV = p.dv + b * p.dv_sb + h * p.dv_sh;
@@ -628,6 +656,11 @@ bool bf16_shape_ok(int head_dim, int batch, int heads, int seq_len,
          s_pad % BLOCK == 0 && s_pad >= seq_len && s_pad < seq_len + BLOCK;
 }
 
+// The main kernel's turn counters, which follow the accumulator.
+int* turn_counters(float* acc, int bh, int s_pad, int head_dim) {
+  return reinterpret_cast<int*>(acc + (long long)bh * s_pad * head_dim);
+}
+
 template <int D>
 int launch_prep(const PrepParams& p, int bh, cudaStream_t st) {
   const long long threads = (long long)bh * p.S_pad * (D / 8);  // a multiple of 128
@@ -703,8 +736,9 @@ extern "C" int flash_bwd_dkv(int head_dim, const void* q, const void* k,
 
 // bf16 pre-pass. o, dO: bf16 with (batch, head, row) element strides
 // `strides` (o's three, then dO's). lse: (B*H, S) f32. Writes delta and
-// lse2 ((B*H, s_pad) f32) and zeroes acc ((B*H, s_pad, D) f32); s_pad is S
-// rounded up to a multiple of 64.
+// lse2 ((B*H, s_pad) f32) and zeroes acc ((B*H, s_pad, D) f32, followed in
+// memory by B*H*s_pad/64 int32 turn counters, which it zeroes too); s_pad
+// is S rounded up to a multiple of 64.
 extern "C" int flash_bwd_prep(int head_dim, const void* o, const void* dO,
                               const float* lse, float* delta, float* lse2,
                               float* acc, int batch, int heads, int seq_len,
@@ -714,6 +748,7 @@ extern "C" int flash_bwd_prep(int head_dim, const void* o, const void* dO,
   p.o = static_cast<const __nv_bfloat16*>(o);
   p.dO = static_cast<const __nv_bfloat16*>(dO);
   p.lse = lse; p.lse2 = lse2; p.delta = delta; p.acc = acc;
+  p.turn = turn_counters(acc, batch * heads, s_pad, head_dim);
   set_strides(p.o_sb, p.o_sh, p.o_ss, strides);
   set_strides(p.do_sb, p.do_sh, p.do_ss, strides + 3);
   p.H = heads; p.S = seq_len; p.S_pad = s_pad;
@@ -729,8 +764,9 @@ extern "C" int flash_bwd_prep(int head_dim, const void* o, const void* dO,
 // bf16 main kernel: dk and dv, and dq / scale added into acc. strides: the
 // (batch, head, row) element strides of q, k, v, dO, dk and dv; q, k, v and
 // dO 16-byte aligned with row, head and batch strides that are multiples of
-// 8 elements (what the tensor maps take). lse2, delta, acc: from
-// flash_bwd_prep. Returns 0, a CUDA error code, -1 for arguments it does
+// 8 elements (what the tensor maps take). lse2, delta, acc and its turn
+// counters: from flash_bwd_prep; the counters are 0 again when it ends.
+// Returns 0, a CUDA error code, -1 for arguments it does
 // not take, or -2 when a tensor map cannot be made.
 extern "C" int flash_bwd_main(int head_dim, const void* q, const void* k,
                               const void* v, const void* dO, const int* mask,
@@ -749,6 +785,7 @@ extern "C" int flash_bwd_main(int head_dim, const void* q, const void* k,
       return -2;
   MainParams p = {};
   p.mask = mask; p.lse2 = lse2; p.delta = delta; p.acc = acc;
+  p.turn = turn_counters(acc, batch * heads, s_pad, head_dim);
   p.dk = static_cast<__nv_bfloat16*>(dk);
   p.dv = static_cast<__nv_bfloat16*>(dv);
   set_strides(p.dk_sb, p.dk_sh, p.dk_ss, strides + 12);

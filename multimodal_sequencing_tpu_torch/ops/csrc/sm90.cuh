@@ -132,6 +132,34 @@ __device__ __forceinline__ void bulk_wait_all() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
+// ----- turns between blocks ---------------------------------------------------------
+
+// Orders this thread's global-memory accesses of one proxy before its later
+// ones of the other (a completed bulk reduce-add before a flag store; a
+// flag load before the next bulk reduce-add).
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+// Until the global int at `flag` reads `value` (acquire, GPU scope). A
+// wait of more than ~2^28 polls (seconds, where the awaited block needs
+// microseconds) can only be a fault, which traps: the launch fails instead
+// of hanging the card.
+__device__ __forceinline__ void wait_flag(const int* flag, int value) {
+  int v;
+  for (uint32_t n = 0;; ++n) {
+    asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+                 : "=r"(v) : "l"(flag) : "memory");
+    if (v == value) return;
+    if (n == (1u << 28)) __trap();
+    __nanosleep(32);
+  }
+}
+// Stores `value` at the global int `flag` (release, GPU scope).
+__device__ __forceinline__ void set_flag(int* flag, int value) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n"
+               :: "l"(flag), "r"(value) : "memory");
+}
+
 // ----- wgmma --------------------------------------------------------------------
 
 // Operand descriptor: `lbo` and `sbo` bytes (see the PTX ISA's matrix

@@ -28,6 +28,18 @@ What JAX's jit does from shardings is explicit here:
 The data-group context (`data_parallel`) is entered by the train steps
 only: an eval runs the whole batch on every rank, so its means and
 statistics are the single process's without a collective.
+
+A ring (`Ring`) is the counterpart of a JAX mesh axis that a `shard_map`
+body walks with `lax.ppermute`: `size` positions, held either by the
+model group's ranks (one position a rank: `model_ring`) or all by this
+process (`Ring(size)`, the counterpart of JAX's virtual devices, which is
+how one card runs a pipeline or a ring attention). Code over a ring works
+on the list of the positions this process holds (`Ring.positions`), one
+value each; `ppermute` sends each position's value to position i + 1 and
+receives position i - 1's, in one `batch_isend_irecv` across ranks, and
+its backward runs the reverse permutation. `row_window` places a
+microbatch's rows in the global batch, so its dropout masks and keep bits
+are those the whole batch draws for them.
 """
 
 from __future__ import annotations
@@ -35,7 +47,7 @@ from __future__ import annotations
 import contextlib
 import os
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -200,8 +212,28 @@ def global_mean(x: torch.Tensor) -> torch.Tensor:
     return x.sum() / global_numel(x)
 
 
+_ROWS: Optional[Tuple[int, int]] = None
+
+
+@contextlib.contextmanager
+def row_window(offset: int, total: int):
+    """Within: `row_slice` places the rows it is asked about at `offset` in
+    a global batch of `total` rows (a pipeline microbatch of this rank's
+    slice)."""
+    global _ROWS
+    prev = _ROWS
+    _ROWS = (offset, total)
+    try:
+        yield
+    finally:
+        _ROWS = prev
+
+
 def row_slice(rows: int) -> Tuple[int, int]:
-    """(offset, global rows) of this rank's `rows` leading rows."""
+    """(offset, global rows) of this rank's `rows` leading rows (inside a
+    `row_window`, the window's)."""
+    if _ROWS is not None:
+        return _ROWS
     if _STEP is None:
         return 0, rows
     return _STEP.data_rank * rows, rows * _STEP.n_data
@@ -382,3 +414,92 @@ class ModelGroup:
 
     def reduce_scatter_seq(self, x):
         return _ReduceScatterSeq.apply(x, self.group, self.size)
+
+
+# ----- a ring of positions (the model axis of a shard_map) -------------------
+
+
+@dataclass
+class Ring:
+    """`size` positions in a ring. `group` None: this process holds every
+    position; else one position a rank of `group`, this rank's `rank`."""
+    size: int
+    group: object = None
+    rank: int = 0
+
+    @property
+    def positions(self) -> List[int]:
+        """The positions this process holds, in order."""
+        return list(range(self.size)) if self.group is None else [self.rank]
+
+    def shift(self, xs: List[torch.Tensor], step: int = 1
+              ) -> List[torch.Tensor]:
+        """Position i's value moved to position i + step (step +1 or -1) of
+        each held position's value, no gradient: a rotation of the list in
+        one process, one send and one receive across ranks."""
+        if self.size == 1:
+            return list(xs)
+        if self.group is None:
+            return xs[-step:] + xs[:-step]
+        x = xs[0].contiguous()
+        out = torch.empty_like(x)
+        peer = dist.get_global_rank
+        ops = [dist.P2POp(dist.isend, x,
+                          peer(self.group, (self.rank + step) % self.size),
+                          self.group),
+               dist.P2POp(dist.irecv, out,
+                          peer(self.group, (self.rank - step) % self.size),
+                          self.group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return [out]
+
+
+def model_ring(layout: Layout) -> Ring:
+    """The model group's ranks as a ring (one position a rank); one process
+    is a ring of one."""
+    if not layout.distributed or layout.n_model == 1:
+        return Ring(layout.n_model)
+    return Ring(layout.n_model, layout.model_group, layout.model_rank)
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ring, *xs):
+        ctx.ring = ring
+        return tuple(ring.shift(list(xs), 1))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, *ctx.ring.shift(list(gs), -1))
+
+
+def ppermute(xs: List[torch.Tensor], ring: Ring) -> List[torch.Tensor]:
+    """`lax.ppermute` over the ring with perm i -> i + 1: each held
+    position's value goes to the next position, differentiably (the
+    backward sends each gradient back to the position the value came
+    from). `xs` holds one tensor for each of `ring.positions`, all of one
+    shape; every rank of the ring must call it together."""
+    return list(_PPermute.apply(ring, *xs))
+
+
+class _Tie(torch.autograd.Function):
+    """`x` unchanged, with `others` as inputs that receive zero gradients:
+    a backward that reaches `x` then reaches them too."""
+
+    @staticmethod
+    def forward(ctx, x, *others):
+        ctx.others = [(o.shape, o.dtype, o.device) for o in others]
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g, *[torch.zeros(s, dtype=d, device=dev)
+                     for s, d, dev in ctx.others])
+
+
+def tie(x: torch.Tensor, *others: torch.Tensor) -> torch.Tensor:
+    """`x`, whose backward also gives each of `others` a zero gradient (so
+    a ring's ranks run the backward of every `ppermute` in one order)."""
+    others = [o for o in others if o is not None and o.requires_grad]
+    return _Tie.apply(x, *others) if others else x

@@ -30,6 +30,14 @@ model's full shapes; the set it shards equals JAX `tree_shardings`'s.
     (`find_unused_parameters`: the heads no step reaches keep no gradient,
     as in one process, and still decay in the optimizer).
 
+With `pipeline` (`--pipeline_parallel_size`; `parallel/pipeline.py`)
+the model dim holds pipeline stages, not tensor slices: every rank keeps
+every layer, as JAX keeps the pipelined state replicated. With `fsdp` the
+same FSDP2 units shard over the data dim alone (JAX's `apply_tp=False`),
+their root a wrapper whose forward runs the pipelined loss; without it
+there is no wrapper. The pipelined step reduces over the model group (and
+without FSDP over the data group) itself.
+
 The returned model is the one the optimizer, the checkpoints and the
 evaluators use; `parallel_of(model)` gives its `Parallel` record, whose
 `train_module` (the DDP wrapper, or the model) the train steps call.
@@ -177,11 +185,24 @@ def parallel_of(model: nn.Module) -> Optional[Parallel]:
 
 def parallelize(model: nn.Module, layout: Layout,
                 sequence_parallel: bool = False, fsdp: bool = False,
-                fsdp_min_elems: int = _FSDP_MIN_ELEMS) -> nn.Module:
+                fsdp_min_elems: int = _FSDP_MIN_ELEMS,
+                pipeline: bool = False) -> nn.Module:
     """Shard `model` (on its device, fully initialized) over `layout` by
     the plan (module docstring); returns it. A layout of one process leaves
     it as it is."""
     if not layout.distributed:
+        return model
+    if pipeline:
+        # the model dim holds stages: every rank keeps every layer, and
+        # FSDP shards over the data dim alone (JAX's apply_tp=False)
+        shards = plan(((n, p.shape) for n, p in model.named_parameters()),
+                      layout.n_data, 1, fsdp, fsdp_min_elems)
+        par = Parallel(layout, shards, fsdp, train_module=model)
+        if fsdp:
+            # a layer runs once a microbatch: gathered for the whole step
+            par.train_module = _fully_shard(_Pipelined(model), model,
+                                            layout, shards, par, False)
+        object.__setattr__(model, "_parallel", par)
         return model
     from ..models.encoder import TransformerLayer
     shards = plan(((n, p.shape) for n, p in model.named_parameters()),
@@ -190,21 +211,7 @@ def parallelize(model: nn.Module, layout: Layout,
         _split_layers(model, layout, shards, sequence_parallel)
     par = Parallel(layout, shards, fsdp)
     if fsdp:
-        from torch.distributed.fsdp import fully_shard
-        from torch.distributed.tensor import Shard
-        params = dict(model.named_parameters())
-        dims = {params[n]: f for n, (_, f) in shards.items()
-                if f is not None}
-        par.ignored = [p for p in params.values() if p not in dims]
-        ignored = set(par.ignored)
-        mesh = layout.mesh[DATA_AXIS]
-        for m in model.modules():
-            if isinstance(m, TransformerLayer):
-                fully_shard(m, mesh=mesh, ignored_params=ignored,
-                            shard_placement_fn=lambda p: Shard(dims[p]))
-        fully_shard(model, mesh=mesh, ignored_params=ignored,
-                    shard_placement_fn=lambda p: Shard(dims[p]))
-        par.train_module = model
+        par.train_module = _fully_shard(model, model, layout, shards, par)
     else:
         from torch.nn.parallel import DistributedDataParallel
         dev = next(model.parameters()).device
@@ -214,6 +221,41 @@ def parallelize(model: nn.Module, layout: Layout,
             find_unused_parameters=True)
     object.__setattr__(model, "_parallel", par)
     return model
+
+
+class _Pipelined(nn.Module):
+    """The root FSDP unit of a pipelined model: `forward(fn, *args)` runs
+    `fn(model, *args)`, the pipelined loss, which calls the embeddings,
+    the layers and the heads itself, so that FSDP2's hooks see one root
+    call a step."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, fn, *args):
+        return fn(self.model, *args)
+
+
+def _fully_shard(root: nn.Module, model: nn.Module, layout: Layout, shards,
+                 par: Parallel, reshard_after_forward: bool = True
+                 ) -> nn.Module:
+    """FSDP2 `fully_shard` over the data dim: one unit a `TransformerLayer`
+    of `model` and one `root` (the model, or a wrapper of it) for the
+    rest, each planned parameter on its planned dim, the others left out
+    (`par.ignored`). Returns `root`."""
+    from torch.distributed.fsdp import fully_shard
+    from torch.distributed.tensor import Shard
+    from ..models.encoder import TransformerLayer
+    params = dict(model.named_parameters())
+    dims = {params[n]: f for n, (_, f) in shards.items() if f is not None}
+    par.ignored = [p for p in params.values() if p not in dims]
+    kw = dict(mesh=layout.mesh[DATA_AXIS], ignored_params=set(par.ignored),
+              shard_placement_fn=lambda p: Shard(dims[p]))
+    for m in model.modules():
+        if isinstance(m, TransformerLayer):
+            fully_shard(m, reshard_after_forward=reshard_after_forward, **kw)
+    return fully_shard(root, **kw)
 
 
 def _split_layers(model: nn.Module, layout: Layout, shards, sequence_parallel
@@ -293,7 +335,8 @@ def gathered(model: nn.Module):
         yield model
         return
     from torch.distributed.fsdp import FSDPModule
-    units = [m for m in model.modules() if isinstance(m, FSDPModule)]
+    units = [m for m in par.train_module.modules()
+             if isinstance(m, FSDPModule)]
     for m in units:
         m.unshard()
     try:

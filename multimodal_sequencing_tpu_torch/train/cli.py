@@ -86,8 +86,12 @@ shards the parameters and moments over the data dim
 the JAX package. One run gives the single process's losses, weights and
 checkpoints on the same global batch (`--per_gpu_train_batch_size` x the
 data ranks). `--profile_dir DIR` writes a torch.profiler Chrome trace of
-train steps 2-4 into DIR (`utils/profiling.py`). `--pipeline_parallel_size`
-is not ported yet.
+train steps 2-4 into DIR (`utils/profiling.py`). `--pipeline_parallel_size
+P --pipeline_microbatches M` runs the sequencer's text encoder (v0, v1-v3,
+p0/p1) or BERSON's text trunk as P GPipe stages over the model dim
+(`parallel/pipeline.py`; N / P data ranks, with or without `--fsdp`) in M
+microbatches (BERSON: M or P); its checkpoints and evals are the
+unpipelined model's. `--no_cuda` is `--device cpu`.
 
 `--eval_all_checkpoints` / `--iters_to_eval` sweep the checkpoints under a
 run directory. A fresh eval model is seeded from 0, as
@@ -272,15 +276,6 @@ def build_parser(kind: str = "train") -> argparse.ArgumentParser:
     return p
 
 
-# Options of paths the port does not run yet: setting one away from its
-# default raises. Flags that change nothing on the ported path (as in the
-# JAX package) are accepted.
-_NOT_YET = {
-    "pipeline_parallel_size": "pipeline parallelism (parallel/pipeline)",
-    "no_cuda": "--no_cuda (use --device cpu)",
-}
-
-
 def check_pipeline_flags(args, kind: str) -> None:
     """The JAX package's refusals of `--pipeline_parallel_size` beside the
     other layouts, with its errors (`train/cli.py:736-752`,
@@ -317,10 +312,6 @@ def parse_args(kind: str, argv=None):
     args = resolve_args(parser.parse_args(argv))
     if kind != "eval":
         check_pipeline_flags(args, kind)
-    for dest, what in _NOT_YET.items():
-        if getattr(args, dest) != parser.get_default(dest):
-            raise NotImplementedError(
-                f"--{dest}: {what} come(s) with a later slice of the port")
     extra = set(args.additional_wrapper_level_objectives or []) - {
         "time_contrastive"}
     if extra:
@@ -338,9 +329,13 @@ def _is_detectron2(args) -> bool:
 
 def resolve_args(args):
     """`--vision_image_size` defaults by vision family: 256 for detectron2_*
-    (the reference's transform size), 224 otherwise."""
+    (the reference's transform size), 224 otherwise. `--no_cuda` asks for
+    the CPU: `--device cpu` (the JAX package accepts the flag and ignores
+    it)."""
     if args.vision_image_size is None:
         args.vision_image_size = 256 if _is_detectron2(args) else 224
+    if args.no_cuda:
+        args.device = "cpu"
     return args
 
 
@@ -724,10 +719,12 @@ def main_train(argv=None):
 def _ranks(args):
     """(this rank's device, the layout of the ranks): one process, or the
     process group of `torchrun` / `--num_cpu_devices` as a (data, model)
-    mesh of `--model_parallel_size` model ranks."""
+    mesh of `--model_parallel_size` model ranks, or of
+    `--pipeline_parallel_size` stages (JAX's `make_mesh(n_model=pp)`)."""
     device = init_distributed("cpu" if args.num_cpu_devices
                               else args.device)
-    n_model = max(1, args.model_parallel_size)
+    pp = max(1, args.pipeline_parallel_size)
+    n_model = pp if pp > 1 else max(1, args.model_parallel_size)
     return device, make_mesh(n_model=n_model, device_type=device.type)
 
 

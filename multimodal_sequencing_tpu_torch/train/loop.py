@@ -31,8 +31,10 @@ rank loads the same global batches and draws the same host plans (MLM
 masks, `plan_itm_swap`, the objective plans, BERSON's time-contrastive
 plan) before the step takes its rows; the model is sharded by
 `parallel/sharding_rules.py::parallelize` (`--model_parallel_size`,
-`--sequence_parallel`, `--fsdp`). Pretraining is data-parallel only, as in
-the JAX package. Checkpoints gather whole tensors on every rank and rank 0
+`--sequence_parallel`, `--fsdp`), or with `--pipeline_parallel_size` the
+fine-tune and BERSON steps are pipelined (`parallel/pipeline.py`: the
+model dim holds the stages, `--fsdp` shards over the data dim alone).
+Pretraining is data-parallel only, as in the JAX package. Checkpoints gather whole tensors on every rank and rank 0
 writes them; the evals run on every rank (their forwards are collective
 under tensor parallelism and FSDP) and rank 0 writes their files and the
 logs. `--profile_dir` traces steps 2-4 of the loop
@@ -55,7 +57,9 @@ from ..data.datasets import data_loader, prefetch
 from ..models.convert import load_pretrained_weights
 from ..models.sequencer import init_weights
 from ..models.pretrainer import resolve_objectives
-from ..parallel.mesh import Layout, is_rank0
+from ..parallel.mesh import Layout, is_rank0, model_ring
+from ..parallel.pipeline import (make_berson_pipeline_train_step,
+                                 make_pipeline_train_step)
 from ..parallel.sharding_rules import gathered, parallelize
 from ..utils.profiling import StepTraceWindow
 from .checkpoint import (find_checkpoints, parse_step_from_name,
@@ -138,8 +142,14 @@ def run_finetune(cfg, model, train_dataset, args, device,
         epochs = int(args.num_train_epochs)
         total_steps = steps_per_epoch * epochs
 
+    step_fn = train_step
+    pp = max(1, getattr(args, "pipeline_parallel_size", 1))
+    if pp > 1:
+        step_fn, _ = make_pipeline_train_step(
+            cfg, model_ring(layout), pp,
+            max(1, getattr(args, "pipeline_microbatches", 2)))
     model, optimizer = _model_and_optimizer(model, args, device, total_steps,
-                                            layout)
+                                            layout, pipeline=pp > 1)
 
     start_step = 0
     if not args.overwrite_output_dir:
@@ -157,7 +167,7 @@ def run_finetune(cfg, model, train_dataset, args, device,
                         start_step, "loaded" if load_opt else "reset")
 
     return _train_loop(cfg, model, optimizer, train_dataset, args, epochs,
-                       total_steps, train_step, eval_fn=eval_fn,
+                       total_steps, step_fn, eval_fn=eval_fn,
                        tokenizer=tokenizer, start_step=start_step,
                        prepare=aux_surgery(cfg, args.seed), layout=layout)
 
@@ -211,8 +221,14 @@ def run_berson_training(cfg, model, train_dataset, args, device,
     else:  # a fractional --num_train_epochs counts
         epochs = max(1, int(args.num_train_epochs))
         total_steps = int(steps_per_epoch * args.num_train_epochs)
+    step_fn = berson_train_step
+    pp = max(1, getattr(args, "pipeline_parallel_size", 1))
+    if pp > 1:
+        step_fn = make_berson_pipeline_train_step(
+            cfg, model_ring(layout), pp,
+            max(1, getattr(args, "pipeline_microbatches", 1) or pp))
     model, optimizer = _model_and_optimizer(model, args, device, total_steps,
-                                            layout)
+                                            layout, pipeline=pp > 1)
     prepare = None
     if "time_contrastive" in (args.additional_wrapper_level_objectives
                               or []):
@@ -228,7 +244,7 @@ def run_berson_training(cfg, model, train_dataset, args, device,
             return batch
 
     return _train_loop(cfg, model, optimizer, train_dataset, args, epochs,
-                       total_steps, berson_train_step, eval_fn=eval_fn,
+                       total_steps, step_fn, eval_fn=eval_fn,
                        tokenizer=tokenizer, prepare=prepare, layout=layout)
 
 
@@ -422,15 +438,17 @@ def _global_batch(args, layout: Layout) -> int:
 
 
 def _model_and_optimizer(model, args, device, total_steps: int,
-                         layout: Layout):
+                         layout: Layout, pipeline: bool = False):
     """The model's fresh init from `args.seed` and pretrained weights, on
-    `device`, sharded over `layout`, and its AdamW."""
+    `device`, sharded over `layout` (its model dim pipeline stages with
+    `pipeline`), and its AdamW."""
     model = init_weights(model, args.seed)
     load_pretrained_weights(model, args)
     model = parallelize(model.to(device), layout,
                         sequence_parallel=bool(getattr(
                             args, "sequence_parallel", False)),
-                        fsdp=bool(getattr(args, "fsdp", False)))
+                        fsdp=bool(getattr(args, "fsdp", False)),
+                        pipeline=pipeline)
     optimizer = AdamW(
         model, learning_rate=args.learning_rate,
         warmup_steps=args.warmup_steps, total_steps=total_steps,

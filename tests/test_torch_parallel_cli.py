@@ -208,7 +208,8 @@ def test_pretrain_data_parallel_follows_one_process(wikihow_dir, tmp_path):
       "--model_parallel_size", "2"], NotImplementedError, "pick one"),
     (["--pipeline_parallel_size", "2", "--wrapper_model_type", "berson",
       "--sequence_parallel"], NotImplementedError, "pipelined BERSON"),
-    (["--pipeline_parallel_size", "2"], NotImplementedError, "later slice"),
+    # one process cannot hold a pipeline of two stages (JAX's mesh error)
+    (["--pipeline_parallel_size", "2"], ValueError, "does not fit 1 devices"),
     (["--model_parallel_size", "2"], ValueError, "does not fit 1 devices"),
 ])
 def test_layouts_jax_refuses_raise_its_errors(wikihow_dir, tmp_path, argv,
@@ -216,6 +217,42 @@ def test_layouts_jax_refuses_raise_its_errors(wikihow_dir, tmp_path, argv,
     with pytest.raises(error, match=match):
         tcli.main_train(_train_argv(wikihow_dir, tmp_path, 2, "--max_steps",
                                     "1", *argv))
+
+
+def test_train_pipeline_follows_one_process(wikihow_dir, tmp_path):
+    # tests/test_cli_e2e.py's pipelined fine-tune on four gloo ranks (2 data
+    # x 2 stages), with FSDP and a save and eval at step 2, against the
+    # single-process run of the same global batch
+    extra = ["--max_steps", "2", "--save_steps", "2", "--do_eval",
+             "--pipeline_microbatches", "2"]
+    par = tcli.main_train(_train_argv(
+        wikihow_dir, tmp_path / "par", 2, *extra, "--num_cpu_devices", "4",
+        "--pipeline_parallel_size", "2", "--fsdp"))
+    one = tcli.main_train(_train_argv(wikihow_dir, tmp_path / "one", 4,
+                                      *extra))
+    assert par.global_step == one.global_step == 2
+    np.testing.assert_allclose(_losses(par), _losses(one), rtol=1e-5)
+    got = torch.load(tmp_path / "par" / "checkpoint-2" / "model.pt")
+    want = torch.load(tmp_path / "one" / "checkpoint-2" / "model.pt")
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].shape == want[k].shape, k
+    for metric in ("partial_match", "exact_match", "tau"):
+        assert par.eval_results["checkpoint-2"][metric] == pytest.approx(
+            one.eval_results["checkpoint-2"][metric])
+
+
+def test_berson_pipeline_follows_one_process(wikihow_dir, tmp_path):
+    # tests/test_cli_e2e.py's pipelined BERSON on four gloo ranks
+    extra = ["--max_steps", "2", "--save_steps", "0",
+             "--pipeline_microbatches", "2"]
+    par = tcli.main_train(_berson_argv(
+        wikihow_dir, tmp_path / "par", 2, *extra, "--num_cpu_devices", "4",
+        "--pipeline_parallel_size", "2"))
+    one = tcli.main_train(_berson_argv(wikihow_dir, tmp_path / "one", 4,
+                                       *extra))
+    assert par.global_step == one.global_step == 2
+    np.testing.assert_allclose(_losses(par), _losses(one), rtol=1e-5)
 
 
 def test_pretraining_refuses_the_pipeline(wikihow_dir, tmp_path):

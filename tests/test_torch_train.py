@@ -306,21 +306,29 @@ def test_options_of_later_slices_raise(wikihow_dir, tmp_path, flag):
         assert res.model.cfg.num_img_regional_features == int(flag[1])
         assert hasattr(res.model.encoder, "regional_proj")
         return
-    if flag[0] != "--pipeline_parallel_size":
-        # ported (ROADMAP A6, A7a): accepted; tensor parallelism across
-        # two gloo ranks of the CLI's own (one process cannot hold a model
-        # dim of 2), the rest in this process, where they change nothing
-        # in a run of one step (the profiling window opens at step 2)
-        if flag[0] == "--model_parallel_size":
-            flag = [*flag, "--num_cpu_devices", "2"]
-        res = tcli.main_train(_train_argv(wikihow_dir, tmp_path,
-                                          "--max_steps", "1", *flag))
-        assert res.global_step == 1
-        assert (tmp_path / "checkpoint-1" / "model.pt").exists()
-        return
-    with pytest.raises(NotImplementedError):
-        tcli.main_train(_train_argv(wikihow_dir, tmp_path, "--max_steps", "1",
-                                    *flag))
+    # ported (ROADMAP A6, A7a, A7b): accepted; tensor parallelism and the
+    # pipeline across two gloo ranks of the CLI's own (one process cannot
+    # hold a model dim of 2), the rest in this process, where they change
+    # nothing in a run of one step (the profiling window opens at step 2)
+    if flag[0] in ("--model_parallel_size", "--pipeline_parallel_size"):
+        flag = [*flag, "--num_cpu_devices", "2"]
+    res = tcli.main_train(_train_argv(wikihow_dir, tmp_path,
+                                      "--max_steps", "1", *flag))
+    assert res.global_step == 1
+    assert (tmp_path / "checkpoint-1" / "model.pt").exists()
+
+
+def test_no_cuda_asks_for_the_cpu(wikihow_dir, tmp_path):
+    # the JAX package accepts --no_cuda and ignores it; in the port it is
+    # the caller's request for the CPU, over any --device
+    argv = _train_argv(wikihow_dir, tmp_path, "--max_steps", "1")
+    argv[argv.index("--device") + 1] = "cuda"
+    assert tcli.parse_args("train", argv).device == "cuda"
+    assert tcli.parse_args("train", argv + ["--no_cuda"]).device == "cpu"
+    assert tcli.parse_args("eval", ["--no_cuda"]).device == "cpu"
+    res = tcli.main_train(argv + ["--no_cuda"])
+    assert res.global_step == 1
+    assert next(res.model.parameters()).device.type == "cpu"
 
 
 def _eval_argv(wikihow_dir, out, model_path, *extra):

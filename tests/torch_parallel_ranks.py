@@ -9,7 +9,9 @@ gradient norm, the whole gradients and weights (BatchNorm statistics
 included) after the first step, and, given `heatmap_batch`, the heat maps
 of an eval forward, a checkpoint written after the last step, and whether
 a fresh model of the same layout resumed from it holds the same weights
-and Adam moments.
+and Adam moments. With `pipeline` = (stages, microbatches) a case trains
+through the pipelined step (`parallel/pipeline.py`) on the model group's
+ranks as stages; a case of kind "ring" runs ring attention instead.
 
 This module imports no JAX: the ranks import only the port.
 """
@@ -102,9 +104,62 @@ def _model(spec):
     return SequencingModel(cfg, vcfg)
 
 
+def _ring_case(spec: dict, layout) -> dict:
+    """Ring attention over a ring of `spec["ring"]` positions (the model
+    group of a mesh of that many model ranks, each passing its own block
+    of the sequence, or one process passing all of it): the whole output
+    and the whole gradients of sum(sin(output)) with respect to q, k, v,
+    the ranks' blocks joined here."""
+    import torch.distributed as dist
+    from multimodal_sequencing_tpu_torch.parallel.mesh import (
+        Ring, make_mesh, model_ring)
+    from multimodal_sequencing_tpu_torch.parallel.ring_attention import (
+        ring_attention)
+    ring = (Ring(spec["ring"]) if layout is None
+            else model_ring(make_mesh(n_model=spec["ring"])))
+    held = (torch.tensor(spec[n]) for n in ("q", "k", "v", "mask"))
+    if ring.group is not None:
+        held = (t.chunk(ring.size, 1 if t.dim() == 2 else 2)[ring.rank]
+                for t in held)
+    q, k, v, mask = held
+    q, k, v = (t.clone().requires_grad_() for t in (q, k, v))
+    out = ring_attention(q, k, v, mask, ring=ring)
+    res = [out.detach(), *torch.autograd.grad(torch.sin(out).sum(),
+                                              (q, k, v))]
+    if ring.group is not None:
+        parts = [[torch.empty_like(t) for _ in range(ring.size)]
+                 for t in res]
+        for p, t in zip(parts, res):
+            dist.all_gather(p, t.contiguous(), group=ring.group)
+        res = [torch.cat(p, 2) for p in parts]
+    return {"out": res[0].numpy(), "grads": [g.numpy() for g in res[1:]]}
+
+
+def _step_fn(spec: dict, layout):
+    """The case's train step: `train/steps.py`'s own, or with `pipeline` =
+    (stages, microbatches) the pipelined one, on the model group's ring
+    (this process's ring without a layout)."""
+    from multimodal_sequencing_tpu_torch.parallel import pipeline
+    from multimodal_sequencing_tpu_torch.parallel.mesh import (
+        Ring, model_ring)
+    from multimodal_sequencing_tpu_torch.train import steps
+    kind, pipe = spec["kind"], spec.get("pipeline")
+    if not pipe:
+        return (steps.berson_train_step if kind == "berson"
+                else steps.train_step)
+    ring = Ring(pipe[0]) if layout is None else model_ring(layout)
+    if kind == "berson":
+        return pipeline.make_berson_pipeline_train_step(spec["cfg"], ring,
+                                                        *pipe)
+    return pipeline.make_pipeline_train_step(spec["cfg"], ring, *pipe)[0]
+
+
 def run_case(spec: dict, layout=None, workdir=None) -> dict:
     """Train the case's model on its batches on `layout` (None: this one
-    process); returns its results as numpy (module docstring)."""
+    process); returns its results as numpy (module docstring). A case of
+    kind "ring" runs ring attention instead (`_ring_case`)."""
+    if spec["kind"] == "ring":
+        return _ring_case(spec, layout)
     from multimodal_sequencing_tpu_torch.models.sequencer import init_weights
     from multimodal_sequencing_tpu_torch.parallel.sharding_rules import (
         full_state_dict, gathered, local, parallel_of, parallelize)
@@ -121,23 +176,26 @@ def run_case(spec: dict, layout=None, workdir=None) -> dict:
             model = parallelize(model, layout,
                                 spec.get("sequence_parallel", False),
                                 spec.get("fsdp", False),
-                                spec.get("fsdp_min_elems", 1 << 16))
+                                spec.get("fsdp_min_elems", 1 << 16),
+                                pipeline=bool(spec.get("pipeline")))
         return model, AdamW(model, learning_rate=spec.get("lr", 2e-3),
                             warmup_steps=1, total_steps=10, weight_decay=0.01,
                             max_grad_norm=1.0)
 
     model, opt = build(spec.get("seed", 0), spec.get("weights"))
     par = parallel_of(model)
-    out = {"losses": [], "grad_norms": [], "terms": []}
+    step_fn = _step_fn(spec, layout)
+    out = {"losses": [], "grad_norms": [], "terms": [],
+           # parameters held as FSDP2 shards
+           "sharded_params": sum(local(p) is not p
+                                 for p in model.parameters())}
     for i, batch in enumerate(spec["batches"]):
         if spec["kind"] == "pretrain":
             objective, nb, aux = batch
             res = steps.pretrain_step(model, opt, nb, aux, objective, i,
                                       0)
-        elif spec["kind"] == "berson":
-            res = steps.berson_train_step(model, opt, batch, i, 0)
         else:
-            res = steps.train_step(model, opt, batch, i, 0)
+            res = step_fn(model, opt, batch, i, 0)
         out["losses"].append(res["loss"].item())
         out["grad_norms"].append(res["grad_norm"].item())
         out["terms"].append({k: v.item() for k, v in res.items()})
