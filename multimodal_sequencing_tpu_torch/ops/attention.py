@@ -22,13 +22,21 @@ plain versions (counterpart of `ops/attention.py`).
     `attention_bwd_post_reference` — plain versions of the bf16 backward's
     pre-pass (delta = rowsum(dO * O), lse * log2(e), a zeroed dq
     accumulator) and post-pass (dq = scale * accumulator).
+  * `kernel_width`, `with_kernel_width` — the kernels take head widths 16,
+    32, 64 and 128; a call at another width up to 128 runs at the next of
+    them on zero-padded tensors with the true width's scale, and its
+    outputs are cut back (one pure function around the kernel call).
+  * `bwd_turn`, `bwd_groups` — the bf16 main kernel's schedule (the order
+    of its dq adds, and the accumulator slices a head needs), as
+    `csrc/flash_bwd.cu` computes it.
   * `flash_attention` (`csrc/flash_fwd.cu`); `flash_bwd_prep`,
     `flash_bwd_main`, `flash_bwd_post` (the bf16 backward's three launches)
     and `flash_attention_bwd_dq`, `flash_attention_bwd_dkv` (the f32
     kernels) in `csrc/flash_bwd.cu`; `dump_keep_bits`
     (`csrc/keep_bits_dump.cu`) — wrappers that launch the kernels for CUDA
     tensors (or raise) and take the plain versions for CPU tensors. Each
-    counts its kernel launches in `.launches`.
+    counts its kernel launches in `.launches`. Any batch*heads (the grids
+    put them on x) and any S.
   * `FlashAttention` — the differentiable entry (`_flash_attention_ad`);
     `multihead_attention` — the encoder's entry.
 
@@ -50,7 +58,7 @@ from ._build import DTYPE_CODE
 
 NEG_INF = -1e9  # matches the JAX package's additive masks
 
-_HEAD_DIMS = (16, 32, 64)
+KERNEL_WIDTHS = (16, 32, 64, 128)  # the head widths the kernels are built for
 _M32 = 0xFFFFFFFF
 
 
@@ -123,18 +131,24 @@ def _key_keep(mask, b, s, device):
     return mask.bool()[:, None, None, :]
 
 
+def _scale(d: int, scale: Optional[float]) -> float:
+    return 1.0 / math.sqrt(d) if scale is None else scale
+
+
 def attention_reference_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             mask: Optional[torch.Tensor] = None,
                             dropout_p: float = 0.0, seed: int = 0,
-                            index=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                            index=None, scale: Optional[float] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the forward kernel. q, k, v: (B, H, S, D); mask:
     (B, S) key keep-mask. Returns (o (B, H, S, D) in the input dtype, lse
     (B*H, S) f32). With dropout_p > 0 the probabilities are dropped by the
     keep bits of `seed` at the heads' global `index` and rescaled by
-    1 / (1 - dropout_p); lse stays that of the undropped softmax."""
+    1 / (1 - dropout_p); lse stays that of the undropped softmax. The
+    logits' scale is 1 / sqrt(D) unless `scale` is given."""
     b, h, s, d = q.shape
     logits = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) * (
-        1.0 / math.sqrt(d))
+        _scale(d, scale))
     logits = logits.masked_fill(~_key_keep(mask, b, s, q.device), NEG_INF)
     lse = torch.logsumexp(logits, dim=-1)
     probs = torch.softmax(logits, dim=-1)
@@ -146,9 +160,10 @@ def attention_reference_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_reference(q, k, v, mask=None, dropout_p=0.0, seed=0,
-                        index=None):
+                        index=None, scale=None):
     """Plain attention context, (B, H, S, D)."""
-    return attention_reference_lse(q, k, v, mask, dropout_p, seed, index)[0]
+    return attention_reference_lse(q, k, v, mask, dropout_p, seed, index,
+                                   scale)[0]
 
 
 def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -170,7 +185,9 @@ def attention_bwd_prep_reference(o: torch.Tensor, do: torch.Tensor,
     """Plain version of the bf16 backward's pre-pass: (delta, lse2, acc).
     delta (B*H, S_pad) = rowsum(dO * O) in f32, 0 past S; lse2 (B*H, S_pad)
     = lse * log2(e), +inf past S; acc (B*H, S_pad, D) f32 zeros, the dq
-    accumulator. S_pad is S rounded up to a multiple of 64."""
+    accumulator (one slice: `bwd_groups`). S_pad is S rounded up to a
+    multiple of 64. (The kernel also zeroes the main kernel's turn
+    counters, which have no plain counterpart.)"""
     b, h, s, d = o.shape
     pad = _padded_len(s) - s
     delta = torch.nn.functional.pad(attention_delta(o, do), (0, pad))
@@ -191,26 +208,38 @@ def _acc_chunk_order(s: int, d: int, device) -> torch.Tensor:
     return torch.arange(d // 4, device=device)[None, :] ^ (rows & m)
 
 
-def attention_bwd_post_reference(acc: torch.Tensor, like: torch.Tensor
+def attention_bwd_post_reference(acc: torch.Tensor, like: torch.Tensor,
+                                 scale: Optional[float] = None
                                  ) -> torch.Tensor:
-    """Plain version of the bf16 backward's post-pass: dq = scale * acc,
-    (B, H, S, D) in `like`'s dtype, read through the accumulator's chunk
-    order (`_acc_chunk_order`)."""
+    """Plain version of the bf16 backward's post-pass: dq = scale * (the
+    sum of acc's slices in slice order), (B, H, S, D) in `like`'s dtype,
+    read through the accumulator's chunk order (`_acc_chunk_order`). acc:
+    (B*H, groups * S_pad, W), slice g at rows [g * S_pad, (g + 1) * S_pad)
+    of each head, W = D or the kernel width a D-wide call was padded to
+    (`with_kernel_width`: its columns past D are cut)."""
     b, h, s, d = like.shape
-    chunks = acc[:, :s].reshape(b * h, s, d // 4, 4)
-    order = _acc_chunk_order(s, d, acc.device)[None, :, :, None]
-    dq = torch.gather(chunks, 2, order.expand(b * h, s, d // 4, 4))
-    return (dq.reshape(b, h, s, d) * (1.0 / math.sqrt(d))).to(like.dtype)
+    w = acc.shape[-1]
+    s_pad = _padded_len(s)
+    slices = acc.view(b * h, acc.shape[1] // s_pad, s_pad, w)
+    total = slices[:, 0, :s]
+    for g in range(1, slices.shape[1]):
+        total = total + slices[:, g, :s]
+    chunks = total.reshape(b * h, s, w // 4, 4)
+    order = _acc_chunk_order(s, w, acc.device)[None, :, :, None]
+    dq = torch.gather(chunks, 2, order.expand(b * h, s, w // 4, 4))
+    dq = dq.reshape(b, h, s, w)[..., :d]
+    return (dq * _scale(d, scale)).to(like.dtype)
 
 
 def attention_bwd_reference(q, k, v, mask, o, lse, do, dropout_p: float = 0.0,
-                            seed: int = 0, index=None):
+                            seed: int = 0, index=None, scale=None):
     """Plain version of the backward kernels: (dq, dk, dv), each (B, H, S, D)
     in the input dtype. p = where(key kept, exp(s - lse), 0), dp = dO V^T
     dropped by the same bits, ds = p (dp - delta), dq = scale ds K,
-    dk = scale ds^T Q, dv = (dropped p)^T dO."""
+    dk = scale ds^T Q, dv = (dropped p)^T dO; scale 1 / sqrt(D) unless
+    given."""
     b, h, s, d = q.shape
-    scale = 1.0 / math.sqrt(d)
+    scale = _scale(d, scale)
     qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
     delta = attention_delta(o, do).view(b, h, s, 1)
     sc = scale * torch.einsum("bhsd,bhtd->bhst", qf, kf)
@@ -227,6 +256,68 @@ def attention_bwd_reference(q, k, v, mask, o, lse, do, dropout_p: float = 0.0,
     dk = scale * torch.einsum("bhst,bhsd->bhtd", ds, qf)
     dv = torch.einsum("bhst,bhsd->bhtd", p_ctx, dof)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ----- head widths and the backward's schedule ---------------------------
+
+
+def kernel_width(d: int) -> int:
+    """The head width a width-d call runs at on the card: d itself for 16,
+    32, 64 and 128, else the next of them. Raises past 128."""
+    for w in KERNEL_WIDTHS:
+        if d <= w:
+            return w
+    raise ValueError(f"the attention kernels take head widths up to "
+                     f"{KERNEL_WIDTHS[-1]}, got {d}")
+
+
+def _head_tensor(x, d: int) -> bool:
+    return isinstance(x, torch.Tensor) and x.dim() == 4 and x.shape[-1] == d
+
+
+def with_kernel_width(fn, *args, **kwargs):
+    """fn(*args, scale=1/sqrt(D), **kwargs) at the kernels' head width, D
+    the last dim of args[0]: each (B, H, S, D) tensor of `args` zero-padded
+    along its last dim to `kernel_width(D)`, each 4-d tensor that fn
+    returns (alone or in a tuple) cut back to D. Zero columns leave q.k^T,
+    and so the softmax and the keep bits (which depend on row, column and
+    S only), unchanged, and give o, dq, dk and dv zero columns. At a kernel
+    width the tensors go through as they are, with no copy."""
+    d = args[0].shape[-1]
+    w = kernel_width(d)
+    kwargs["scale"] = 1.0 / math.sqrt(d)
+    if w == d:
+        return fn(*args, **kwargs)
+    pad = torch.nn.functional.pad
+    out = fn(*(pad(x, (0, w - d)) if _head_tensor(x, d) else x
+               for x in args), **kwargs)
+
+    def cut(y):
+        return y[..., :d] if _head_tensor(y, w) else y
+
+    return tuple(cut(y) for y in out) if isinstance(out, tuple) else cut(out)
+
+
+def bwd_turn(kt: int, i: int, n_qt: int, n_g: int) -> Tuple[int, int, int]:
+    """(tile, count, next) of the add that key tile kt makes at step i of
+    the bf16 main kernel (`csrc/flash_bwd.cu::bwd_turn`, the same function):
+    it adds into q tile (kt + i) mod n_qt after `count` earlier adds to that
+    tile from its group of n_g consecutive key tiles (those of kt+1, ...,
+    kt+i mod n_qt that lie in the group), waiting for the tile's turn
+    counter to read `count`, and sets the counter to `next` once it is in
+    (0 after the group's last add to the tile)."""
+    a = kt // n_g * n_g
+    m, l = min(n_g, n_qt - a), kt - a
+    count = min(i, m - 1 - l) + max(0, i + 1 - (n_qt - l))
+    return ((kt + i) % n_qt, count, 0 if count + 1 == m else count + 1)
+
+
+def bwd_groups(n_qt: int, blocks: int) -> int:
+    """The accumulator slices (groups of key tiles) a head of n_qt q tiles
+    needs when the main kernel's cooperative grid holds `blocks` blocks:
+    each group's n_g = ceil(n_qt / groups) key tiles must be resident at
+    once."""
+    return -(-n_qt // blocks)
 
 
 # ----- kernel wrappers ----------------------------------------------------
@@ -249,17 +340,21 @@ _SIGNATURES = {
     ("flash_bwd", "flash_bwd_dkv"): [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _I, _I, _I, _STRIDES, _F, _U, _U, _F,
                                      _INDEX, _P],
-    # head_dim, o, do, lse, delta, lse2, acc, B, H, S, S_pad, strides, stream
-    ("flash_bwd", "flash_bwd_prep"): [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                      _I, _STRIDES, _P],
-    # head_dim, q, k, v, do, mask, lse2, delta, acc, dk, dv, B, H, S, S_pad,
-    # strides, scale, seed, thresh, inv_keep, global head index, stream
+    # head_dim
+    ("flash_bwd", "flash_bwd_main_blocks"): [_I],
+    # head_dim, o, do, lse, delta, lse2, acc, turns, B, H, S, S_pad, groups,
+    # strides, stream
+    ("flash_bwd", "flash_bwd_prep"): [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                      _I, _I, _I, _STRIDES, _P],
+    # head_dim, q, k, v, do, mask, lse2, delta, acc, turns, dk, dv, B, H, S,
+    # S_pad, groups, strides, scale, seed, thresh, inv_keep, global head
+    # index, stream
     ("flash_bwd", "flash_bwd_main"): [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                      _P, _I, _I, _I, _I, _STRIDES, _F, _U,
-                                      _U, _F, _INDEX, _P],
-    # head_dim, acc, dq, B, H, S, S_pad, strides, scale, stream
-    ("flash_bwd", "flash_bwd_post"): [_I, _P, _P, _I, _I, _I, _I, _STRIDES,
-                                      _F, _P],
+                                      _P, _P, _I, _I, _I, _I, _I, _STRIDES,
+                                      _F, _U, _U, _F, _INDEX, _P],
+    # head_dim, acc, dq, B, H, S, S_pad, groups, strides, scale, stream
+    ("flash_bwd", "flash_bwd_post"): [_I, _P, _P, _I, _I, _I, _I, _I,
+                                      _STRIDES, _F, _P],
     # order, out, B, H, S, seed, thresh, global head index, stream
     ("keep_bits_dump", "keep_bits_dump"): [_I, _P, _I, _I, _I, _U, _U,
                                            _INDEX, _P],
@@ -297,14 +392,12 @@ def _check_qkv(name, tensors, mask):
     if q.dtype not in DTYPE_CODE or any(x.dtype != q.dtype for x in tensors):
         raise TypeError(f"{name} takes float32 or bfloat16 tensors, got "
                         f"{[x.dtype for x in tensors]}")
-    if q.shape[-1] not in _HEAD_DIMS:
-        raise ValueError(f"{name} takes head dims {_HEAD_DIMS}, got "
+    if q.shape[-1] not in KERNEL_WIDTHS:  # with_kernel_width pads to one
+        raise ValueError(f"{name} takes head dims {KERNEL_WIDTHS}, got "
                          f"{q.shape[-1]}")
     if any(x.device != q.device for x in tensors):
         raise ValueError(f"{name}: tensors must be on one device")
-    b, h = q.shape[:2]
-    if b * h > 65535:
-        raise ValueError(f"{name} takes at most 65535 batch*heads, got {b * h}")
+    b = q.shape[0]
     for x in tensors:
         # rows are read as 16-byte vectors and, in bf16, through TMA tensor
         # maps: a 16-byte aligned base and strides of whole 16 bytes
@@ -346,6 +439,10 @@ def _strides(*tensors):
         *[x.stride(i) for x in tensors for i in range(3)])
 
 
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
 _CPU_BWD = ("the backward kernels take CUDA tensors; CPU tensors go through "
             "flash_attention_bwd's plain version")
 _F32_ONLY = ("the dq and dk/dv kernels take float32; bfloat16 goes through "
@@ -360,26 +457,9 @@ def _bshd(like: torch.Tensor) -> torch.Tensor:
                        device=like.device).transpose(1, 2)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    mask: Optional[torch.Tensor] = None,
-                    dropout_p: float = 0.0, seed: int = 0, index=None
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Flash attention forward: (o (B, H, S, D), lse (B*H, S) f32).
-
-    q, k, v: (B, H, S, D), any S, head dim 16, 32 or 64, float32 or
-    bfloat16; the head dim must be contiguous, the data 16-byte aligned
-    and the other strides multiples of 8 elements (a head-split view of a
-    (B, S, H*D) projection is taken as is; anything else raises). mask:
-    (B, S) key keep-mask. dropout_p > 0 drops the probabilities by the keep
-    bits of `seed` (int32) at the heads' global `index` (b_off, h_off,
-    h_tot; default (0, 0, H)). The returned o is laid out (B, S, H, D) in
-    memory. bf16 CUDA tensors go through the TMA/wgmma kernel, f32 CUDA
-    tensors through the f32 kernel, CPU tensors through
-    `attention_reference_lse`. `flash_attention.launches` counts kernel
-    launches."""
+def _fwd_launch(q, k, v, mask, dropout_p, seed, index, *, scale):
+    """The forward kernel at a kernel width (`with_kernel_width`)."""
     seed_u, thresh, inv_keep = _dropout_args(dropout_p, seed)
-    if not _on_cuda("flash_attention", q):
-        return attention_reference_lse(q, k, v, mask, dropout_p, seed, index)
     _check(q, k, v, mask)
     b, h, s, d = q.shape
     mask = _mask_i32(mask, b, s, q.device)
@@ -388,12 +468,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rc = _fn("flash_fwd", "flash_fwd")(
         DTYPE_CODE[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         mask.data_ptr(), o.data_ptr(), lse.data_ptr(), b, h, s,
-        _strides(q, k, v, o), 1.0 / math.sqrt(d), seed_u, thresh, inv_keep,
-        _index_arg(h, index), torch.cuda.current_stream(q.device).cuda_stream)
+        _strides(q, k, v, o), scale, seed_u, thresh, inv_keep,
+        _index_arg(h, index), _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash_fwd launch failed (code {rc})")
     flash_attention.launches += 1
     return o, lse
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None,
+                    dropout_p: float = 0.0, seed: int = 0, index=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flash attention forward: (o (B, H, S, D), lse (B*H, S) f32).
+
+    q, k, v: (B, H, S, D), any B*H and S, head dim up to 128 (16, 32, 64
+    and 128 as they are, others zero-padded to the next of them:
+    `with_kernel_width`), float32 or bfloat16; the head dim must be
+    contiguous, the data 16-byte aligned and the other strides multiples of
+    8 elements (a head-split view of a (B, S, H*D) projection is taken as
+    is; anything else raises). mask: (B, S) key keep-mask. dropout_p > 0
+    drops the probabilities by the keep bits of `seed` (int32) at the heads'
+    global `index` (b_off, h_off, h_tot; default (0, 0, H)). The returned o
+    is laid out (B, S, H, D) in memory at a kernel width. bf16 CUDA tensors
+    go through the TMA/wgmma kernel, f32 CUDA tensors through the f32
+    kernel, CPU tensors through `attention_reference_lse`.
+    `flash_attention.launches` counts kernel launches."""
+    _dropout_args(dropout_p, seed)
+    if not _on_cuda("flash_attention", q):
+        return attention_reference_lse(q, k, v, mask, dropout_p, seed, index)
+    return with_kernel_width(_fwd_launch, q, k, v, mask, dropout_p, seed,
+                             index)
 
 
 flash_attention.launches = 0
@@ -406,15 +511,8 @@ def _check_bwd(q, k, v, o, do, mask):
     _check_qkv("flash_bwd", (q, k, v, o, do), mask)
 
 
-def flash_attention_bwd_dq(q, k, v, mask, lse, delta, do,
-                           dropout_p: float = 0.0, seed: int = 0, index=None
-                           ) -> torch.Tensor:
-    """dq of the f32 flash backward (`_flash_bwd_dq_kernel`), (B, H, S, D)
-    laid out (B, S, H, D). lse, delta: (B*H, S) f32. float32 CUDA tensors
-    only: bf16 goes through `flash_attention_bwd`'s three launches, and the
-    CPU takes `attention_bwd_reference` through `flash_attention_bwd`."""
-    if not _on_cuda("flash_attention_bwd_dq", q):
-        raise ValueError(_CPU_BWD)
+def _dq_launch(q, k, v, mask, lse, delta, do, dropout_p, seed, index, *,
+               scale):
     _check_qkv("flash_bwd_dq", (q, k, v, do), mask)
     if q.dtype != torch.float32:
         raise TypeError(_F32_ONLY)
@@ -425,25 +523,33 @@ def flash_attention_bwd_dq(q, k, v, mask, lse, delta, do,
     rc = _fn("flash_bwd", "flash_bwd_dq")(
         d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), mask.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), b, h, s, _strides(q, k, v, do, dq),
-        1.0 / math.sqrt(d), seed_u, thresh, inv_keep, _index_arg(h, index),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        dq.data_ptr(), b, h, s, _strides(q, k, v, do, dq), scale, seed_u,
+        thresh, inv_keep, _index_arg(h, index), _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash_bwd_dq launch failed (code {rc})")
     flash_attention_bwd_dq.launches += 1
     return dq
 
 
+def flash_attention_bwd_dq(q, k, v, mask, lse, delta, do,
+                           dropout_p: float = 0.0, seed: int = 0, index=None
+                           ) -> torch.Tensor:
+    """dq of the f32 flash backward (`_flash_bwd_dq_kernel`), (B, H, S, D)
+    laid out (B, S, H, D) at a kernel width. lse, delta: (B*H, S) f32.
+    float32 CUDA tensors only: bf16 goes through `flash_attention_bwd`'s
+    three launches, and the CPU takes `attention_bwd_reference` through
+    `flash_attention_bwd`."""
+    if not _on_cuda("flash_attention_bwd_dq", q):
+        raise ValueError(_CPU_BWD)
+    return with_kernel_width(_dq_launch, q, k, v, mask, lse, delta, do,
+                             dropout_p, seed, index)
+
+
 flash_attention_bwd_dq.launches = 0
 
 
-def flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do,
-                            dropout_p: float = 0.0, seed: int = 0, index=None
-                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv) of the f32 flash backward (`_flash_bwd_dkv_kernel`), each
-    (B, H, S, D) laid out (B, S, H, D). float32 CUDA tensors only."""
-    if not _on_cuda("flash_attention_bwd_dkv", q):
-        raise ValueError(_CPU_BWD)
+def _dkv_launch(q, k, v, mask, lse, delta, do, dropout_p, seed, index, *,
+                scale):
     _check_qkv("flash_bwd_dkv", (q, k, v, do), mask)
     if q.dtype != torch.float32:
         raise TypeError(_F32_ONLY)
@@ -455,13 +561,24 @@ def flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do,
         d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), mask.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), b, h, s,
-        _strides(q, k, v, do, dk, dv), 1.0 / math.sqrt(d), seed_u, thresh,
-        inv_keep, _index_arg(h, index),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _strides(q, k, v, do, dk, dv), scale, seed_u, thresh, inv_keep,
+        _index_arg(h, index), _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash_bwd_dkv launch failed (code {rc})")
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
+
+
+def flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do,
+                            dropout_p: float = 0.0, seed: int = 0, index=None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) of the f32 flash backward (`_flash_bwd_dkv_kernel`), each
+    (B, H, S, D) laid out (B, S, H, D) at a kernel width. float32 CUDA
+    tensors only."""
+    if not _on_cuda("flash_attention_bwd_dkv", q):
+        raise ValueError(_CPU_BWD)
+    return with_kernel_width(_dkv_launch, q, k, v, mask, lse, delta, do,
+                             dropout_p, seed, index)
 
 
 flash_attention_bwd_dkv.launches = 0
@@ -484,115 +601,197 @@ def _check_bf16(name, x):
         raise TypeError(f"{name} takes bfloat16, got {x.dtype}")
 
 
-def flash_bwd_prep(o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor):
-    """The bf16 backward's pre-pass (`flash_bwd_prep_kernel`): (delta, lse2,
-    acc) as `attention_bwd_prep_reference` gives them, in one launch that
-    reads bf16 O and dO once. acc's storage holds, after it, the main
-    kernel's zeroed int32 turn counters, one a (batch*head, 64-row q tile),
-    which fix the order of its adds into acc. bfloat16 CUDA tensors
-    only."""
-    if not _on_cuda("flash_bwd_prep", o):
-        raise ValueError(_CPU_BWD)
+_main_blocks = {}  # (device index, head width) -> the main kernel's grid
+
+
+def main_kernel_blocks(d: int, device) -> int:
+    """The blocks of the bf16 main kernel at head width d that `device`
+    holds at once: its cooperative grid (`csrc/flash_bwd.cu`)."""
+    device = torch.device(device)
+    key = (device.index if device.index is not None
+           else torch.cuda.current_device(), d)
+    if key not in _main_blocks:
+        with torch.cuda.device(key[0]):
+            n = _fn("flash_bwd", "flash_bwd_main_blocks")(d)
+        if n <= 0:
+            raise RuntimeError(f"flash_bwd_main cannot launch on {device} "
+                               f"(code {n})")
+        _main_blocks[key] = n
+    return _main_blocks[key]
+
+
+def bwd_schedule_words(b: int, h: int, groups: int, n_qt: int) -> int:
+    """The int32 words of the main kernel's schedule counters: a turn
+    counter a (batch*head, group, q tile), then its work counter (the
+    tickets of the items claimed past each block's first)."""
+    return b * h * groups * n_qt + 1
+
+
+def _check_turns(name, turns, b, h, groups, n_qt):
+    """Raises unless `turns` is the main kernel's contiguous int32 vector of
+    schedule counters (`bwd_schedule_words`), as flash_bwd_prep makes it."""
+    shape = (bwd_schedule_words(b, h, groups, n_qt),)
+    if (tuple(turns.shape) != shape or turns.dtype != torch.int32
+            or not turns.is_contiguous()):
+        raise ValueError(f"{name}: turns must be flash_bwd_prep's contiguous "
+                         f"int32 {shape} turn counters, got {turns.dtype} "
+                         f"{tuple(turns.shape)}")
+
+
+def _acc_groups(name, acc, b, h, s_pad) -> int:
+    """The slices of a dq accumulator (B*H, groups * S_pad, D)."""
+    if acc.dim() != 3 or acc.shape[0] != b * h or acc.shape[1] % s_pad:
+        raise ValueError(f"{name}: acc must be (B*H, groups * {s_pad}, D), "
+                         f"got {tuple(acc.shape)}")
+    return acc.shape[1] // s_pad
+
+
+def _prep_launch(o, do, lse, *, scale=None):
+    """The pre-pass at a kernel width (it takes no scale)."""
     _check_qkv("flash_bwd_prep", (o, do), None)
     _check_bf16("flash_bwd_prep", o)
     b, h, s, d = o.shape
     _check_f32_rows("flash_bwd_prep", o, lse=(lse, (b * h, s)))
     s_pad = _padded_len(s)
+    n_qt = s_pad // 64
+    groups = bwd_groups(n_qt, main_kernel_blocks(d, o.device))
     delta = torch.empty((b * h, s_pad), dtype=torch.float32, device=o.device)
     lse2 = torch.empty_like(delta)
-    n_acc = b * h * s_pad * d
-    acc = torch.empty(n_acc + _turn_counters(b, h, s_pad), dtype=torch.float32,
-                      device=o.device)[:n_acc].view(b * h, s_pad, d)
+    acc = torch.empty((b * h, groups * s_pad, d), dtype=torch.float32,
+                      device=o.device)
+    turns = torch.empty(bwd_schedule_words(b, h, groups, n_qt),
+                        dtype=torch.int32, device=o.device)
     rc = _fn("flash_bwd", "flash_bwd_prep")(
-        d, o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), lse2.data_ptr(), acc.data_ptr(), b, h, s, s_pad,
-        _strides(o, do), torch.cuda.current_stream(o.device).cuda_stream)
+        d, o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        lse2.data_ptr(), acc.data_ptr(), turns.data_ptr(), b, h, s, s_pad,
+        groups, _strides(o, do), _stream(o))
     if rc != 0:
         raise RuntimeError(f"flash_bwd_prep launch failed (code {rc})")
     flash_bwd_prep.launches += 1
-    return delta, lse2, acc
+    return delta, lse2, acc, turns
+
+
+def flash_bwd_prep(o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor):
+    """The bf16 backward's pre-pass (`flash_bwd_prep_kernel`): (delta, lse2,
+    acc, turns), delta and lse2 as `attention_bwd_prep_reference` gives
+    them, in one launch that reads bf16 O and dO once. acc: the zeroed f32
+    dq accumulator (B*H, groups * S_pad, W) at the kernel width W
+    (`with_kernel_width`), one slice of S_pad rows a group of key tiles
+    (`bwd_groups` for this card: 1 unless S is past ~64 x the main kernel's
+    grid); turns: the main kernel's zeroed int32 schedule counters
+    (`bwd_schedule_words`: a turn counter a (batch*head, group, q tile),
+    which fix the order of its adds into acc, then its work counter).
+    bfloat16 CUDA tensors only."""
+    if not _on_cuda("flash_bwd_prep", o):
+        raise ValueError(_CPU_BWD)
+    return with_kernel_width(_prep_launch, o, do, lse)
 
 
 flash_bwd_prep.launches = 0
 
 
-def _turn_counters(b: int, h: int, s_pad: int) -> int:
-    """The main kernel's turn counters: one int32 a (batch*head, q tile)."""
-    return b * h * (s_pad // 64)
-
-
-def _check_turns(name, acc, b, h, s_pad):
-    need = (acc.storage_offset() + acc.numel()
-            + _turn_counters(b, h, s_pad)) * acc.element_size()
-    if acc.untyped_storage().nbytes() < need:
-        raise ValueError(f"{name}: acc must come from flash_bwd_prep, whose "
-                         f"storage holds the turn counters after it")
-
-
-def flash_bwd_main(q, k, v, mask, lse2, delta, acc, do,
-                   dropout_p: float = 0.0, seed: int = 0, index=None
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The bf16 backward's main kernel (`flash_bwd_main_kernel`, TPU
-    `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel` in one pass): (dk,
-    dv), each (B, H, S, D) laid out (B, S, H, D), and dq / scale added into
-    `acc` in a fixed order, so that dq's bits do not vary from run to run.
-    lse2, delta, acc: from `flash_bwd_prep` (acc with its turn counters,
-    which the kernel leaves at 0). bfloat16 CUDA tensors only; the CPU takes
-    `attention_bwd_reference` through `flash_attention_bwd`."""
-    if not _on_cuda("flash_bwd_main", q):
-        raise ValueError(_CPU_BWD)
+def _main_launch(q, k, v, mask, lse2, delta, acc, turns, do, dropout_p,
+                 seed, index, *, scale):
     _check_qkv("flash_bwd_main", (q, k, v, do), mask)
     _check_bf16("flash_bwd_main", q)
     b, h, s, d = q.shape
     s_pad = _padded_len(s)
+    groups = _acc_groups("flash_bwd_main", acc, b, h, s_pad)
     _check_f32_rows("flash_bwd_main", q, lse2=(lse2, (b * h, s_pad)),
                     delta=(delta, (b * h, s_pad)),
-                    acc=(acc, (b * h, s_pad, d)))
-    _check_turns("flash_bwd_main", acc, b, h, s_pad)
+                    acc=(acc, (b * h, groups * s_pad, d)))
+    _check_turns("flash_bwd_main", turns, b, h, groups, s_pad // 64)
     seed_u, thresh, inv_keep = _dropout_args(dropout_p, seed)
     mask = _mask_i32(mask, b, s, q.device)
     dk, dv = _bshd(k), _bshd(v)
     rc = _fn("flash_bwd", "flash_bwd_main")(
         d, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         mask.data_ptr(), lse2.data_ptr(), delta.data_ptr(), acc.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, h, s, s_pad,
-        _strides(q, k, v, do, dk, dv), 1.0 / math.sqrt(d), seed_u, thresh,
-        inv_keep, _index_arg(h, index),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        turns.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, s, s_pad,
+        groups, _strides(q, k, v, do, dk, dv), scale, seed_u, thresh,
+        inv_keep, _index_arg(h, index), _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash_bwd_main launch failed (code {rc})")
     flash_bwd_main.launches += 1
     return dk, dv
 
 
+def flash_bwd_main(q, k, v, mask, lse2, delta, acc, turns, do,
+                   dropout_p: float = 0.0, seed: int = 0, index=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 backward's main kernel (`flash_bwd_main_kernel`, TPU
+    `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel` in one pass): (dk,
+    dv), each (B, H, S, D), and dq / scale added into `acc` in a fixed
+    order, so that dq's bits do not vary from run to run. lse2, delta, acc
+    and turns: from `flash_bwd_prep` (the counters are 0 again when the
+    kernel ends, so several launches may add into one acc, as ring
+    attention's do). One cooperative launch of a persistent grid: every
+    block is resident at once or the launch fails (and this raises); the
+    blocks claim the (batch*head, key tile) items in order, and each wait
+    for a dq turn points to a block that is running (`csrc/flash_bwd.cu`). bfloat16 CUDA tensors only; the CPU takes
+    `attention_bwd_reference` through `flash_attention_bwd`."""
+    if not _on_cuda("flash_bwd_main", q):
+        raise ValueError(_CPU_BWD)
+    return with_kernel_width(_main_launch, q, k, v, mask, lse2, delta, acc,
+                             turns, do, dropout_p, seed, index)
+
+
 flash_bwd_main.launches = 0
 
 
-def flash_bwd_post(acc: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """The bf16 backward's post-pass (`flash_bwd_post_kernel`): dq = scale *
-    acc in bf16, (B, H, S, D) laid out (B, S, H, D) like the bfloat16 q
-    `like`; acc from `flash_bwd_prep`. CUDA tensors only."""
-    if not _on_cuda("flash_bwd_post", acc):
-        raise ValueError(_CPU_BWD)
+def _post_launch(acc, like, *, scale):
     _check_bf16("flash_bwd_post", like)
-    if like.dim() != 4 or like.shape[-1] not in _HEAD_DIMS:
+    if like.dim() != 4 or like.shape[-1] not in KERNEL_WIDTHS:
         raise ValueError(f"flash_bwd_post: like must be (B, H, S, D) with D "
-                         f"in {_HEAD_DIMS}, got {tuple(like.shape)}")
+                         f"in {KERNEL_WIDTHS}, got {tuple(like.shape)}")
     b, h, s, d = like.shape
+    s_pad = _padded_len(s)
+    groups = _acc_groups("flash_bwd_post", acc, b, h, s_pad)
     _check_f32_rows("flash_bwd_post", like,
-                    acc=(acc, (b * h, _padded_len(s), d)))
+                    acc=(acc, (b * h, groups * s_pad, d)))
     dq = _bshd(like)
     rc = _fn("flash_bwd", "flash_bwd_post")(
-        d, acc.data_ptr(), dq.data_ptr(), b, h, s, _padded_len(s),
-        _strides(dq), 1.0 / math.sqrt(d),
-        torch.cuda.current_stream(acc.device).cuda_stream)
+        d, acc.data_ptr(), dq.data_ptr(), b, h, s, s_pad, groups,
+        _strides(dq), scale, _stream(acc))
     if rc != 0:
         raise RuntimeError(f"flash_bwd_post launch failed (code {rc})")
     flash_bwd_post.launches += 1
     return dq
 
 
+def flash_bwd_post(acc: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The bf16 backward's post-pass (`flash_bwd_post_kernel`): dq = scale *
+    (the sum of acc's slices) in bf16, (B, H, S, D) laid out (B, S, H, W)
+    like the bfloat16 q `like` (at a kernel width W; scale 1 / sqrt(D));
+    acc from `flash_bwd_prep`. CUDA tensors only."""
+    if not _on_cuda("flash_bwd_post", acc):
+        raise ValueError(_CPU_BWD)
+    d = like.shape[-1]
+    w = kernel_width(d)
+    # `like` gives the kernel only a shape and a dtype: an empty one of the
+    # kernel width stands in for a padded copy
+    stand_in = like if w == d else like.new_empty(like.shape[:-1] + (w,))
+    dq = _post_launch(acc, stand_in, scale=1.0 / math.sqrt(d))
+    return dq if w == d else dq[..., :d]
+
+
 flash_bwd_post.launches = 0
+
+
+def _bwd_launch(q, k, v, mask, o, lse, do, dropout_p, seed, index, *, scale):
+    """The whole backward at a kernel width (`with_kernel_width`)."""
+    _check_bwd(q, k, v, o, do, mask)
+    if q.dtype == torch.float32:
+        delta = attention_delta(o, do)
+        dq = _dq_launch(q, k, v, mask, lse, delta, do, dropout_p, seed,
+                        index, scale=scale)
+        dk, dv = _dkv_launch(q, k, v, mask, lse, delta, do, dropout_p, seed,
+                             index, scale=scale)
+        return dq, dk, dv
+    delta, lse2, acc, turns = _prep_launch(o, do, lse)
+    dk, dv = _main_launch(q, k, v, mask, lse2, delta, acc, turns, do,
+                          dropout_p, seed, index, scale=scale)
+    return _post_launch(acc, q, scale=scale), dk, dv
 
 
 def flash_attention_bwd(q, k, v, mask, o, lse, do, dropout_p: float = 0.0,
@@ -600,27 +799,18 @@ def flash_attention_bwd(q, k, v, mask, o, lse, do, dropout_p: float = 0.0,
     """Flash backward (`flash_attention_bwd`): (dq, dk, dv) from the saved
     forward output `o` and lse. bf16 CUDA tensors: the pre-pass, the main
     kernel and the post-pass; f32 CUDA tensors: delta as one PyTorch
-    reduction, then the f32 dq and dk/dv kernels; CPU tensors:
-    `attention_bwd_reference`. dO is copied to a contiguous tensor only
-    when its head dim or its strides are not what the kernels read; any
-    other layout the kernels cannot take raises."""
+    reduction, then the f32 dq and dk/dv kernels; both at the kernel width
+    (`with_kernel_width`: the padding is made once for the three
+    launches); CPU tensors: `attention_bwd_reference`. dO is copied to a
+    contiguous tensor only when its head dim or its strides are not what
+    the kernels read; any other layout the kernels cannot take raises."""
     if not _on_cuda("flash_attention_bwd", q):
         return attention_bwd_reference(q, k, v, mask, o, lse, do, dropout_p,
                                        seed, index)
     if do.stride(-1) != 1 or any(st % 8 for st in do.stride()[:3]):
         do = do.contiguous()
-    _check_bwd(q, k, v, o, do, mask)
-    if q.dtype == torch.float32:
-        delta = attention_delta(o, do)
-        dq = flash_attention_bwd_dq(q, k, v, mask, lse, delta, do, dropout_p,
-                                    seed, index)
-        dk, dv = flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do,
-                                         dropout_p, seed, index)
-        return dq, dk, dv
-    delta, lse2, acc = flash_bwd_prep(o, do, lse)
-    dk, dv = flash_bwd_main(q, k, v, mask, lse2, delta, acc, do, dropout_p,
-                            seed, index)
-    return flash_bwd_post(acc, q), dk, dv
+    return with_kernel_width(_bwd_launch, q, k, v, mask, o, lse, do,
+                             dropout_p, seed, index)
 
 
 _DUMP_ORDERS = {"fwd": 0, "dkv": 1}

@@ -11,53 +11,93 @@
 // A key the mask drops, or a key beyond S, gets p = 0 by select: a fully
 // masked batch row gets zero gradient (its lse is ~-1e9, so exp(s - lse)
 // overflows, and the select keeps that from reaching the sums). A q row
-// beyond S gets lse = +inf and so p = 0.
+// beyond S gets lse = +inf and so p = 0. Head dims 16, 32, 64 and 128
+// (ops/attention.py pads other widths up to the next of them with zero
+// columns); any number of batch*heads up to 2^31 - 1 and any S.
 //
 // bf16 (the training path): three launches.
 //  * Pre-pass `flash_bwd_prep_kernel`: delta = rowsum(dO * O) in f32 from
 //    bf16 O and dO, lse * log2(e), both padded to S_pad (a multiple of 64;
-//    lse +inf and delta 0 past S), and a zeroed (B*H, S_pad, D) f32 dq
-//    accumulator with its B*H*S_pad/64 int32 turn counters after it.
-//  * Main `flash_bwd_main_kernel`: one warpgroup (128 threads) per
-//    (batch*head, 64-key tile). Its K and V tiles arrive once by TMA; then
-//    it walks over the 64-row q tiles, whose Q, dO, lse and delta TMA brings
-//    into a ring of two stages under mbarriers, so tile i+1 loads while
-//    tile i computes. A tile is one TMA box, swizzled by TMA in the pattern
-//    that wgmma reads (128-byte swizzle at D = 64), so neither the copy nor
-//    the products pay for bank conflicts or for many small requests. Per q tile, five `wgmma` products with f32
-//    accumulators: S^T = K Q^T and dP^T = V dO^T (shared-memory operands as
-//    stored); p, the dropped p and dS from one exp2 and one keep bit per
-//    element; dV += P~^T dO and dK += dS^T Q with the re-packed
-//    accumulators as register A operands and dO, Q read MN-major from the
-//    same tiles (no transposed copy); dS^T goes once to shared memory in
-//    bf16 for dQ_partial = dS K, which goes through shared memory into the
-//    f32 accumulator as one TMA bulk reduce-add per q tile
-//    (`cp.reduce.async.bulk .add.f32`), overlapped with the next tile. The
-//    blocks of one head add their partials to a q tile in a fixed order,
-//    so dq is the same in every run: block kt takes the q tiles in the
-//    order kt, kt+1, ... (mod n), so at step i its partial goes to tile
-//    (kt + i) mod n as that tile's i-th add. It waits until the tile's
-//    turn counter reads i, and once the add is complete (checked at the
-//    next step's dS store, so the wait is hidden) it sets the counter to
-//    i + 1; the tile's last add sets it back to 0 for the next launch. The
-//    add that a block waits for is the one block kt+1 made a step before,
-//    so the blocks of a head do not queue behind each other. dK
-//    and dV stay in registers until the end. S^T and dP^T are taken in two
-//    passes of 32 q columns, which keeps a thread at <= 168 registers with
-//    no spills, so three blocks share an SM and hide part of each other's
-//    latency: a block runs its phases in turn (products, the exp and hash
-//    work, the dS store, the next three products), which is what holds the
-//    kernel above its bound.
-//  * Post-pass `flash_bwd_post_kernel`: dq = scale * accumulator in bf16,
-//    laid out as the caller asks (the accumulator's rows are chunk-swizzled
-//    so that the main kernel's shared-memory stores of its partials are
-//    free of bank conflicts; the post-pass undoes it).
+//    lse +inf and delta 0 past S), a zeroed f32 dq accumulator of `groups`
+//    slices of (S_pad, D) a batch*head (groups: below), and zeroed int32
+//    turn counters, one a (batch*head, group, 64-row q tile), in a buffer
+//    of their own.
+//  * Main `flash_bwd_main_kernel`: one warpgroup (128 threads) a block. An
+//    item is one (batch*head, 64-key tile). Its K and V tiles arrive once
+//    by TMA; then it walks over the 64-row q tiles, whose Q, dO, lse and
+//    delta TMA brings into a ring of two stages under mbarriers, so tile
+//    i+1 loads while tile i computes (the ring runs on across items, so the
+//    next item's first q tiles load during this item's last). A tile is one
+//    TMA box (two of 64 columns at D = 128), swizzled by TMA in the pattern
+//    that wgmma reads (128-byte swizzle at D >= 64), so neither the copy nor
+//    the products pay for bank conflicts or for many small requests. Per q
+//    tile, five `wgmma` products with f32 accumulators: S^T = K Q^T and
+//    dP^T = V dO^T (shared-memory operands as stored); p, the dropped p and
+//    dS from one exp2 and one keep bit per element; dV += P~^T dO and dK +=
+//    dS^T Q with the re-packed accumulators as register A operands and dO,
+//    Q read MN-major from the same tiles (no transposed copy); dS^T goes
+//    once to shared memory in bf16 for dQ_partial = dS K, which goes
+//    through shared memory into its slice of the f32 accumulator as one
+//    TMA bulk reduce-add per q tile (`cp.reduce.async.bulk .add.f32`),
+//    overlapped with the next tile. dK and dV stay in registers until the
+//    item ends. S^T and dP^T are taken in two passes of 32 q columns. At
+//    D <= 64 that keeps a thread at <= 168 registers, so three blocks share
+//    an SM and hide part of each other's latency. At D = 128, dK and dV
+//    alone are 128 registers a thread and a block's tiles 138 KB: one block
+//    an SM, every product of N = 64 (a 64-column sub-tile), dV and dK
+//    complete before dQ_partial starts, and dQ_partial in two halves of 64
+//    columns, the second after the first is stored, so that <= 192
+//    accumulator registers are live at once.
+//  * Post-pass `flash_bwd_post_kernel`: dq = scale * (the sum of the
+//    accumulator's slices, in slice order) in bf16, laid out as the caller
+//    asks (the accumulator's rows are chunk-swizzled so that the main
+//    kernel's shared-memory stores of its partials are free of bank
+//    conflicts; the post-pass undoes it).
+//
+// The main kernel's schedule, and why every wait in it ends. The blocks of
+// one head add their dq partials to a q tile in a fixed order, so dq is the
+// same in every run: key tile kt takes the q tiles in the order kt, kt+1,
+// ... (mod n_qt), so at step i it adds to tile (kt + i) mod n_qt, after the
+// tile's adds from kt+1, kt+2, ... made at steps i-1, i-2, .... It waits
+// until the tile's turn counter reads the number of adds before its own,
+// and once its add is complete (checked at the next step's dS store, so the
+// wait is hidden) it sets the counter one higher (back to 0 after the
+// tile's last add, ready for the next launch). An add so waits only on adds
+// made at earlier steps of the same head.
+//  * The launch is cooperative (`cudaLaunchCooperativeKernel`): its grid is
+//    G = (blocks an SM holds, from the occupancy calculator) x (SMs), or the
+//    number of items if that is less, and the launch either makes all G
+//    blocks resident at once or fails with an error; it never waits on a
+//    block that was not scheduled. A block takes items of the head-major
+//    order j = bh * n_qt + kt one at a time and runs each to its end: its
+//    first item is j = blockIdx.x (the grid's first items start together),
+//    each later one j = G + a ticket from a global counter (one atomicAdd a
+//    claim), so items are taken in increasing j. Claiming keeps the load
+//    balanced as the card's own dispatch did (a fixed item -> block map
+//    left whole SMs idle in its last round). The block that draws the last
+//    ticket sets the counter back to 0 for the next launch.
+//  * A head's key tiles are split into `groups` runs of n_g <= G consecutive
+//    tiles (groups = ceil(n_qt / G), chosen by the wrapper from G; 1 unless
+//    S > 64 G, ~25,300 rows at D = 64), each run adding into its own slice
+//    of the accumulator under its own counters.
+//  * An item cannot end before every other item of its run has made an add
+//    (its last add, to tile kt-1, comes after theirs), so a block never
+//    holds two items of one run: the other blocks hold the rest.
+//  * So, by induction over the runs in j order: once every run before R
+//    has finished, every block is idle or holds an item of R (items are
+//    taken in order, and no later item is taken while one of R is not);
+//    while an item of R is not taken, fewer than n_g <= G blocks are busy
+//    with R, so a block is free to claim it. So all items of R run at once, and their
+//    waits, which point only to earlier steps of R, all end. Nothing rests
+//    on the order in which the card dispatches blocks.
+//  * `wait_flag` traps after ~2^28 polls, which only a fault can reach.
 // dq, dk and dv are summed in a fixed order, so equal inputs give equal
 // bits in every run.
 //
 // f32 (exact checks): `flash_bwd_dq_f32_kernel` and
-// `flash_bwd_dkv_f32_kernel`, one thread per row, scalar FMA, with delta
-// computed outside. They are bit-equal to the plain backward on the card.
+// `flash_bwd_dkv_f32_kernel`, one thread per row (two at D = 128, each
+// with half the columns, the dot products summed across the pair), scalar
+// FMA, with delta computed outside.
 //
 // Bound on this card at the train shape (B*H = 128, S = 320, D = 64, bf16):
 // the backward reads Q, K, V, O, dO and writes dQ, dK, dV, 8 x 5.24 MB,
@@ -74,22 +114,34 @@
 #include <stdint.h>
 #include <math.h>
 
+#include <mutex>
+
 #include "keep_bits.cuh"
 #include "sm90.cuh"
-#include "tensor_map.cuh"  // head_map, kmajor_at, mnmajor_at
+#include "tensor_map.cuh"  // head_map, load_tile, kmajor_at, mnmajor_at
 
 namespace {
 
 constexpr int BLOCK = 64;        // rows of a key tile and of a q tile
-constexpr int F32_Q_TILE = 32;   // q rows per loop tile of the f32 dk/dv kernel
 constexpr int STAGES = 2;        // q tiles in flight in the bf16 main kernel
 constexpr float LOG2E = 1.4426950408889634f;
-// main kernel: blocks an SM holds (registers <= 168 a thread, no spills),
-// and the passes over a q tile's 64 columns for S^T and dP^T (two passes of
-// 32 keep half of their accumulators live, 32 registers fewer than one pass
-// of 64, which is what lets three blocks fit)
-constexpr int MIN_BLOCKS = 3;
+// main kernel: the passes over a q tile's 64 columns for S^T and dP^T (two
+// passes of 32 keep half of their accumulators live, 32 registers fewer
+// than one pass of 64, which is what lets three blocks fit at D <= 64)
 constexpr int HALVES = 2;
+// main kernel: blocks an SM holds (D <= 64: registers <= 168 a thread;
+// D = 128: 138 KB of shared memory a block)
+template <int D>
+__host__ __device__ constexpr int main_min_blocks() { return D > 64 ? 1 : 3; }
+// f32 kernels: threads a row (a row of 128 floats in two halves), the dq
+// kernel's keys a tile and the dk/dv kernel's q rows a tile (tiles within
+// 48 KB of static shared memory)
+template <int D>
+__host__ __device__ constexpr int f32_tpr() { return D > 64 ? 2 : 1; }
+template <int D>
+__host__ __device__ constexpr int f32_keys() { return D > 64 ? 32 : 64; }
+template <int D>
+__host__ __device__ constexpr int f32_q_tile() { return D > 64 ? 8 : 32; }
 
 struct Params {
   const void* q;
@@ -109,7 +161,7 @@ struct Params {
   long long dq_sb, dq_sh, dq_ss;
   long long dk_sb, dk_sh, dk_ss;
   long long dv_sb, dv_sh, dv_ss;
-  int H, S;
+  int H, S, n_t;       // n_t: 64-row tiles of S (blocks a head)
   float scale;
   uint32_t seed;     // dropout seed (int32 bits)
   uint32_t thresh;   // keep threshold on the 31-bit hash; 0 = no dropout
@@ -129,16 +181,26 @@ __device__ __forceinline__ T* head_out(void* base, long long sb, long long sh,
   return static_cast<T*>(base) + b * sb + h * sh;
 }
 
+// The sum of x over the two threads of a row's pair (lanes 2r, 2r + 1): both
+// get the same bits (a + b == b + a). Only the pair need take part.
+__device__ __forceinline__ float pair_sum(float x) {
+  const unsigned lane = threadIdx.x & 31;
+  return x + __shfl_xor_sync(3u << (lane & ~1u), x, 1);
+}
+
 // ----- f32 (exact checks) -------------------------------------------------------
-// One thread per q row; K/V tiles read as shared-memory broadcasts.
+// One thread (pair) per q row; K/V tiles read as shared-memory broadcasts.
+// Block x = bh * n_t + q tile.
 template <int D>
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(BLOCK * f32_tpr<D>())
 flash_bwd_dq_f32_kernel(const Params p) {
-  __shared__ float sK[BLOCK][D];
-  __shared__ float sV[BLOCK][D];
-  __shared__ int sKeep[BLOCK];
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
-  const int row = blockIdx.x * BLOCK + threadIdx.x, S = p.S;
+  constexpr int TPR = f32_tpr<D>(), DT = D / TPR, KN = f32_keys<D>();
+  __shared__ float sK[KN][D];
+  __shared__ float sV[KN][D];
+  __shared__ int sKeep[KN];
+  const int bh = blockIdx.x / p.n_t, b = bh / p.H, h = bh % p.H;
+  const int d0 = (threadIdx.x % TPR) * DT;  // this thread's columns
+  const int row = (blockIdx.x % p.n_t) * BLOCK + threadIdx.x / TPR, S = p.S;
   const float* Q = head<float>(p.q, p.q_sb, p.q_sh, b, h);
   const float* K = head<float>(p.k, p.k_sb, p.k_sh, b, h);
   const float* V = head<float>(p.v, p.v_sb, p.v_sh, b, h);
@@ -147,64 +209,71 @@ flash_bwd_dq_f32_kernel(const Params p) {
   const uint32_t seed_bh = seed_for_head(p.seed, p.gbh, b, h);
   const bool in = row < S;
 
-  float q[D], g[D], acc[D];
+  float q[DT], g[DT], acc[DT];
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    q[d] = in ? Q[row * p.q_ss + d] : 0.f;
-    g[d] = in ? dO[row * p.do_ss + d] : 0.f;
+  for (int d = 0; d < DT; ++d) {
+    q[d] = in ? Q[row * p.q_ss + d0 + d] : 0.f;
+    g[d] = in ? dO[row * p.do_ss + d0 + d] : 0.f;
     acc[d] = 0.f;
   }
   const float lse = in ? p.lse[(long long)bh * S + row] : INFINITY;
   const float delta = in ? p.delta[(long long)bh * S + row] : 0.f;
 
-  const int n_kt = (S + BLOCK - 1) / BLOCK;
+  const int n_kt = (S + KN - 1) / KN;
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BLOCK;
+    const int k0 = kt * KN;
     __syncthreads();
-    for (int c = threadIdx.x; c < BLOCK * D; c += blockDim.x) {
+    for (int c = threadIdx.x; c < KN * D; c += blockDim.x) {
       const int r = c / D, col = c % D;
       const bool ok = k0 + r < S;
       sK[r][col] = ok ? K[(k0 + r) * p.k_ss + col] : 0.f;
       sV[r][col] = ok ? V[(k0 + r) * p.v_ss + col] : 0.f;
     }
-    for (int j = threadIdx.x; j < BLOCK; j += blockDim.x)
+    for (int j = threadIdx.x; j < KN; j += blockDim.x)
       sKeep[j] = k0 + j < S && M[k0 + j] != 0;
     __syncthreads();
 #pragma unroll 1
-    for (int j = 0; j < BLOCK; ++j) {
-      if (!sKeep[j]) continue;
+    for (int j = 0; j < KN; ++j) {
+      if (!sKeep[j]) continue;  // the same j for every thread
       float s = 0.f, dp = 0.f;
 #pragma unroll
-      for (int d = 0; d < D; ++d) {
-        s = fmaf(q[d], sK[j][d], s);
-        dp = fmaf(g[d], sV[j][d], dp);
+      for (int d = 0; d < DT; ++d) {
+        s = fmaf(q[d], sK[j][d0 + d], s);
+        dp = fmaf(g[d], sV[j][d0 + d], dp);
+      }
+      if (TPR > 1) {
+        s = pair_sum(s);
+        dp = pair_sum(dp);
       }
       const float pv = expf(s * p.scale - lse);
       if (p.thresh)
         dp = keep_bit(seed_bh, row, k0 + j, S, p.thresh) ? dp * p.inv_keep : 0.f;
       const float ds = pv * (dp - delta);
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] = fmaf(ds, sK[j][d], acc[d]);
+      for (int d = 0; d < DT; ++d) acc[d] = fmaf(ds, sK[j][d0 + d], acc[d]);
     }
   }
   if (in) {
     float* dq = head_out<float>(p.dq, p.dq_sb, p.dq_sh, b, h);
 #pragma unroll
-    for (int d = 0; d < D; ++d) dq[row * p.dq_ss + d] = acc[d] * p.scale;
+    for (int d = 0; d < DT; ++d) dq[row * p.dq_ss + d0 + d] = acc[d] * p.scale;
   }
 }
 
-// One thread per key; its K row in registers, its V row in shared memory
-// (padded rows, conflict-free), Q/dO tiles read as broadcasts.
+// One thread (pair) per key; its K row in registers, its V row in shared
+// memory (padded rows, conflict-free), Q/dO tiles read as broadcasts.
+// Block x = bh * n_t + key tile.
 template <int D>
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(BLOCK * f32_tpr<D>())
 flash_bwd_dkv_f32_kernel(const Params p) {
-  __shared__ float sQ[F32_Q_TILE][D];
-  __shared__ float sDO[F32_Q_TILE][D];
+  constexpr int TPR = f32_tpr<D>(), DT = D / TPR, QT = f32_q_tile<D>();
+  __shared__ float sQ[QT][D];
+  __shared__ float sDO[QT][D];
   __shared__ float sVown[BLOCK][D + 1];
-  __shared__ float sLse[F32_Q_TILE], sDelta[F32_Q_TILE];
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
-  const int key = blockIdx.x * BLOCK + threadIdx.x, S = p.S;
+  __shared__ float sLse[QT], sDelta[QT];
+  const int bh = blockIdx.x / p.n_t, b = bh / p.H, h = bh % p.H;
+  const int own = threadIdx.x / TPR, d0 = (threadIdx.x % TPR) * DT;
+  const int key = (blockIdx.x % p.n_t) * BLOCK + own, S = p.S;
   const float* Q = head<float>(p.q, p.q_sb, p.q_sh, b, h);
   const float* K = head<float>(p.k, p.k_sb, p.k_sh, b, h);
   const float* V = head<float>(p.v, p.v_sb, p.v_sh, b, h);
@@ -213,39 +282,43 @@ flash_bwd_dkv_f32_kernel(const Params p) {
   const bool in = key < S;
   const bool kept = in && p.mask[(long long)b * S + key] != 0;
 
-  float k[D], dk[D], dv[D];
+  float k[DT], dk[DT], dv[DT];
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    k[d] = in ? K[key * p.k_ss + d] : 0.f;
-    sVown[threadIdx.x][d] = in ? V[key * p.v_ss + d] : 0.f;
+  for (int d = 0; d < DT; ++d) {
+    k[d] = in ? K[key * p.k_ss + d0 + d] : 0.f;
+    sVown[own][d0 + d] = in ? V[key * p.v_ss + d0 + d] : 0.f;
     dk[d] = dv[d] = 0.f;
   }
 
-  const int n_qt = (S + F32_Q_TILE - 1) / F32_Q_TILE;
+  const int n_qt = (S + QT - 1) / QT;
   for (int qt = 0; qt < n_qt; ++qt) {
-    const int q0 = qt * F32_Q_TILE;
+    const int q0 = qt * QT;
     __syncthreads();
-    for (int c = threadIdx.x; c < F32_Q_TILE * D; c += blockDim.x) {
+    for (int c = threadIdx.x; c < QT * D; c += blockDim.x) {
       const int r = c / D, col = c % D;
       const bool ok = q0 + r < S;
       sQ[r][col] = ok ? Q[(q0 + r) * p.q_ss + col] : 0.f;
       sDO[r][col] = ok ? dO[(q0 + r) * p.do_ss + col] : 0.f;
     }
-    for (int j = threadIdx.x; j < F32_Q_TILE; j += blockDim.x) {
+    for (int j = threadIdx.x; j < QT; j += blockDim.x) {
       const bool ok = q0 + j < S;
       sLse[j] = ok ? p.lse[(long long)bh * S + q0 + j] : INFINITY;
       sDelta[j] = ok ? p.delta[(long long)bh * S + q0 + j] : 0.f;
     }
     __syncthreads();
-    if (!kept) continue;
+    if (!kept) continue;  // both threads of a key's pair
 #pragma unroll 1
-    for (int j = 0; j < F32_Q_TILE; ++j) {
+    for (int j = 0; j < QT; ++j) {
       if (q0 + j >= S) break;
       float s = 0.f, dp = 0.f;
 #pragma unroll
-      for (int d = 0; d < D; ++d) {
-        s = fmaf(sQ[j][d], k[d], s);
-        dp = fmaf(sDO[j][d], sVown[threadIdx.x][d], dp);
+      for (int d = 0; d < DT; ++d) {
+        s = fmaf(sQ[j][d0 + d], k[d], s);
+        dp = fmaf(sDO[j][d0 + d], sVown[own][d0 + d], dp);
+      }
+      if (TPR > 1) {
+        s = pair_sum(s);
+        dp = pair_sum(dp);
       }
       const float pv = expf(s * p.scale - sLse[j]);
       float pctx = pv;
@@ -256,9 +329,9 @@ flash_bwd_dkv_f32_kernel(const Params p) {
       }
       const float ds = pv * (dp - sDelta[j]);
 #pragma unroll
-      for (int d = 0; d < D; ++d) {
-        dv[d] = fmaf(pctx, sDO[j][d], dv[d]);
-        dk[d] = fmaf(ds, sQ[j][d], dk[d]);
+      for (int d = 0; d < DT; ++d) {
+        dv[d] = fmaf(pctx, sDO[j][d0 + d], dv[d]);
+        dk[d] = fmaf(ds, sQ[j][d0 + d], dk[d]);
       }
     }
   }
@@ -266,9 +339,9 @@ flash_bwd_dkv_f32_kernel(const Params p) {
     float* DK = head_out<float>(p.dk, p.dk_sb, p.dk_sh, b, h);
     float* DV = head_out<float>(p.dv, p.dv_sb, p.dv_sh, b, h);
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
-      DK[key * p.dk_ss + d] = dk[d] * p.scale;
-      DV[key * p.dv_ss + d] = dv[d];
+    for (int d = 0; d < DT; ++d) {
+      DK[key * p.dk_ss + d0 + d] = dk[d] * p.scale;
+      DV[key * p.dv_ss + d0 + d] = dv[d];
     }
   }
 }
@@ -281,11 +354,12 @@ struct PrepParams {
   const float* lse;   // (B*H, S)
   float* lse2;        // (B*H, S_pad): lse * log2(e), +inf past S
   float* delta;       // (B*H, S_pad): rowsum(dO * O), 0 past S
-  float* acc;         // (B*H, S_pad, D), zeroed
-  int* turn;          // (B*H, S_pad / 64), zeroed
+  float* acc;         // (B*H, groups * S_pad, D), zeroed
+  int* turn;          // (B*H, groups, S_pad / 64), zeroed
+  int* work;          // the main kernel's work counter, zeroed
   long long o_sb, o_sh, o_ss;
   long long do_sb, do_sh, do_ss;
-  int H, S, S_pad;
+  int H, S, S_pad, groups;
 };
 
 // D / 8 consecutive threads per padded row, 16 bytes of O and dO each.
@@ -320,9 +394,15 @@ flash_bwd_prep_kernel(const PrepParams p) {
     p.delta[row] = sum;
     p.lse2[row] = s < p.S ? p.lse[(long long)bh * p.S + s] * LOG2E : INFINITY;
   }
-  float4* a = reinterpret_cast<float4*>(p.acc + row * D + c * 8);
-  a[0] = a[1] = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (c == 0 && s % BLOCK == 0) p.turn[row / BLOCK] = 0;
+  const int n_qt = p.S_pad / BLOCK;
+  for (int grp = 0; grp < p.groups; ++grp) {
+    const long long slice = (long long)bh * p.groups + grp;
+    float4* a = reinterpret_cast<float4*>(
+        p.acc + (slice * p.S_pad + s) * D + c * 8);
+    a[0] = a[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (c == 0 && s % BLOCK == 0) p.turn[slice * n_qt + s / BLOCK] = 0;
+  }
+  if (gid == 0) *p.work = 0;
 }
 
 // ----- bf16: main -----------------------------------------------------------------
@@ -331,13 +411,15 @@ struct MainParams {
   const int* mask;      // (B, S)
   const float* lse2;    // (B*H, S_pad)
   const float* delta;   // (B*H, S_pad)
-  float* acc;           // (B*H, S_pad, D): dq / scale, accumulated
-  int* turn;            // (B*H, S_pad / 64): adds made to each q tile
+  float* acc;           // (B*H, groups * S_pad, D): dq / scale, accumulated
+  int* turn;            // (B*H, groups, n_qt): adds made to each q tile
+  int* work;            // the work counter: tickets drawn past the first items
   __nv_bfloat16* dk;
   __nv_bfloat16* dv;
   long long dk_sb, dk_sh, dk_ss;
   long long dv_sb, dv_sh, dv_ss;
-  int H, S, S_pad;
+  int n_items;          // B*H*n_qt: (batch*head, key tile), <= 2^30
+  int H, S, S_pad, n_qt, groups, n_g;  // n_g: key tiles of a group (<= grid)
   float scale, scale_log2;
   uint32_t seed, thresh;
   float inv_keep;
@@ -348,6 +430,18 @@ struct MainParams {
 // swizzled: chunk c of row r sits at chunk c ^ (r & dq_swizzle<D>()).
 template <int D>
 __host__ __device__ constexpr int dq_swizzle() { return (D / 4 < 8 ? D / 4 : 8) - 1; }
+
+// The item a block has claimed, as thread 0 works it out once at the claim
+// (the step loop then does no division and no 64-bit address arithmetic).
+struct MainItem {
+  int item;           // j = bh * n_qt + kt; n_items or more when none is left
+  int b, h, kt;
+  int a, m;           // the item's group of key tiles: [a, a + m)
+  int* turn;          // the group's turn counters, one a q tile
+  float* acc;         // the group's slice of the accumulator
+  const float* lse2;  // the head's rows
+  const float* delta;
+};
 
 // Q, K, V and dO tiles: tensor_map.cuh's swizzled 64-row tiles, each on a
 // 1 KB boundary. dS^T: the slab layout of sm90.cuh.
@@ -365,21 +459,35 @@ struct MainSmem {
   uint64_t kv;
 };
 
-// Rows [row0, row0 + 64) of one head of a (B, S, H, D)-indexed tensor map
-// (tensor_map.cuh's tile).
-template <int D>
-__device__ __forceinline__ void load_tile(const CUtensorMap* map,
-                                          __nv_bfloat16* dst, int row0, int h,
-                                          int b, uint64_t* bar) {
-  tma_load_4d(dst, map, bar, 0, row0, h, b);
-}
 // dS^T in the slab layout, MN-major (q runs along a slab)
 __device__ __forceinline__ uint64_t ds_desc(const __nv_bfloat16* t, int kk) {
   return wgmma_desc(t + kk * 16 * 8, 128, BLOCK * 16);
 }
 
+// The add that key tile kt makes at step i: into q tile `tile`, after
+// `count` earlier adds to that tile from its group (n_g consecutive key
+// tiles: [a, a + m), a = kt - kt % n_g), which the tile's turn counter must
+// read first; once it is complete the counter takes `next` (0 after the
+// tile's m-th add). Key tile kt' reaches the tile at step (tile - kt') mod
+// n_qt, so the adds before kt's are those of kt+1, ..., kt+i (mod n_qt)
+// that lie in the group. ops/attention.py::bwd_turn is the same function.
+struct Turn {
+  int tile, count, next;
+};
+__host__ __device__ __forceinline__ Turn bwd_turn(int kt, int i, int n_qt,
+                                                  int a, int m) {
+  const int l = kt - a;
+  const int before_wrap = i < m - 1 - l ? i : m - 1 - l;
+  const int after_wrap = i + 1 - (n_qt - l) > 0 ? i + 1 - (n_qt - l) : 0;
+  Turn t;
+  t.tile = kt + i < n_qt ? kt + i : kt + i - n_qt;
+  t.count = before_wrap + after_wrap;
+  t.next = t.count + 1 == m ? 0 : t.count + 1;
+  return t;
+}
+
 template <int D>
-__global__ void __launch_bounds__(128, MIN_BLOCKS)
+__global__ void __launch_bounds__(128, main_min_blocks<D>())
 flash_bwd_main_kernel(const __grid_constant__ CUtensorMap map_q,
                       const __grid_constant__ CUtensorMap map_k,
                       const __grid_constant__ CUtensorMap map_v,
@@ -388,197 +496,271 @@ flash_bwd_main_kernel(const __grid_constant__ CUtensorMap map_q,
   constexpr int TILE_BYTES = BLOCK * D * 2;
   constexpr uint32_t STAGE_TX = 2 * TILE_BYTES + 2 * BLOCK * 4;
   constexpr int DH = D / 2;  // accumulator floats a thread of a 64 x D product
+  constexpr int SUB = sub_cols<D>(), NS = D / SUB;  // N of a product; products
   constexpr int SWZ = dq_swizzle<D>();
   constexpr int NQ = BLOCK / HALVES;  // q columns of S^T and dP^T a pass
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  // swizzled tiles start on 1 KB boundaries
+  // swizzled tiles start on 1 KB boundaries: the buffer is aligned here, in
+  // the 1 KB it is given beyond MainSmem (an alignment declared on it would
+  // place it 1 KB past `claimed` below, and three blocks would not fit)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   MainSmem<D>& sm = *reinterpret_cast<MainSmem<D>*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
 
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
-  const int kt = blockIdx.x, k0 = kt * BLOCK, S = p.S;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int n_qt = (S + BLOCK - 1) / BLOCK;  // = gridDim.x
-  const float* lse2 = p.lse2 + (long long)bh * p.S_pad;
-  const float* delta = p.delta + (long long)bh * p.S_pad;
-  int* turn = p.turn + (long long)bh * n_qt;
-  // the q tile of step i, whose i-th add this block makes
-  auto q_tile = [&](int i) { return kt + i < n_qt ? kt + i : kt + i - n_qt; };
+  const int n_qt = p.n_qt, S = p.S;
+  // the item thread 0 claimed, for the block; thread 0 copies it into
+  // registers where it uses it, so its loads go at once
+  __shared__ MainItem claimed;
 
-  auto issue_q_tile = [&](int i) {
-    const int st = i % STAGES, row0 = q_tile(i) * BLOCK;
+  // the q tiles of step i of the claimed item `in` into stage st
+  auto issue_q_tile = [&](const MainItem& in, int i, int st) {
+    const int row0 = (in.kt + i < n_qt ? in.kt + i : in.kt + i - n_qt) * BLOCK;
     mbar_expect_tx(&sm.full[st], STAGE_TX);
-    load_tile<D>(&map_q, sm.q[st], row0, h, b, &sm.full[st]);
-    load_tile<D>(&map_do, sm.dO[st], row0, h, b, &sm.full[st]);
-    bulk_load(sm.lse2[st], lse2 + row0, BLOCK * 4, &sm.full[st]);
-    bulk_load(sm.delta[st], delta + row0, BLOCK * 4, &sm.full[st]);
+    load_tile<D>(&map_q, sm.q[st], row0, in.h, in.b, &sm.full[st]);
+    load_tile<D>(&map_do, sm.dO[st], row0, in.h, in.b, &sm.full[st]);
+    bulk_load(sm.lse2[st], in.lse2 + row0, BLOCK * 4, &sm.full[st]);
+    bulk_load(sm.delta[st], in.delta + row0, BLOCK * 4, &sm.full[st]);
   };
-  if (tid == 0) {
-    for (int s = 0; s < STAGES; ++s) mbar_init(&sm.full[s], 1);
-    mbar_init(&sm.kv, 1);
-    mbar_init_fence();
-  }
-  __syncthreads();
-  if (tid == 0) {
-    mbar_expect_tx(&sm.kv, 2 * TILE_BYTES);
-    load_tile<D>(&map_k, sm.k, k0, h, b, &sm.kv);
-    load_tile<D>(&map_v, sm.v, k0, h, b, &sm.kv);
-    for (int i = 0; i < STAGES && i < n_qt; ++i) issue_q_tile(i);
-  }
-
-  // this thread's two accumulator rows are keys k0 + 16 warp + g (+ 8)
-  const int key0 = k0 + warp * 16 + g;
-  bool kept[2];
+  // Thread 0 claims the next item of the head-major order j = bh * n_qt +
+  // kt and starts its loads: K and V, its first q tiles. A block's first
+  // item is j = blockIdx.x (the grid's first items all start at once); each
+  // later one is gridDim.x + a ticket of the work counter, so claims come in
+  // increasing j. Every block draws exactly one ticket past the last item,
+  // so the n_items tickets are 0 .. n_items - 1, and the block that draws
+  // the last sets the counter back to 0 for the next launch: no other claim
+  // is left. The item starts its barriers afresh (every load of the last
+  // item has arrived and been waited for), so its step i takes stage
+  // i % STAGES at phase (i / STAGES) & 1, K and V phase 0, as a block of
+  // one item would.
+  auto claim = [&](bool first) {
+    MainItem in;
+    if (first) {
+      in.item = blockIdx.x;
+    } else {
+      const int ticket = atomicAdd(p.work, 1);
+      if (ticket == p.n_items - 1) *p.work = 0;
+      in.item = static_cast<int>(gridDim.x) + ticket;
+    }
+    if (in.item < p.n_items) {
+      for (int s = 0; s < STAGES; ++s) {
+        if (!first) mbar_inval(&sm.full[s]);
+        mbar_init(&sm.full[s], 1);
+      }
+      if (!first) mbar_inval(&sm.kv);
+      mbar_init(&sm.kv, 1);
+      mbar_init_fence();
+      const int bh = in.item / n_qt;
+      in.kt = in.item - bh * n_qt;
+      in.b = bh / p.H;
+      in.h = bh - in.b * p.H;
+      const int grp = in.kt / p.n_g;
+      in.a = grp * p.n_g;
+      in.m = min(p.n_g, n_qt - in.a);
+      const long long slice = (long long)bh * p.groups + grp;
+      in.turn = p.turn + slice * n_qt;
+      in.acc = p.acc + slice * p.S_pad * D;
+      in.lse2 = p.lse2 + (long long)bh * p.S_pad;
+      in.delta = p.delta + (long long)bh * p.S_pad;
+      mbar_expect_tx(&sm.kv, 2 * TILE_BYTES);
+      load_tile<D>(&map_k, sm.k, in.kt * BLOCK, in.h, in.b, &sm.kv);
+      load_tile<D>(&map_v, sm.v, in.kt * BLOCK, in.h, in.b, &sm.kv);
+      for (int i = 0; i < STAGES && i < n_qt; ++i) issue_q_tile(in, i, i);
+    }
+    return in;
+  };
+  for (bool first = true;; first = false) {
+    // (each thread has read the last claim: a step's barriers lie between)
+    if (tid == 0) claimed = claim(first);
+    __syncthreads();  // (also: the last item's tiles are free)
+    if (claimed.item >= p.n_items) break;
+    const int b = claimed.b, h = claimed.h, kt = claimed.kt, k0 = kt * BLOCK;
+    // this thread's two accumulator rows are keys k0 + 16 warp + g (+ 8)
+    const int key0 = k0 + warp * 16 + g;
+    bool kept[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-    kept[i] = key0 + 8 * i < S && p.mask[(long long)b * S + key0 + 8 * i] != 0;
-  const uint32_t seed_bh = seed_for_head(p.seed, p.gbh, b, h);
+    for (int i = 0; i < 2; ++i)
+      kept[i] = key0 + 8 * i < S && p.mask[(long long)b * S + key0 + 8 * i] != 0;
+    const uint32_t seed_bh = seed_for_head(p.seed, p.gbh, b, h);
 
-  float dk[DH], dv[DH];
+    float dk[DH], dv[DH];
 #pragma unroll
-  for (int i = 0; i < DH; ++i) dk[i] = dv[i] = 0.f;
+    for (int i = 0; i < DH; ++i) dk[i] = dv[i] = 0.f;
 
-  mbar_wait(&sm.kv, 0);
-  for (int it = 0; it < n_qt; ++it) {
-    const int st = it % STAGES, q0 = q_tile(it) * BLOCK;
-    mbar_wait(&sm.full[st], (it / STAGES) & 1);
+    mbar_wait(&sm.kv, 0);
+    for (int it = 0; it < n_qt; ++it) {
+      const int st = it % STAGES;
+      const int tile = kt + it < n_qt ? kt + it : kt + it - n_qt;
+      const int q0 = tile * BLOCK;
+      mbar_wait(&sm.full[st], (it / STAGES) & 1);
 
-    // S^T = K Q^T and dP^T = V dO^T (rows = keys, columns = q rows), in
-    // HALVES passes of NQ q columns, so fewer accumulators are live at once
-    uint32_t pa[4][4], da[4][4];  // P~^T and dS^T as A operands, 16 q a step
+      // S^T = K Q^T and dP^T = V dO^T (rows = keys, columns = q rows), in
+      // HALVES passes of NQ q columns, so fewer accumulators are live at once
+      uint32_t pa[4][4], da[4][4];  // P~^T and dS^T as A operands, 16 q a step
 #pragma unroll
-    for (int hf = 0; hf < HALVES; ++hf) {
-      float s[NQ / 2], dp[NQ / 2];
+      for (int hf = 0; hf < HALVES; ++hf) {
+        float s[NQ / 2], dp[NQ / 2];
 #pragma unroll
-      for (int i = 0; i < NQ / 2; ++i) s[i] = dp[i] = 0.f;
-      const int n0 = hf * NQ;  // first q row of the pass
+        for (int i = 0; i < NQ / 2; ++i) s[i] = dp[i] = 0.f;
+        const int n0 = hf * NQ;  // first q row of the pass
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks)
+          Wgmma<NQ>::template ss<0, 0>(s, kmajor_at<D>(sm.k, 0, ks),
+                                       kmajor_at<D>(sm.q[st], n0, ks), ks > 0);
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks)
+          Wgmma<NQ>::template ss<0, 0>(dp, kmajor_at<D>(sm.v, 0, ks),
+                                       kmajor_at<D>(sm.dO[st], n0, ks), ks > 0);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(s);
+        fence_regs(dp);
+
+        // p, the dropped p (into s) and dS (into dp): one exp2, one keep bit
+#pragma unroll
+        for (int jj = 0; jj < NQ / 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = hf * NQ + 8 * jj + 2 * t + (e & 1), i = e >> 1;
+            const float pv = kept[i] ? fast_exp2(fmaf(s[4 * jj + e], p.scale_log2,
+                                                      -sm.lse2[st][col]))
+                                     : 0.f;
+            float pd = pv, dpv = dp[4 * jj + e];
+            if (p.thresh) {
+              const bool kb = keep_bit(seed_bh, q0 + col, key0 + 8 * i, S, p.thresh);
+              pd = kb ? pv * p.inv_keep : 0.f;
+              dpv = kb ? dpv * p.inv_keep : 0.f;
+            }
+            s[4 * jj + e] = pd;
+            dp[4 * jj + e] = pv * (dpv - sm.delta[st][col]);
+          }
+#pragma unroll
+        for (int kk = 0; kk < NQ / 16; ++kk) {
+          pack_a(pa[hf * NQ / 16 + kk], s + 8 * kk);
+          pack_a(da[hf * NQ / 16 + kk], dp + 8 * kk);
+        }
+      }
+      // dS^T to shared memory, MN-major for dQ = dS K (q runs along a slab)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          *reinterpret_cast<uint32_t*>(
+              &sm.ds[(jj * BLOCK + warp * 16 + g + 8 * i) * 8 + 2 * t]) =
+              da[jj / 2][(jj & 1) * 2 + i];
+      fence_proxy_async();
+      if (tid == 0 && it > 0) {
+        // the last dQ partial has left dqs and is in acc: its tile's next
+        // add may go
+        const MainItem in = claimed;
+        const Turn prev = bwd_turn(in.kt, it - 1, n_qt, in.a, in.m);
+        bulk_wait_all();
+        fence_proxy_async_global();
+        set_flag(in.turn + prev.tile, prev.next);
+      }
+      __syncthreads();
+
+      // dV += P~^T dO, dK += dS^T Q, dQ_partial = dS K: products of N =
+      // SUB, one a SUB-column sub-tile of dO, Q, K and of the accumulators
+      float dq[SUB / 2];  // overwritten: not live across the loop
+#pragma unroll
+      for (int i = 0; i < SUB / 2; ++i) dq[i] = 0.f;
+      fence_regs(dv);
+      fence_regs(dk);
+      fence_regs(dq);
       wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks)
-        Wgmma<NQ>::template ss<0, 0>(s, kmajor_at<D>(sm.k, 0, ks),
-                                     kmajor_at<D>(sm.q[st], n0, ks), ks > 0);
+      for (int c = 0; c < NS; ++c) {
+        float(&dvc)[SUB / 2] = *reinterpret_cast<float(*)[SUB / 2]>(dv + c * SUB / 2);
 #pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks)
-        Wgmma<NQ>::template ss<0, 0>(dp, kmajor_at<D>(sm.v, 0, ks),
-                                     kmajor_at<D>(sm.dO[st], n0, ks), ks > 0);
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs(s);
-      fence_regs(dp);
-
-      // p, the dropped p (into s) and dS (into dp): one exp2, one keep bit
+        for (int kk = 0; kk < 4; ++kk)
+          Wgmma<SUB>::template rs<1>(dvc, pa[kk], mnmajor_at<D>(sm.dO[st], kk, c), 1);
+      }
 #pragma unroll
-      for (int j = 0; j < NQ / 8; ++j)
+      for (int c = 0; c < NS; ++c) {
+        float(&dkc)[SUB / 2] = *reinterpret_cast<float(*)[SUB / 2]>(dk + c * SUB / 2);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = hf * NQ + 8 * j + 2 * t + (e & 1), i = e >> 1;
-          const float pv = kept[i] ? fast_exp2(fmaf(s[4 * j + e], p.scale_log2,
-                                                    -sm.lse2[st][col]))
-                                   : 0.f;
-          float pd = pv, dpv = dp[4 * j + e];
-          if (p.thresh) {
-            const bool kb = keep_bit(seed_bh, q0 + col, key0 + 8 * i, S, p.thresh);
-            pd = kb ? pv * p.inv_keep : 0.f;
-            dpv = kb ? dpv * p.inv_keep : 0.f;
-          }
-          s[4 * j + e] = pd;
-          dp[4 * j + e] = pv * (dpv - sm.delta[st][col]);
+        for (int kk = 0; kk < 4; ++kk)
+          Wgmma<SUB>::template rs<1>(dkc, da[kk], mnmajor_at<D>(sm.q[st], kk, c), 1);
+      }
+      if constexpr (NS > 1) {
+        // D = 128: dV and dK complete first, so that their A operands are
+        // no longer live beside dQ_partial's accumulators (no spills)
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(dv);
+        fence_regs(dk);
+      }
+#pragma unroll
+      for (int c = 0; c < NS; ++c) {
+        if (NS > 1) {  // SUB columns of dQ_partial at a time
+#pragma unroll
+          for (int i = 0; i < SUB / 2; ++i) dq[i] = 0.f;
+          fence_regs(dq);
+          wgmma_fence();
         }
 #pragma unroll
-      for (int kk = 0; kk < NQ / 16; ++kk) {
-        pack_a(pa[hf * NQ / 16 + kk], s + 8 * kk);
-        pack_a(da[hf * NQ / 16 + kk], dp + 8 * kk);
+        for (int kk = 0; kk < 4; ++kk)
+          Wgmma<SUB>::template ss<1, 1>(dq, ds_desc(sm.ds, kk),
+                                        mnmajor_at<D>(sm.k, kk, c), kk > 0);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(dv);
+        fence_regs(dk);
+        fence_regs(dq);
+        // these columns of the dQ partial to dqs (row-major, 16-byte chunk
+        // cc of row r stored at chunk cc ^ (r & SWZ), so these stores are
+        // free of bank conflicts)
+#pragma unroll
+        for (int jj = 0; jj < SUB / 8; ++jj)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int r = warp * 16 + g + 8 * i, col = c * SUB + 8 * jj + 2 * t;
+            *reinterpret_cast<float2*>(
+                &sm.dqs[r * D + (((col >> 2) ^ (r & SWZ)) << 2) + (col & 3)]) =
+                make_float2(dq[4 * jj + 2 * i], dq[4 * jj + 2 * i + 1]);
+          }
+      }
+      fence_proxy_async();
+      __syncthreads();  // stage st and dS are free again
+      if (tid == 0) {
+        const MainItem in = claimed;
+        if (it + STAGES < n_qt) {
+          fence_proxy_async();
+          issue_q_tile(in, it + STAGES, st);
+        }
+        // one bulk reduce-add of the 64 x D partial into the item's slice,
+        // in its turn
+        wait_flag(in.turn + tile, bwd_turn(in.kt, it, n_qt, in.a, in.m).count);
+        fence_proxy_async_global();
+        bulk_reduce_add_f32(in.acc + q0 * D, sm.dqs, BLOCK * D * 4);
+        bulk_commit();
       }
     }
-    // dS^T to shared memory, MN-major for dQ = dS K (q runs along a slab)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        *reinterpret_cast<uint32_t*>(
-            &sm.ds[(j * BLOCK + warp * 16 + g + 8 * i) * 8 + 2 * t]) =
-            da[j / 2][(j & 1) * 2 + i];
-    fence_proxy_async();
-    if (tid == 0 && it > 0) {
-      // the last dQ partial has left dqs and is in acc: its tile's next
-      // add may go
+    if (tid == 0) {
+      // the item's last add is complete: pass its tile's turn on
+      const MainItem in = claimed;
+      const Turn last = bwd_turn(in.kt, n_qt - 1, n_qt, in.a, in.m);
       bulk_wait_all();
       fence_proxy_async_global();
-      set_flag(turn + q_tile(it - 1), it);
+      set_flag(in.turn + last.tile, last.next);
     }
-    __syncthreads();
 
-    // dV += P~^T dO, dK += dS^T Q, dQ_partial = dS K
-    float dq[DH];  // overwritten: not live across the loop
+    __nv_bfloat16* DK = p.dk + b * p.dk_sb + h * p.dk_sh;
+    __nv_bfloat16* DV = p.dv + b * p.dv_sb + h * p.dv_sh;
 #pragma unroll
-    for (int i = 0; i < DH; ++i) dq[i] = 0.f;
-    fence_regs(dv);
-    fence_regs(dk);
-    fence_regs(dq);
-    wgmma_fence();
+    for (int i = 0; i < 2; ++i) {
+      const int key = key0 + 8 * i;
+      if (key >= S) continue;
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      Wgmma<D>::template rs<1>(dv, pa[kk], mnmajor_at<D>(sm.dO[st], kk), 1);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      Wgmma<D>::template rs<1>(dk, da[kk], mnmajor_at<D>(sm.q[st], kk), 1);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      Wgmma<D>::template ss<1, 1>(dq, ds_desc(sm.ds, kk), mnmajor_at<D>(sm.k, kk),
-                                  kk > 0);
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(dv);
-    fence_regs(dk);
-    fence_regs(dq);
-    // dQ partial to dqs (row-major, 16-byte chunk c of row r stored at
-    // chunk c ^ (r & SWZ), so these stores are free of bank conflicts)
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = warp * 16 + g + 8 * i, col = 8 * j + 2 * t;
-        *reinterpret_cast<float2*>(
-            &sm.dqs[r * D + (((col >> 2) ^ (r & SWZ)) << 2) + (col & 3)]) =
-            make_float2(dq[4 * j + 2 * i], dq[4 * j + 2 * i + 1]);
+      for (int jj = 0; jj < D / 8; ++jj) {
+        const int col = 8 * jj + 2 * t;
+        *reinterpret_cast<uint32_t*>(DK + key * p.dk_ss + col) =
+            pack_bf16(dk[4 * jj + 2 * i] * p.scale, dk[4 * jj + 2 * i + 1] * p.scale);
+        *reinterpret_cast<uint32_t*>(DV + key * p.dv_ss + col) =
+            pack_bf16(dv[4 * jj + 2 * i], dv[4 * jj + 2 * i + 1]);
       }
-    fence_proxy_async();
-    __syncthreads();  // stage st and dS are free again
-    if (tid == 0) {
-      if (it + STAGES < n_qt) {
-        fence_proxy_async();
-        issue_q_tile(it + STAGES);
-      }
-      // one bulk reduce-add of the 64 x D partial into the accumulator, as
-      // the tile's it-th add
-      wait_flag(turn + q_tile(it), it);
-      fence_proxy_async_global();
-      bulk_reduce_add_f32(p.acc + ((long long)bh * p.S_pad + q0) * D, sm.dqs,
-                          BLOCK * D * 4);
-      bulk_commit();
-    }
-  }
-  if (tid == 0) {
-    // the tile's last add: its counter back to 0 for the next launch
-    bulk_wait_all();
-    fence_proxy_async_global();
-    set_flag(turn + q_tile(n_qt - 1), 0);
-  }
-
-  __nv_bfloat16* DK = p.dk + b * p.dk_sb + h * p.dk_sh;
-  __nv_bfloat16* DV = p.dv + b * p.dv_sb + h * p.dv_sh;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int key = key0 + 8 * i;
-    if (key >= S) continue;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const int col = 8 * j + 2 * t;
-      *reinterpret_cast<uint32_t*>(DK + key * p.dk_ss + col) =
-          pack_bf16(dk[4 * j + 2 * i] * p.scale, dk[4 * j + 2 * i + 1] * p.scale);
-      *reinterpret_cast<uint32_t*>(DV + key * p.dv_ss + col) =
-          pack_bf16(dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
     }
   }
 }
@@ -586,10 +768,10 @@ flash_bwd_main_kernel(const __grid_constant__ CUtensorMap map_q,
 // ----- bf16: post-pass ------------------------------------------------------------
 
 struct PostParams {
-  const float* acc;      // (B*H, S_pad, D)
+  const float* acc;      // (B*H, groups * S_pad, D)
   __nv_bfloat16* dq;
   long long dq_sb, dq_sh, dq_ss;
-  int H, S, S_pad;
+  int H, S, S_pad, groups;
   float scale;
 };
 
@@ -604,10 +786,18 @@ flash_bwd_post_kernel(const PostParams p, long long total) {
   const int c = static_cast<int>(gid % G);
   const int bh = static_cast<int>(row / p.S), s = static_cast<int>(row % p.S);
   const int b = bh / p.H, h = bh % p.H;
-  const float* a = p.acc + ((long long)bh * p.S_pad + s) * D;
   const int sw = s & dq_swizzle<D>();
-  const float4 x = *reinterpret_cast<const float4*>(a + (((2 * c) ^ sw) << 2));
-  const float4 y = *reinterpret_cast<const float4*>(a + (((2 * c + 1) ^ sw) << 2));
+  const int c0 = ((2 * c) ^ sw) << 2, c1 = ((2 * c + 1) ^ sw) << 2;
+  const float* a = p.acc + ((long long)bh * p.groups * p.S_pad + s) * D;
+  float4 x = *reinterpret_cast<const float4*>(a + c0);
+  float4 y = *reinterpret_cast<const float4*>(a + c1);
+  for (int grp = 1; grp < p.groups; ++grp) {  // the slices, in order
+    const float* ag = a + (long long)grp * p.S_pad * D;
+    const float4 xg = *reinterpret_cast<const float4*>(ag + c0);
+    const float4 yg = *reinterpret_cast<const float4*>(ag + c1);
+    x = make_float4(x.x + xg.x, x.y + xg.y, x.z + xg.z, x.w + xg.w);
+    y = make_float4(y.x + yg.x, y.y + yg.y, y.z + yg.z, y.w + yg.w);
+  }
   uint4 out;
   out.x = pack_bf16(x.x * p.scale, x.y * p.scale);
   out.y = pack_bf16(x.z * p.scale, x.w * p.scale);
@@ -618,30 +808,36 @@ flash_bwd_post_kernel(const PostParams p, long long total) {
 
 // ----- host ------------------------------------------------------------------------
 
+constexpr long long MAX_BLOCKS = 0x7FFFFFFF;  // the grid's x
+
 template <int D>
-void launch_f32(bool dkv, const Params& p, dim3 grid, cudaStream_t st) {
-  if (dkv) flash_bwd_dkv_f32_kernel<D><<<grid, BLOCK, 0, st>>>(p);
-  else flash_bwd_dq_f32_kernel<D><<<grid, BLOCK, 0, st>>>(p);
+int launch_f32(bool dkv, const Params& p, int bh, cudaStream_t st) {
+  const long long blocks = (long long)bh * p.n_t;
+  if (blocks > MAX_BLOCKS) return -1;
+  const int threads = BLOCK * f32_tpr<D>();
+  if (dkv) flash_bwd_dkv_f32_kernel<D><<<(unsigned)blocks, threads, 0, st>>>(p);
+  else flash_bwd_dq_f32_kernel<D><<<(unsigned)blocks, threads, 0, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int run_f32(bool dkv, int head_dim, Params& p, int batch, int heads,
             int seq_len, float scale, uint32_t seed, uint32_t thresh,
             float inv_keep, const uint32_t* gbh, void* stream) {
   if (batch <= 0 || heads <= 0 || seq_len <= 0 ||
-      (long long)batch * heads > 65535)
+      (long long)batch * heads > MAX_BLOCKS)
     return -1;
-  p.H = heads; p.S = seq_len; p.scale = scale;
-  p.seed = seed; p.thresh = thresh; p.inv_keep = inv_keep;
+  p.H = heads; p.S = seq_len; p.n_t = (seq_len + BLOCK - 1) / BLOCK;
+  p.scale = scale; p.seed = seed; p.thresh = thresh; p.inv_keep = inv_keep;
   p.gbh = bh_index(gbh);
-  const dim3 grid((seq_len + BLOCK - 1) / BLOCK, batch * heads);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int bh = batch * heads;
   switch (head_dim) {
-    case 16: launch_f32<16>(dkv, p, grid, st); break;
-    case 32: launch_f32<32>(dkv, p, grid, st); break;
-    case 64: launch_f32<64>(dkv, p, grid, st); break;
+    case 16: return launch_f32<16>(dkv, p, bh, st);
+    case 32: return launch_f32<32>(dkv, p, bh, st);
+    case 64: return launch_f32<64>(dkv, p, bh, st);
+    case 128: return launch_f32<128>(dkv, p, bh, st);
     default: return -1;
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 void set_strides(long long& sb, long long& sh, long long& ss,
@@ -650,39 +846,79 @@ void set_strides(long long& sb, long long& sh, long long& ss,
 }
 
 bool bf16_shape_ok(int head_dim, int batch, int heads, int seq_len,
-                   int s_pad) {
-  return (head_dim == 16 || head_dim == 32 || head_dim == 64) && batch > 0 &&
-         heads > 0 && seq_len > 0 && (long long)batch * heads <= 65535 &&
-         s_pad % BLOCK == 0 && s_pad >= seq_len && s_pad < seq_len + BLOCK;
-}
-
-// The main kernel's turn counters, which follow the accumulator.
-int* turn_counters(float* acc, int bh, int s_pad, int head_dim) {
-  return reinterpret_cast<int*>(acc + (long long)bh * s_pad * head_dim);
+                   int s_pad, int groups) {
+  return (head_dim == 16 || head_dim == 32 || head_dim == 64 ||
+          head_dim == 128) && batch > 0 && heads > 0 && seq_len > 0 &&
+         (long long)batch * heads <= MAX_BLOCKS && s_pad % BLOCK == 0 &&
+         s_pad >= seq_len && s_pad < seq_len + BLOCK && groups >= 1 &&
+         groups <= s_pad / BLOCK;
 }
 
 template <int D>
 int launch_prep(const PrepParams& p, int bh, cudaStream_t st) {
   const long long threads = (long long)bh * p.S_pad * (D / 8);  // a multiple of 128
+  if (threads / 128 > MAX_BLOCKS) return -1;
   flash_bwd_prep_kernel<D><<<(unsigned)(threads / 128), 128, 0, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The blocks of the main kernel at head dim D that the current card holds
+// at once (blocks an SM x SMs), which a cooperative launch may not exceed;
+// found once per card and width. Returns a CUDA error code, or -4 when the
+// card cannot launch cooperatively.
 template <int D>
-int launch_main(const CUtensorMap (&maps)[4], const MainParams& p, int bh,
-                cudaStream_t st) {
-  const int smem = static_cast<int>(sizeof(MainSmem<D>)) + 1024;
-  cudaError_t err = allow_smem<flash_bwd_main_kernel<D>>(smem);
+int main_blocks(int* blocks) {
+  constexpr int DEVICES = 64;
+  static std::mutex mu;
+  static int known[DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((p.S + BLOCK - 1) / BLOCK, bh);
-  flash_bwd_main_kernel<D><<<grid, 128, smem, st>>>(maps[0], maps[1], maps[2],
-                                                    maps[3], p);
-  return static_cast<int>(cudaGetLastError());
+  if (dev >= DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+  std::lock_guard<std::mutex> lock(mu);
+  if (known[dev] == 0) {
+    const int smem = static_cast<int>(sizeof(MainSmem<D>)) + 1024;
+    err = allow_smem<flash_bwd_main_kernel<D>>(smem);
+    int per_sm = 0, sms = 0, coop = 0;
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, flash_bwd_main_kernel<D>, 128, smem);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (!coop || per_sm * sms <= 0) return -4;
+    known[dev] = per_sm * sms;
+  }
+  *blocks = known[dev];
+  return 0;
+}
+
+template <int D>
+int launch_main(const CUtensorMap (&maps)[4], const MainParams& p,
+                cudaStream_t st) {
+  int blocks = 0;
+  const int rc = main_blocks<D>(&blocks);
+  if (rc != 0) return rc;
+  if (p.n_g > blocks) return -3;  // too few groups for this card
+  const int grid = p.n_items < blocks ? p.n_items : blocks;
+  const int smem = static_cast<int>(sizeof(MainSmem<D>)) + 1024;
+  void* args[] = {const_cast<CUtensorMap*>(&maps[0]),
+                  const_cast<CUtensorMap*>(&maps[1]),
+                  const_cast<CUtensorMap*>(&maps[2]),
+                  const_cast<CUtensorMap*>(&maps[3]),
+                  const_cast<MainParams*>(&p)};
+  // every block resident at once, or an error: never a partial grid
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(flash_bwd_main_kernel<D>),
+      dim3(static_cast<unsigned>(grid)), dim3(128), args, smem, st));
 }
 
 template <int D>
 int launch_post(const PostParams& p, int bh, cudaStream_t st) {
   const long long total = (long long)bh * p.S * (D / 8);
+  if ((total + 255) / 256 > MAX_BLOCKS) return -1;
   flash_bwd_post_kernel<D><<<(unsigned)((total + 255) / 256), 256, 0, st>>>(p, total);
   return static_cast<int>(cudaGetLastError());
 }
@@ -734,49 +970,70 @@ extern "C" int flash_bwd_dkv(int head_dim, const void* q, const void* k,
                  thresh, inv_keep, gbh, stream);
 }
 
+// The blocks of the bf16 main kernel at `head_dim` that the current card
+// holds at once, its cooperative grid G: a caller takes groups = ceil(n_qt /
+// G) accumulator slices. Returns G > 0, or <= 0: -1 for a head dim the
+// kernel does not take, -4 when the card cannot launch cooperatively, else
+// minus a CUDA error code.
+extern "C" int flash_bwd_main_blocks(int head_dim) {
+  int blocks = 0, rc = -1;
+  switch (head_dim) {
+    case 16: rc = main_blocks<16>(&blocks); break;
+    case 32: rc = main_blocks<32>(&blocks); break;
+    case 64: rc = main_blocks<64>(&blocks); break;
+    case 128: rc = main_blocks<128>(&blocks); break;
+  }
+  return rc == 0 ? blocks : (rc > 0 ? -rc : rc);
+}
+
 // bf16 pre-pass. o, dO: bf16 with (batch, head, row) element strides
 // `strides` (o's three, then dO's). lse: (B*H, S) f32. Writes delta and
-// lse2 ((B*H, s_pad) f32) and zeroes acc ((B*H, s_pad, D) f32, followed in
-// memory by B*H*s_pad/64 int32 turn counters, which it zeroes too); s_pad
-// is S rounded up to a multiple of 64.
+// lse2 ((B*H, s_pad) f32) and zeroes acc ((B*H, groups * s_pad, D) f32) and
+// `turns`, the main kernel's int32 schedule counters: B*H*groups*(s_pad /
+// 64) turn counters, then its work counter; s_pad is S rounded up to a
+// multiple of 64.
 extern "C" int flash_bwd_prep(int head_dim, const void* o, const void* dO,
                               const float* lse, float* delta, float* lse2,
-                              float* acc, int batch, int heads, int seq_len,
-                              int s_pad, const long long* strides, void* stream) {
-  if (!bf16_shape_ok(head_dim, batch, heads, seq_len, s_pad)) return -1;
+                              float* acc, int* turns, int batch, int heads,
+                              int seq_len, int s_pad, int groups,
+                              const long long* strides, void* stream) {
+  if (!bf16_shape_ok(head_dim, batch, heads, seq_len, s_pad, groups)) return -1;
   PrepParams p = {};
   p.o = static_cast<const __nv_bfloat16*>(o);
   p.dO = static_cast<const __nv_bfloat16*>(dO);
-  p.lse = lse; p.lse2 = lse2; p.delta = delta; p.acc = acc;
-  p.turn = turn_counters(acc, batch * heads, s_pad, head_dim);
+  p.lse = lse; p.lse2 = lse2; p.delta = delta; p.acc = acc; p.turn = turns;
+  p.work = turns + (long long)batch * heads * groups * (s_pad / BLOCK);
   set_strides(p.o_sb, p.o_sh, p.o_ss, strides);
   set_strides(p.do_sb, p.do_sh, p.do_ss, strides + 3);
-  p.H = heads; p.S = seq_len; p.S_pad = s_pad;
+  p.H = heads; p.S = seq_len; p.S_pad = s_pad; p.groups = groups;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int bh = batch * heads;
   switch (head_dim) {
     case 16: return launch_prep<16>(p, bh, st);
     case 32: return launch_prep<32>(p, bh, st);
-    default: return launch_prep<64>(p, bh, st);
+    case 64: return launch_prep<64>(p, bh, st);
+    default: return launch_prep<128>(p, bh, st);
   }
 }
 
 // bf16 main kernel: dk and dv, and dq / scale added into acc. strides: the
 // (batch, head, row) element strides of q, k, v, dO, dk and dv; q, k, v and
 // dO 16-byte aligned with row, head and batch strides that are multiples of
-// 8 elements (what the tensor maps take). lse2, delta, acc and its turn
-// counters: from flash_bwd_prep; the counters are 0 again when it ends.
-// Returns 0, a CUDA error code, -1 for arguments it does
-// not take, or -2 when a tensor map cannot be made.
+// 8 elements (what the tensor maps take). lse2, delta, acc (its `groups`
+// slices) and the turn counters: from flash_bwd_prep; the counters are 0
+// again when it ends. Returns 0, a CUDA error code (a refused cooperative
+// launch among them), -1 for arguments it does not take, -2 when a tensor
+// map cannot be made, -3 when `groups` leaves more key tiles to a group
+// than the card holds blocks, -4 when the card cannot launch cooperatively.
 extern "C" int flash_bwd_main(int head_dim, const void* q, const void* k,
                               const void* v, const void* dO, const int* mask,
                               const float* lse2, const float* delta, float* acc,
-                              void* dk, void* dv, int batch, int heads,
-                              int seq_len, int s_pad, const long long* strides,
-                              float scale, uint32_t seed, uint32_t thresh,
-                              float inv_keep, const uint32_t* gbh,
-                              void* stream) {
-  if (!bf16_shape_ok(head_dim, batch, heads, seq_len, s_pad)) return -1;
+                              int* turns, void* dk, void* dv, int batch,
+                              int heads, int seq_len, int s_pad, int groups,
+                              const long long* strides, float scale,
+                              uint32_t seed, uint32_t thresh, float inv_keep,
+                              const uint32_t* gbh, void* stream) {
+  if (!bf16_shape_ok(head_dim, batch, heads, seq_len, s_pad, groups)) return -1;
   CUtensorMap maps[4];
   const void* srcs[4] = {q, k, v, dO};
   for (int i = 0; i < 4; ++i)
@@ -784,42 +1041,50 @@ extern "C" int flash_bwd_main(int head_dim, const void* q, const void* k,
                   strides + 3 * i))
       return -2;
   MainParams p = {};
-  p.mask = mask; p.lse2 = lse2; p.delta = delta; p.acc = acc;
-  p.turn = turn_counters(acc, batch * heads, s_pad, head_dim);
+  p.mask = mask; p.lse2 = lse2; p.delta = delta; p.acc = acc; p.turn = turns;
+  p.work = turns + (long long)batch * heads * groups * (s_pad / BLOCK);
   p.dk = static_cast<__nv_bfloat16*>(dk);
   p.dv = static_cast<__nv_bfloat16*>(dv);
   set_strides(p.dk_sb, p.dk_sh, p.dk_ss, strides + 12);
   set_strides(p.dv_sb, p.dv_sh, p.dv_ss, strides + 15);
-  p.H = heads; p.S = seq_len; p.S_pad = s_pad;
+  p.H = heads; p.S = seq_len; p.S_pad = s_pad; p.n_qt = s_pad / BLOCK;
+  p.groups = groups;
+  p.n_g = (p.n_qt + groups - 1) / groups;
+  // items, and an item index plus two grids, stay within an int
+  const long long items = (long long)batch * heads * p.n_qt;
+  if (items > (1ll << 30)) return -1;
+  p.n_items = static_cast<int>(items);
   p.scale = scale; p.scale_log2 = scale * LOG2E;
   p.seed = seed; p.thresh = thresh; p.inv_keep = inv_keep;
   p.gbh = bh_index(gbh);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int bh = batch * heads;
   switch (head_dim) {
-    case 16: return launch_main<16>(maps, p, bh, st);
-    case 32: return launch_main<32>(maps, p, bh, st);
-    default: return launch_main<64>(maps, p, bh, st);
+    case 16: return launch_main<16>(maps, p, st);
+    case 32: return launch_main<32>(maps, p, st);
+    case 64: return launch_main<64>(maps, p, st);
+    default: return launch_main<128>(maps, p, st);
   }
 }
 
-// bf16 post-pass: dq = scale * acc in bf16, with dq's (batch, head, row)
-// element strides.
+// bf16 post-pass: dq = scale * (the sum of acc's `groups` slices) in bf16,
+// with dq's (batch, head, row) element strides.
 extern "C" int flash_bwd_post(int head_dim, const float* acc, void* dq,
                               int batch, int heads, int seq_len, int s_pad,
-                              const long long* strides, float scale,
-                              void* stream) {
-  if (!bf16_shape_ok(head_dim, batch, heads, seq_len, s_pad)) return -1;
+                              int groups, const long long* strides,
+                              float scale, void* stream) {
+  if (!bf16_shape_ok(head_dim, batch, heads, seq_len, s_pad, groups)) return -1;
   PostParams p = {};
   p.acc = acc;
   p.dq = static_cast<__nv_bfloat16*>(dq);
   set_strides(p.dq_sb, p.dq_sh, p.dq_ss, strides);
-  p.H = heads; p.S = seq_len; p.S_pad = s_pad; p.scale = scale;
+  p.H = heads; p.S = seq_len; p.S_pad = s_pad; p.groups = groups;
+  p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int bh = batch * heads;
   switch (head_dim) {
     case 16: return launch_post<16>(p, bh, st);
     case 32: return launch_post<32>(p, bh, st);
-    default: return launch_post<64>(p, bh, st);
+    case 64: return launch_post<64>(p, bh, st);
+    default: return launch_post<128>(p, bh, st);
   }
 }

@@ -14,18 +14,23 @@
 // TPU kernel's whole-row block and of the backward kernels.
 //
 // bf16 (the product), `flash_fwd_bf16_kernel`: one warpgroup (128 threads)
-// a block, for one 64-row q tile of one batch*head.
+// a block, for one 64-row q tile of one batch*head; block x = bh * n_qt +
+// q tile (batch*heads on the grid's x, which takes 2^31 - 1 blocks).
+// Head dims 16, 32, 64 and 128 (ops/attention.py pads other widths up to
+// the next of them with zero columns, which leave Q K^T unchanged).
 //  * Loads: the Q tile once by TMA; K and V tiles by TMA into
 //    a ring of two stages under mbarriers, so key tile j+1 is in flight
 //    while tile j computes. Each tile is one TMA box of a 4-d tensor map over
 //    the head-split (B, S, H, D) view (`tensor_map.cuh`), swizzled as wgmma
-//    reads it; rows past S arrive as zeros. The block packs its batch row's
+//    reads it (at D = 128 a tile is two boxes of 64 columns); rows past S
+//    arrive as zeros. The block packs its batch row's
 //    key mask into bits in shared memory once (2 words a key tile), since a
 //    mask row of S int32 is not 16-byte aligned for TMA at S = 566.
 //  * Products on `wgmma`: S = Q K^T with both operands K-major as stored
 //    (SS); O += P V with the S accumulator re-packed in registers as bf16 P
 //    (the RS A operand) and V read MN-major through wgmma's transpose, as
-//    stored: no transposed copy of V.
+//    stored: no transposed copy of V (at D = 128 in two products of N = 64,
+//    one a 64-column sub-tile of V and of the O accumulator).
 //  * Softmax: online max and sum in registers, in log2 units with
 //    scale * log2(e) folded into one multiply, and the hardware ex2.approx.
 //    A masked real key scores MASKED2 (finite, far below any real score:
@@ -38,9 +43,14 @@
 //    are not written); lse by the threads that own it.
 //  A block of two warpgroups that share the K/V ring (FA3's shape) was
 //  slower at both measured shapes (PERF.md), so a block takes one q tile.
+//  Four blocks share an SM at D <= 64 (<= 128 registers a thread); at
+//  D = 128 the O accumulator alone is 64 registers a thread and a block's
+//  tiles 81 KB, so two.
 //
-// f32 (exact checks), `flash_fwd_f32_kernel`: one thread per q row, scalar
-// FMA, K/V tiles read as shared-memory broadcasts.
+// f32 (exact checks), `flash_fwd_f32_kernel`: one thread per q row (two at
+// D = 128, each with half the columns and the dot products summed across
+// the pair, so a thread's arrays stay in registers), scalar FMA, K/V tiles
+// read as shared-memory broadcasts, the online softmax 8 keys a step.
 //
 // Bound on this card: at the eval shape (B*H = 512, S = 320, D = 64, bf16)
 // the function moves 4*B*H*S*D*2 B (q, k, v read once, o written once) plus
@@ -72,6 +82,26 @@ constexpr float MASKED2 = -1e30f;  // a masked real key, in the log2 units
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
+// blocks of the bf16 kernel an SM holds: 4 at D <= 64, 2 at D = 128
+template <int D>
+__host__ __device__ constexpr int fwd_min_blocks() { return D > 64 ? 2 : 4; }
+// f32: threads a row (a row of 128 floats in two halves), keys a tile (K
+// and V tiles within 48 KB of static shared memory), and keys a step of the
+// online softmax (a short unrolled body, which ptxas compiles in seconds
+// where a whole tile's took minutes)
+template <int D>
+__host__ __device__ constexpr int f32_tpr() { return D > 64 ? 2 : 1; }
+template <int D>
+__host__ __device__ constexpr int f32_keys() { return D > 64 ? 32 : 64; }
+constexpr int F32_CHUNK = 8;
+
+// The sum of x over the two threads of a row's pair (lanes 2r, 2r + 1): both
+// get the same bits (a + b == b + a). Only the pair need take part.
+__device__ __forceinline__ float pair_sum(float x) {
+  const unsigned lane = threadIdx.x & 31;
+  return x + __shfl_xor_sync(3u << (lane & ~1u), x, 1);
+}
+
 struct Params {
   const void* q;
   const void* k;
@@ -102,7 +132,7 @@ __device__ __forceinline__ float masked_score(float s, int keep) {
 struct Bf16Params {
   const int* mask;   // (B, S)
   float* lse;        // (B*H, S)
-  int H, S, n_kt;
+  int H, S, n_kt;    // n_kt: 64-row tiles of S (key tiles, and q tiles)
   float scale_log2;  // scale * log2(e)
   uint32_t seed, thresh;
   float inv_keep;
@@ -121,7 +151,7 @@ struct Bf16Smem {
 };
 
 template <int D>
-__global__ void __launch_bounds__(128, 4)
+__global__ void __launch_bounds__(128, fwd_min_blocks<D>())
 flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
                       const __grid_constant__ CUtensorMap map_k,
                       const __grid_constant__ CUtensorMap map_v,
@@ -129,23 +159,24 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
                       const Bf16Params p) {
   constexpr int TILE_BYTES = BLOCK_N * D * 2;
   constexpr int DH = D / 2;  // O accumulator floats a thread
+  constexpr int SUB = sub_cols<D>();  // columns of a sub-tile of V and O
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // swizzled tiles start on 1 KB boundaries
   Bf16Smem<D>& sm = *reinterpret_cast<Bf16Smem<D>*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint32_t* keep_words = reinterpret_cast<uint32_t*>(&sm + 1);
 
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H, S = p.S;
+  const int n_kt = p.n_kt;
+  const int bh = blockIdx.x / n_kt, b = bh / p.H, h = bh % p.H, S = p.S;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * BLOCK_M;  // the block's first q row
-  const int n_kt = p.n_kt;
+  const int q0 = (blockIdx.x % n_kt) * BLOCK_M;  // the block's first q row
 
   auto issue_kv = [&](int i) {
     const int st = i % STAGES;
     mbar_expect_tx(&sm.full[st], 2 * TILE_BYTES);
-    tma_load_4d(sm.k[st], &map_k, &sm.full[st], 0, i * BLOCK_N, h, b);
-    tma_load_4d(sm.v[st], &map_v, &sm.full[st], 0, i * BLOCK_N, h, b);
+    load_tile<D>(&map_k, sm.k[st], i * BLOCK_N, h, b, &sm.full[st]);
+    load_tile<D>(&map_v, sm.v[st], i * BLOCK_N, h, b, &sm.full[st]);
   };
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) mbar_init(&sm.full[s], 1);
@@ -155,7 +186,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
   __syncthreads();
   if (tid == 0) {
     mbar_expect_tx(&sm.qbar, TILE_BYTES);
-    tma_load_4d(sm.q, &map_q, &sm.qbar, 0, q0, h, b);
+    load_tile<D>(&map_q, sm.q, q0, h, b, &sm.qbar);
     for (int i = 0; i < STAGES && i < n_kt; ++i) issue_kv(i);
   }
   // the batch row's key mask as bits, 32 keys a warp at a time
@@ -246,8 +277,12 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
     fence_regs(o);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BLOCK_N / 16; ++kk)
-      Wgmma<D>::template rs<1>(o, pa[kk], mnmajor_at<D>(sm.v[st], kk), 1);
+    for (int c = 0; c < D / SUB; ++c) {
+      float(&oc)[SUB / 2] = *reinterpret_cast<float(*)[SUB / 2]>(o + c * SUB / 2);
+#pragma unroll
+      for (int kk = 0; kk < BLOCK_N / 16; ++kk)
+        Wgmma<SUB>::template rs<1>(oc, pa[kk], mnmajor_at<D>(sm.v[st], kk, c), 1);
+    }
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(o);
@@ -279,7 +314,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
   fence_proxy_async();
   __syncthreads();
   if (tid == 0) {
-    tma_store_4d(&map_o, sm.q, 0, q0, h, b);
+    store_tile<D>(&map_o, sm.q, q0, h, b);
     bulk_commit();
     bulk_wait_read();  // the stores have read shared memory
   }
@@ -288,16 +323,17 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
 // ----- f32 (exact checks) ------------------------------------------------------------
 
 template <int D>
-__global__ void __launch_bounds__(BLOCK_M)
-flash_fwd_f32_kernel(const Params p) {
-  __shared__ float sK[BLOCK_N][D];
-  __shared__ float sV[BLOCK_N][D];
-  __shared__ int sKeep[BLOCK_N];
+__global__ void __launch_bounds__(BLOCK_M * f32_tpr<D>())
+flash_fwd_f32_kernel(const Params p, int n_qt) {
+  constexpr int TPR = f32_tpr<D>(), DT = D / TPR, KN = f32_keys<D>();
+  __shared__ float sK[KN][D];
+  __shared__ float sV[KN][D];
+  __shared__ int sKeep[KN];
 
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x / n_qt;
   const int b = bh / p.H, h = bh % p.H;
-  const int tid = threadIdx.x;
-  const int row = blockIdx.x * BLOCK_M + tid;
+  const int tid = threadIdx.x, d0 = (tid % TPR) * DT;  // this thread's columns
+  const int row = (blockIdx.x % n_qt) * BLOCK_M + tid / TPR;
   const int S = p.S;
   const float* Q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* K = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
@@ -306,52 +342,59 @@ flash_fwd_f32_kernel(const Params p) {
   const int* M = p.mask + (long long)b * S;
   const uint32_t seed_bh = seed_for_head(p.seed, p.gbh, b, h);
 
-  float q[D], acc[D], sc[BLOCK_N];
+  float q[DT], acc[DT];
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    q[d] = row < S ? Q[row * p.q_ss + d] : 0.f;
+  for (int d = 0; d < DT; ++d) {
+    q[d] = row < S ? Q[row * p.q_ss + d0 + d] : 0.f;
     acc[d] = 0.f;
   }
   float m_row = -INFINITY, l_row = 0.f;
 
-  const int n_kt = (S + BLOCK_N - 1) / BLOCK_N;
+  const int n_kt = (S + KN - 1) / KN;
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BLOCK_N;
+    const int k0 = kt * KN;
     __syncthreads();
-    for (int c = tid; c < BLOCK_N * D; c += blockDim.x) {
+    for (int c = tid; c < KN * D; c += blockDim.x) {
       const int r = c / D, col = c % D;
       const bool in = k0 + r < S;
       sK[r][col] = in ? K[(k0 + r) * p.k_ss + col] : 0.f;
       sV[r][col] = in ? V[(k0 + r) * p.v_ss + col] : 0.f;
     }
-    for (int j = tid; j < BLOCK_N; j += blockDim.x) {
+    for (int j = tid; j < KN; j += blockDim.x) {
       const int key = k0 + j;
       sKeep[j] = key < S ? (M[key] != 0 ? 1 : 0) : -1;
     }
     __syncthreads();
 
-    float mx = -INFINITY;
+#pragma unroll 1
+    for (int j0 = 0; j0 < KN; j0 += F32_CHUNK) {
+      float sc[F32_CHUNK], mx = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < BLOCK_N; ++j) {
-      float dot = 0.f;
+      for (int j = 0; j < F32_CHUNK; ++j) {
+        float dot = 0.f;
 #pragma unroll
-      for (int d = 0; d < D; ++d) dot = fmaf(q[d], sK[j][d], dot);
-      sc[j] = masked_score(dot * p.scale, sKeep[j]);
-      mx = fmaxf(mx, sc[j]);
-    }
-    const float m_new = fmaxf(m_row, mx);
-    const float alpha = expf(m_row - m_new);
-    m_row = m_new;
-    l_row *= alpha;
+        for (int d = 0; d < DT; ++d) dot = fmaf(q[d], sK[j0 + j][d0 + d], dot);
+        if (TPR > 1) dot = pair_sum(dot);
+        sc[j] = masked_score(dot * p.scale, sKeep[j0 + j]);
+        mx = fmaxf(mx, sc[j]);
+      }
+      // key 0 is real, so m_row is finite from the first chunk on
+      const float m_new = fmaxf(m_row, mx);
+      const float alpha = expf(m_row - m_new);
+      m_row = m_new;
+      l_row *= alpha;
 #pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] *= alpha;
+      for (int d = 0; d < DT; ++d) acc[d] *= alpha;
 #pragma unroll
-    for (int j = 0; j < BLOCK_N; ++j) {
-      float pj = expf(sc[j] - m_row);
-      l_row += pj;
-      if (p.thresh && !keep_bit(seed_bh, row, k0 + j, S, p.thresh)) pj = 0.f;
+      for (int j = 0; j < F32_CHUNK; ++j) {
+        float pj = expf(sc[j] - m_row);
+        l_row += pj;
+        if (p.thresh && !keep_bit(seed_bh, row, k0 + j0 + j, S, p.thresh))
+          pj = 0.f;
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] = fmaf(pj, sV[j][d], acc[d]);
+        for (int d = 0; d < DT; ++d)
+          acc[d] = fmaf(pj, sV[j0 + j][d0 + d], acc[d]);
+      }
     }
   }
 
@@ -359,8 +402,8 @@ flash_fwd_f32_kernel(const Params p) {
     const float l_safe = fmaxf(l_row, 1e-30f);
     const float inv = p.inv_keep / l_safe;
 #pragma unroll
-    for (int d = 0; d < D; ++d) O[row * p.o_ss + d] = acc[d] * inv;
-    p.lse[(long long)bh * S + row] = m_row + logf(l_safe);
+    for (int d = 0; d < DT; ++d) O[row * p.o_ss + d0 + d] = acc[d] * inv;
+    if (d0 == 0) p.lse[(long long)bh * S + row] = m_row + logf(l_safe);
   }
 }
 
@@ -373,9 +416,20 @@ int launch_bf16(const CUtensorMap (&maps)[4], const Bf16Params& p, int bh,
   if (smem > 227 * 1024) return -1;
   cudaError_t err = allow_smem<flash_fwd_bf16_kernel<D>>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((p.S + BLOCK_M - 1) / BLOCK_M, bh);
-  flash_fwd_bf16_kernel<D><<<grid, 128, smem, st>>>(maps[0], maps[1], maps[2],
-                                                    maps[3], p);
+  const long long blocks = (long long)bh * p.n_kt;
+  if (blocks > 0x7FFFFFFF) return -1;
+  flash_fwd_bf16_kernel<D><<<(unsigned)blocks, 128, smem, st>>>(
+      maps[0], maps[1], maps[2], maps[3], p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_f32(const Params& p, int bh, cudaStream_t st) {
+  const int n_qt = (p.S + BLOCK_M - 1) / BLOCK_M;
+  const long long blocks = (long long)bh * n_qt;
+  if (blocks > 0x7FFFFFFF) return -1;
+  flash_fwd_f32_kernel<D><<<(unsigned)blocks, BLOCK_M * f32_tpr<D>(), 0, st>>>(
+      p, n_qt);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -395,8 +449,8 @@ extern "C" int flash_fwd(int dtype, int head_dim, const void* q, const void* k,
                          uint32_t thresh, float inv_keep,
                          const uint32_t* gbh, void* stream) {
   if ((dtype != 0 && dtype != 1) || batch <= 0 || heads <= 0 || seq_len <= 0 ||
-      (long long)batch * heads > 65535 ||
-      (head_dim != 16 && head_dim != 32 && head_dim != 64))
+      (long long)batch * heads > 0x7FFFFFFF ||
+      (head_dim != 16 && head_dim != 32 && head_dim != 64 && head_dim != 128))
     return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int bh = batch * heads;
@@ -416,7 +470,8 @@ extern "C" int flash_fwd(int dtype, int head_dim, const void* q, const void* k,
     switch (head_dim) {
       case 16: return launch_bf16<16>(maps, p, bh, st);
       case 32: return launch_bf16<32>(maps, p, bh, st);
-      default: return launch_bf16<64>(maps, p, bh, st);
+      case 64: return launch_bf16<64>(maps, p, bh, st);
+      default: return launch_bf16<128>(maps, p, bh, st);
     }
   }
   Params p;
@@ -428,11 +483,10 @@ extern "C" int flash_fwd(int dtype, int head_dim, const void* q, const void* k,
   p.H = heads; p.S = seq_len; p.scale = scale;
   p.seed = seed; p.thresh = thresh; p.inv_keep = inv_keep;
   p.gbh = bh_index(gbh);
-  const dim3 grid((seq_len + BLOCK_M - 1) / BLOCK_M, bh);
   switch (head_dim) {
-    case 16: flash_fwd_f32_kernel<16><<<grid, BLOCK_M, 0, st>>>(p); break;
-    case 32: flash_fwd_f32_kernel<32><<<grid, BLOCK_M, 0, st>>>(p); break;
-    default: flash_fwd_f32_kernel<64><<<grid, BLOCK_M, 0, st>>>(p); break;
+    case 16: return launch_f32<16>(p, bh, st);
+    case 32: return launch_f32<32>(p, bh, st);
+    case 64: return launch_f32<64>(p, bh, st);
+    default: return launch_f32<128>(p, bh, st);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -11,9 +11,15 @@
 // the plain bits must be equal.
 //
 // Bound on this card: it writes B*H*S*S bytes (one bool each) and reads
-// nothing, ~10 integer operations per element; at (B*H = 128, S = 320) that
-// is 13.1 MB, ~4 us at the published 3.35 TB/s. One thread per element of a
-// tile row, consecutive threads on consecutive bytes.
+// nothing, and hashes each element: ~13 integer operations (keep_bits.cuh:
+// the counter's multiply-add and the seed, mix32's two multiplies and three
+// shift-xors, the mask and compare), plus the address and bounds arithmetic
+// of this loop. At (B*H = 128, S = 320) both orders write 26.2 MB, 7.8 us at
+// the published 3.35 TB/s, and hash 26.2 M elements, 0.34 G operations,
+// ~20 us at 132 SMs x 64 integer operations a clock x ~1.98 GHz: operations
+// bound it. One thread per element of a tile row, consecutive threads on
+// consecutive bytes; block x = bh * n_t + tile (batch*heads on the grid's
+// x, which takes 2^31 - 1 blocks).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,26 +40,26 @@ __device__ __forceinline__ void write_tile(uint8_t* out, uint32_t seed_bh,
   }
 }
 
-// grid (q-tiles, B*H): block = one q-tile, loop over the k-tiles
+// block = one q-tile of one batch*head, loop over the k-tiles
 __global__ void dump_fwd_order(uint8_t* out, int S, int H, uint32_t seed,
                                uint32_t thresh, BhIndex gbh) {
-  const int bh = blockIdx.y;
+  const int n_t = (S + TILE - 1) / TILE;
+  const int bh = blockIdx.x / n_t, tile = blockIdx.x % n_t;
   const uint32_t sb = seed_for_head(seed, gbh, bh / H, bh % H);
   uint8_t* o = out + (long long)bh * S * S;
-  const int n_t = (S + TILE - 1) / TILE;
   for (int kt = 0; kt < n_t; ++kt)
-    write_tile(o, sb, blockIdx.x * TILE, kt * TILE, S, thresh);
+    write_tile(o, sb, tile * TILE, kt * TILE, S, thresh);
 }
 
-// grid (k-tiles, B*H): block = one k-tile, loop over the q-tiles
+// block = one k-tile of one batch*head, loop over the q-tiles
 __global__ void dump_dkv_order(uint8_t* out, int S, int H, uint32_t seed,
                                uint32_t thresh, BhIndex gbh) {
-  const int bh = blockIdx.y;
+  const int n_t = (S + TILE - 1) / TILE;
+  const int bh = blockIdx.x / n_t, tile = blockIdx.x % n_t;
   const uint32_t sb = seed_for_head(seed, gbh, bh / H, bh % H);
   uint8_t* o = out + (long long)bh * S * S;
-  const int n_t = (S + TILE - 1) / TILE;
   for (int qt = 0; qt < n_t; ++qt)
-    write_tile(o, sb, qt * TILE, blockIdx.x * TILE, S, thresh);
+    write_tile(o, sb, qt * TILE, tile * TILE, S, thresh);
 }
 
 }  // namespace
@@ -64,12 +70,13 @@ __global__ void dump_dkv_order(uint8_t* out, int S, int H, uint32_t seed,
 extern "C" int keep_bits_dump(int order, void* out, int batch, int heads,
                               int seq_len, uint32_t seed, uint32_t thresh,
                               const uint32_t* gbh, void* stream) {
-  const long long bh = (long long)batch * heads;
-  if ((order != 0 && order != 1) || batch <= 0 || heads <= 0 || bh > 65535 ||
-      seq_len <= 0)
+  const long long blocks =
+      (long long)batch * heads * ((seq_len + TILE - 1) / TILE);
+  if ((order != 0 && order != 1) || batch <= 0 || heads <= 0 ||
+      seq_len <= 0 || blocks > 0x7FFFFFFF)
     return -1;
   const BhIndex g = bh_index(gbh);
-  const dim3 grid((seq_len + TILE - 1) / TILE, bh);
+  const unsigned grid = static_cast<unsigned>(blocks);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   uint8_t* o = static_cast<uint8_t*>(out);
   if (order == 0)

@@ -20,9 +20,12 @@ The backward (`_RingAttention.backward`) runs the existing backward
 kernels against the global lse, with no new kernel. bf16 on the card: one
 `flash_bwd_prep` on the final (o, dO, lse) of each position, one
 `flash_bwd_main` a rotation on (q, k_r, v_r, mask_r), whose dq partials
-add into the position's f32 accumulator and whose dk_r, dv_r add into f32
-buffers that travel with their blocks and come home after R rotations,
-then one `flash_bwd_post`. f32 on the card: the same with
+add into the position's f32 accumulator (under its turn counters, which
+each launch leaves at 0) and whose dk_r, dv_r add into f32 buffers that
+travel with their blocks and come home after R rotations, then one
+`flash_bwd_post`. The wrappers run any head width up to 128
+(`ops/attention.py::with_kernel_width`): the accumulator is at the kernel
+width, and each wrapper pads and cuts its own tensors. f32 on the card: the same with
 `flash_attention_bwd_dq` and `flash_attention_bwd_dkv` after the delta
 reduction. The CPU takes the plain versions block by block. A key the mask
 drops gets p = 0 in the backward, so a row whose keys are all masked gets
@@ -112,8 +115,9 @@ class _RingAttention(torch.autograd.Function):
             for i, qi in enumerate(qs):
                 args = (qi, ks[i], vs[i], ms[i])
                 if bf16:
-                    delta, lse2, acc = prep[i]
-                    dk, dv = flash_bwd_main(*args, lse2, delta, acc, dos[i])
+                    delta, lse2, acc, turns = prep[i]
+                    dk, dv = flash_bwd_main(*args, lse2, delta, acc, turns,
+                                            dos[i])
                 elif cuda:
                     dqs[i] += flash_attention_bwd_dq(*args, lses[i],
                                                      deltas[i], dos[i])
@@ -131,7 +135,7 @@ class _RingAttention(torch.autograd.Function):
                               ring.shift(ms))
             dks, dvs = ring.shift(dks), ring.shift(dvs)
         if bf16:
-            dqs = [flash_bwd_post(acc, qi) for (_, _, acc), qi in
+            dqs = [flash_bwd_post(acc, qi) for (_, _, acc, _), qi in
                    zip(prep, qs)]
         grads = [torch.cat([g.to(x.dtype) for g in gs], 2)
                  for gs, x in ((dqs, q), (dks, k), (dvs, v))]

@@ -217,20 +217,28 @@ def test_bwd_buffer_checks(case):
 
 @pytest.mark.parametrize("offset", [0, 7 * 64 * 16])
 def test_bwd_main_needs_the_turn_counters(offset):
-    # the main kernel fixes the order of its dq adds with int32 counters
-    # that flash_bwd_prep allocates after the accumulator: an accumulator
-    # without them is refused, one with them is taken at any offset
+    # the main kernel fixes the order of its dq adds with int32 turn
+    # counters that flash_bwd_prep allocates in a vector of their own, one a
+    # (batch*head, group of key tiles, q tile), followed by the kernel's
+    # work counter: a vector of that length is taken at any storage
+    # offset, any other is refused, as is an accumulator that is not a
+    # whole number of S_pad slices
     b, h, s_pad, d = 2, 2, 128, 16
-    n = b * h * s_pad * d
-    turns = tatt._turn_counters(b, h, s_pad)
-    assert turns == b * h * 2
-    with_turns = torch.zeros(offset + n + turns)[offset:offset + n]
-    tatt._check_turns("flash_bwd_main", with_turns.view(b * h, s_pad, d),
-                      b, h, s_pad)
-    without = torch.zeros(offset + n + turns - 1)[offset:offset + n]
+    n_qt, groups = s_pad // 64, 2
+    n = tatt.bwd_schedule_words(b, h, groups, n_qt)
+    assert n == b * h * groups * n_qt + 1
+    turns = torch.zeros(offset + n, dtype=torch.int32)[offset:]
+    acc = torch.zeros(b * h, groups * s_pad, d)
+    assert tatt._acc_groups("flash_bwd_main", acc, b, h, s_pad) == groups
+    tatt._check_turns("flash_bwd_main", turns, b, h, groups, n_qt)
     with pytest.raises(ValueError, match="turn counters"):
-        tatt._check_turns("flash_bwd_main", without.view(b * h, s_pad, d),
-                          b, h, s_pad)
+        tatt._check_turns("flash_bwd_main", turns, b, h, 1, n_qt)
+    with pytest.raises(ValueError, match="turn counters"):
+        tatt._check_turns("flash_bwd_main", turns.long(), b, h, groups, n_qt)
+    with pytest.raises(ValueError, match="turn counters"):
+        tatt._check_turns("flash_bwd_main", turns[:-1], b, h, groups, n_qt)
+    with pytest.raises(ValueError):
+        tatt._acc_groups("flash_bwd_main", acc[:, :s_pad + 64], b, h, s_pad)
 
 
 def test_bwd_argument_checks_pass_the_head_split_layout():
