@@ -64,7 +64,8 @@ It also holds them at head widths 128, 96 and 48 (the last two zero-padded
 to 128 and 64), at 4097 x 16 batch*heads, and the backward at lengths
 whose heads have more q tiles than the main kernel's cooperative grid
 holds blocks (`LONG_SHAPES`, against plain versions taken by rows), each
-bf16 backward bit-equal on rerun; `bits_check` dumps 4097 x 16 heads.
+bf16 backward bit-equal on rerun; `bits_check` dumps 4097 x 16 heads and
+ragged lengths through the bf16 kernels' fragment maps.
 Every output line
 before the last is one JSON object (plus the raw `nvidia-smi` line and the
 paper-format eval rows); the last line is the contract line
@@ -122,11 +123,18 @@ BWD_TOLERANCE = {"float32": (1e-5, 1e-4), "bfloat16": (2e-2, 2e-2)}
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOP_PER_S = 989e12
-# the keep-bit hash's floor (an estimate, not a measurement): ~13 integer
-# operations per score element at 64 integer operations a clock per SM, at
-# the card's SM count and maximum SM clock as read in the run
-HASH_OPS_PER_ELEMENT = 13
-INT_OPS_PER_SM_CLOCK = 64
+# The keep-bit hash's least work an element: 10 integer operations (the
+# counter's add, since the counter is linear in the position; mix32's three
+# shifts, three xors, the last with the 31-bit mask, and two multiplies;
+# the compare). An SM issues 4 warp instructions a clock, and its integer
+# ALU pipe and its FMA pipe (IMAD, which also shifts and adds) take 64
+# lanes each: 128 integer operations an SM a clock, at the card's SM count
+# and maximum SM clock as read in the run (an estimate, not a
+# measurement). The ALU pipe alone, 64 lanes, is what the compiled dump's
+# shifts, xors and byte permutes wait on (`dump_sass_per_element`).
+HASH_OPS_PER_ELEMENT = 10
+INT_OPS_PER_SM_CLOCK = 128
+ALU_LANES_PER_SM_CLOCK = 64
 NUM_LAYERS = 24  # RoBERTa-large: one attention call per layer per forward
 N_STORIES = 40   # eval: 5 batches of 8
 TRAIN_STEPS = 8  # train: steps of 8 stories
@@ -698,6 +706,10 @@ FP32_PIPE = {"FFMA", "FMUL", "FADD", "FMNMX", "FSEL", "FSETP", "FSET",
              "FFMA32I", "FMUL32I", "FADD32I"}
 LANES_PER_SM_CLOCK = 128
 MUFU_PER_SM_CLOCK = 16
+# the integer ALU pipe's opcodes in the keep-bit dump's SASS (IMAD and
+# VIADD counted apart)
+INT_ALU = {"IADD3", "LOP3", "SHF", "PRMT", "ISETP", "LEA", "SEL", "IMNMX",
+           "IABS", "MOV", "SGXT", "BMSK"}
 
 WORDS = ("gather measure cut sand paint attach tighten clean check wait mark "
          "drill fold press rinse dry lift turn slide align glue clamp trim "
@@ -1498,15 +1510,23 @@ def _gelu_agree(got, want) -> dict:
 
 
 def phase_bits_check(seed: int, errs: dict):
-    """Both dump orders equal to each other and to the plain bits; keep rate
-    at S = 1024; the dumped-bits check of tools/verify_dropout_bits."""
+    """Both dump orders, which replay the bf16 kernels' fragment maps
+    (`keep_bits_dump.cu`), equal to the plain bits, with the keep rate
+    within 0.005 of 1 - p; the dumped-bits check of
+    tools/verify_dropout_bits."""
     import torch
     from multimodal_sequencing_tpu_torch.ops import attention as att
     from multimodal_sequencing_tpu_torch.tools import verify_dropout_bits
     b, h, s, _ = TRAIN_SHAPE
-    # the train shape, a long row, the verify script's shape, and more
-    # batch*heads than a grid's y takes
-    for bs, hs, ss in ((b, h, s), (1, 1, 1024), (2, 3, 256), (4097, 16, 16)):
+    # the train shape, a long row, the verify script's shape, more
+    # batch*heads than a grid's y takes, and ragged lengths (S % 64 != 0,
+    # S % 16 != 0: the narrower stores) of the paths' calls: BERSON's pool
+    # and joint pairs, the multimodal joint stream, at a few heads (over
+    # 70,000 elements each, so that the keep rate is ~5 sigma within its
+    # limit). Every head width's kernels share the maps the dump replays
+    # (keep_bits.cuh), so the D = 128 instances need no shape of their own.
+    for bs, hs, ss in ((b, h, s), (1, 1, 1024), (2, 3, 256), (4097, 16, 16),
+                       (4, 4, 70), (2, 4, 99), (1, 2, 219), (1, 1, 566)):
         fwd = att.dump_keep_bits("fwd", seed, bs, hs, ss, DROPOUT_P)
         dkv = att.dump_keep_bits("dkv", seed, bs, hs, ss, DROPOUT_P)
         plain = att.keep_bits(seed, bs, hs, ss, DROPOUT_P, "cuda")
@@ -1541,27 +1561,27 @@ def phase_bits_check(seed: int, errs: dict):
     emit({"phase": "bits_check", "verify_dropout_bits": res})
 
 
-def gelu_sass_per_element() -> dict:
-    """SASS instructions an element of the bf16 GELU kernels' vector loop,
-    read from the built library (`cuobjdump -sass`): the loop is the
-    backward branch whose body holds the most MUFU.EX2, which each element
-    takes once. Returns, for "fwd" and "bwd", the elements a turn and the
-    FP32-pipe, MUFU, other and total instructions an element."""
+def sass_loop_bodies(lib: str, wanted, marker: str) -> dict:
+    """{function name: opcodes of its loop body} for each kernel of the
+    built library `lib` (`cuobjdump -sass`, from the toolkit beside `nvcc`)
+    whose mangled name `wanted` accepts: the body of the backward branch
+    that holds the most instructions whose opcode starts with `marker` (the
+    shortest among equals)."""
     import re
     from multimodal_sequencing_tpu_torch.ops import _build
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(_build.library_path("gelu"))],
+    sass = subprocess.run([tool, "-sass", str(_build.library_path(lib))],
                           capture_output=True, text=True, timeout=120,
                           check=True).stdout
     out = {}
     for fn in sass.split("Function : ")[1:]:
         name = fn.split()[0]
-        if "gelu_kernel" not in name or "bfloat16" not in name:
+        if not wanted(name):
             continue
         ins = [(int(a, 16), op, rest) for a, op, rest in re.findall(
             r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);",
             fn)]
-        best = None  # (MUFU.EX2 count, opcodes of the loop body)
+        best = None  # (marker count, opcodes of the loop body)
         for addr, op, rest in ins:
             target = re.search(r"0x([0-9a-f]+)", rest)
             if not op.startswith("BRA") or not target:
@@ -1570,18 +1590,55 @@ def gelu_sass_per_element() -> dict:
             if start >= addr:
                 continue
             body = [o for a, o, _ in ins if start <= a <= addr]
-            ex2 = body.count("MUFU.EX2")
-            if ex2 and (best is None or (ex2, -len(body)) > (best[0], -len(best[1]))):
-                best = (ex2, body)
-        if best is None:
-            continue
-        ex2, body = best
+            n = sum(o.startswith(marker) for o in body)
+            if n and (best is None or (n, -len(body)) > (best[0], -len(best[1]))):
+                best = (n, body)
+        if best is not None:
+            out[name] = best[1]
+    return out
+
+
+def gelu_sass_per_element() -> dict:
+    """SASS instructions an element of the bf16 GELU kernels' vector loop:
+    the loop is the backward branch whose body holds the most MUFU.EX2,
+    which each element takes once. Returns, for "fwd" and "bwd", the
+    elements a turn and the FP32-pipe, MUFU, other and total instructions
+    an element."""
+    out = {}
+    for name, body in sass_loop_bodies(
+            "gelu", lambda n: "gelu_kernel" in n and "bfloat16" in n,
+            "MUFU.EX2").items():
+        ex2 = body.count("MUFU.EX2")
         ops = [o.split(".")[0] for o in body]
         fp32 = sum(o in FP32_PIPE for o in ops)
         mufu = ops.count("MUFU")
         out["bwd" if "Lb1E" in name else "fwd"] = {
             "elements_per_turn": ex2, "fp32": fp32 / ex2, "mufu": mufu / ex2,
             "other": (len(ops) - fp32 - mufu) / ex2, "total": len(ops) / ex2}
+    return out
+
+
+def dump_sass_per_element() -> dict:
+    """SASS instructions an element of the keep-bit dump kernels' tile loop
+    (its 16-byte-store instances; the loop holds the `stmatrix`, STSM): a
+    turn is one 64 x 64 tile, 32 elements a thread. Returns, for "fwd" and
+    "dkv", the integer ALU instructions (the pipe the compiled loop waits
+    on), IMAD and VIADD apart, the memory and barrier ones, the rest and
+    the total an element."""
+    out = {}
+    for name, body in sass_loop_bodies(
+            "keep_bits_dump", lambda n: "dump_" in n and "ILi16E" in n,
+            "STSM").items():
+        ops = [o.split(".")[0] for o in body]
+        n = 64 * 64 // 128
+        counts = {"alu": sum(o in INT_ALU for o in ops),
+                  "imad": ops.count("IMAD"), "viadd": ops.count("VIADD"),
+                  "memory_and_barrier": sum(
+                      o in ("STSM", "LDS", "STG", "BAR") for o in ops)}
+        counts["other"] = len(ops) - sum(counts.values())
+        out["dkv" if "dkv" in name else "fwd"] = {
+            "elements_per_turn": n, "total": len(ops) / n,
+            **{k: v / n for k, v in counts.items()}}
     return out
 
 
@@ -1745,6 +1802,10 @@ def phase_timing(seed: int):
         att.dump_keep_bits("fwd", sd, bs, hs, ss, DROPOUT_P)
         att.dump_keep_bits("dkv", sd, bs, hs, ss, DROPOUT_P)
 
+    try:
+        dump_sass = dump_sass_per_element()
+    except (OSError, subprocess.SubprocessError) as e:
+        dump_sass = {"error": repr(e)}
     for name, (bs, hs, ss) in (("keep_bits_dump", (b, h, s)),
                                ("keep_bits_dump@verify", (2, 3, 256))):
         # both orders: one byte written and one hash an element each
@@ -1753,9 +1814,19 @@ def phase_timing(seed: int):
             "ms": kernel_ms(lambda: dump_pair(bs, hs, ss)),
             "plain_ms": kernel_ms(lambda: att.keep_bits(
                 sd, bs, hs, ss, DROPOUT_P, "cuda"), iters=10),
-            "library_ms": None,
+            "library_ms": None, "sass_per_element": dump_sass,
             **int_bound(elements, HASH_OPS_PER_ELEMENT * elements,
                         int_ops_per_s)}
+        if "fwd" in dump_sass and "dkv" in dump_sass:
+            # the compiled loops' instructions at the issue rate, and their
+            # ALU instructions at the ALU pipe's
+            per = {k: (dump_sass["fwd"][k] + dump_sass["dkv"][k]) / 2
+                   for k in ("total", "alu")}
+            rows[name]["sass_issue_floor_ms"] = (
+                per["total"] * elements / int_ops_per_s * 1e3)
+            rows[name]["sass_alu_floor_ms"] = (
+                per["alu"] * elements / int_ops_per_s * 1e3
+                * INT_OPS_PER_SM_CLOCK / ALU_LANES_PER_SM_CLOCK)
     rows.update(_gelu_timing(gen))
     from multimodal_sequencing_tpu_torch.ops import layer_norm as ln
     x = torch.randn(b * s, 1024, generator=gen).to("cuda", torch.bfloat16)
@@ -6216,7 +6287,7 @@ def phase_tools_path(seed: int, work: str):
                                           device="cpu", seed=seed)
     feat_err = max(_rel_to_max_np(feats[p], cpu_feats[p]) for p in few)
     tower = roi_tool.build_roi_extractor(TOOLS_K, "resnet50", (256, 256),
-                                         seed)
+                                         seed, device="cpu")
     cpu_dir = os.path.join(work, "tools_cpu")
     os.makedirs(cpu_dir, exist_ok=True)
     cpu_paths = []
@@ -6226,7 +6297,7 @@ def phase_tools_path(seed: int, work: str):
             dst.write(src.read())
         cpu_paths.append(q)
     roi_tool.extract_roi_sidecars(cpu_paths, TOOLS_K, "resnet50", (256, 256),
-                                  16, seed, tower=tower)
+                                  16, seed, device="cpu", tower=tower)
     score_err, roi_err, rows_same_box = 0.0, 0.0, 0
     for p, q in zip(few, cpu_paths):
         card = sidecars[p]

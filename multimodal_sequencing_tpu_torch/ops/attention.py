@@ -819,11 +819,12 @@ _DUMP_ORDERS = {"fwd": 0, "dkv": 1}
 def dump_keep_bits(order: str, seed: int, b: int, h: int, s: int,
                    dropout_p: float, device="cuda", index=None
                    ) -> torch.Tensor:
-    """The keep bits the attention kernels regenerate, (B, H, S, S) bool,
-    written by `csrc/keep_bits_dump.cu` in the forward's tile order ("fwd":
-    per 64-row q-tile, over the k-tiles) or the dk/dv kernel's ("dkv": per
-    64-key tile, over the q-tiles), each head at its global `index`. On the
-    CPU both orders are the plain `keep_bits`."""
+    """The keep bits the bf16 attention kernels regenerate, (B, H, S, S)
+    bool, written by `csrc/keep_bits_dump.cu` through the kernels' own
+    fragment maps (`csrc/keep_bits.cuh`) in the forward's order ("fwd": per
+    64-row q tile, over the key tiles) or the main backward's ("dkv": per
+    64-key tile, over the q tiles from its own), each head at its global
+    `index`. On the CPU both orders are the plain `keep_bits`."""
     if order not in _DUMP_ORDERS:
         raise ValueError(f"order must be one of {tuple(_DUMP_ORDERS)}")
     device = torch.device(device)

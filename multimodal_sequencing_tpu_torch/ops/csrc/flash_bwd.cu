@@ -499,6 +499,7 @@ flash_bwd_main_kernel(const __grid_constant__ CUtensorMap map_q,
   constexpr int SUB = sub_cols<D>(), NS = D / SUB;  // N of a product; products
   constexpr int SWZ = dq_swizzle<D>();
   constexpr int NQ = BLOCK / HALVES;  // q columns of S^T and dP^T a pass
+  static_assert(NQ == MAIN_NQ, "keep_bits_dump.cu replays map (b) at MAIN_NQ");
   // swizzled tiles start on 1 KB boundaries: the buffer is aligned here, in
   // the 1 KB it is given beyond MainSmem (an alignment declared on it would
   // place it 1 KB past `claimed` below, and three blocks would not fit)
@@ -576,7 +577,7 @@ flash_bwd_main_kernel(const __grid_constant__ CUtensorMap map_q,
     if (claimed.item >= p.n_items) break;
     const int b = claimed.b, h = claimed.h, kt = claimed.kt, k0 = kt * BLOCK;
     // this thread's two accumulator rows are keys k0 + 16 warp + g (+ 8)
-    const int key0 = k0 + warp * 16 + g;
+    const int key0 = bwd_st_key0(k0, warp, g);
     bool kept[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i)
@@ -622,13 +623,14 @@ flash_bwd_main_kernel(const __grid_constant__ CUtensorMap map_q,
         for (int jj = 0; jj < NQ / 8; ++jj)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int col = hf * NQ + 8 * jj + 2 * t + (e & 1), i = e >> 1;
+            const int col = bwd_st_col<NQ>(t, hf, jj, e), i = e >> 1;
             const float pv = kept[i] ? fast_exp2(fmaf(s[4 * jj + e], p.scale_log2,
                                                       -sm.lse2[st][col]))
                                      : 0.f;
             float pd = pv, dpv = dp[4 * jj + e];
             if (p.thresh) {
-              const bool kb = keep_bit(seed_bh, q0 + col, key0 + 8 * i, S, p.thresh);
+              const FragPos f = bwd_st_frag(key0, q0, col, e);
+              const bool kb = keep_bit(seed_bh, f.q, f.key, S, p.thresh);
               pd = kb ? pv * p.inv_keep : 0.f;
               dpv = kb ? dpv * p.inv_keep : 0.f;
             }

@@ -200,7 +200,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
 
   const uint32_t seed_bh = seed_for_head(p.seed, p.gbh, b, h);
   // this thread's accumulator rows: q rows r0 and r0 + 8
-  const int row_in_tile = warp * 16 + g, r0 = q0 + row_in_tile;
+  const int row_in_tile = frag_row0(warp, g), r0 = q0 + row_in_tile;
   float o[DH];
 #pragma unroll
   for (int i = 0; i < DH; ++i) o[i] = 0.f;
@@ -261,10 +261,10 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
       for (int j = 0; j < BLOCK_N / 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (!keep_bit(seed_bh, r0 + 8 * (e >> 1), k0 + 8 * j + 2 * t + (e & 1),
-                        S, p.thresh))
-            s[4 * j + e] = 0.f;
+        for (int e = 0; e < 4; ++e) {
+          const FragPos f = fwd_s_frag(r0, k0, t, j, e);
+          if (!keep_bit(seed_bh, f.q, f.key, S, p.thresh)) s[4 * j + e] = 0.f;
+        }
     }
 #pragma unroll
     for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];

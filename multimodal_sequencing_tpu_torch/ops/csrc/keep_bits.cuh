@@ -48,3 +48,54 @@ __device__ __forceinline__ bool keep_bit(uint32_t seed_bh, uint32_t row,
   const uint32_t x = mix32((row * seq_len + col) * 0x9E3779B9u + seed_bh);
   return (x & 0x7FFFFFFFu) < thresh;
 }
+
+// ----- fragment maps ---------------------------------------------------------
+//
+// Where the bf16 kernels' score accumulators lie: element e (0..3) of group
+// j of a thread of warp `warp` (lane = 4 g + t) of the warpgroup. A wgmma
+// m64nNk16 f32 accumulator puts it at tile row 16 warp + g + 8 (e >> 1) and
+// column 8 j + 2 t + (e & 1) (PTX ISA, the wgmma D fragment). The kernels
+// draw each element's keep bit at the (q row, key column) that these maps
+// give, and `keep_bits_dump.cu` replays them. A map takes the thread's
+// first row and the element's column, which the kernels compute once and
+// use elsewhere too, and each sum is grouped as the kernels group it: so
+// the kernels compile to the code they had with the maps written inline.
+// Every head width's instance has the same maps: the score tiles are
+// 64 x 64 at every D, and the main backward takes MAIN_NQ q columns a pass
+// at every D.
+
+struct FragPos {
+  int q, key;
+};
+
+// A thread's first accumulator row in a 64-row tile.
+__device__ __forceinline__ int frag_row0(int warp, int g) {
+  return warp * 16 + g;
+}
+
+// (a) The bf16 forward's S tile (rows q, columns keys): element e of
+// s[4 j + e] in key tile k0, for the thread's first q row r0 = q0 +
+// frag_row0(warp, g).
+__device__ __forceinline__ FragPos fwd_s_frag(int r0, int k0, int t, int j,
+                                              int e) {
+  return {r0 + 8 * (e >> 1), k0 + 8 * j + 2 * t + (e & 1)};
+}
+
+// q columns of one pass of the bf16 main backward over its S^T tile
+// (`flash_bwd.cu`: NQ = BLOCK / HALVES, which it asserts equal to this).
+constexpr int MAIN_NQ = 32;
+
+// (b) The bf16 main backward's S^T tile (rows keys, columns q) of key tile
+// k0 and q tile q0: the thread's first key row, the column of element e of
+// s[4 jj + e] in pass hf of NQ q columns, and the element's place.
+__device__ __forceinline__ int bwd_st_key0(int k0, int warp, int g) {
+  return k0 + warp * 16 + g;
+}
+template <int NQ>
+__device__ __forceinline__ int bwd_st_col(int t, int hf, int jj, int e) {
+  return hf * NQ + 8 * jj + 2 * t + (e & 1);
+}
+__device__ __forceinline__ FragPos bwd_st_frag(int key0, int q0, int col,
+                                               int e) {
+  return {q0 + col, key0 + 8 * (e >> 1)};
+}

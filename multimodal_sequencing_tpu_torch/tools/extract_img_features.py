@@ -7,7 +7,8 @@ as .npy, the feature-cache format the JAX package's tool writes.
 `write_regional_sidecar` writes an `{img}_maskrcnn.npy` ROI sidecar from any
 (R, C) feature array, the format both packages' `load_maskrcnn_sidecar`
 read (`tools/extract_roi_features.py` writes them from the ResNet-FPN
-tower). The backbone runs on the card unless `--device cpu` is given, with
+tower). The backbone runs on the card unless `--device cpu` is given (in
+the Python API, `device="cpu"`; without a card either raises), with
 weights drawn from `--seed` (Flax's initializers, `models/sequencer.py::
 init_weights`), or OpenAI CLIP weights for a CLIP tower.
 
@@ -31,15 +32,18 @@ logger = logging.getLogger(__name__)
 
 def build_feature_extractor(vision_model: str = "resnet50",
                             image_size=(224, 224), seed: int = 0,
-                            clip_weights: str = None, device="cpu"):
+                            clip_weights: str = None, device="cuda"):
     """The backbone of `vision_model` (a torchvision ResNet name, or a
-    CLIP tower: `RN50` or a ViT name) in eval mode on `device`: a callable
-    of (B, 3, H, W) f32 normalized images -> (B, D) features."""
+    CLIP tower: `RN50` or a ViT name) in eval mode on `device` (the card
+    unless "cpu" is asked for; without a card it raises): a callable of
+    (B, 3, H, W) f32 normalized images -> (B, D) features."""
+    from .. import resolve_device
     from ..models.clip_visual import CLIPVisualTower
     from ..models.config import CLIPVisionConfig
     from ..models.resnet import ResNetBackbone
     from ..models.sequencer import init_weights
 
+    device = resolve_device(device)
     if vision_model.startswith("resnet"):
         model = init_weights(ResNetBackbone(vision_model), seed)
     else:
@@ -58,13 +62,17 @@ def build_feature_extractor(vision_model: str = "resnet50",
 
 def extract_features(image_paths, vision_model: str = "resnet50",
                      image_size=(224, 224), batch_size: int = 32,
-                     clip_weights: str = None, device="cpu", seed: int = 0,
+                     clip_weights: str = None, device="cuda", seed: int = 0,
                      model=None):
     """{path: np.ndarray feature} over `image_paths`, in batches (the
-    backbone of `build_feature_extractor`, or `model`)."""
+    backbone of `build_feature_extractor` on `device`, or `model` on its
+    own device). Runs on the card unless `device="cpu"`; without a card it
+    raises."""
+    from .. import resolve_device
     from ..data.images import load_and_transform
     from ..models.clip_visual import CLIPVisualTower
 
+    device = resolve_device(device)
     if model is None:
         model = build_feature_extractor(vision_model, image_size, seed,
                                         clip_weights, device)

@@ -10,7 +10,8 @@ load_maskrcnn_sidecar`, the JAX package's reads them too). Weights are
 drawn from `--seed`, or a torchvision ResNet file for the backbone
 (`--resnet_torch_weights`), or a checkpoint of this package's tower
 (`--tower_checkpoint`: a `torch.save` of its state dict). The tower runs
-on the card unless `--device cpu` is given.
+on the card unless `--device cpu` is given (in the Python API,
+`device="cpu"`); without a card either raises.
 
 Usage:
   python -m multimodal_sequencing_tpu_torch.tools.extract_roi_features \\
@@ -36,14 +37,17 @@ def build_roi_extractor(num_regional_features: int,
                         backbone: str = "resnet50",
                         image_size=(256, 256), seed: int = 0,
                         tower_checkpoint: str = None,
-                        resnet_torch_weights: str = None, device="cpu"):
-    """The regional FPN tower in eval mode on `device`: a callable of
+                        resnet_torch_weights: str = None, device="cuda"):
+    """The regional FPN tower in eval mode on `device` (the card unless
+    "cpu" is asked for; without a card it raises): a callable of
     (B, 3, H, W) f32 normalized images -> (full, regional, scores,
     boxes)."""
+    from .. import resolve_device
     from ..models.fpn import FPNVisionTower
     from ..models.resnet import convert_torchvision_resnet
     from ..models.sequencer import init_weights
 
+    device = resolve_device(device)
     # torchvision weights put the stride in conv2; detectron2 and the
     # tower's own checkpoints use the Caffe-style default
     tower = init_weights(FPNVisionTower(
@@ -64,12 +68,16 @@ def extract_roi_sidecars(image_paths, num_regional_features: int = 10,
                          backbone: str = "resnet50", image_size=(256, 256),
                          batch_size: int = 16, seed: int = 0,
                          tower_checkpoint: str = None,
-                         resnet_torch_weights: str = None, device="cpu",
+                         resnet_torch_weights: str = None, device="cuda",
                          tower=None):
     """Write a `{img}_maskrcnn.npy` sidecar per image (the tower of
-    `build_roi_extractor`, or `tower`); returns their count."""
+    `build_roi_extractor` on `device`, or `tower` on its own device);
+    returns their count. Runs on the card unless `device="cpu"`; without a
+    card it raises."""
+    from .. import resolve_device
     from ..data.images import load_and_transform
 
+    device = resolve_device(device)
     if tower is None:
         tower = build_roi_extractor(num_regional_features, backbone,
                                     image_size, seed, tower_checkpoint,

@@ -7,6 +7,7 @@ scores and boxes agree within 1e-5 of their largest, and each package's
 sidecar loader reads the other's files."""
 
 import contextlib
+import inspect
 import io
 import shutil
 
@@ -59,10 +60,10 @@ def test_image_features_match_jax(wikihow_dir, backbone):
     # the JAX tool's weights: its init from PRNGKey(0)
     variables = JResNetBackbone(backbone).init(
         jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)))
-    model = t_img.build_feature_extractor(backbone, size)
+    model = t_img.build_feature_extractor(backbone, size, device="cpu")
     model.load_state_dict(_weights(variables))
     got = t_img.extract_features(paths, backbone, size, batch_size=2,
-                                 model=model)
+                                 device="cpu", model=model)
     assert list(got) == list(want)
     for p in paths:
         assert got[p].shape == want[p].shape
@@ -71,7 +72,8 @@ def test_image_features_match_jax(wikihow_dir, backbone):
 
 def test_image_features_of_a_clip_tower_have_its_width(wikihow_dir):
     paths = t_img.collect_story_image_paths(wikihow_dir, "wikihow", "dev")[:2]
-    got = t_img.extract_features(paths, "RN50", (224, 224), batch_size=2)
+    got = t_img.extract_features(paths, "RN50", (224, 224), batch_size=2,
+                                 device="cpu")
     assert [f.shape for f in got.values()] == [(1024,)] * 2
     assert all(np.isfinite(f).all() for f in got.values())
 
@@ -89,11 +91,12 @@ def test_roi_sidecars_match_jax(wikihow_dir, tmp_path):
                                       backbone="resnet18", image_size=size,
                                       batch_size=2, seed=0) == len(jpaths)
     _, variables = j_roi.build_roi_extractor(k, "resnet18", size, seed=0)
-    tower = t_roi.build_roi_extractor(k, "resnet18", size)
+    tower = t_roi.build_roi_extractor(k, "resnet18", size, device="cpu")
     tower.load_state_dict(_weights(variables))
     assert t_roi.extract_roi_sidecars(tpaths, num_regional_features=k,
                                       backbone="resnet18", image_size=size,
-                                      batch_size=2, tower=tower) == len(tpaths)
+                                      batch_size=2, device="cpu",
+                                      tower=tower) == len(tpaths)
     for jp, tp in zip(jpaths, tpaths):
         want = np.load(jp[:-4] + "_maskrcnn.npy", allow_pickle=True).item()
         got = np.load(tp[:-4] + "_maskrcnn.npy", allow_pickle=True).item()
@@ -104,6 +107,21 @@ def test_roi_sidecars_match_jax(wikihow_dir, tmp_path):
         # each package's loader reads the other's file
         _close(j_load_sidecar(tp, k), t_load_sidecar(jp, k))
         assert t_load_sidecar(tp, k).shape == (k, 2048)
+
+
+@pytest.mark.parametrize("fn", [
+    t_img.build_feature_extractor, t_img.extract_features,
+    t_roi.build_roi_extractor, t_roi.extract_roi_sidecars])
+def test_tool_entry_points_run_on_the_card_by_default(fn, monkeypatch):
+    # the package's rule: the card unless the caller asks for the CPU, and
+    # without a card a raise, never a fallback
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = {t_img.extract_features: (["x.png"],),
+            t_roi.extract_roi_sidecars: (["x.png"],),
+            t_roi.build_roi_extractor: (2,)}.get(fn, ())
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        fn(*args)
 
 
 def test_regional_sidecar_writer_matches_jax(tmp_path):
