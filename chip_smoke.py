@@ -63,7 +63,7 @@ and at a ring block with the main backward kernel under the global lse.
 It also holds them at head widths 128, 96 and 48 (the last two zero-padded
 to 128 and 64), at 4097 x 16 batch*heads, and the backward at lengths
 whose heads have more q tiles than the main kernel's cooperative grid
-holds blocks (`LONG_SHAPES`, against plain versions taken by rows), each
+holds lanes (`LONG_SHAPES`, against plain versions taken by rows), each
 bf16 backward bit-equal on rerun; `bits_check` dumps 4097 x 16 heads and
 ragged lengths through the bf16 kernels' fragment maps.
 Every output line
@@ -72,7 +72,12 @@ paper-format eval rows); the last line is the contract line
 `{"ok": true, "device": {...}}`, printed only when every phase passed. Without a CUDA device, or without the
 port's package beside it, it exits non-zero and prints no result.
 `--phases` runs a subset (the build always runs); the contract line then
-is not printed.
+is not printed. The card-against-CPU phases (`REFERENCE_PHASES`), whose
+time is their CPU side, run in a second process of this script
+(`--reference_worker`, on `REFERENCE_THREADS` CPU threads) beside the
+card paths, started once `timing` has read the kernels' times; their
+lines follow the card paths' lines, and a phase that fails there fails
+the run.
 """
 
 from __future__ import annotations
@@ -101,7 +106,7 @@ KERNEL_SHAPES = [(32, 16, 320, 64), (4, 16, 566, 64), (2, 16, 1024, 64),
 EVAL_SHAPE, TRAIN_SHAPE = KERNEL_SHAPES[0], KERNEL_SHAPES[-1]
 D128_SHAPE = (8, 6, 320, 128)
 # The bf16 backward with more q tiles in a head than the main kernel's
-# cooperative grid holds blocks (396 at D = 64, 132 at D = 128 on an H100):
+# cooperative grid holds lanes (264 at D = 64, 132 at D = 128 on an H100):
 # 480 and 256 tiles, so each head's key tiles split into two groups of
 # accumulator slices. Held against the plain versions taken 2048 q rows at
 # a time (`fwd_reference_by_rows`, `bwd_reference_by_rows`).
@@ -1060,11 +1065,11 @@ def _long_sequence_check(seed: int):
     failed = []
     for shape in LONG_SHAPES:
         b, h, s, d = shape
-        blocks = att.main_kernel_blocks(d, "cuda")
-        labels = {"case": "q tiles past the main kernel's grid",
-                  "main_kernel_blocks": blocks,
+        lanes = att.main_kernel_lanes(d, "cuda")
+        labels = {"case": "q tiles past the main kernel's lanes",
+                  "main_kernel_lanes": lanes,
                   "q_tiles_a_head": -(-s // 64),
-                  "accumulator_groups": att.bwd_groups(-(-s // 64), blocks)}
+                  "accumulator_groups": att.bwd_groups(-(-s // 64), lanes)}
         for dtype in (torch.float32, torch.bfloat16):
             for p in (0.0, DROPOUT_P):
                 gen = torch.Generator(device="cpu").manual_seed(seed)
@@ -1773,8 +1778,8 @@ def phase_timing(seed: int):
     main_ms = kernel_ms(lambda: att.flash_bwd_main(
         q, k, v, mask, lse2_b, prep, acc, turns, do, DROPOUT_P, sd))
     rows["flash_bwd"] = {
-        "ms": bwd_ms, "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms,
-        "library_ratio": bwd_ms / lib_bwd_ms,
+        "ms": bwd_ms, "main_ms": main_ms, "plain_ms": plain_bwd_ms,
+        "library_ms": lib_bwd_ms, "library_ratio": bwd_ms / lib_bwd_ms,
         **bound(8 * bhsd * 2 + bhs * 4 + b * s * 4, 5 * 2 * b * h * s * s * d)}
     # The bounds count what each function needs, not the design's f32 dq
     # accumulator (`acc_bytes`: zeroed by the pre-pass, reduce-added into by
@@ -2008,6 +2013,15 @@ def phase_timing(seed: int):
                 5 * 2 * b * h * n * n * d)}
     for name, row in rows.items():
         emit({"phase": "timing", "kernel": name, **row})
+    # every backward row against SDPA's backward on the same inputs, and
+    # the rows where the kernels are still the slower
+    ratios = {name: row["library_ratio"] for name, row in rows.items()
+              if name == "flash_bwd" or name.startswith("flash_bwd@")}
+    emit({"phase": "timing", "summary": "flash_bwd / SDPA backward",
+          "library_ratio": ratios,
+          "above_1": sorted(n for n, r in ratios.items() if r > 1.0),
+          "train_shape_ms": {"whole": rows["flash_bwd"]["ms"],
+                             "main": rows["flash_bwd"]["main_ms"]}})
     return rows
 
 
@@ -6639,6 +6653,71 @@ PHASES = ("kernel_check", "bits_check", "timing", "main_path", "breakdown",
           "pipeline_path", "tools_path")
 
 
+# the card-against-CPU phases: most of their time is the CPU side, so they
+# run in a second process beside the card paths (after `timing`, so no
+# kernel time is read beside them), on REFERENCE_THREADS of the card
+# machine's 8 cores; the card paths keep the rest (they are host-bound)
+REFERENCE_PHASES = ("reference", "train_reference", "mm_check",
+                    "mm_reference", "berson_reference", "pretrain_reference",
+                    "baselines_reference", "heads_reference",
+                    "visual_reference")
+REFERENCE_THREADS = 5
+REFERENCE_TIMEOUT_S = 900
+
+
+def start_reference_worker(phases, seed: int, work: str):
+    """This script on `phases` in a second process (`--reference_worker`),
+    its output lines into a file of `work`; None without phases."""
+    if not phases:
+        return None
+    out = open(os.path.join(work, "reference_worker.jsonl"), "w")
+    cmd = [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+           "--reference_worker", "--phases", *phases]
+    return subprocess.Popen(cmd, stdout=out), out
+
+
+def finish_reference_worker(worker) -> list:
+    """Waits for the worker, prints its lines and returns the phases that
+    failed there (the worker itself where it gave no account)."""
+    proc, out = worker
+    try:
+        proc.wait(timeout=REFERENCE_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    out.close()
+    with open(out.name) as f:
+        lines = f.read().splitlines()
+    for line in lines:
+        print(line, flush=True)
+    try:
+        failed = json.loads(lines[-1])["reference_worker_failed"]
+    except (IndexError, KeyError, ValueError):
+        return ["reference_worker"]
+    return failed if proc.returncode == 0 else failed + ["reference_worker"]
+
+
+def run_reference_worker(phases, seed: int) -> int:
+    """The `--reference_worker` side: `phases` on REFERENCE_THREADS CPU
+    threads, each phase's lines as in the main process, then one line
+    naming those that failed."""
+    import torch
+    torch.set_num_threads(REFERENCE_THREADS)
+    failed = []
+    for name in phases:
+        t0 = time.perf_counter()
+        try:
+            globals()[f"phase_{name}"](seed)  # each takes the seed alone
+        except Exception as e:  # report every phase, then fail
+            traceback.print_exc()
+            emit({"phase": name, "ok": False, "error": repr(e)})
+            failed.append(name)
+        emit({"phase": name, "seconds": time.perf_counter() - t0,
+              "worker": "reference"})
+    emit({"reference_worker_failed": failed})
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6646,6 +6725,9 @@ def main(argv=None) -> int:
     ap.add_argument("--parallel_worker", nargs=3,
                     metavar=("DATA_DIR", "OUT", "SEED"),
                     help="the torchrun side of parallel_path")
+    ap.add_argument("--reference_worker", action="store_true",
+                    help="run --phases (card against CPU) in this process "
+                         "for the main one")
     args = ap.parse_args(argv)
 
     import torch
@@ -6658,6 +6740,8 @@ def main(argv=None) -> int:
     from multimodal_sequencing_tpu_torch.ops import _build
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.reference_worker:
+        return run_reference_worker(args.phases, args.seed)
 
     card = card_line()
     print(card, flush=True)
@@ -6679,32 +6763,22 @@ def main(argv=None) -> int:
             "timing": lambda: timing.update(phase_timing(args.seed)),
             "main_path": lambda: launches.update(eval=phase_main_path(args.seed, work)),
             "breakdown": lambda: phase_breakdown(args.seed),
-            "reference": lambda: phase_reference(args.seed),
             "train_path": lambda: launches.update(train=phase_train_path(args.seed, work)),
             "train_breakdown": lambda: phase_train_breakdown(args.seed),
-            "train_reference": lambda: phase_train_reference(args.seed),
             "hf_path": lambda: launches.update(phase_hf_path(args.seed, work)),
             "remat": lambda: phase_remat(args.seed),
-            "mm_check": lambda: phase_mm_check(args.seed),
-            "mm_reference": lambda: phase_mm_reference(args.seed),
             "mm_path": lambda: launches.update(phase_mm_path(args.seed, work)),
             "mm_breakdown": lambda: phase_mm_breakdown(args.seed),
-            "berson_reference": lambda: phase_berson_reference(args.seed),
             "berson_path": lambda: launches.update(
                 phase_berson_path(args.seed, work)),
-            "pretrain_reference": lambda: phase_pretrain_reference(args.seed),
             "pretrain_path": lambda: launches.update(
                 phase_pretrain_path(args.seed, work)),
             "recipeqa_path": lambda: launches.update(
                 phase_recipeqa_path(args.seed, work)),
-            "baselines_reference": lambda: phase_baselines_reference(
-                args.seed),
             "baselines_path": lambda: launches.update(
                 phase_baselines_path(args.seed, work)),
-            "heads_reference": lambda: phase_heads_reference(args.seed),
             "heads_path": lambda: launches.update(
                 phase_heads_path(args.seed, work)),
-            "visual_reference": lambda: phase_visual_reference(args.seed),
             "visual_path": lambda: launches.update(
                 phase_visual_path(args.seed, work)),
             "parallel_path": lambda: launches.update(
@@ -6714,16 +6788,35 @@ def main(argv=None) -> int:
             "tools_path": lambda: launches.update(
                 phase_tools_path(args.seed, work)),
         }
-        for name in args.phases:
-            t0 = time.perf_counter()
-            try:
-                run[name]()
-            except Exception as e:  # report every phase, then fail
-                traceback.print_exc()
-                emit({"phase": name, "ok": False, "error": repr(e)})
-                failed.append(name)
-            emit({"phase": name, "seconds": time.perf_counter() - t0,
-                  "bytes_written_so_far": bytes_written()})
+        refs = [n for n in args.phases if n in REFERENCE_PHASES]
+        own = [n for n in args.phases if n not in REFERENCE_PHASES]
+        after = "timing" if "timing" in own else None
+        worker = None
+        try:
+            if after is None:
+                worker = start_reference_worker(refs, args.seed, work)
+            for name in own:
+                t0 = time.perf_counter()
+                try:
+                    run[name]()
+                except Exception as e:  # report every phase, then fail
+                    traceback.print_exc()
+                    emit({"phase": name, "ok": False, "error": repr(e)})
+                    failed.append(name)
+                emit({"phase": name, "seconds": time.perf_counter() - t0,
+                      "bytes_written_so_far": bytes_written()})
+                if name == after:
+                    worker = start_reference_worker(refs, args.seed, work)
+            if worker is not None:
+                t0 = time.perf_counter()
+                failed += finish_reference_worker(worker)
+                emit({"phase": "reference_worker_wait",
+                      "seconds": time.perf_counter() - t0,
+                      "bytes_written_so_far": bytes_written()})
+        finally:
+            if worker is not None and worker[0].poll() is None:
+                worker[0].kill()
+                worker[0].wait()
     for path, names in PATH_KERNELS.items():
         if path in launches and any(launches[path][k] == 0 for k in names):
             failed.append(f"{path} path launched a kernel of its path no time")

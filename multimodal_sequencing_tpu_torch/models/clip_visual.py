@@ -47,7 +47,7 @@ from torch import nn
 
 from ..parallel.mesh import data_all_reduce, data_size
 from .config import CLIPVisionConfig
-from .encoder import Dense, LayerNorm
+from .encoder import Dense, LayerNorm, zero_parameters
 from ..ops.attention import multihead_attention
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -65,6 +65,9 @@ class Conv(nn.Conv2d):
         super().__init__(cin, cout, k, stride=stride, padding=padding,
                          bias=bias)
         self.compute_dtype = dtype
+
+    def reset_parameters(self):
+        zero_parameters(self)
 
     def forward(self, x):
         dt = self.compute_dtype

@@ -143,6 +143,16 @@ def dropout(x: torch.Tensor, p: float, rng: Optional[DropoutRng],
                                                         device=x.device))
 
 
+def zero_parameters(mod: nn.Module) -> None:
+    """The `reset_parameters` of Dense, Embed and Conv: zeros. Their
+    weights come from `init_weights`' seed or from a checkpoint, so torch's
+    default draw (kaiming-uniform or normal, from the global generator, the
+    larger part of building a model on the CPU) would only be overwritten."""
+    with torch.no_grad():
+        for p in mod.parameters(recurse=False):
+            p.zero_()
+
+
 class Dense(nn.Linear):
     """Flax `nn.Dense(dtype=..., use_bias=...)`: f32 (out, in) weight and
     bias; input, weight and bias are cast to the compute dtype for the
@@ -152,6 +162,9 @@ class Dense(nn.Linear):
                  dtype: torch.dtype = torch.float32, bias: bool = True):
         super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = dtype
+
+    def reset_parameters(self):
+        zero_parameters(self)
 
     def forward(self, x):
         dt = self.compute_dtype
@@ -167,6 +180,9 @@ class Embed(nn.Embedding):
                  dtype: torch.dtype = torch.float32):
         super().__init__(num, features)
         self.compute_dtype = dtype
+
+    def reset_parameters(self):
+        zero_parameters(self)
 
     def forward(self, ids):
         return super().forward(ids).to(self.compute_dtype)

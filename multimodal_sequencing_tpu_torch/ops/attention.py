@@ -312,12 +312,13 @@ def bwd_turn(kt: int, i: int, n_qt: int, n_g: int) -> Tuple[int, int, int]:
     return ((kt + i) % n_qt, count, 0 if count + 1 == m else count + 1)
 
 
-def bwd_groups(n_qt: int, blocks: int) -> int:
+def bwd_groups(n_qt: int, lanes: int) -> int:
     """The accumulator slices (groups of key tiles) a head of n_qt q tiles
-    needs when the main kernel's cooperative grid holds `blocks` blocks:
-    each group's n_g = ceil(n_qt / groups) key tiles must be resident at
-    once."""
-    return -(-n_qt // blocks)
+    needs when the main kernel's cooperative grid holds `lanes` lanes (a
+    consumer warpgroup with its producer and dq-writer warps each): each
+    group's n_g = ceil(n_qt / groups) consecutive key tiles must lie on
+    distinct lanes."""
+    return -(-n_qt // lanes)
 
 
 # ----- kernel wrappers ----------------------------------------------------
@@ -341,7 +342,7 @@ _SIGNATURES = {
                                      _I, _I, _I, _STRIDES, _F, _U, _U, _F,
                                      _INDEX, _P],
     # head_dim
-    ("flash_bwd", "flash_bwd_main_blocks"): [_I],
+    ("flash_bwd", "flash_bwd_main_lanes"): [_I],
     # head_dim, o, do, lse, delta, lse2, acc, turns, B, H, S, S_pad, groups,
     # strides, stream
     ("flash_bwd", "flash_bwd_prep"): [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -601,35 +602,35 @@ def _check_bf16(name, x):
         raise TypeError(f"{name} takes bfloat16, got {x.dtype}")
 
 
-_main_blocks = {}  # (device index, head width) -> the main kernel's grid
+_main_lanes = {}  # (device index, head width) -> the main kernel's lanes
 
 
-def main_kernel_blocks(d: int, device) -> int:
-    """The blocks of the bf16 main kernel at head width d that `device`
-    holds at once: its cooperative grid (`csrc/flash_bwd.cu`)."""
+def main_kernel_lanes(d: int, device) -> int:
+    """The lanes of the bf16 main kernel at head width d that `device`
+    holds at once: its cooperative grid's blocks times the consumer
+    warpgroups a block (`csrc/flash_bwd.cu`)."""
     device = torch.device(device)
     key = (device.index if device.index is not None
            else torch.cuda.current_device(), d)
-    if key not in _main_blocks:
+    if key not in _main_lanes:
         with torch.cuda.device(key[0]):
-            n = _fn("flash_bwd", "flash_bwd_main_blocks")(d)
+            n = _fn("flash_bwd", "flash_bwd_main_lanes")(d)
         if n <= 0:
             raise RuntimeError(f"flash_bwd_main cannot launch on {device} "
                                f"(code {n})")
-        _main_blocks[key] = n
-    return _main_blocks[key]
+        _main_lanes[key] = n
+    return _main_lanes[key]
 
 
 def bwd_schedule_words(b: int, h: int, groups: int, n_qt: int) -> int:
-    """The int32 words of the main kernel's schedule counters: a turn
-    counter a (batch*head, group, q tile), then its work counter (the
-    tickets of the items claimed past each block's first)."""
-    return b * h * groups * n_qt + 1
+    """The int32 words of the main kernel's turn counters: one a
+    (batch*head, group, q tile)."""
+    return b * h * groups * n_qt
 
 
 def _check_turns(name, turns, b, h, groups, n_qt):
     """Raises unless `turns` is the main kernel's contiguous int32 vector of
-    schedule counters (`bwd_schedule_words`), as flash_bwd_prep makes it."""
+    turn counters (`bwd_schedule_words`), as flash_bwd_prep makes it."""
     shape = (bwd_schedule_words(b, h, groups, n_qt),)
     if (tuple(turns.shape) != shape or turns.dtype != torch.int32
             or not turns.is_contiguous()):
@@ -654,7 +655,7 @@ def _prep_launch(o, do, lse, *, scale=None):
     _check_f32_rows("flash_bwd_prep", o, lse=(lse, (b * h, s)))
     s_pad = _padded_len(s)
     n_qt = s_pad // 64
-    groups = bwd_groups(n_qt, main_kernel_blocks(d, o.device))
+    groups = bwd_groups(n_qt, main_kernel_lanes(d, o.device))
     delta = torch.empty((b * h, s_pad), dtype=torch.float32, device=o.device)
     lse2 = torch.empty_like(delta)
     acc = torch.empty((b * h, groups * s_pad, d), dtype=torch.float32,
@@ -678,10 +679,9 @@ def flash_bwd_prep(o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor):
     dq accumulator (B*H, groups * S_pad, W) at the kernel width W
     (`with_kernel_width`), one slice of S_pad rows a group of key tiles
     (`bwd_groups` for this card: 1 unless S is past ~64 x the main kernel's
-    grid); turns: the main kernel's zeroed int32 schedule counters
-    (`bwd_schedule_words`: a turn counter a (batch*head, group, q tile),
-    which fix the order of its adds into acc, then its work counter).
-    bfloat16 CUDA tensors only."""
+    lanes); turns: the main kernel's zeroed int32 turn counters
+    (`bwd_schedule_words`: one a (batch*head, group, q tile)), which fix
+    the order of its adds into acc. bfloat16 CUDA tensors only."""
     if not _on_cuda("flash_bwd_prep", o):
         raise ValueError(_CPU_BWD)
     return with_kernel_width(_prep_launch, o, do, lse)
@@ -726,10 +726,13 @@ def flash_bwd_main(q, k, v, mask, lse2, delta, acc, turns, do,
     and turns: from `flash_bwd_prep` (the counters are 0 again when the
     kernel ends, so several launches may add into one acc, as ring
     attention's do). One cooperative launch of a persistent grid: every
-    block is resident at once or the launch fails (and this raises); the
-    blocks claim the (batch*head, key tile) items in order, and each wait
-    for a dq turn points to a block that is running (`csrc/flash_bwd.cu`). bfloat16 CUDA tensors only; the CPU takes
-    `attention_bwd_reference` through `flash_attention_bwd`."""
+    block is resident at once or the launch fails (and this raises); each
+    lane (a consumer warpgroup with a producer warp and a dq-writer warp)
+    takes the (batch*head, key tile) items of a fixed stride, its writer
+    adds each dq partial in its q tile's turn while the consumer goes on,
+    and each wait for a turn ends (`csrc/flash_bwd.cu`). bfloat16 CUDA
+    tensors only; the CPU takes `attention_bwd_reference` through
+    `flash_attention_bwd`."""
     if not _on_cuda("flash_bwd_main", q):
         raise ValueError(_CPU_BWD)
     return with_kernel_width(_main_launch, q, k, v, mask, lse2, delta, acc,

@@ -22,75 +22,103 @@
 //    slices of (S_pad, D) a batch*head (groups: below), and zeroed int32
 //    turn counters, one a (batch*head, group, 64-row q tile), in a buffer
 //    of their own.
-//  * Main `flash_bwd_main_kernel`: one warpgroup (128 threads) a block. An
-//    item is one (batch*head, 64-key tile). Its K and V tiles arrive once
-//    by TMA; then it walks over the 64-row q tiles, whose Q, dO, lse and
-//    delta TMA brings into a ring of two stages under mbarriers, so tile
-//    i+1 loads while tile i computes (the ring runs on across items, so the
-//    next item's first q tiles load during this item's last). A tile is one
-//    TMA box (two of 64 columns at D = 128), swizzled by TMA in the pattern
-//    that wgmma reads (128-byte swizzle at D >= 64), so neither the copy nor
-//    the products pay for bank conflicts or for many small requests. Per q
-//    tile, five `wgmma` products with f32 accumulators: S^T = K Q^T and
-//    dP^T = V dO^T (shared-memory operands as stored); p, the dropped p and
-//    dS from one exp2 and one keep bit per element; dV += P~^T dO and dK +=
-//    dS^T Q with the re-packed accumulators as register A operands and dO,
-//    Q read MN-major from the same tiles (no transposed copy); dS^T goes
-//    once to shared memory in bf16 for dQ_partial = dS K, which goes
-//    through shared memory into its slice of the f32 accumulator as one
-//    TMA bulk reduce-add per q tile (`cp.reduce.async.bulk .add.f32`),
-//    overlapped with the next tile. dK and dV stay in registers until the
-//    item ends. S^T and dP^T are taken in two passes of 32 q columns. At
-//    D <= 64 that keeps a thread at <= 168 registers, so three blocks share
-//    an SM and hide part of each other's latency. At D = 128, dK and dV
-//    alone are 128 registers a thread and a block's tiles 138 KB: one block
-//    an SM, every product of N = 64 (a 64-column sub-tile), dV and dK
-//    complete before dQ_partial starts, and dQ_partial in two halves of 64
-//    columns, the second after the first is stored, so that <= 192
-//    accumulator registers are live at once.
+//  * Main `flash_bwd_main_kernel`: warp-specialised, one block an SM. An
+//    item is one (batch*head, 64-key tile); a block runs L lanes (L = 2 at
+//    D <= 64, 1 at D = 128), each a consumer warpgroup (128 threads), a
+//    producer warp and a dq-writer warp, with shared memory of its own
+//    (the warps of the block's last warpgroup: producers, then writers).
+//    The producer (its lane 0) issues every load by TMA: the item's K and
+//    V tiles into one of two buffers (the next item's arrive while this
+//    one runs), beside the item's key mask as 64 bits that the whole warp
+//    gathers, and, per step, a 64-row q tile's Q, dO, lse2 and delta into
+//    a ring of two stages that runs on across items. A tile is one TMA box
+//    (two of 64 columns at D = 128), swizzled by TMA in the pattern that
+//    wgmma reads (128-byte swizzle at D >= 64), so neither the copy nor the
+//    products pay for bank conflicts or for many small requests. The
+//    consumer walks an item's q tiles; per tile, five `wgmma` products with
+//    f32 accumulators: S^T = K Q^T and dP^T = V dO^T (shared-memory
+//    operands as stored); p, the dropped p and dS from one exp2 and one
+//    keep bit per element; dV += P~^T dO and dK += dS^T Q with the
+//    re-packed accumulators as register A operands and dO, Q read MN-major
+//    from the same tiles (no transposed copy); dS^T goes once to shared
+//    memory in bf16 for dQ_partial = dS K, which the consumer leaves in one
+//    of two dQ slots of the lane and goes on. The writer (one thread) adds
+//    each partial into its slice of the f32 accumulator as one TMA bulk
+//    reduce-add (`cp.reduce.async.bulk .add.f32`), in the turn of its q
+//    tile (below), gives the slot back once the add has read it, and
+//    passes the turn on once the add is complete. So only the writer ever
+//    waits on another block; the consumer waits only on its own lane's
+//    barriers (a stage or K/V buffer filled, a slot given back), and its
+//    writer may lag it by two partials; the producer, which never waits
+//    for a turn, keeps the loads ahead whatever the writer waits for. dK
+//    and dV stay in registers until the item ends; then they go out as
+//    bf16 tiles through the item's K and V buffers by TMA stores, which
+//    run on while the next item starts (the threads' own scattered 4-byte
+//    stores would hold the lane for microseconds). S^T and dP^T are taken
+//    in two passes of 32 q columns (map (b) of keep_bits.cuh). At D <= 64
+//    both passes' products are in flight at once, so the exp2 and keep
+//    bits of the first run while the second's products do, and dQ_partial
+//    is a product group of its own, stored into the slot while dV and dK
+//    run; the last warpgroup gives its registers to the two consumers
+//    (setmaxnreg: 232 a consumer thread, 40 a thread of the last
+//    warpgroup, the launch's 168 x 384), and each lane's products run
+//    while the other lane of its SM works its elements. At D = 128 a
+//    lane's buffers are 202 KB, so an SM holds one lane; dK and dV alone
+//    are 128 registers a thread, so the passes run one after the other, dV
+//    and dK complete before dQ_partial starts, and dQ_partial goes in two
+//    halves of 64 columns (<= 192 accumulator registers live at once: 249
+//    registers a thread, no spill). The per-element work has one instance
+//    with dropout and one without, each free of branches (a branch an
+//    element keeps the compiler from interleaving the elements' work), and
+//    the lanes are found by an offset from the shared array, so that every
+//    access to them compiles to a shared-memory load or store.
 //  * Post-pass `flash_bwd_post_kernel`: dq = scale * (the sum of the
 //    accumulator's slices, in slice order) in bf16, laid out as the caller
-//    asks (the accumulator's rows are chunk-swizzled so that the main
-//    kernel's shared-memory stores of its partials are free of bank
-//    conflicts; the post-pass undoes it).
+//    asks (the accumulator's rows are chunk-swizzled so that the consumers'
+//    shared-memory stores of their partials are free of bank conflicts; the
+//    post-pass undoes it).
 //
-// The main kernel's schedule, and why every wait in it ends. The blocks of
-// one head add their dq partials to a q tile in a fixed order, so dq is the
-// same in every run: key tile kt takes the q tiles in the order kt, kt+1,
-// ... (mod n_qt), so at step i it adds to tile (kt + i) mod n_qt, after the
-// tile's adds from kt+1, kt+2, ... made at steps i-1, i-2, .... It waits
-// until the tile's turn counter reads the number of adds before its own,
-// and once its add is complete (checked at the next step's dS store, so the
-// wait is hidden) it sets the counter one higher (back to 0 after the
-// tile's last add, ready for the next launch). An add so waits only on adds
-// made at earlier steps of the same head.
+// The main kernel's schedule, and why every wait in it ends. The items of
+// one head add their dq partials to a q tile in a fixed order, so dq is
+// the same in every run: key tile kt takes the q tiles in the order kt,
+// kt+1, ... (mod n_qt), so at step i it adds to tile (kt + i) mod n_qt,
+// after the tile's adds from kt+1, kt+2, ... made at steps i-1, i-2, ....
+// Its writer waits until the tile's turn counter reads the number of adds
+// before its own, and once its add is complete sets the counter one higher
+// (back to 0 after the tile's last add, ready for the next launch). An add
+// so waits only on adds made at earlier steps of other items of its head.
 //  * The launch is cooperative (`cudaLaunchCooperativeKernel`): its grid is
-//    G = (blocks an SM holds, from the occupancy calculator) x (SMs), or the
-//    number of items if that is less, and the launch either makes all G
-//    blocks resident at once or fails with an error; it never waits on a
-//    block that was not scheduled. A block takes items of the head-major
-//    order j = bh * n_qt + kt one at a time and runs each to its end: its
-//    first item is j = blockIdx.x (the grid's first items start together),
-//    each later one j = G + a ticket from a global counter (one atomicAdd a
-//    claim), so items are taken in increasing j. Claiming keeps the load
-//    balanced as the card's own dispatch did (a fixed item -> block map
-//    left whole SMs idle in its last round). The block that draws the last
-//    ticket sets the counter back to 0 for the next launch.
+//    the number of blocks the card holds at once (one an SM, from the
+//    occupancy calculator), or fewer when the items need fewer, and the
+//    launch either makes every block resident at once or fails with an
+//    error; nothing waits on a block that was not scheduled. Its G = L x
+//    grid lanes are numbered l = w * grid + block (w the lane in its block,
+//    so consecutive numbers lie on different SMs), and lane l takes the
+//    items j = l, l + G, l + 2G, ... of the head-major order j = bh * n_qt
+//    + kt, in that order; the same map in every launch, whatever order the
+//    card dispatches in. A lane starts an item once its last item's
+//    partials are all in slots and a slot is free.
 //  * A head's key tiles are split into `groups` runs of n_g <= G consecutive
 //    tiles (groups = ceil(n_qt / G), chosen by the wrapper from G; 1 unless
-//    S > 64 G, ~25,300 rows at D = 64), each run adding into its own slice
-//    of the accumulator under its own counters.
-//  * An item cannot end before every other item of its run has made an add
-//    (its last add, to tile kt-1, comes after theirs), so a block never
-//    holds two items of one run: the other blocks hold the rest.
+//    S > 64 G, ~16,900 rows at D = 64), each run adding into its own slice
+//    of the accumulator under its own counters. The n_g <= G consecutive
+//    items of a run lie on distinct lanes, and the item a lane took before
+//    one of them (j - G) lies in an earlier run.
 //  * So, by induction over the runs in j order: once every run before R
-//    has finished, every block is idle or holds an item of R (items are
-//    taken in order, and no later item is taken while one of R is not);
-//    while an item of R is not taken, fewer than n_g <= G blocks are busy
-//    with R, so a block is free to claim it. So all items of R run at once, and their
-//    waits, which point only to earlier steps of R, all end. Nothing rests
-//    on the order in which the card dispatches blocks.
-//  * `wait_flag` traps after ~2^28 polls, which only a fault can reach.
+//    has finished (all its adds complete), each item X of R is on a lane
+//    whose earlier items are finished, so its consumer reaches X with both
+//    slots free and its writer has no add left before X's. X's add at step
+//    0 waits for nothing; its add at step i waits only for adds of other
+//    items of R at steps below i, which (by induction over the steps) all
+//    complete; a consumer that finds both slots full waits for its own
+//    older adds, which complete likewise; and an item the lane takes after
+//    X lies in a later run, which X never waits for, and takes a slot only
+//    when one is free. So every add of R completes, and R finishes.
+//  * The producer waits only on its own consumer, which waits only on its
+//    producer and writer, so no wait of theirs outlasts the writer's. A
+//    wait for a turn traps after ~2^28 polls, and a wait on a barrier after
+//    ten seconds, which only a fault can reach: the launch then fails
+//    instead of hanging the card.
 // dq, dk and dv are summed in a fixed order, so equal inputs give equal
 // bits in every run.
 //
@@ -122,17 +150,79 @@
 
 namespace {
 
+// ----- building blocks of the warp-specialised main kernel ------------------
+
+// One arrival (release, CTA scope).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+// mbar_wait that gives up after ten seconds, where the awaited work takes
+// microseconds: only a fault can get there, and it traps, so the launch
+// fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait_or_trap(uint64_t* bar,
+                                                  uint32_t parity) {
+  auto done = [&] {
+    uint32_t ok;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n" : "=r"(ok) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+    return ok != 0;
+  };
+  if (done()) return;
+  uint64_t t0, t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
+  while (!done()) {
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    if (t - t0 > 10000000000ull) __trap();
+  }
+}
+
+// Barrier `id` (1..15; 0 is __syncthreads') over `count` threads, whole
+// warps.
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
+// Moves registers between the warpgroups of a warp-specialised block: a
+// warpgroup gives up registers down to N a thread, or takes them up to N.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+// Until at most N of this warpgroup's committed product groups are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// ----- shapes and parameters ---------------------------------------------------
+
 constexpr int BLOCK = 64;        // rows of a key tile and of a q tile
-constexpr int STAGES = 2;        // q tiles in flight in the bf16 main kernel
 constexpr float LOG2E = 1.4426950408889634f;
-// main kernel: the passes over a q tile's 64 columns for S^T and dP^T (two
-// passes of 32 keep half of their accumulators live, 32 registers fewer
-// than one pass of 64, which is what lets three blocks fit at D <= 64)
-constexpr int HALVES = 2;
-// main kernel: blocks an SM holds (D <= 64: registers <= 168 a thread;
-// D = 128: 138 KB of shared memory a block)
+// main kernel: lanes a block (one block an SM; a lane's shared memory is
+// 106 KB at D = 64, 202 KB at D = 128)
 template <int D>
-__host__ __device__ constexpr int main_min_blocks() { return D > 64 ? 1 : 3; }
+__host__ __device__ constexpr int main_lanes() { return D > 64 ? 1 : 2; }
+constexpr int STAGES = 2;    // q tiles in flight in a lane's ring
+constexpr int DQ_SLOTS = 2;  // dQ partials a lane's writer may hold
+// registers a thread after setmaxnreg at D <= 64: two consumer warpgroups
+// and the producer and writer warpgroup share the 168 x 384 of the launch
+constexpr int CONSUMER_REGS = 232, MOVER_REGS = 40;
+static_assert(2 * CONSUMER_REGS + MOVER_REGS == 3 * 168, "the launch's registers");
+// main kernel: the passes over a q tile's 64 columns for S^T and dP^T (two
+// of 32, the fragment map (b) that keep_bits_dump.cu replays at every
+// width; at D <= 64 both are in flight at once, at D = 128 one at a time)
+constexpr int HALVES = 2;
 // f32 kernels: threads a row (a row of 128 floats in two halves), the dq
 // kernel's keys a tile and the dk/dv kernel's q rows a tile (tiles within
 // 48 KB of static shared memory)
@@ -356,7 +446,6 @@ struct PrepParams {
   float* delta;       // (B*H, S_pad): rowsum(dO * O), 0 past S
   float* acc;         // (B*H, groups * S_pad, D), zeroed
   int* turn;          // (B*H, groups, S_pad / 64), zeroed
-  int* work;          // the main kernel's work counter, zeroed
   long long o_sb, o_sh, o_ss;
   long long do_sb, do_sh, do_ss;
   int H, S, S_pad, groups;
@@ -402,7 +491,6 @@ flash_bwd_prep_kernel(const PrepParams p) {
     a[0] = a[1] = make_float4(0.f, 0.f, 0.f, 0.f);
     if (c == 0 && s % BLOCK == 0) p.turn[slice * n_qt + s / BLOCK] = 0;
   }
-  if (gid == 0) *p.work = 0;
 }
 
 // ----- bf16: main -----------------------------------------------------------------
@@ -413,13 +501,8 @@ struct MainParams {
   const float* delta;   // (B*H, S_pad)
   float* acc;           // (B*H, groups * S_pad, D): dq / scale, accumulated
   int* turn;            // (B*H, groups, n_qt): adds made to each q tile
-  int* work;            // the work counter: tickets drawn past the first items
-  __nv_bfloat16* dk;
-  __nv_bfloat16* dv;
-  long long dk_sb, dk_sh, dk_ss;
-  long long dv_sb, dv_sh, dv_ss;
   int n_items;          // B*H*n_qt: (batch*head, key tile), <= 2^30
-  int H, S, S_pad, n_qt, groups, n_g;  // n_g: key tiles of a group (<= grid)
+  int H, S, S_pad, n_qt, groups, n_g;  // n_g: key tiles of a group (<= lanes)
   float scale, scale_log2;
   uint32_t seed, thresh;
   float inv_keep;
@@ -431,32 +514,43 @@ struct MainParams {
 template <int D>
 __host__ __device__ constexpr int dq_swizzle() { return (D / 4 < 8 ? D / 4 : 8) - 1; }
 
-// The item a block has claimed, as thread 0 works it out once at the claim
-// (the step loop then does no division and no 64-bit address arithmetic).
-struct MainItem {
-  int item;           // j = bh * n_qt + kt; n_items or more when none is left
-  int b, h, kt;
-  int a, m;           // the item's group of key tiles: [a, a + m)
-  int* turn;          // the group's turn counters, one a q tile
-  float* acc;         // the group's slice of the accumulator
-  const float* lse2;  // the head's rows
-  const float* delta;
+// A compile-time flag, for a generic lambda's instances.
+template <bool B>
+struct Flag {
+  static constexpr bool value = B;
 };
 
-// Q, K, V and dO tiles: tensor_map.cuh's swizzled 64-row tiles, each on a
-// 1 KB boundary. dS^T: the slab layout of sm90.cuh.
+// Item j = bh * n_qt + kt of the main kernel: key tile kt of head bh.
+struct MainItem {
+  int bh, b, h, kt;
+};
+__device__ __forceinline__ MainItem main_item(const MainParams& p, int j) {
+  MainItem it;
+  it.bh = j / p.n_qt;
+  it.kt = j - it.bh * p.n_qt;
+  it.b = it.bh / p.H;
+  it.h = it.bh - it.b * p.H;
+  return it;
+}
+
+// A lane's shared memory. Q, K, V and dO tiles: tensor_map.cuh's swizzled
+// 64-row tiles, each on a 1 KB boundary (the struct's alignment keeps the
+// next lane's on one too). dS^T: the slab layout of sm90.cuh. Every barrier
+// counts one arrival (and, where TMA fills the buffer, its bytes).
 template <int D>
-struct MainSmem {
-  __nv_bfloat16 k[BLOCK * D];
-  __nv_bfloat16 v[BLOCK * D];
+struct alignas(1024) MainLane {
+  __nv_bfloat16 k[2][BLOCK * D];  // K and V of the lane's items, by item parity
+  __nv_bfloat16 v[2][BLOCK * D];
   __nv_bfloat16 q[STAGES][BLOCK * D];
   __nv_bfloat16 dO[STAGES][BLOCK * D];
   __nv_bfloat16 ds[BLOCK * BLOCK];  // dS^T (key, q) at ((q/8)*64 + key)*8 + q%8
-  float dqs[BLOCK * D];  // dQ partial, rows of D f32 in swizzled 16-byte chunks
+  float dqs[DQ_SLOTS][BLOCK * D];   // dQ partials: rows of D f32, chunks swizzled
   float lse2[STAGES][BLOCK];
   float delta[STAGES][BLOCK];
-  uint64_t full[STAGES];
-  uint64_t kv;
+  uint64_t full[STAGES], empty[STAGES];            // the q-tile ring
+  uint64_t keys[2];  // the items' key masks, by item parity: bit k for key k0 + k
+  uint64_t kv_full[2], kv_empty[2];                // the K/V buffers
+  uint64_t dq_full[DQ_SLOTS], dq_empty[DQ_SLOTS];  // the dQ slots
 };
 
 // dS^T in the slab layout, MN-major (q runs along a slab)
@@ -486,164 +580,183 @@ __host__ __device__ __forceinline__ Turn bwd_turn(int kt, int i, int n_qt,
   return t;
 }
 
+// The first row of the q tile that key tile kt takes at step i.
+__device__ __forceinline__ int step_row0(int kt, int i, int n_qt) {
+  return (kt + i < n_qt ? kt + i : kt + i - n_qt) * BLOCK;
+}
+
+// The items of lane w, in its order: j = first + n * G, n < count.
+struct LaneItems {
+  int first, G, count;
+};
 template <int D>
-__global__ void __launch_bounds__(128, main_min_blocks<D>())
-flash_bwd_main_kernel(const __grid_constant__ CUtensorMap map_q,
-                      const __grid_constant__ CUtensorMap map_k,
-                      const __grid_constant__ CUtensorMap map_v,
-                      const __grid_constant__ CUtensorMap map_do,
-                      const MainParams p) {
+__device__ __forceinline__ LaneItems lane_items(const MainParams& p, int w) {
+  LaneItems l;
+  l.G = main_lanes<D>() * gridDim.x;
+  l.first = w * gridDim.x + blockIdx.x;
+  l.count = l.first < p.n_items ? (p.n_items - 1 - l.first) / l.G + 1 : 0;
+  return l;
+}
+
+// The producer of lane w (a warp; its lane 0 issues): every tile its
+// consumer reads, by TMA. Per item, once the consumer is done with the item
+// two back, the item's key mask (which keys the mask keeps and S holds, a
+// bit each, gathered by the warp) and its K and V into the item's buffer;
+// then per step its q tile's Q, dO, lse2 and delta into the ring, once the
+// consumer is done with the stage's last tile. It waits only on its own
+// consumer.
+template <int D>
+__device__ __forceinline__ void main_producer(const CUtensorMap* map_q,
+                                              const CUtensorMap* map_k,
+                                              const CUtensorMap* map_v,
+                                              const CUtensorMap* map_do,
+                                              const MainParams& p,
+                                              MainLane<D>& sm, int w) {
   constexpr int TILE_BYTES = BLOCK * D * 2;
   constexpr uint32_t STAGE_TX = 2 * TILE_BYTES + 2 * BLOCK * 4;
+  const int n_qt = p.n_qt, lane = threadIdx.x & 31;
+  const LaneItems l = lane_items<D>(p, w);
+  int c = 0;  // the lane's step
+  for (int n = 0; n < l.count; ++n) {
+    const MainItem it = main_item(p, l.first + n * l.G);
+    uint64_t* kv = &sm.kv_full[n & 1];
+    mbar_wait_or_trap(&sm.kv_empty[n & 1], ((n >> 1) & 1) ^ 1);
+    const int key = it.kt * BLOCK + lane;
+    const int* mask = p.mask + (long long)it.b * p.S;
+    const unsigned lo = __ballot_sync(~0u, key < p.S && mask[key] != 0);
+    const unsigned hi = __ballot_sync(~0u, key + 32 < p.S && mask[key + 32] != 0);
+    if (lane != 0) continue;
+    sm.keys[n & 1] = static_cast<uint64_t>(hi) << 32 | lo;
+    mbar_expect_tx(kv, 2 * TILE_BYTES);  // (also releases the key mask)
+    load_tile<D>(map_k, sm.k[n & 1], it.kt * BLOCK, it.h, it.b, kv);
+    load_tile<D>(map_v, sm.v[n & 1], it.kt * BLOCK, it.h, it.b, kv);
+    for (int i = 0; i < n_qt; ++i, ++c) {
+      const int st = c % STAGES, row0 = step_row0(it.kt, i, n_qt);
+      const long long rows = (long long)it.bh * p.S_pad + row0;
+      mbar_wait_or_trap(&sm.empty[st], ((c / STAGES) & 1) ^ 1);
+      mbar_expect_tx(&sm.full[st], STAGE_TX);
+      load_tile<D>(map_q, sm.q[st], row0, it.h, it.b, &sm.full[st]);
+      load_tile<D>(map_do, sm.dO[st], row0, it.h, it.b, &sm.full[st]);
+      bulk_load(sm.lse2[st], p.lse2 + rows, BLOCK * 4, &sm.full[st]);
+      bulk_load(sm.delta[st], p.delta + rows, BLOCK * 4, &sm.full[st]);
+    }
+  }
+}
+
+// The dq writer of lane w (one thread): each dQ partial its consumer
+// leaves in a slot, in the consumer's order of steps, added into the
+// partial's slice of the accumulator in the turn of its q tile, as one
+// bulk reduce-add. The slot goes back once the add has read it; the turn
+// passes on once the add is complete. Only this thread waits for turns.
+template <int D>
+__device__ __forceinline__ void main_writer(const MainParams& p,
+                                            MainLane<D>& sm, int w) {
+  const int n_qt = p.n_qt;
+  const LaneItems l = lane_items<D>(p, w);
+  int c = 0;  // the lane's step
+  for (int n = 0; n < l.count; ++n) {
+    const MainItem it = main_item(p, l.first + n * l.G);
+    const int grp = it.kt / p.n_g, a = grp * p.n_g, m = min(p.n_g, n_qt - a);
+    const long long slice = (long long)it.bh * p.groups + grp;
+    int* turn = p.turn + slice * n_qt;
+    float* acc = p.acc + slice * p.S_pad * D;
+    for (int i = 0; i < n_qt; ++i, ++c) {
+      const int slot = c % DQ_SLOTS;
+      const Turn t = bwd_turn(it.kt, i, n_qt, a, m);
+      mbar_wait_or_trap(&sm.dq_full[slot], (c / DQ_SLOTS) & 1);
+      wait_flag(turn + t.tile, t.count);
+      fence_proxy_async_global();
+      bulk_reduce_add_f32(acc + t.tile * BLOCK * D, sm.dqs[slot], BLOCK * D * 4);
+      bulk_commit();
+      bulk_wait_read();
+      mbar_arrive(&sm.dq_empty[slot]);
+      bulk_wait_all();
+      fence_proxy_async_global();
+      set_flag(turn + t.tile, t.next);
+    }
+  }
+}
+
+// The consumer warpgroup of lane w: the products and the per-element work
+// of each item the lane takes, step by step. It waits only on its own
+// lane's barriers: a ring stage filled, a K/V buffer filled, a dQ slot
+// given back.
+template <int D>
+__device__ __forceinline__ void main_consumer(const CUtensorMap* map_dk,
+                                              const CUtensorMap* map_dv,
+                                              const MainParams& p,
+                                              MainLane<D>& sm, int w) {
   constexpr int DH = D / 2;  // accumulator floats a thread of a 64 x D product
   constexpr int SUB = sub_cols<D>(), NS = D / SUB;  // N of a product; products
   constexpr int SWZ = dq_swizzle<D>();
   constexpr int NQ = BLOCK / HALVES;  // q columns of S^T and dP^T a pass
   static_assert(NQ == MAIN_NQ, "keep_bits_dump.cu replays map (b) at MAIN_NQ");
-  // swizzled tiles start on 1 KB boundaries: the buffer is aligned here, in
-  // the 1 KB it is given beyond MainSmem (an alignment declared on it would
-  // place it 1 KB past `claimed` below, and three blocks would not fit)
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  MainSmem<D>& sm = *reinterpret_cast<MainSmem<D>*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int n_qt = p.n_qt, S = p.S;
-  // the item thread 0 claimed, for the block; thread 0 copies it into
-  // registers where it uses it, so its loads go at once
-  __shared__ MainItem claimed;
-
-  // the q tiles of step i of the claimed item `in` into stage st
-  auto issue_q_tile = [&](const MainItem& in, int i, int st) {
-    const int row0 = (in.kt + i < n_qt ? in.kt + i : in.kt + i - n_qt) * BLOCK;
-    mbar_expect_tx(&sm.full[st], STAGE_TX);
-    load_tile<D>(&map_q, sm.q[st], row0, in.h, in.b, &sm.full[st]);
-    load_tile<D>(&map_do, sm.dO[st], row0, in.h, in.b, &sm.full[st]);
-    bulk_load(sm.lse2[st], in.lse2 + row0, BLOCK * 4, &sm.full[st]);
-    bulk_load(sm.delta[st], in.delta + row0, BLOCK * 4, &sm.full[st]);
-  };
-  // Thread 0 claims the next item of the head-major order j = bh * n_qt +
-  // kt and starts its loads: K and V, its first q tiles. A block's first
-  // item is j = blockIdx.x (the grid's first items all start at once); each
-  // later one is gridDim.x + a ticket of the work counter, so claims come in
-  // increasing j. Every block draws exactly one ticket past the last item,
-  // so the n_items tickets are 0 .. n_items - 1, and the block that draws
-  // the last sets the counter back to 0 for the next launch: no other claim
-  // is left. The item starts its barriers afresh (every load of the last
-  // item has arrived and been waited for), so its step i takes stage
-  // i % STAGES at phase (i / STAGES) & 1, K and V phase 0, as a block of
-  // one item would.
-  auto claim = [&](bool first) {
-    MainItem in;
-    if (first) {
-      in.item = blockIdx.x;
-    } else {
-      const int ticket = atomicAdd(p.work, 1);
-      if (ticket == p.n_items - 1) *p.work = 0;
-      in.item = static_cast<int>(gridDim.x) + ticket;
-    }
-    if (in.item < p.n_items) {
-      for (int s = 0; s < STAGES; ++s) {
-        if (!first) mbar_inval(&sm.full[s]);
-        mbar_init(&sm.full[s], 1);
-      }
-      if (!first) mbar_inval(&sm.kv);
-      mbar_init(&sm.kv, 1);
-      mbar_init_fence();
-      const int bh = in.item / n_qt;
-      in.kt = in.item - bh * n_qt;
-      in.b = bh / p.H;
-      in.h = bh - in.b * p.H;
-      const int grp = in.kt / p.n_g;
-      in.a = grp * p.n_g;
-      in.m = min(p.n_g, n_qt - in.a);
-      const long long slice = (long long)bh * p.groups + grp;
-      in.turn = p.turn + slice * n_qt;
-      in.acc = p.acc + slice * p.S_pad * D;
-      in.lse2 = p.lse2 + (long long)bh * p.S_pad;
-      in.delta = p.delta + (long long)bh * p.S_pad;
-      mbar_expect_tx(&sm.kv, 2 * TILE_BYTES);
-      load_tile<D>(&map_k, sm.k, in.kt * BLOCK, in.h, in.b, &sm.kv);
-      load_tile<D>(&map_v, sm.v, in.kt * BLOCK, in.h, in.b, &sm.kv);
-      for (int i = 0; i < STAGES && i < n_qt; ++i) issue_q_tile(in, i, i);
-    }
-    return in;
-  };
-  for (bool first = true;; first = false) {
-    // (each thread has read the last claim: a step's barriers lie between)
-    if (tid == 0) claimed = claim(first);
-    __syncthreads();  // (also: the last item's tiles are free)
-    if (claimed.item >= p.n_items) break;
-    const int b = claimed.b, h = claimed.h, kt = claimed.kt, k0 = kt * BLOCK;
+  const int bar = 1 + w;  // the warpgroup's named barrier
+  const LaneItems l = lane_items<D>(p, w);
+  int c = 0;  // the lane's steps so far: stage c % STAGES, slot c % DQ_SLOTS
+  for (int n = 0; n < l.count; ++n) {
+    const MainItem it = main_item(p, l.first + n * l.G);
+    const __nv_bfloat16* sk = sm.k[n & 1];
+    const __nv_bfloat16* sv = sm.v[n & 1];
     // this thread's two accumulator rows are keys k0 + 16 warp + g (+ 8)
-    const int key0 = bwd_st_key0(k0, warp, g);
-    bool kept[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      kept[i] = key0 + 8 * i < S && p.mask[(long long)b * S + key0 + 8 * i] != 0;
-    const uint32_t seed_bh = seed_for_head(p.seed, p.gbh, b, h);
+    const int key0 = bwd_st_key0(it.kt * BLOCK, warp, g);
+    bool kept[2];  // (from the key mask, once the item's K and V are in)
+    const uint32_t seed_bh = seed_for_head(p.seed, p.gbh, it.b, it.h);
 
-    float dk[DH], dv[DH];
+    // S^T = K Q^T and dP^T = V dO^T (rows = keys, columns = q rows) of pass
+    // hf over stage st: NQ q columns from hf * NQ
+    auto products = [&](float(&s)[NQ / 2], float(&dp)[NQ / 2], int st, int hf) {
+      const int n0 = hf * NQ;
 #pragma unroll
-    for (int i = 0; i < DH; ++i) dk[i] = dv[i] = 0.f;
-
-    mbar_wait(&sm.kv, 0);
-    for (int it = 0; it < n_qt; ++it) {
-      const int st = it % STAGES;
-      const int tile = kt + it < n_qt ? kt + it : kt + it - n_qt;
-      const int q0 = tile * BLOCK;
-      mbar_wait(&sm.full[st], (it / STAGES) & 1);
-
-      // S^T = K Q^T and dP^T = V dO^T (rows = keys, columns = q rows), in
-      // HALVES passes of NQ q columns, so fewer accumulators are live at once
-      uint32_t pa[4][4], da[4][4];  // P~^T and dS^T as A operands, 16 q a step
+      for (int ks = 0; ks < D / 16; ++ks)
+        Wgmma<NQ>::template ss<0, 0>(s, kmajor_at<D>(sk, 0, ks),
+                                     kmajor_at<D>(sm.q[st], n0, ks), ks > 0);
 #pragma unroll
-      for (int hf = 0; hf < HALVES; ++hf) {
-        float s[NQ / 2], dp[NQ / 2];
+      for (int ks = 0; ks < D / 16; ++ks)
+        Wgmma<NQ>::template ss<0, 0>(dp, kmajor_at<D>(sv, 0, ks),
+                                     kmajor_at<D>(sm.dO[st], n0, ks), ks > 0);
+    };
+    // p, the dropped p (into s) and dS (into dp) of pass hf: one exp2 and,
+    // with dropout, one keep bit an element (m = 1 / keep where kept, else
+    // 0: the dropped p is p m and dS is p (dp m - delta)); then both as A
+    // operands of 16 q a step. One instance with dropout and one without,
+    // each free of branches, so that the elements' work interleaves.
+    uint32_t pa[4][4], da[4][4];  // P~^T and dS^T
+    auto soften_as = [&](auto drop, float(&s)[NQ / 2], float(&dp)[NQ / 2],
+                         int st, int q0, int hf) {
 #pragma unroll
-        for (int i = 0; i < NQ / 2; ++i) s[i] = dp[i] = 0.f;
-        const int n0 = hf * NQ;  // first q row of the pass
-        wgmma_fence();
+      for (int jj = 0; jj < NQ / 8; ++jj)
 #pragma unroll
-        for (int ks = 0; ks < D / 16; ++ks)
-          Wgmma<NQ>::template ss<0, 0>(s, kmajor_at<D>(sm.k, 0, ks),
-                                       kmajor_at<D>(sm.q[st], n0, ks), ks > 0);
-#pragma unroll
-        for (int ks = 0; ks < D / 16; ++ks)
-          Wgmma<NQ>::template ss<0, 0>(dp, kmajor_at<D>(sm.v, 0, ks),
-                                       kmajor_at<D>(sm.dO[st], n0, ks), ks > 0);
-        wgmma_commit();
-        wgmma_wait_all();
-        fence_regs(s);
-        fence_regs(dp);
-
-        // p, the dropped p (into s) and dS (into dp): one exp2, one keep bit
-#pragma unroll
-        for (int jj = 0; jj < NQ / 8; ++jj)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int col = bwd_st_col<NQ>(t, hf, jj, e), i = e >> 1;
-            const float pv = kept[i] ? fast_exp2(fmaf(s[4 * jj + e], p.scale_log2,
-                                                      -sm.lse2[st][col]))
-                                     : 0.f;
-            float pd = pv, dpv = dp[4 * jj + e];
-            if (p.thresh) {
-              const FragPos f = bwd_st_frag(key0, q0, col, e);
-              const bool kb = keep_bit(seed_bh, f.q, f.key, S, p.thresh);
-              pd = kb ? pv * p.inv_keep : 0.f;
-              dpv = kb ? dpv * p.inv_keep : 0.f;
-            }
-            s[4 * jj + e] = pd;
-            dp[4 * jj + e] = pv * (dpv - sm.delta[st][col]);
+        for (int e = 0; e < 4; ++e) {
+          const int col = bwd_st_col<NQ>(t, hf, jj, e), i = e >> 1;
+          const float pv = kept[i] ? fast_exp2(fmaf(s[4 * jj + e], p.scale_log2,
+                                                    -sm.lse2[st][col]))
+                                   : 0.f;
+          float m = 1.f;
+          if constexpr (decltype(drop)::value) {
+            const FragPos f = bwd_st_frag(key0, q0, col, e);
+            m = keep_bit(seed_bh, f.q, f.key, S, p.thresh) ? p.inv_keep : 0.f;
           }
-#pragma unroll
-        for (int kk = 0; kk < NQ / 16; ++kk) {
-          pack_a(pa[hf * NQ / 16 + kk], s + 8 * kk);
-          pack_a(da[hf * NQ / 16 + kk], dp + 8 * kk);
+          s[4 * jj + e] = pv * m;
+          dp[4 * jj + e] = pv * fmaf(dp[4 * jj + e], m, -sm.delta[st][col]);
         }
+#pragma unroll
+      for (int kk = 0; kk < NQ / 16; ++kk) {
+        pack_a(pa[hf * NQ / 16 + kk], s + 8 * kk);
+        pack_a(da[hf * NQ / 16 + kk], dp + 8 * kk);
       }
-      // dS^T to shared memory, MN-major for dQ = dS K (q runs along a slab)
+    };
+    auto soften = [&](float(&s)[NQ / 2], float(&dp)[NQ / 2], int st, int q0,
+                      int hf) {
+      if (p.thresh) soften_as(Flag<true>(), s, dp, st, q0, hf);
+      else soften_as(Flag<false>(), s, dp, st, q0, hf);
+    };
+    // dS^T to shared memory, MN-major for dQ = dS K (q runs along a slab),
+    // for the whole warpgroup's products
+    auto store_ds = [&]() {
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj)
 #pragma unroll
@@ -652,118 +765,248 @@ flash_bwd_main_kernel(const __grid_constant__ CUtensorMap map_q,
               &sm.ds[(jj * BLOCK + warp * 16 + g + 8 * i) * 8 + 2 * t]) =
               da[jj / 2][(jj & 1) * 2 + i];
       fence_proxy_async();
-      if (tid == 0 && it > 0) {
-        // the last dQ partial has left dqs and is in acc: its tile's next
-        // add may go
-        const MainItem in = claimed;
-        const Turn prev = bwd_turn(in.kt, it - 1, n_qt, in.a, in.m);
-        bulk_wait_all();
-        fence_proxy_async_global();
-        set_flag(in.turn + prev.tile, prev.next);
+      named_bar_sync(bar, 128);
+    };
+    // columns cc * SUB.. of the dQ partial into a slot (row-major, 16-byte
+    // chunk x of row r stored at chunk x ^ (r & SWZ), so these stores are
+    // free of bank conflicts)
+    auto store_dq = [&](const float(&dq)[SUB / 2], int slot, int cc) {
+#pragma unroll
+      for (int jj = 0; jj < SUB / 8; ++jj)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = warp * 16 + g + 8 * i, col = cc * SUB + 8 * jj + 2 * t;
+          *reinterpret_cast<float2*>(
+              &sm.dqs[slot][r * D + (((col >> 2) ^ (r & SWZ)) << 2) + (col & 3)]) =
+              make_float2(dq[4 * jj + 2 * i], dq[4 * jj + 2 * i + 1]);
+        }
+    };
+    // the step's products are complete (its stage and dS are free) and its
+    // partial is in the slot: hand both on
+    auto end_step = [&](int st, int slot) {
+      fence_proxy_async();
+      named_bar_sync(bar, 128);
+      if (tid == 0) {
+        mbar_arrive(&sm.dq_full[slot]);
+        mbar_arrive(&sm.empty[st]);
       }
-      __syncthreads();
+    };
 
-      // dV += P~^T dO, dK += dS^T Q, dQ_partial = dS K: products of N =
-      // SUB, one a SUB-column sub-tile of dO, Q, K and of the accumulators
-      float dq[SUB / 2];  // overwritten: not live across the loop
+    float dk[DH], dv[DH];
 #pragma unroll
-      for (int i = 0; i < SUB / 2; ++i) dq[i] = 0.f;
-      fence_regs(dv);
-      fence_regs(dk);
-      fence_regs(dq);
-      wgmma_fence();
+    for (int i = 0; i < DH; ++i) dk[i] = dv[i] = 0.f;
+    if (tid == 0 && n > 0) {  // the last item's dK and dV have left its buffers
+      bulk_wait_read();
+      mbar_arrive(&sm.kv_empty[(n - 1) & 1]);
+    }
+    mbar_wait_or_trap(&sm.kv_full[n & 1], (n >> 1) & 1);
 #pragma unroll
-      for (int c = 0; c < NS; ++c) {
-        float(&dvc)[SUB / 2] = *reinterpret_cast<float(*)[SUB / 2]>(dv + c * SUB / 2);
+    for (int i = 0; i < 2; ++i)
+      kept[i] = (sm.keys[n & 1] >> (key0 - it.kt * BLOCK + 8 * i)) & 1;
+
+    if constexpr (NS == 1) {
+      // D <= 64: both passes' products in flight at once, so pass 0's exp
+      // and keep bits run while pass 1's products do; then dQ_partial = dS
+      // K in a product group of its own, stored into the slot while dV +=
+      // P~^T dO and dK += dS^T Q run. (Groups complete in order: a wait for
+      // all but the newest n is a wait for every older one.)
+      for (int step = 0; step < n_qt; ++step, ++c) {
+        const int st = c % STAGES, slot = c % DQ_SLOTS;
+        const int q0 = step_row0(it.kt, step, n_qt);
+        mbar_wait_or_trap(&sm.full[st], (c / STAGES) & 1);
+        float s0[NQ / 2], dp0[NQ / 2], s1[NQ / 2], dp1[NQ / 2];
+#pragma unroll
+        for (int i = 0; i < NQ / 2; ++i) s0[i] = dp0[i] = s1[i] = dp1[i] = 0.f;
+        wgmma_fence();
+        products(s0, dp0, st, 0);
+        wgmma_commit();
+        products(s1, dp1, st, 1);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(s0);
+        fence_regs(dp0);
+        soften(s0, dp0, st, q0, 0);
+        wgmma_wait<0>();
+        fence_regs(s1);
+        fence_regs(dp1);
+        soften(s1, dp1, st, q0, 1);
+        store_ds();
+        float dq[SUB / 2];
+#pragma unroll
+        for (int i = 0; i < SUB / 2; ++i) dq[i] = 0.f;
+        fence_regs(dv);
+        fence_regs(dk);
+        fence_regs(dq);
+        wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          Wgmma<SUB>::template rs<1>(dvc, pa[kk], mnmajor_at<D>(sm.dO[st], kk, c), 1);
-      }
-#pragma unroll
-      for (int c = 0; c < NS; ++c) {
-        float(&dkc)[SUB / 2] = *reinterpret_cast<float(*)[SUB / 2]>(dk + c * SUB / 2);
+          Wgmma<SUB>::template ss<1, 1>(dq, ds_desc(sm.ds, kk),
+                                        mnmajor_at<D>(sk, kk, 0), kk > 0);
+        wgmma_commit();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          Wgmma<SUB>::template rs<1>(dkc, da[kk], mnmajor_at<D>(sm.q[st], kk, c), 1);
+          Wgmma<SUB>::template rs<1>(dv, pa[kk], mnmajor_at<D>(sm.dO[st], kk, 0), 1);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          Wgmma<SUB>::template rs<1>(dk, da[kk], mnmajor_at<D>(sm.q[st], kk, 0), 1);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(dq);
+        mbar_wait_or_trap(&sm.dq_empty[slot], ((c / DQ_SLOTS) & 1) ^ 1);
+        store_dq(dq, slot, 0);
+        wgmma_wait<0>();
+        fence_regs(dv);
+        fence_regs(dk);
+        end_step(st, slot);
       }
-      if constexpr (NS > 1) {
-        // D = 128: dV and dK complete first, so that their A operands are
-        // no longer live beside dQ_partial's accumulators (no spills)
+    } else {
+      // D = 128: dK and dV hold 128 registers a thread, so one product
+      // group at a time: the passes one after the other, dV and dK
+      // complete before dQ_partial starts, and dQ_partial in halves of SUB
+      // columns, each stored as it completes
+      for (int step = 0; step < n_qt; ++step, ++c) {
+        const int st = c % STAGES, slot = c % DQ_SLOTS;
+        const int q0 = step_row0(it.kt, step, n_qt);
+        mbar_wait_or_trap(&sm.full[st], (c / STAGES) & 1);
+#pragma unroll
+        for (int hf = 0; hf < HALVES; ++hf) {
+          float s[NQ / 2], dp[NQ / 2];
+#pragma unroll
+          for (int i = 0; i < NQ / 2; ++i) s[i] = dp[i] = 0.f;
+          wgmma_fence();
+          products(s, dp, st, hf);
+          wgmma_commit();
+          wgmma_wait_all();
+          fence_regs(s);
+          fence_regs(dp);
+          soften(s, dp, st, q0, hf);
+        }
+        store_ds();
+        fence_regs(dv);
+        fence_regs(dk);
+        wgmma_fence();
+#pragma unroll
+        for (int cc = 0; cc < NS; ++cc) {
+          float(&dvc)[SUB / 2] = *reinterpret_cast<float(*)[SUB / 2]>(dv + cc * SUB / 2);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            Wgmma<SUB>::template rs<1>(dvc, pa[kk], mnmajor_at<D>(sm.dO[st], kk, cc), 1);
+        }
+#pragma unroll
+        for (int cc = 0; cc < NS; ++cc) {
+          float(&dkc)[SUB / 2] = *reinterpret_cast<float(*)[SUB / 2]>(dk + cc * SUB / 2);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            Wgmma<SUB>::template rs<1>(dkc, da[kk], mnmajor_at<D>(sm.q[st], kk, cc), 1);
+        }
         wgmma_commit();
         wgmma_wait_all();
         fence_regs(dv);
         fence_regs(dk);
-      }
+        mbar_wait_or_trap(&sm.dq_empty[slot], ((c / DQ_SLOTS) & 1) ^ 1);
 #pragma unroll
-      for (int c = 0; c < NS; ++c) {
-        if (NS > 1) {  // SUB columns of dQ_partial at a time
+        for (int cc = 0; cc < NS; ++cc) {
+          float dq[SUB / 2];
 #pragma unroll
           for (int i = 0; i < SUB / 2; ++i) dq[i] = 0.f;
           fence_regs(dq);
           wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            Wgmma<SUB>::template ss<1, 1>(dq, ds_desc(sm.ds, kk),
+                                          mnmajor_at<D>(sk, kk, cc), kk > 0);
+          wgmma_commit();
+          wgmma_wait_all();
+          fence_regs(dv);
+          fence_regs(dk);
+          fence_regs(dq);
+          store_dq(dq, slot, cc);
         }
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          Wgmma<SUB>::template ss<1, 1>(dq, ds_desc(sm.ds, kk),
-                                        mnmajor_at<D>(sm.k, kk, c), kk > 0);
-        wgmma_commit();
-        wgmma_wait_all();
-        fence_regs(dv);
-        fence_regs(dk);
-        fence_regs(dq);
-        // these columns of the dQ partial to dqs (row-major, 16-byte chunk
-        // cc of row r stored at chunk cc ^ (r & SWZ), so these stores are
-        // free of bank conflicts)
-#pragma unroll
-        for (int jj = 0; jj < SUB / 8; ++jj)
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const int r = warp * 16 + g + 8 * i, col = c * SUB + 8 * jj + 2 * t;
-            *reinterpret_cast<float2*>(
-                &sm.dqs[r * D + (((col >> 2) ^ (r & SWZ)) << 2) + (col & 3)]) =
-                make_float2(dq[4 * jj + 2 * i], dq[4 * jj + 2 * i + 1]);
-          }
-      }
-      fence_proxy_async();
-      __syncthreads();  // stage st and dS are free again
-      if (tid == 0) {
-        const MainItem in = claimed;
-        if (it + STAGES < n_qt) {
-          fence_proxy_async();
-          issue_q_tile(in, it + STAGES, st);
-        }
-        // one bulk reduce-add of the 64 x D partial into the item's slice,
-        // in its turn
-        wait_flag(in.turn + tile, bwd_turn(in.kt, it, n_qt, in.a, in.m).count);
-        fence_proxy_async_global();
-        bulk_reduce_add_f32(in.acc + q0 * D, sm.dqs, BLOCK * D * 4);
-        bulk_commit();
+        end_step(st, slot);
       }
     }
-    if (tid == 0) {
-      // the item's last add is complete: pass its tile's turn on
-      const MainItem in = claimed;
-      const Turn last = bwd_turn(in.kt, n_qt - 1, n_qt, in.a, in.m);
-      bulk_wait_all();
-      fence_proxy_async_global();
-      set_flag(in.turn + last.tile, last.next);
-    }
-
-    __nv_bfloat16* DK = p.dk + b * p.dk_sb + h * p.dk_sh;
-    __nv_bfloat16* DV = p.dv + b * p.dv_sb + h * p.dv_sh;
+    // dK (scaled) and dV as bf16 tiles into the item's K and V buffers,
+    // whose last readers are complete (the last step's barrier), laid out
+    // as TMA stores them; one thread stores both (rows past S are not
+    // written) and gives the buffers back once the stores have read them,
+    // at the next item's start, so that the stores run on meanwhile
+    unsigned char* tk = reinterpret_cast<unsigned char*>(sm.k[n & 1]);
+    unsigned char* tv = reinterpret_cast<unsigned char*>(sm.v[n & 1]);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const int key = key0 + 8 * i;
-      if (key >= S) continue;
+      const int r = warp * 16 + g + 8 * i;
 #pragma unroll
       for (int jj = 0; jj < D / 8; ++jj) {
-        const int col = 8 * jj + 2 * t;
-        *reinterpret_cast<uint32_t*>(DK + key * p.dk_ss + col) =
+        const uint32_t off = tile_offset<D>(r, 16 * jj + 4 * t);
+        *reinterpret_cast<uint32_t*>(tk + off) =
             pack_bf16(dk[4 * jj + 2 * i] * p.scale, dk[4 * jj + 2 * i + 1] * p.scale);
-        *reinterpret_cast<uint32_t*>(DV + key * p.dv_ss + col) =
+        *reinterpret_cast<uint32_t*>(tv + off) =
             pack_bf16(dv[4 * jj + 2 * i], dv[4 * jj + 2 * i + 1]);
       }
     }
+    fence_proxy_async();
+    named_bar_sync(bar, 128);
+    if (tid == 0) {
+      store_tile<D>(map_dk, sm.k[n & 1], it.kt * BLOCK, it.h, it.b);
+      store_tile<D>(map_dv, sm.v[n & 1], it.kt * BLOCK, it.h, it.b);
+      bulk_commit();
+    }
+  }
+  if (tid == 0) bulk_wait_all();  // the last item's stores are complete
+}
+
+// One block a card's SM: main_lanes<D>() = L consumer warpgroups, then a
+// warpgroup whose warp w < L is lane w's producer and warp L + w its
+// writer (thread 0 of a writer works; the rest, and the warps past 2 L,
+// end at once). At D <= 64 that warpgroup gives its registers to the consumers
+// (setmaxnreg).
+template <int D>
+__global__ void __launch_bounds__(128 * (main_lanes<D>() + 1), 1)
+flash_bwd_main_kernel(const __grid_constant__ CUtensorMap map_q,
+                      const __grid_constant__ CUtensorMap map_k,
+                      const __grid_constant__ CUtensorMap map_v,
+                      const __grid_constant__ CUtensorMap map_do,
+                      const __grid_constant__ CUtensorMap map_dk,
+                      const __grid_constant__ CUtensorMap map_dv,
+                      const MainParams p) {
+  constexpr int L = main_lanes<D>();
+  // the buffer is aligned here, in the 1 KB it is given beyond the lanes,
+  // by an offset from the shared array itself, so that the compiler knows
+  // every access through `lanes` for a shared-memory one (LDS/STS, not
+  // generic loads and stores with 64-bit addresses)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  MainLane<D>* lanes = reinterpret_cast<MainLane<D>*>(
+      smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u));
+  if (threadIdx.x == 0) {
+    for (int l = 0; l < L; ++l) {
+      MainLane<D>& sm = lanes[l];
+      for (int s = 0; s < STAGES; ++s) {
+        mbar_init(&sm.full[s], 1);
+        mbar_init(&sm.empty[s], 1);
+      }
+      for (int s = 0; s < 2; ++s) {
+        mbar_init(&sm.kv_full[s], 1);
+        mbar_init(&sm.kv_empty[s], 1);
+      }
+      for (int s = 0; s < DQ_SLOTS; ++s) {
+        mbar_init(&sm.dq_full[s], 1);
+        mbar_init(&sm.dq_empty[s], 1);
+      }
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  if (wg == L) {
+    if constexpr (L > 1) setmaxnreg_dec<MOVER_REGS>();
+    const int warp = (threadIdx.x / 32) & 3;
+    if (warp < L)
+      main_producer<D>(&map_q, &map_k, &map_v, &map_do, p, lanes[warp], warp);
+    else if (warp < 2 * L && (threadIdx.x & 31) == 0)
+      main_writer<D>(p, lanes[warp - L], warp - L);
+  } else {
+    if constexpr (L > 1) setmaxnreg_inc<CONSUMER_REGS>();
+    main_consumer<D>(&map_dk, &map_dv, p, lanes[wg], wg);
   }
 }
 
@@ -864,10 +1107,17 @@ int launch_prep(const PrepParams& p, int bh, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+constexpr int main_smem() {
+  return static_cast<int>(main_lanes<D>() * sizeof(MainLane<D>)) + 1024;
+}
+template <int D>
+constexpr int main_threads() { return 128 * (main_lanes<D>() + 1); }
+
 // The blocks of the main kernel at head dim D that the current card holds
-// at once (blocks an SM x SMs), which a cooperative launch may not exceed;
-// found once per card and width. Returns a CUDA error code, or -4 when the
-// card cannot launch cooperatively.
+// at once (blocks an SM x SMs: one an SM), which a cooperative launch may
+// not exceed; found once per card and width. Returns a CUDA error code, or
+// -4 when the card cannot launch cooperatively.
 template <int D>
 int main_blocks(int* blocks) {
   constexpr int DEVICES = 64;
@@ -879,12 +1129,11 @@ int main_blocks(int* blocks) {
   if (dev >= DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
   std::lock_guard<std::mutex> lock(mu);
   if (known[dev] == 0) {
-    const int smem = static_cast<int>(sizeof(MainSmem<D>)) + 1024;
-    err = allow_smem<flash_bwd_main_kernel<D>>(smem);
+    err = allow_smem<flash_bwd_main_kernel<D>>(main_smem<D>());
     int per_sm = 0, sms = 0, coop = 0;
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, flash_bwd_main_kernel<D>, 128, smem);
+          &per_sm, flash_bwd_main_kernel<D>, main_threads<D>(), main_smem<D>());
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
@@ -898,23 +1147,28 @@ int main_blocks(int* blocks) {
 }
 
 template <int D>
-int launch_main(const CUtensorMap (&maps)[4], const MainParams& p,
+int launch_main(const CUtensorMap (&maps)[6], const MainParams& p,
                 cudaStream_t st) {
+  constexpr int L = main_lanes<D>();
   int blocks = 0;
   const int rc = main_blocks<D>(&blocks);
   if (rc != 0) return rc;
-  if (p.n_g > blocks) return -3;  // too few groups for this card
-  const int grid = p.n_items < blocks ? p.n_items : blocks;
-  const int smem = static_cast<int>(sizeof(MainSmem<D>)) + 1024;
+  if (p.n_g > L * blocks) return -3;  // too few groups for this card
+  // enough blocks for a lane an item, up to what the card holds
+  const int want = (p.n_items + L - 1) / L;
+  const int grid = want < blocks ? want : blocks;
   void* args[] = {const_cast<CUtensorMap*>(&maps[0]),
                   const_cast<CUtensorMap*>(&maps[1]),
                   const_cast<CUtensorMap*>(&maps[2]),
                   const_cast<CUtensorMap*>(&maps[3]),
+                  const_cast<CUtensorMap*>(&maps[4]),
+                  const_cast<CUtensorMap*>(&maps[5]),
                   const_cast<MainParams*>(&p)};
   // every block resident at once, or an error: never a partial grid
   return static_cast<int>(cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(flash_bwd_main_kernel<D>),
-      dim3(static_cast<unsigned>(grid)), dim3(128), args, smem, st));
+      dim3(static_cast<unsigned>(grid)), dim3(main_threads<D>()), args,
+      main_smem<D>(), st));
 }
 
 template <int D>
@@ -972,28 +1226,27 @@ extern "C" int flash_bwd_dkv(int head_dim, const void* q, const void* k,
                  thresh, inv_keep, gbh, stream);
 }
 
-// The blocks of the bf16 main kernel at `head_dim` that the current card
-// holds at once, its cooperative grid G: a caller takes groups = ceil(n_qt /
-// G) accumulator slices. Returns G > 0, or <= 0: -1 for a head dim the
-// kernel does not take, -4 when the card cannot launch cooperatively, else
-// minus a CUDA error code.
-extern "C" int flash_bwd_main_blocks(int head_dim) {
-  int blocks = 0, rc = -1;
+// The lanes of the bf16 main kernel at `head_dim` that the current card
+// holds at once (its cooperative grid's blocks x main_lanes): a caller
+// takes groups = ceil(n_qt / lanes) accumulator slices. Returns lanes > 0,
+// or <= 0: -1 for a head dim the kernel does not take, -4 when the card
+// cannot launch cooperatively, else minus a CUDA error code.
+extern "C" int flash_bwd_main_lanes(int head_dim) {
+  int blocks = 0, rc = -1, lanes = 0;
   switch (head_dim) {
-    case 16: rc = main_blocks<16>(&blocks); break;
-    case 32: rc = main_blocks<32>(&blocks); break;
-    case 64: rc = main_blocks<64>(&blocks); break;
-    case 128: rc = main_blocks<128>(&blocks); break;
+    case 16: rc = main_blocks<16>(&blocks); lanes = main_lanes<16>(); break;
+    case 32: rc = main_blocks<32>(&blocks); lanes = main_lanes<32>(); break;
+    case 64: rc = main_blocks<64>(&blocks); lanes = main_lanes<64>(); break;
+    case 128: rc = main_blocks<128>(&blocks); lanes = main_lanes<128>(); break;
   }
-  return rc == 0 ? blocks : (rc > 0 ? -rc : rc);
+  return rc == 0 ? blocks * lanes : (rc > 0 ? -rc : rc);
 }
 
 // bf16 pre-pass. o, dO: bf16 with (batch, head, row) element strides
 // `strides` (o's three, then dO's). lse: (B*H, S) f32. Writes delta and
 // lse2 ((B*H, s_pad) f32) and zeroes acc ((B*H, groups * s_pad, D) f32) and
-// `turns`, the main kernel's int32 schedule counters: B*H*groups*(s_pad /
-// 64) turn counters, then its work counter; s_pad is S rounded up to a
-// multiple of 64.
+// `turns`, the main kernel's B*H*groups*(s_pad / 64) int32 turn counters;
+// s_pad is S rounded up to a multiple of 64.
 extern "C" int flash_bwd_prep(int head_dim, const void* o, const void* dO,
                               const float* lse, float* delta, float* lse2,
                               float* acc, int* turns, int batch, int heads,
@@ -1004,7 +1257,6 @@ extern "C" int flash_bwd_prep(int head_dim, const void* o, const void* dO,
   p.o = static_cast<const __nv_bfloat16*>(o);
   p.dO = static_cast<const __nv_bfloat16*>(dO);
   p.lse = lse; p.lse2 = lse2; p.delta = delta; p.acc = acc; p.turn = turns;
-  p.work = turns + (long long)batch * heads * groups * (s_pad / BLOCK);
   set_strides(p.o_sb, p.o_sh, p.o_ss, strides);
   set_strides(p.do_sb, p.do_sh, p.do_ss, strides + 3);
   p.H = heads; p.S = seq_len; p.S_pad = s_pad; p.groups = groups;
@@ -1019,14 +1271,14 @@ extern "C" int flash_bwd_prep(int head_dim, const void* o, const void* dO,
 }
 
 // bf16 main kernel: dk and dv, and dq / scale added into acc. strides: the
-// (batch, head, row) element strides of q, k, v, dO, dk and dv; q, k, v and
-// dO 16-byte aligned with row, head and batch strides that are multiples of
-// 8 elements (what the tensor maps take). lse2, delta, acc (its `groups`
+// (batch, head, row) element strides of q, k, v, dO, dk and dv; all six
+// 16-byte aligned with row, head and batch strides that are multiples of 8
+// elements (what the tensor maps take). lse2, delta, acc (its `groups`
 // slices) and the turn counters: from flash_bwd_prep; the counters are 0
 // again when it ends. Returns 0, a CUDA error code (a refused cooperative
 // launch among them), -1 for arguments it does not take, -2 when a tensor
 // map cannot be made, -3 when `groups` leaves more key tiles to a group
-// than the card holds blocks, -4 when the card cannot launch cooperatively.
+// than the card holds lanes, -4 when the card cannot launch cooperatively.
 extern "C" int flash_bwd_main(int head_dim, const void* q, const void* k,
                               const void* v, const void* dO, const int* mask,
                               const float* lse2, const float* delta, float* acc,
@@ -1036,23 +1288,18 @@ extern "C" int flash_bwd_main(int head_dim, const void* q, const void* k,
                               uint32_t seed, uint32_t thresh, float inv_keep,
                               const uint32_t* gbh, void* stream) {
   if (!bf16_shape_ok(head_dim, batch, heads, seq_len, s_pad, groups)) return -1;
-  CUtensorMap maps[4];
-  const void* srcs[4] = {q, k, v, dO};
-  for (int i = 0; i < 4; ++i)
+  CUtensorMap maps[6];
+  const void* srcs[6] = {q, k, v, dO, dk, dv};
+  for (int i = 0; i < 6; ++i)
     if (!head_map(&maps[i], srcs[i], batch, heads, seq_len, head_dim,
                   strides + 3 * i))
       return -2;
   MainParams p = {};
   p.mask = mask; p.lse2 = lse2; p.delta = delta; p.acc = acc; p.turn = turns;
-  p.work = turns + (long long)batch * heads * groups * (s_pad / BLOCK);
-  p.dk = static_cast<__nv_bfloat16*>(dk);
-  p.dv = static_cast<__nv_bfloat16*>(dv);
-  set_strides(p.dk_sb, p.dk_sh, p.dk_ss, strides + 12);
-  set_strides(p.dv_sb, p.dv_sh, p.dv_ss, strides + 15);
   p.H = heads; p.S = seq_len; p.S_pad = s_pad; p.n_qt = s_pad / BLOCK;
   p.groups = groups;
   p.n_g = (p.n_qt + groups - 1) / groups;
-  // items, and an item index plus two grids, stay within an int
+  // items, and an item index plus the lanes, stay within an int
   const long long items = (long long)batch * heads * p.n_qt;
   if (items > (1ll << 30)) return -1;
   p.n_items = static_cast<int>(items);

@@ -74,12 +74,17 @@ def _ftz(x: torch.Tensor) -> torch.Tensor:
 def _fma_horner(coeffs, s: torch.Tensor) -> torch.Tensor:
     """Horner's rule over f32 `coeffs` (highest first) with each step
     p * s + c rounded once, as a fused multiply-add: the f32 product is
-    exact in f64, so the f64 sum rounded to f32 is the FMA."""
+    exact in f64, so the f64 sum rounded to f32 is the FMA. In place: the
+    plain version runs over whole MLP activations on the CPU."""
     s64 = s.double()
-    p = torch.full_like(s, float(torch.tensor(coeffs[0], dtype=torch.float32)))
-    for c in coeffs[1:]:
-        c32 = float(torch.tensor(c, dtype=torch.float32))
-        p = (p.double() * s64 + c32).float()
+    p64 = torch.full_like(s64, float(torch.tensor(coeffs[0],
+                                                  dtype=torch.float32)))
+    p = torch.empty_like(s)
+    for i, c in enumerate(coeffs[1:]):
+        p64.mul_(s64).add_(float(torch.tensor(c, dtype=torch.float32)))
+        p.copy_(p64)  # the FMA's one rounding
+        if i < len(coeffs) - 2:
+            p64.copy_(p)
     return p
 
 
@@ -108,28 +113,31 @@ def _fast_erf_parts_f32(xf: torch.Tensor):
     return out, e, cdf
 
 
-def _logit_parts_f32(xf: torch.Tensor):
-    """Returns (gelu(x), sigma(u), u'(x)) in f32; the forward value in the
-    half-exponent form t = e^{-|u|/2}, negative side y = (x_c t)(t d), which
-    keeps the bf16-zero crossing out of f32 denormals."""
+def _logit_parts_f32(xf: torch.Tensor, with_du: bool = True):
+    """Returns (gelu(x), sigma(u), u'(x)) in f32 (u'(x) None without
+    `with_du`); the forward value in the half-exponent form
+    t = e^{-|u|/2}, negative side y = (x_c t)(t d), which keeps the
+    bf16-zero crossing out of f32 denormals."""
     xc = torch.clamp(xf, _LOGIT_CLIP_LO, _LOGIT_CLIP_HI)
     s = xc * xc
     p = _fma_horner(_LOGIT_COEFFS[::-1], s)
-    # P'(s): coefficients i * c_i
-    dps = _fma_horner([i * c for i, c in enumerate(_LOGIT_COEFFS)][:0:-1], s)
     u = p * xc
     t = torch.exp(-0.5 * u.abs())
     d = 1.0 / (1.0 + t * t)
     pos = xf >= 0
     y = torch.where(pos, xf * d, (xc * t) * (t * d))
     sig = torch.where(pos, d, t * (t * d))
+    if not with_du:
+        return y, sig, None
+    # P'(s): coefficients i * c_i
+    dps = _fma_horner([i * c for i, c in enumerate(_LOGIT_COEFFS)][:0:-1], s)
     du = p + 2.0 * s * dps
     return y, sig, du
 
 
 def gelu_logit_erf_reference(x: torch.Tensor) -> torch.Tensor:
     """Plain forward of `gelu_logit_erf`, in f32, returned in x's dtype."""
-    return _ftz(_logit_parts_f32(x.float())[0]).to(x.dtype)
+    return _ftz(_logit_parts_f32(x.float(), with_du=False)[0]).to(x.dtype)
 
 
 def gelu_logit_erf_bwd_reference(x: torch.Tensor, g: torch.Tensor):

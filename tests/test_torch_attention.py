@@ -219,14 +219,14 @@ def test_bwd_buffer_checks(case):
 def test_bwd_main_needs_the_turn_counters(offset):
     # the main kernel fixes the order of its dq adds with int32 turn
     # counters that flash_bwd_prep allocates in a vector of their own, one a
-    # (batch*head, group of key tiles, q tile), followed by the kernel's
-    # work counter: a vector of that length is taken at any storage
-    # offset, any other is refused, as is an accumulator that is not a
-    # whole number of S_pad slices
+    # (batch*head, group of key tiles, q tile), and nothing else (its lanes
+    # take their items by a fixed stride, with no work counter): a vector
+    # of that length is taken at any storage offset, any other is refused,
+    # as is an accumulator that is not a whole number of S_pad slices
     b, h, s_pad, d = 2, 2, 128, 16
     n_qt, groups = s_pad // 64, 2
     n = tatt.bwd_schedule_words(b, h, groups, n_qt)
-    assert n == b * h * groups * n_qt + 1
+    assert n == b * h * groups * n_qt
     turns = torch.zeros(offset + n, dtype=torch.int32)[offset:]
     acc = torch.zeros(b * h, groups * s_pad, d)
     assert tatt._acc_groups("flash_bwd_main", acc, b, h, s_pad) == groups

@@ -9,17 +9,20 @@ against `attention_reference` (no dropout) and the Pallas flash kernel in
 interpret mode (hash bits, p = 0.1), backward against JAX's gradients. An
 encoder read from an HF `config.json` with 128-wide heads runs against the
 JAX `TextEncoder` on the same weights. And a host-side model of the main
-kernel's persistent schedule (`bwd_turn`, `bwd_groups`, and the blocks of
-`csrc/flash_bwd.cu` claiming items from a counter) shows that every wait
-for a dq turn ends, under any interleaving of the blocks, and that each q
-tile takes its adds in one fixed order."""
+kernel's persistent schedule (`bwd_turn`, `bwd_groups`, and the lanes of
+`csrc/flash_bwd.cu`, each a consumer that leaves its dq partials in two
+slots and a writer that adds them in turn, lagging it) shows that every
+wait for a dq turn ends, under any interleaving of the lanes, and that
+each q tile takes its adds in one fixed order."""
 
 import argparse
 import dataclasses
 import json
 import math
 import random
+import re
 from collections import defaultdict
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -254,80 +257,120 @@ def test_hf_config_encoder_with_wide_heads_matches_jax(tmp_path, monkeypatch,
 
 # ----- the bf16 main kernel's schedule --------------------------------------
 
+# dQ slots of a lane: partials its consumer may leave before its writer has
+# added them, as csrc/flash_bwd.cu defines them
+SLOTS = int(re.search(
+    r"constexpr int DQ_SLOTS = (\d+);",
+    (Path(tatt.__file__).resolve().parent / "csrc" / "flash_bwd.cu")
+    .read_text()).group(1))
 
-def _block_program(first, grid, n_items, n_qt, n_g):
-    """The actions of one block of the main kernel (csrc/flash_bwd.cu), in
-    its order: its first item is `first` (its index in the grid); each later
-    one it claims (the scheduler sends back a ticket of the work counter, the
-    item being grid + ticket); it runs an item as a walk over the q tiles in
-    which step i first passes on step i-1's turn, then waits for its own
-    turn and adds; the item's last turn passes on at its end; until an item
-    is past the last. Keys (bh, group, tile)."""
-    j = first
-    while j < n_items:
+
+def _lane_items(lane, lanes, n_items):
+    """The items lane `lane` of `lanes` takes, in its order."""
+    return range(lane, n_items, lanes)
+
+
+def _consumer_program(lane, lanes, n_items, n_qt):
+    """The actions of a lane's consumer warpgroup (csrc/flash_bwd.cu), in its
+    order: for each of its items, for each step, it waits for a free dQ
+    slot (the writer has given back the partial of `SLOTS` steps before),
+    then leaves the step's partial there and goes on at once."""
+    c = 0
+    for j in _lane_items(lane, lanes, n_items):
+        for i in range(n_qt):
+            yield ("slot", c, None)
+            yield ("deposit", c, j)
+            c += 1
+
+
+def _writer_program(lane, lanes, n_items, n_qt, n_g):
+    """The adds of a lane's dq-writer warp, in its order (the consumer's
+    order of steps): it waits for the step's partial to be in its slot,
+    then for its q tile's turn; it adds; it gives the slot back once the
+    add has read it, and passes the turn on once the add is complete. Keys
+    (bh, group, tile)."""
+    c = 0
+    for j in _lane_items(lane, lanes, n_items):
         bh, kt = divmod(j, n_qt)
         grp = kt // n_g
         for i in range(n_qt):
-            if i > 0:
-                tile, _, nxt = tatt.bwd_turn(kt, i - 1, n_qt, n_g)
-                yield ("set", (bh, grp, tile), nxt)
-            tile, count, _ = tatt.bwd_turn(kt, i, n_qt, n_g)
+            tile, count, nxt = tatt.bwd_turn(kt, i, n_qt, n_g)
+            yield ("deposited", c, None)
             yield ("wait", (bh, grp, tile), count)
             yield ("add", (bh, grp, tile), kt)
-        tile, _, nxt = tatt.bwd_turn(kt, n_qt - 1, n_qt, n_g)
-        yield ("set", (bh, grp, tile), nxt)
-        j = grid + (yield ("claim", None, None))
+            yield ("free", c, None)
+            yield ("set", (bh, grp, tile), nxt)
+            c += 1
 
 
-def _simulate(n_bh, n_qt, blocks, seed, groups=None):
-    """Runs every block of the cooperative grid (all resident at once) in
-    an order drawn from `seed`: at each turn a random block whose next
-    action can go takes it (a claim always can). Returns (the adds of each
-    (bh, group, tile) in the order they came, the counters at the end, the
-    (bh, group) of each block's items, the tickets drawn), or None when no
-    block can go before all are done (a wait that never ends)."""
-    groups = groups or tatt.bwd_groups(n_qt, blocks)
+def _simulate(n_bh, n_qt, blocks, per_block, seed, groups=None):
+    """Runs the consumer and the writer of every lane of the cooperative
+    grid (`blocks` blocks of `per_block` lanes, all resident at once; lane w
+    of block b is lane w * blocks + b) in an order drawn from `seed`: at
+    each turn a random program whose next action can go takes it, so a
+    writer may lag its consumer by up to SLOTS partials. Returns (the adds
+    of each (bh, group, tile) in the order they came, the counters at the
+    end, the (bh, group) of each lane's items, the most items a block held
+    at once, the most partials a writer held), or None when no program can
+    go before all are done (a wait that never ends)."""
+    lanes = blocks * per_block
+    groups = groups or tatt.bwd_groups(n_qt, lanes)
     n_g = -(-n_qt // groups)
     n_items = n_bh * n_qt
-    grid = min(blocks, n_items)
-    programs = [_block_program(g, grid, n_items, n_qt, n_g)
-                for g in range(grid)]
-    runs = defaultdict(list)
-    for g in range(grid):
-        bh, kt = divmod(g, n_qt)
-        runs[g].append((bh, kt // n_g))
-    nxt = [next(p) for p in programs]
-    tickets = 0
+    programs = {}
+    for lane in range(lanes):
+        programs[("consumer", lane)] = _consumer_program(lane, lanes, n_items,
+                                                         n_qt)
+        programs[("writer", lane)] = _writer_program(lane, lanes, n_items,
+                                                     n_qt, n_g)
+    nxt = {key: next(prog, None) for key, prog in programs.items()}
+    deposits = defaultdict(int)  # per lane: partials left in slots
+    freed = defaultdict(int)     # per lane: slots given back
     counters = defaultdict(int)
     adds = defaultdict(list)
+    runs = {lane: [(j // n_qt, j % n_qt // n_g)
+                   for j in _lane_items(lane, lanes, n_items)]
+            for lane in range(lanes)}
+    # per block: the items started and not yet finished (all adds in)
+    held = defaultdict(set)
+    most_held, most_lag = 0, 0
     rnd = random.Random(seed)
 
-    def advance(g, sent=None):
-        try:
-            nxt[g] = programs[g].send(sent)
-        except StopIteration:
-            nxt[g] = None
+    def ready(key, action):
+        kind, arg, val = action
+        lane = key[1]
+        if kind == "slot":
+            return arg < freed[lane] + SLOTS
+        if kind == "deposited":
+            return deposits[lane] > arg
+        if kind == "wait":
+            return counters[arg] == val
+        return True
 
-    while any(a is not None for a in nxt):
-        ready = [g for g, a in enumerate(nxt) if a is not None
-                 and (a[0] != "wait" or counters[a[1]] == a[2])]
-        if not ready:
+    while any(a is not None for a in nxt.values()):
+        can = [key for key, a in nxt.items() if a is not None
+               and ready(key, a)]
+        if not can:
             return None
-        g = rnd.choice(ready)
-        kind, key, val = nxt[g]
-        if kind == "claim":
-            if grid + tickets < n_items:
-                bh, kt = divmod(grid + tickets, n_qt)
-                runs[g].append((bh, kt // n_g))
-            tickets += 1
-            advance(g, tickets - 1)
-            continue
-        if kind == "set":
-            counters[key] = val
+        key = rnd.choice(sorted(can))
+        kind, arg, val = nxt[key]
+        lane, block = key[1], key[1] % blocks
+        if kind == "deposit":
+            deposits[lane] += 1
+            held[block].add(val)
+            most_held = max(most_held, len(held[block]))
+            most_lag = max(most_lag, deposits[lane] - freed[lane])
+        elif kind == "set":
+            counters[arg] = val
         elif kind == "add":
-            adds[key].append(val)
-        advance(g)
-    return adds, counters, runs, tickets
+            adds[arg].append(val)
+        elif kind == "free":
+            freed[lane] += 1
+            if freed[lane] % n_qt == 0:  # the item's last add is in
+                j = _lane_items(lane, lanes, n_items)[freed[lane] // n_qt - 1]
+                held[block].discard(j)
+        nxt[key] = next(programs[key], None)
+    return adds, counters, runs, most_held, most_lag
 
 
 def _expected_adds(n_bh, n_qt, groups):
@@ -345,37 +388,56 @@ def _expected_adds(n_bh, n_qt, groups):
     return want
 
 
+@pytest.mark.parametrize("per_block", [1, 2])
 @pytest.mark.parametrize("blocks,n_bh,n_qt", [
     (3, 4, 1), (3, 2, 2), (3, 3, 3), (3, 2, 4), (3, 2, 7), (3, 1, 10),
     (7, 3, 5), (7, 2, 7), (7, 2, 8), (7, 2, 16), (7, 1, 30)])
-def test_bwd_schedule_waits_end_and_add_order_is_fixed(blocks, n_bh, n_qt):
-    groups = tatt.bwd_groups(n_qt, blocks)
+def test_bwd_schedule_waits_end_and_add_order_is_fixed(blocks, n_bh, n_qt,
+                                                       per_block):
+    # one lane a block (D = 128) or two (D <= 64), so that a block holds
+    # two items at once
+    lanes = blocks * per_block
+    groups = tatt.bwd_groups(n_qt, lanes)
     n_g = -(-n_qt // groups)
-    assert n_g <= blocks and (groups == 1) == (n_qt <= blocks)
+    assert n_g <= lanes and (groups == 1) == (n_qt <= lanes)
     want = _expected_adds(n_bh, n_qt, groups)
+    lags, held = set(), set()
     for seed in range(25):
-        res = _simulate(n_bh, n_qt, blocks, seed)
+        res = _simulate(n_bh, n_qt, blocks, per_block, seed)
         assert res is not None, f"a wait never ended (order {seed})"
-        adds, counters, runs, tickets = res
+        adds, counters, runs, most_held, most_lag = res
         assert dict(adds) == want, f"order {seed}"
-        # every block drew one ticket past the last item: n_items in all
-        # (the drawer of the last one resets the counter)
-        assert tickets == n_bh * n_qt
         # every counter is back at 0, ready for the next launch
         assert all(v == 0 for v in counters.values())
-        # no block held two items of one group
+        # no lane holds two items of one group
         assert all(len(set(r)) == len(r) for r in runs.values())
+        assert most_held <= 2 * per_block and most_lag <= SLOTS
+        lags.add(most_lag)
+        held.add(most_held)
+    if per_block == 2 and n_bh * n_qt > blocks:
+        # in some orders a block held an item on each of its lanes at once
+        assert max(held) >= 2
+    # where a lane has two steps or more, writers lagged their consumers by
+    # both slots in some orders
+    if -(-n_bh * n_qt // lanes) * n_qt >= SLOTS:
+        assert SLOTS in lags
 
 
-@pytest.mark.parametrize("blocks,n_qt", [(3, 4), (7, 9)])
+@pytest.mark.parametrize("blocks,n_qt", [(2, 6), (3, 9)])
 def test_bwd_schedule_model_sees_a_wait_that_cannot_end(blocks, n_qt):
     # the model finds a stall: one group of more key tiles than the grid
-    # holds blocks (groups = 1 where bwd_groups asks for 2) leaves every
-    # block waiting on an add of a key tile that no block is free to claim
-    assert tatt.bwd_groups(n_qt, blocks) == 2
-    stalls = [_simulate(1, n_qt, blocks, seed, groups=1) is None
+    # holds lanes (groups = 1 where bwd_groups asks for 2) puts key tiles
+    # 0 and G of a head on lane 0; tile 0's add at step G waits for tile
+    # G's first add, which lane 0 starts only when tile 0's partials are all
+    # in slots and a slot is free, and tile 0's two adds from step G on
+    # hold both slots
+    lanes = 2 * blocks
+    assert tatt.bwd_groups(n_qt, lanes) == 2 and n_qt >= lanes + 2
+    stalls = [_simulate(1, n_qt, blocks, 2, seed, groups=1) is None
               for seed in range(10)]
     assert all(stalls)
+    # with the groups bwd_groups asks for, the same heads finish
+    assert _simulate(1, n_qt, blocks, 2, 0) is not None
 
 
 def test_bwd_turn_counts_the_adds_before_each():
