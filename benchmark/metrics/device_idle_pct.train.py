@@ -1,0 +1,9 @@
+"""Share of an untraced step's time in which nothing runs on the card: 1 - the
+card-only slice's busy time a step (the union of kernel, copy and set
+intervals) over the mean time between step ends outside the traced slices."""
+
+from benchmark.harness import readers
+
+
+def read(ctx):
+    return readers.idle_pct(ctx, "train")
